@@ -1,0 +1,73 @@
+"""Voxelized point-to-plane ICP, the flagship solver (counterpart of
+``point_cloud_registration_tpu/models/voxelized_plane_icp.py``).
+
+Correspondences are the nearest *voxel Gaussian* (mean + normal) of a voxel
+map, the reference solver at voxelized_plane_icp.py:12-64. The nearest voxel
+is found in a window of cells that provably covers ``max_dist``, inside the
+fused stats kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
+from point_cloud_registration_tpu_torch.models._fused import (
+    fused_voxel_align,
+    fused_voxel_stats as vplane_stats,
+)
+from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
+from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, build_voxel_map
+
+__all__ = ["VPlaneICP", "build_vplane_target", "vplane_align", "vplane_stats"]
+
+
+def build_vplane_target(points, cfg: VPlaneICPConfig, device=None) -> VoxelMap:
+    """Voxel map with Gaussian stats, normals and the kernel's cell table
+    (``VPlaneICP.set_target``, voxelized_plane_icp.py:18-21)."""
+    return build_voxel_map(points, cfg.voxel_size, min_points=cfg.min_points,
+                           device=device)
+
+
+def vplane_align(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
+                 init_T, cfg: VPlaneICPConfig) -> AlignResult:
+    T, diag = fused_voxel_align(vmap_, source, src_weight, init_T, cfg)
+    return AlignResult(T=T, diagnostics=diag)
+
+
+class VPlaneICP(Registration):
+    """Reference-compatible shim (constructor of voxelized_plane_icp.py:13-16)."""
+
+    def __init__(
+        self,
+        voxel_size: float = 1.0,
+        max_iter: int = 30,
+        max_dist: float = 2,
+        tol: float = 1e-3,
+        huber_delta: float | None = None,
+        device=None,
+    ):
+        super().__init__(max_iter=max_iter, tol=tol, device=device)
+        self.voxel_size = voxel_size
+        self.max_dist = max_dist
+        self.cfg = VPlaneICPConfig(
+            voxel_size=voxel_size,
+            max_iter=max_iter,
+            max_dist=max_dist,
+            tol=tol,
+            huber_delta=huber_delta,
+        )
+
+    def set_target(self, target) -> None:
+        self._target = build_vplane_target(target, self.cfg, device=self.device)
+
+    @property
+    def voxels(self) -> VoxelMap:
+        """Attribute parity with the reference (voxelized_plane_icp.py:19)."""
+        return self._target
+
+    def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
+        return vplane_align(target, source, src_weight, init_T, self.cfg)
+
+    def _stats_fn(self, target, source, src_weight, T):
+        return vplane_stats(target, source, src_weight, T, self.cfg)
