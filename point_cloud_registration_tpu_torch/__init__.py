@@ -1,11 +1,19 @@
 """PyTorch and CUDA port of point_cloud_registration_tpu.
 
-Imports ``torch`` and never ``jax``. Ported so far: the VPlaneICP main path
-(voxel-map build, the fused correspondence + linearization + reduction
-kernel for CUDA, and the host Gauss-Newton loop). The package's module
-names mirror the JAX package's, so each counterpart is easy to find.
+Imports ``torch`` and never ``jax``. Ported so far: VPlaneICP and NDT (the
+dense voxel-map build and the fused correspondence + linearization +
+reduction kernel, kinds "plane" and "ndt") and ICP (the packed point grid
+with its proxy voxel map and the point stats kernel), each with the host
+Gauss-Newton loop. The package's module names mirror the JAX package's, so
+each counterpart is easy to find.
 """
 
+from point_cloud_registration_tpu_torch.core.config import (
+    CorrespondenceConfig,
+    ICPConfig,
+    NDTConfig,
+    VPlaneICPConfig,
+)
 from point_cloud_registration_tpu_torch.core.gn import (
     GNDiagnostics,
     GNStats,
@@ -27,15 +35,23 @@ from point_cloud_registration_tpu_torch.core.se3 import (
     transform_points,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
+from point_cloud_registration_tpu_torch.models.icp import ICP
+from point_cloud_registration_tpu_torch.models.ndt import NDT
 from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import VPlaneICP
 from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, build_voxel_map
 
 __all__ = [
     "AlignResult",
+    "CorrespondenceConfig",
     "GNDiagnostics",
     "GNStats",
+    "ICP",
+    "ICPConfig",
+    "NDT",
+    "NDTConfig",
     "Registration",
     "VPlaneICP",
+    "VPlaneICPConfig",
     "VoxelMap",
     "build_voxel_map",
     "expSO3",

@@ -1,0 +1,140 @@
+// Shared pieces of the Gauss-Newton stats kernels (fused_align.cu,
+// point_align.cu): the launch shape, the cell rule's clamp, the window search
+// over a per-cell table, the 29-term accumulator of sum w [J|r|1]^T [J|r|1], the three-row
+// ("m = 3") linearization of NDT and point-to-point ICP, and the block
+// reduction.
+//
+// Accumulator layout: [H upper triangle, row-major (21) | g (6) | e2 | n].
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace pcr {
+
+constexpr int kBlock = 256;
+constexpr int kWarps = kBlock / 32;
+constexpr int kStats = 29;
+
+// Rotation and translation of one iteration, passed to a kernel by value.
+struct Pose {
+  float r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2;
+};
+
+// Integer cell coordinate of the float cell index f, relative to origin. f is
+// clamped before the float -> int conversion, so a query far outside the map
+// (or NaN) lands outside the grid instead of overflowing the conversion.
+__device__ __forceinline__ int clamped_cell(float f, int origin) {
+  return static_cast<int>(fminf(fmaxf(f, -1e9f), 1e9f)) - origin;
+}
+
+// Nearest valid centroid in the cells [c - r, c + r]^3 of a table in
+// linear-key order (key = x + nx * (y + ny * z)) whose rows are kRow float4s,
+// the first one [mu_x, mu_y, mu_z, valid]. Cells outside the grid and invalid
+// cells are skipped; x runs fastest and z slowest, and a strict "<" keeps the
+// first minimum in probe order. Returns the winner's key (-1 when the window
+// holds no valid cell) and its squared distance in best_d2 (+inf if none).
+template <int kRow>
+__device__ __forceinline__ int nearest_valid_cell(
+    const float4* __restrict__ table, int nx, int ny, int nz, int cx, int cy,
+    int cz, int radius, float qx, float qy, float qz, float& best_d2) {
+  float best = __int_as_float(0x7f800000);  // +inf
+  int best_key = -1;
+  const int x0 = max(cx - radius, 0), x1 = min(cx + radius, nx - 1);
+  const int y0 = max(cy - radius, 0), y1 = min(cy + radius, ny - 1);
+  const int z0 = max(cz - radius, 0), z1 = min(cz + radius, nz - 1);
+  for (int z = z0; z <= z1; ++z) {
+    for (int y = y0; y <= y1; ++y) {
+      const int row = nx * (y + ny * z);
+      for (int x = x0; x <= x1; ++x) {
+        const float4 c = __ldg(&table[kRow * (row + x)]);
+        if (c.w > 0.f) {
+          const float dx = qx - c.x, dy = qy - c.y, dz = qz - c.z;
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          if (d2 < best) {
+            best = d2;
+            best_key = row + x;
+          }
+        }
+      }
+    }
+  }
+  best_d2 = best;
+  return best_key;
+}
+
+// Adds w a a^T (upper triangle), w a r and w r^2 for one residual row
+// a = J (6 entries) with residual r. The weight itself is counted by the
+// caller, once per point.
+__device__ __forceinline__ void accumulate_row(float* acc, float w,
+                                               const float (&a)[6], float r) {
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float wa = w * a[i];
+#pragma unroll
+    for (int j = i; j < 6; ++j) acc[k++] += wa * a[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc[21 + i] += w * a[i] * r;
+  acc[27] += w * r * r;
+}
+
+// The m = 3 linearization of _linearize_and_reduce (ops/pallas/
+// fused_align.py:308-357): J = [I | K] with K = -R skew(p), whitened by the
+// upper-triangular U ([u00, u01, u02, u11, u12, u22], U^T U = icov; U = I for
+// point-to-point ICP): rows J~ = U J and r~ = U d with d = q - mu. Huber, when
+// enabled, weighs by |r~|. The weight is counted once in acc[28].
+__device__ __forceinline__ void accumulate_whitened(
+    float* acc, float w, const float (&u)[6], const Pose& T, float px,
+    float py, float pz, float dx, float dy, float dz, int use_huber,
+    float huber_delta) {
+  const float k[3][3] = {
+      {T.r02 * py - T.r01 * pz, T.r00 * pz - T.r02 * px, T.r01 * px - T.r00 * py},
+      {T.r12 * py - T.r11 * pz, T.r10 * pz - T.r12 * px, T.r11 * px - T.r10 * py},
+      {T.r22 * py - T.r21 * pz, T.r20 * pz - T.r22 * px, T.r21 * px - T.r20 * py}};
+  const float U[3][3] = {{u[0], u[1], u[2]}, {0.f, u[3], u[4]}, {0.f, 0.f, u[5]}};
+  float res[3];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) res[m] = U[m][0] * dx + U[m][1] * dy + U[m][2] * dz;
+  if (use_huber) {
+    const float rn = sqrtf(fmaxf(res[0] * res[0] + res[1] * res[1] + res[2] * res[2], 0.f));
+    if (rn > huber_delta) w *= huber_delta / rn;
+  }
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    float a[6];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      a[j] = U[m][j];
+      a[3 + j] = U[m][0] * k[0][j] + U[m][1] * k[1][j] + U[m][2] * k[2][j];
+    }
+    accumulate_row(acc, w, a, res[m]);
+  }
+  acc[28] += w;
+}
+
+// Sums the block's per-thread accumulators (warp shuffles, then shared
+// memory) into row blockIdx.x of `partials` (n_blocks, 29). No atomics: for
+// a fixed launch shape the sums repeat bit for bit from run to run.
+__device__ __forceinline__ void block_reduce_store(const float* acc,
+                                                   float* __restrict__ partials) {
+  __shared__ float warp_sums[kWarps][kStats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kStats; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) warp_sums[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kStats) {
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) s += warp_sums[wi][threadIdx.x];
+    partials[blockIdx.x * kStats + threadIdx.x] = s;
+  }
+}
+
+}  // namespace pcr

@@ -7,3 +7,15 @@ from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import (
     vplane_align,
     vplane_stats,
 )
+from point_cloud_registration_tpu_torch.models.icp import (
+    ICP,
+    build_icp_target,
+    icp_align,
+    icp_stats,
+)
+from point_cloud_registration_tpu_torch.models.ndt import (
+    NDT,
+    build_ndt_target,
+    ndt_align,
+    ndt_solver_stats,
+)

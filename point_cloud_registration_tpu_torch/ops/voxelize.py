@@ -11,7 +11,10 @@ The reference ``VoxelGrid.set_points`` pipeline (voxel.py:104-169) becomes:
 * the min_points filter (voxel.py:56) as a validity mask;
 * normals from the closed-form symmetric 3x3 eigensolver (``ops.eigh3``),
   zero on invalid cells;
-* the per-cell query table the align kernel reads (``ops.knn.cell_table``).
+* for NDT, the inverse covariances (``invert_cov_packed``) and their upper
+  Cholesky factors (``sqrt_icov_u6``);
+* the per-cell query table the align kernel reads (``ops.knn.cell_table``:
+  normals for VPlaneICP, ``U`` for NDT).
 
 The per-cell sums are exact integer sums of the moments in fixed point
 (``_segment_sum_fixed``), so their order does not matter: a build gives the
@@ -34,10 +37,12 @@ from point_cloud_registration_tpu_torch.ops.hashgrid import (
 )
 from point_cloud_registration_tpu_torch.ops.knn import cell_table
 
+RICH_KINDS = ("normals", "sqrt_icov")
+
 
 class VoxelMap(NamedTuple):
-    """Dense-direct target map for VPlaneICP: one slot per cell of the
-    bounding box, in linear-key order ``x + nx * (y + ny * z)``."""
+    """Dense-direct target map for VPlaneICP and NDT: one slot per cell of
+    the bounding box, in linear-key order ``x + nx * (y + ny * z)``."""
 
     origin_cell: tuple[int, int, int]  # minimum absolute cell coordinate
     dims: tuple[int, int, int]  # cells per axis (nx, ny, nz)
@@ -48,7 +53,7 @@ class VoxelMap(NamedTuple):
     counts: torch.Tensor  # (D,) i32
     valid: torch.Tensor  # (D,) bool, counts >= min_points
     icovs: torch.Tensor | None  # (D, 6) f32, present after with_icov builds
-    table: torch.Tensor  # (D, 8) f32 query table (ops.knn.cell_table)
+    table: torch.Tensor  # ops.knn.cell_table: (D, 8), or (D, 12) for rich="sqrt_icov"
 
     @property
     def num_voxels(self) -> int:
@@ -70,12 +75,50 @@ def invert_cov_packed(covs: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c3, c5, c1, c2, c4], dim=-1)
 
 
+def sqrt_icov_packed(icovs: torch.Tensor) -> torch.Tensor:
+    """Upper-triangular square roots ``U = L^T`` with ``icov = L L^T``:
+    (..., 6) packed ``[xx, yy, zz, xy, xz, yz]`` -> (..., 3, 3).
+
+    Closed-form 3x3 Cholesky with every pivot clamped to at least ``1e-20``
+    (voxelize.py:627-653).
+    """
+    a, b, c, d, e, f = icovs.unbind(-1)
+    eps = torch.tensor(1e-20, dtype=icovs.dtype, device=icovs.device)
+    l11 = torch.sqrt(torch.maximum(a, eps))
+    l21 = d / l11
+    l31 = e / l11
+    l22 = torch.sqrt(torch.maximum(b - l21 * l21, eps))
+    l32 = (f - l31 * l21) / l22
+    l33 = torch.sqrt(torch.maximum(c - l31 * l31 - l32 * l32, eps))
+    zero = torch.zeros_like(a)
+    return torch.stack(
+        [
+            torch.stack([l11, l21, l31], dim=-1),
+            torch.stack([zero, l22, l32], dim=-1),
+            torch.stack([zero, zero, l33], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def sqrt_icov_u6(icovs: torch.Tensor) -> torch.Tensor:
+    """(..., 6) packed icov -> (..., 6) ``[u00, u01, u02, u11, u12, u22]``
+    of :func:`sqrt_icov_packed`, the features of NDT's cell table
+    (voxelize.py:422-431)."""
+    U = sqrt_icov_packed(icovs)
+    return torch.stack(
+        [U[..., 0, 0], U[..., 0, 1], U[..., 0, 2], U[..., 1, 1], U[..., 1, 2], U[..., 2, 2]],
+        dim=-1,
+    )
+
+
 def build_voxel_map(
     points,
     voxel_size: float,
     *,
     min_points: int = 10,
     with_icov: bool = False,
+    rich: str = "normals",
     device: torch.device | str | None = None,
 ) -> VoxelMap:
     """Build the dense-direct voxel map of ``points`` (N, 3) (reference
@@ -84,8 +127,14 @@ def build_voxel_map(
     ``points`` is a NumPy array or a tensor; ``device`` defaults to the
     tensor's device, or the CPU for NumPy input. The bounding box is read
     on the host once. A bounding box of more than ``DENSE_CELL_BUDGET``
-    cells needs the sparse build, which is not ported yet.
+    cells needs the sparse build, which is not ported yet. ``rich`` picks
+    the query table's features, as in the JAX package: ``"normals"`` for
+    VPlaneICP, ``"sqrt_icov"`` (which needs ``with_icov``) for NDT.
     """
+    if rich not in RICH_KINDS:
+        raise ValueError(f"unknown rich kind {rich!r}; expected one of {RICH_KINDS}")
+    if rich == "sqrt_icov" and not with_icov:
+        raise ValueError('rich="sqrt_icov" needs with_icov=True')
     lo_cell, hi_cell = _bbox_cells(points, voxel_size)
     dims = tuple(int(x) for x in (hi_cell - lo_cell + 1))
     total_cells = int(np.prod([float(d) for d in dims]))
@@ -104,6 +153,7 @@ def build_voxel_map(
         dims,
         min_points=min_points,
         with_icov=with_icov,
+        rich=rich,
     )
 
 
@@ -128,7 +178,7 @@ def _segment_sum_fixed(key: torch.Tensor, vals: torch.Tensor, d_total: int,
 
 
 def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
-                           min_points, with_icov):
+                           min_points, with_icov, rich):
     """Stats, normals and query table of the dense-direct map
     (``_build_voxel_map_dense`` of the JAX package, voxelize.py:437-570)."""
     dev = points.device
@@ -180,6 +230,9 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
     normals = torch.where(
         valid[:, None], smallest_eigvec_sym3(covs), torch.zeros_like(mean_local)
     )
+    icovs = invert_cov_packed(covs) if with_icov else None
+    feats = sqrt_icov_u6(icovs) if rich == "sqrt_icov" else normals
+    table = cell_table(means, valid, feats)
     return VoxelMap(
         origin_cell=tuple(origin_cell),
         dims=tuple(dims),
@@ -189,6 +242,6 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
         normals=normals,
         counts=counts,
         valid=valid,
-        icovs=invert_cov_packed(covs) if with_icov else None,
-        table=cell_table(means, valid, normals),
+        icovs=icovs,
+        table=table,
     )

@@ -217,7 +217,7 @@ def test_find_nvcc_raises_when_absent(monkeypatch, tmp_path):
 
 
 def test_library_path_is_keyed_by_sources():
-    path = _build.library_path()
+    path = _build.library_path("fused_align")
     assert path.parent.parent == _build.BUILD_ROOT
-    assert path.name == _build.LIB_NAME
-    assert [p.name for p in _build._sources()] == ["fused_align.cu"]
+    assert path.name == "libfused_align.so"
+    assert [p.name for p in _build._sources()] == ["fused_align.cu", "point_align.cu"]
