@@ -97,6 +97,22 @@ class ICPConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PlaneICPConfig:
+    """Point-to-plane ICP (plane_icp.py:13-17 defaults)."""
+
+    max_iter: int = 30
+    max_dist: float = 2.0
+    tol: float = 1e-3
+    k: int = 15  # neighbours for normal estimation
+    huber_delta: float | None = None
+    corr: CorrespondenceConfig = CorrespondenceConfig()
+    backend: str = "auto"
+
+    def __post_init__(self):
+        _check_backend(self.backend)
+
+
+@dataclasses.dataclass(frozen=True)
 class NDTConfig:
     """NDT (ndt.py:12-16 defaults)."""
 

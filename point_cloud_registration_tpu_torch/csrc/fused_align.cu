@@ -88,19 +88,8 @@ __global__ void __launch_bounds__(kBlock) fused_stats_kernel(
     const float4 mu = __ldg(&table[kRow * best_key]);
     const float4 f1 = __ldg(&table[kRow * best_key + 1]);
     if constexpr (kKind == kPlane) {
-      const float rs = f1.x * (qx - mu.x) + f1.y * (qy - mu.y) + f1.z * (qz - mu.z);
-      if (use_huber) {
-        const float ar = fabsf(rs);
-        if (ar > huber_delta) wq *= huber_delta / ar;
-      }
-      // R^T n, then p x (R^T n)
-      const float tnx = T.r00 * f1.x + T.r10 * f1.y + T.r20 * f1.z;
-      const float tny = T.r01 * f1.x + T.r11 * f1.y + T.r21 * f1.z;
-      const float tnz = T.r02 * f1.x + T.r12 * f1.y + T.r22 * f1.z;
-      const float a[6] = {f1.x, f1.y, f1.z, py * tnz - pz * tny,
-                          pz * tnx - px * tnz, px * tny - py * tnx};
-      pcr::accumulate_row(acc, wq, a, rs);
-      acc[28] += wq;
+      pcr::accumulate_plane(acc, wq, T, px, py, pz, f1.x, f1.y, f1.z, qx - mu.x,
+                            qy - mu.y, qz - mu.z, use_huber, huber_delta);
     } else {
       const float4 f2 = __ldg(&table[kRow * best_key + 2]);
       const float u[6] = {f1.x, f1.y, f1.z, f1.w, f2.x, f2.y};

@@ -1,8 +1,9 @@
 // Shared pieces of the Gauss-Newton stats kernels (fused_align.cu,
 // point_align.cu): the launch shape, the cell rule's clamp, the window search
-// over a per-cell table, the 29-term accumulator of sum w [J|r|1]^T [J|r|1], the three-row
-// ("m = 3") linearization of NDT and point-to-point ICP, and the block
-// reduction.
+// over a per-cell table, the 29-term accumulator of sum w [J|r|1]^T [J|r|1],
+// the one-row ("m = 1") plane linearization of VPlaneICP and PlaneICP, the
+// three-row ("m = 3") linearization of NDT and point-to-point ICP, and the
+// block reduction.
 //
 // Accumulator layout: [H upper triangle, row-major (21) | g (6) | e2 | n].
 
@@ -78,6 +79,29 @@ __device__ __forceinline__ void accumulate_row(float* acc, float w,
 #pragma unroll
   for (int i = 0; i < 6; ++i) acc[21 + i] += w * a[i] * r;
   acc[27] += w * r * r;
+}
+
+// The m = 1 plane linearization of _linearize_and_reduce (ops/pallas/
+// fused_align.py:283-306): r = n . d with d = q - target and
+// a = [n, p x (R^T n)]. Huber, when enabled, weighs by |r|. The weight is
+// counted once in acc[28].
+__device__ __forceinline__ void accumulate_plane(
+    float* acc, float w, const Pose& T, float px, float py, float pz, float nx,
+    float ny, float nz, float dx, float dy, float dz, int use_huber,
+    float huber_delta) {
+  const float rs = nx * dx + ny * dy + nz * dz;
+  if (use_huber) {
+    const float ar = fabsf(rs);
+    if (ar > huber_delta) w *= huber_delta / ar;
+  }
+  // R^T n, then p x (R^T n)
+  const float tnx = T.r00 * nx + T.r10 * ny + T.r20 * nz;
+  const float tny = T.r01 * nx + T.r11 * ny + T.r21 * nz;
+  const float tnz = T.r02 * nx + T.r12 * ny + T.r22 * nz;
+  const float a[6] = {nx, ny, nz, py * tnz - pz * tny, pz * tnx - px * tnz,
+                      px * tny - py * tnx};
+  accumulate_row(acc, w, a, rs);
+  acc[28] += w;
 }
 
 // The m = 3 linearization of _linearize_and_reduce (ops/pallas/

@@ -1,13 +1,13 @@
-// Raw-point correspondence + point-to-point linearization + reduction, one
-// Gauss-Newton iteration of ICP on the packed point grid, for Hopper
-// (sm_90a).
+// Raw-point correspondence + linearization + reduction, one Gauss-Newton
+// iteration of ICP (kind "point") or PlaneICP (kind "plane_pt") on the packed
+// point grid, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel point_cloud_registration_tpu/ops/pallas/
-// point_align.py (_make_point_kernel, launched by point_stats_call, kind
-// "point") together with the fallback its caller runs for the queries the
-// kernel leaves unresolved (models/_point_fused.py, models/_point_corr.py
-// match_points). One pass per query does all of match_points' work, so no
-// query is left unresolved:
+// point_align.py (_make_point_kernel, launched by point_stats_call, kinds
+// "point" and "plane_pt") together with the fallback its caller runs for the
+// queries the kernel leaves unresolved (models/_point_fused.py,
+// models/_point_corr.py match_points). One pass per query does all of
+// match_points' work, so no query is left unresolved:
 //
 //   q = R p + t, formed in registers (R and t are passed by value);
 //   tier 1 (ops/pointgrid.py nearest_point_packed): the fine cell
@@ -20,22 +20,33 @@
 //   per block, 2 * cell_fine) within ceil(max_dist / (2 * cell_fine)) proxy
 //   cells, x fastest and z slowest (query_nearest_voxel on the proxy);
 //   w = w_in * found * (dist < max_dist), times the Huber weight of |r|;
-//   r = q - target and J = [I | -R skew(p)] (the m = 3 linearization of
-//   gn_accumulate.cuh with U = I), accumulated into the 29 terms.
+//   point: r = q - target and J = [I | -R skew(p)] (the m = 3 linearization
+//     of gn_accumulate.cuh with U = I);
+//   plane_pt: r = n . (q - target) and J = [n, p x (R^T n)] (the m = 1 plane
+//     linearization of gn_accumulate.cuh), where n is the matched point's
+//     normal, which rides in its packed slot (x y z nx ny nz), or, for a
+//     query that took the proxy voxel, that voxel's normal;
+//   accumulated into the 29 terms.
+// The TPU kernel's "plane_pt" searches a wider window of whole fused blocks;
+// every point within cell_fine of the query lies in both windows, so a
+// resolved query has the same winner.
 //
 // The Morton layout, tile key lists and VMEM tile tables of the TPU kernel
 // exist for its memory system and have no counterpart: a thread reads its
 // blocks straight from the packed rows.
 //
-// Tables (see ops/pointgrid.py): pts (R+1, cap * 3) f32, the kept points of
-// each occupied block in packed order; row_count (R+1,) i32; block_row (NB,)
-// i32, the row of each block key or -1; proxy (NB, 8) f32 rows
-// [mu_x, mu_y, mu_z, valid, 0, 0, 0, 0] in block-key order.
+// Tables (see ops/pointgrid.py): pts (R+1, cap * width) f32, the kept points
+// of each occupied block in packed order, width 3 for point and 6 for
+// plane_pt; row_count (R+1,) i32; block_row (NB,) i32, the row of each block
+// key or -1; proxy (NB, 8) f32 rows [mu_x, mu_y, mu_z, valid, n_x, n_y, n_z, 0]
+// in block-key order (the normal is read by plane_pt only).
 //
 // Bound: memory latency. Tier 1 reads at most 8 rows of cap points of
 // 12 bytes per query (3 KB at cap 32, at most 0.3 GB per iteration at 100k
-// queries). The packed rows of the bench map (0.2M x 384 B = 77 MB) exceed
-// the 50 MB L2, but neighbouring queries share rows. Only unresolved
+// queries; plane_pt reads the same 12 bytes at a stride of 24, and the
+// winner's normal once). The packed rows of the bench map (0.2M x 384 B =
+// 77 MB, 154 MB for plane_pt) exceed the 50 MB L2, but neighbouring queries
+// share rows. Only unresolved
 // queries probe the proxy window (125 16-byte loads).
 
 #include "gn_accumulate.cuh"
@@ -53,6 +64,9 @@ __device__ __forceinline__ int cell_div(float v, float cell, int origin) {
 
 __device__ __forceinline__ int floor_div2(int v) { return (v - (v < 0)) / 2; }
 
+enum Kind { kPoint = 0, kPlanePt = 1 };
+
+template <int kKind>
 __global__ void __launch_bounds__(kBlock) point_stats_kernel(
     const float* __restrict__ pts, const int* __restrict__ row_count,
     const int* __restrict__ block_row, int cap, int nbx, int nby, int nbz,
@@ -61,6 +75,7 @@ __global__ void __launch_bounds__(kBlock) point_stats_kernel(
     const float* __restrict__ src, const float* __restrict__ w, int n, Pose T,
     float max_dist, int use_huber, float huber_delta,
     float* __restrict__ partials) {
+  constexpr int kWidth = kKind == kPoint ? 3 : 6;  // floats per packed slot
   const float kInf = __int_as_float(0x7f800000);
   float acc[kStats];
 #pragma unroll
@@ -92,26 +107,31 @@ __global__ void __launch_bounds__(kBlock) point_stats_kernel(
           const int row = __ldg(&block_row[bx + nbx * (by + nby * bz)]);
           if (row < 0) continue;
           const int cnt = __ldg(&row_count[row]);
-          const long long base = static_cast<long long>(row) * cap * 3;
+          const long long base = static_cast<long long>(row) * cap * kWidth;
           for (int s = 0; s < cnt; ++s) {
-            const float* c = pts + base + 3 * s;
+            const float* c = pts + base + kWidth * s;
             const float dx = qx - __ldg(c), dy = qy - __ldg(c + 1),
                         dz = qz - __ldg(c + 2);
             const float d2 = dx * dx + dy * dy + dz * dz;
             if (d2 < best) {
               best = d2;
-              best_off = base + 3 * s;
+              best_off = base + kWidth * s;
             }
           }
         }
       }
     }
 
-    float dist = sqrtf(best), tx, ty, tz;
+    float dist = sqrtf(best), tx, ty, tz, nx = 0.f, ny = 0.f, nz = 0.f;
     if (dist < cell_fine) {
       tx = __ldg(&pts[best_off]);
       ty = __ldg(&pts[best_off + 1]);
       tz = __ldg(&pts[best_off + 2]);
+      if constexpr (kKind == kPlanePt) {
+        nx = __ldg(&pts[best_off + 3]);
+        ny = __ldg(&pts[best_off + 4]);
+        nz = __ldg(&pts[best_off + 5]);
+      }
     } else {
       // Unresolved: nearest valid proxy-voxel centroid in the window.
       float best_p;
@@ -125,13 +145,42 @@ __global__ void __launch_bounds__(kBlock) point_stats_kernel(
       tx = mu.x;
       ty = mu.y;
       tz = mu.z;
+      if constexpr (kKind == kPlanePt) {
+        const float4 nrm = __ldg(&proxy[2 * key + 1]);
+        nx = nrm.x;
+        ny = nrm.y;
+        nz = nrm.z;
+      }
     }
     if (!(dist < max_dist)) continue;
-    const float u[6] = {1.f, 0.f, 0.f, 1.f, 0.f, 1.f};
-    pcr::accumulate_whitened(acc, w[i], u, T, px, py, pz, qx - tx, qy - ty,
-                             qz - tz, use_huber, huber_delta);
+    if constexpr (kKind == kPlanePt) {
+      pcr::accumulate_plane(acc, w[i], T, px, py, pz, nx, ny, nz, qx - tx,
+                            qy - ty, qz - tz, use_huber, huber_delta);
+    } else {
+      const float u[6] = {1.f, 0.f, 0.f, 1.f, 0.f, 1.f};
+      pcr::accumulate_whitened(acc, w[i], u, T, px, py, pz, qx - tx, qy - ty,
+                               qz - tz, use_huber, huber_delta);
+    }
   }
   pcr::block_reduce_store(acc, partials);
+}
+
+template <int kKind>
+int launch(const float* pts, const int* row_count, const int* block_row, int cap,
+           int nbx, int nby, int nbz, int ofx, int ofy, int ofz, float cell_fine,
+           const float* proxy, int pox, int poy, int poz, float proxy_cell,
+           int proxy_radius, const float* src, const float* w, int n, float r00,
+           float r01, float r02, float r10, float r11, float r12, float r20,
+           float r21, float r22, float t0, float t1, float t2, float max_dist,
+           int use_huber, float huber_delta, float* partials, int n_blocks,
+           void* stream) {
+  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
+  point_stats_kernel<kKind><<<n_blocks, kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz, cell_fine,
+      reinterpret_cast<const float4*>(proxy), pox, poy, poz, proxy_cell,
+      proxy_radius, src, w, n, T, max_dist, use_huber, huber_delta, partials);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -141,7 +190,7 @@ extern "C" {
 // Threads per block; the wrapper sizes the partials as (n_blocks, 29).
 int pcr_point_block_size() { return kBlock; }
 
-// Launches the kernel on `stream` and returns cudaGetLastError().
+// Each launches its kernel on `stream` and returns cudaGetLastError().
 int pcr_point_stats(const float* pts, const int* row_count, const int* block_row,
                     int cap, int nbx, int nby, int nbz, int ofx, int ofy,
                     int ofz, float cell_fine, const float* proxy, int pox,
@@ -151,12 +200,28 @@ int pcr_point_stats(const float* pts, const int* row_count, const int* block_row
                     float r20, float r21, float r22, float t0, float t1,
                     float t2, float max_dist, int use_huber, float huber_delta,
                     float* partials, int n_blocks, void* stream) {
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  point_stats_kernel<<<n_blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz, cell_fine,
-      reinterpret_cast<const float4*>(proxy), pox, poy, poz, proxy_cell,
-      proxy_radius, src, w, n, T, max_dist, use_huber, huber_delta, partials);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kPoint>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy,
+                        ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
+                        proxy_radius, src, w, n, r00, r01, r02, r10, r11, r12,
+                        r20, r21, r22, t0, t1, t2, max_dist, use_huber,
+                        huber_delta, partials, n_blocks, stream);
+}
+
+int pcr_plane_point_stats(const float* pts, const int* row_count,
+                          const int* block_row, int cap, int nbx, int nby,
+                          int nbz, int ofx, int ofy, int ofz, float cell_fine,
+                          const float* proxy, int pox, int poy, int poz,
+                          float proxy_cell, int proxy_radius, const float* src,
+                          const float* w, int n, float r00, float r01,
+                          float r02, float r10, float r11, float r12, float r20,
+                          float r21, float r22, float t0, float t1, float t2,
+                          float max_dist, int use_huber, float huber_delta,
+                          float* partials, int n_blocks, void* stream) {
+  return launch<kPlanePt>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx,
+                          ofy, ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
+                          proxy_radius, src, w, n, r00, r01, r02, r10, r11, r12,
+                          r20, r21, r22, t0, t1, t2, max_dist, use_huber,
+                          huber_delta, partials, n_blocks, stream);
 }
 
 }  // extern "C"

@@ -19,3 +19,9 @@ from point_cloud_registration_tpu_torch.models.ndt import (
     ndt_align,
     ndt_solver_stats,
 )
+from point_cloud_registration_tpu_torch.models.plane_icp import (
+    PlaneICP,
+    build_plane_icp_target,
+    plane_icp_align,
+    plane_icp_stats,
+)

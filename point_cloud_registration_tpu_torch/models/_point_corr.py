@@ -1,4 +1,4 @@
-"""Raw-point correspondence engine of ICP (counterpart of
+"""Raw-point correspondence engine of ICP and PlaneICP (counterpart of
 ``point_cloud_registration_tpu/models/_point_corr.py``, its packed backend).
 
 The packed backend (``ops/pointgrid.py``) is provably exact within
@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import CorrespondenceConfig
+from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.ops.knn import window_radius
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
@@ -50,12 +51,16 @@ def proxy_radius(corr: CorrespondenceConfig, max_dist: float) -> int:
 
 
 def build_point_corr(points, corr: CorrespondenceConfig, max_dist: float, *,
-                     proxy_min_points: int = 1, device=None) -> PointCorrTarget:
+                     proxy_min_points: int = 1, proxy_normals: bool = False, feats=None,
+                     device=None) -> PointCorrTarget:
     """Index ``points`` (N, 3), a NumPy array or a tensor, on ``device``
-    (default: the tensor's device, or the CPU for NumPy input)."""
-    if device is None:
-        device = points.device if isinstance(points, torch.Tensor) else "cpu"
+    (default: the tensor's device, or ``core.device.default_device()`` for
+    NumPy input). ``feats`` (N, F) ride inside the packed rows (PlaneICP's
+    normals); ``proxy_normals`` forms the proxy voxels' plane normals."""
+    device = resolve_device(points, device)
     points = torch.as_tensor(points).to(device=device, dtype=torch.float32)
+    if feats is not None:
+        feats = torch.as_tensor(feats).to(device=device, dtype=torch.float32)
     method = corr.resolved_method(points.shape[0])
     if method != "packed":
         raise NotImplementedError(
@@ -64,7 +69,7 @@ def build_point_corr(points, corr: CorrespondenceConfig, max_dist: float, *,
         )
     pg, proxy = build_packed_grid_and_proxy(
         points, cell_fine_of(corr, max_dist), cap=corr.packed_cap,
-        min_points=proxy_min_points,
+        min_points=proxy_min_points, with_normals=proxy_normals, feats=feats,
     )
     return PointCorrTarget(points=points, packed=pg, proxy=proxy)
 

@@ -14,7 +14,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.core.device import default_device, resolve_device
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics
+
+
+__all__ = ["AlignResult", "Registration", "default_device", "pad_points"]
 
 
 class AlignResult(NamedTuple):
@@ -22,11 +26,6 @@ class AlignResult(NamedTuple):
 
     T: torch.Tensor  # (4, 4) f32, on the host
     diagnostics: GNDiagnostics
-
-
-def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def pad_points(points, bucket: int = 8192, device=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -56,7 +55,7 @@ class Registration:
     def __init__(self, max_iter: int = 30, tol: float = 1e-3, device=None):
         self.max_iter = max_iter
         self.tol = tol
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(None, device)
         self._target: Any = None
         self.last_diagnostics: GNDiagnostics | None = None
 

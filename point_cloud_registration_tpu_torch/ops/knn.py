@@ -1,7 +1,7 @@
 """Per-cell query tables of a dense voxel map (counterpart of the constants of
 ``point_cloud_registration_tpu/ops/knn.py`` and of its
-``dense_blocks_from_dense``), and the window search the kernels' plain
-versions share.
+``dense_blocks_from_dense``), the window search the kernels' plain versions
+share, and the brute-force nearest-neighbour oracles.
 
 The TPU kernel reads a blocked planar table shaped for region DMAs and MXU
 one-hot gathers. A CUDA thread reads cells straight from global memory (the
@@ -107,3 +107,47 @@ def nearest_valid_cell(
         best_d2[s:s + chunk] = torch.gather(d2, 1, arg[:, None])[:, 0]
         best_key[s:s + chunk] = torch.gather(key, 1, arg[:, None])[:, 0]
     return best_d2, best_key
+
+
+def brute_force_nn(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor | None = None,
+                   tile: int = 4096, chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN by tiled exhaustive search (knn.py:535, the validation
+    oracle): ``(dist (Nq,) f32, idx (Nq,) i32)``, the first index on ties,
+    ``inf`` and -1 when no reference is valid. References go in tiles of
+    ``tile`` and queries in chunks of ``chunk``, so the distance block stays
+    at ``chunk * tile`` floats."""
+    dev = query.device
+    nq, nr = query.shape[0], ref.shape[0]
+    best_d2 = torch.full((nq,), float("inf"), dtype=torch.float32, device=dev)
+    best_idx = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    for a in range(0, nq, chunk):
+        q = query[a:a + chunk]
+        bd, bi = best_d2[a:a + chunk], best_idx[a:a + chunk]
+        for s in range(0, nr, tile):
+            diff = q[:, None, :] - ref[None, s:s + tile, :]
+            d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+                  + diff[..., 2] * diff[..., 2])
+            if ref_valid is not None:
+                d2 = torch.where(ref_valid[None, s:s + tile], d2, float("inf"))
+            ti = torch.argmin(d2, dim=1)  # first minimum
+            td = torch.gather(d2, 1, ti[:, None])[:, 0]
+            better = td < bd
+            bd.copy_(torch.where(better, td, bd))
+            bi.copy_(torch.where(better, (ti + s).to(torch.int32), bi))
+    return torch.sqrt(best_d2), best_idx
+
+
+def brute_force_knn(query: torch.Tensor, ref: torch.Tensor, k: int,
+                    chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN by chunked exhaustive search (knn.py:568, the validation
+    oracle): ``(dist (Nq, k) ascending, idx (Nq, k) i32)``. Among equal
+    distances the order is unspecified."""
+    dists, idxs = [], []
+    for a in range(0, query.shape[0], chunk):
+        diff = query[a:a + chunk, None, :] - ref[None, :, :]
+        d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+              + diff[..., 2] * diff[..., 2])
+        top, arg = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        dists.append(torch.sqrt(top))
+        idxs.append(arg.to(torch.int32))
+    return torch.cat(dists), torch.cat(idxs)

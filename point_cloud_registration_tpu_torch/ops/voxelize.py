@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.ops.eigh3 import smallest_eigvec_sym3
 from point_cloud_registration_tpu_torch.ops.hashgrid import (
     DENSE_CELL_BUDGET,
@@ -125,7 +126,8 @@ def build_voxel_map(
     ``set_points``) on ``device``.
 
     ``points`` is a NumPy array or a tensor; ``device`` defaults to the
-    tensor's device, or the CPU for NumPy input. The bounding box is read
+    tensor's device, or ``core.device.default_device()`` (the card when
+    there is one) for NumPy input. The bounding box is read
     on the host once. A bounding box of more than ``DENSE_CELL_BUDGET``
     cells needs the sparse build, which is not ported yet. ``rich`` picks
     the query table's features, as in the JAX package: ``"normals"`` for
@@ -143,9 +145,8 @@ def build_voxel_map(
             f"map of {dims} cells ({total_cells}) exceeds the dense budget "
             f"{DENSE_CELL_BUDGET}; the sparse build is not ported"
         )
-    if device is None:
-        device = points.device if isinstance(points, torch.Tensor) else "cpu"
-    points = torch.as_tensor(points).to(device=device, dtype=torch.float32)
+    points = torch.as_tensor(points).to(device=resolve_device(points, device),
+                                        dtype=torch.float32)
     return _build_voxel_map_dense(
         points,
         tuple(int(x) for x in lo_cell),

@@ -1,7 +1,7 @@
 """Carry state between the JAX package and the port.
 
 A target index plays the part of a model's weights: with these functions the
-same voxel map or packed point grid, built once by the JAX package, drives
+same voxel map, packed point grid or PlaneICP target, built once by the JAX package, drives
 both aligners.
 """
 
@@ -10,6 +10,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.core.device import resolve_device
+from point_cloud_registration_tpu_torch.models._point_corr import PointCorrTarget
+from point_cloud_registration_tpu_torch.models.plane_icp import PlaneICPTarget
 from point_cloud_registration_tpu_torch.ops.knn import cell_table
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
@@ -33,13 +36,16 @@ def voxel_map_from_numpy(
     origin_cell,
     dims,
     cell_size,
-    device="cpu",
+    device=None,
     icovs=None,
 ) -> VoxelMap:
     """Port :class:`VoxelMap` (with its cell table) on ``device`` from the
     arrays of a dense-direct map of the JAX package, given as NumPy arrays
     (``vm.means``, ``vm.covs``, ``vm.normals``, ``vm.counts``, ``vm.valid``,
-    ``vm.grid.origin_cell``, ``vm.grid.dims``, ``vm.grid.cell_size``)."""
+    ``vm.grid.origin_cell``, ``vm.grid.dims``, ``vm.grid.cell_size``).
+    ``device`` defaults to ``core.device.default_device()``, here and in the
+    functions below."""
+    device = resolve_device(None, device)
     dims = tuple(int(x) for x in np.asarray(dims))
     d_total = int(np.prod(dims))
     means = np.asarray(means, np.float32)
@@ -76,12 +82,13 @@ def ndt_map_from_numpy(
     cell_size,
     icovs,
     u6,
-    device="cpu",
+    device=None,
 ) -> VoxelMap:
     """Port NDT map (with its (D, 12) NDT table) from the arrays of a
     dense-direct JAX ``VoxelMap`` built ``with_icov=True``, as for
     :func:`voxel_map_from_numpy` plus ``vm.icovs`` and the table's Cholesky
     features ``u6`` (the JAX package's ``sqrt_icov_u6(vm.icovs)``)."""
+    device = resolve_device(None, device)
     vm = voxel_map_from_numpy(means, covs, normals, counts, valid, origin_cell, dims,
                               cell_size, device=device, icovs=icovs)
     return vm._replace(table=cell_table(vm.means, vm.valid, _to_dev(u6, torch.float32, device)))
@@ -99,18 +106,19 @@ def packed_grid_from_numpy(
     proxy_means,
     proxy_counts,
     proxy_valid,
-    device="cpu",
+    device=None,
+    proxy_normals=None,
 ) -> tuple[PackedPointGrid, ProxyMap]:
     """Port packed grid and proxy map from the arrays of a JAX
-    ``PackedPointGrid`` (``pg.origin_fine`` ... ``pg.row_over``, xyz rows
-    only) and of its proxy ``VoxelMap`` (``proxy.means``, ``.counts``,
-    ``.valid``). The JAX rows are padded to a power of two; the port keeps
-    the occupied rows and one sentinel row."""
+    ``PackedPointGrid`` (``pg.origin_fine`` ... ``pg.row_over``; rows of any
+    slot width) and of its proxy ``VoxelMap`` (``proxy.means``, ``.counts``,
+    ``.valid`` and, for PlaneICP, ``.normals``). The JAX rows are padded to
+    a power of two; the port keeps the occupied rows and one sentinel row."""
+    device = resolve_device(None, device)
     row_key = np.asarray(row_key, np.int32)
     n_occ = int((row_key >= 0).sum())
     cap = np.asarray(idx_packed).shape[1]
-    if np.asarray(pts_packed).shape[1] != 3 * cap:
-        raise ValueError("pts_packed carries per-point features; the port takes xyz rows")
+    width = np.asarray(pts_packed).shape[1] // cap
 
     def rows(a, dtype, fill):
         a = np.asarray(a)
@@ -127,9 +135,25 @@ def packed_grid_from_numpy(
         pts_packed=pts,
         idx_packed=rows(idx_packed, torch.int32, -1),
         row_over=rows(row_over, torch.bool, False),
-        row_count=torch.isfinite(pts.reshape(n_occ + 1, cap, 3)[..., 0]).sum(dim=1)
+        row_count=torch.isfinite(pts.reshape(n_occ + 1, cap, width)[..., 0]).sum(dim=1)
         .to(torch.int32),
     )
     proxy = proxy_map(pg, rows(proxy_means, torch.float32, 0.0),
-                      rows(proxy_counts, torch.int32, 0), rows(proxy_valid, torch.bool, False))
+                      rows(proxy_counts, torch.int32, 0), rows(proxy_valid, torch.bool, False),
+                      None if proxy_normals is None else rows(proxy_normals, torch.float32, 0.0))
     return pg, proxy
+
+
+def plane_icp_target_from_numpy(points, normals, *packed_args, device=None,
+                                proxy_normals) -> PlaneICPTarget:
+    """Port :class:`PlaneICPTarget` from the arrays of the JAX package's
+    (``target.corr.points``, ``target.normals``, then the arguments of
+    :func:`packed_grid_from_numpy` for ``target.corr.packed``, whose rows
+    are 6 wide, and ``target.corr.proxy`` with its normals), so that both
+    packages align against one target."""
+    device = resolve_device(None, device)
+    pg, proxy = packed_grid_from_numpy(*packed_args, device=device, proxy_normals=proxy_normals)
+    if pg.width != 6:
+        raise ValueError(f"a PlaneICP target packs xyz + normal (width 6), got {pg.width}")
+    corr = PointCorrTarget(points=_to_dev(points, torch.float32, device), packed=pg, proxy=proxy)
+    return PlaneICPTarget(corr=corr, normals=_to_dev(normals, torch.float32, device))

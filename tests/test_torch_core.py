@@ -253,3 +253,111 @@ def test_gauss_newton_singular_sets_solver_failed():
     assert dt.converged is False
     np.testing.assert_array_equal(Tt.numpy(), np.eye(4, dtype=np.float32))
     assert np.isfinite(Tj).all()
+
+
+# -- which device an entry point builds on -----------------------------------
+
+
+def _device_cases():
+    from point_cloud_registration_tpu_torch import models
+    from point_cloud_registration_tpu_torch.core.config import (
+        CorrespondenceConfig,
+        ICPConfig,
+        NDTConfig,
+        PlaneICPConfig,
+        VPlaneICPConfig,
+    )
+    from point_cloud_registration_tpu_torch.ops.normals import estimate_normals
+
+    packed = CorrespondenceConfig(method="packed")
+    up = np.tile(np.float32([0.0, 0.0, 1.0]), (1200, 1))
+    return {
+        "build_vplane_target": lambda p, **kw: models.build_vplane_target(
+            p, VPlaneICPConfig(min_points=3), **kw).table,
+        "build_ndt_target": lambda p, **kw: models.build_ndt_target(
+            p, NDTConfig(min_points=3), **kw).table,
+        "build_icp_target": lambda p, **kw: models.build_icp_target(
+            p, ICPConfig(corr=packed), **kw).points,
+        "build_plane_icp_target": lambda p, **kw: models.build_plane_icp_target(
+            p, PlaneICPConfig(corr=packed), normals=up, **kw).normals,
+        "estimate_normals": lambda p, **kw: estimate_normals(p, k=5, backend="gather", **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["build_vplane_target", "build_ndt_target", "build_icp_target",
+                                   "build_plane_icp_target", "estimate_normals"])
+def test_numpy_input_builds_on_the_default_device(monkeypatch, entry):
+    """With no ``device``: a NumPy input goes to ``default_device()`` (the
+    card when there is one), a tensor keeps its device, and a named device
+    wins. Pinned without a card by counting the calls of ``default_device``."""
+    from point_cloud_registration_tpu_torch.core import device as device_mod
+
+    calls = []
+
+    def fake_default():
+        calls.append(1)
+        return torch.device("cpu")
+
+    monkeypatch.setattr(device_mod, "default_device", fake_default)
+    fn = _device_cases()[entry]
+    pts = (np.random.RandomState(0).rand(1200, 3) * np.float32([6, 6, 0.1])).astype(np.float32)
+    out = fn(pts)
+    assert len(calls) >= 1 and out.device.type == "cpu"
+    calls.clear()
+    assert fn(torch.from_numpy(pts)).device.type == "cpu" and not calls
+    assert fn(pts, device="cpu").device.type == "cpu" and not calls
+
+
+def test_solver_classes_default_to_the_default_device(monkeypatch):
+    import point_cloud_registration_tpu_torch as port
+    from point_cloud_registration_tpu_torch.core import device as device_mod
+
+    monkeypatch.setattr(device_mod, "default_device", lambda: torch.device("meta"))
+    for cls in (port.VPlaneICP, port.NDT, port.ICP, port.PlaneICP):
+        assert cls().device.type == "meta"
+        assert cls(device="cpu").device.type == "cpu"
+    assert device_mod.resolve_device(torch.zeros(2, 3)).type == "cpu"
+
+
+def _converter_cases():
+    from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid_and_proxy
+    from point_cloud_registration_tpu_torch.utils import convert
+
+    one = lambda *shape: np.ones(shape, np.float32)
+    voxel = (one(1, 3), one(1, 3, 3), one(1, 3), np.int32([5]), np.array([True]),
+             (0, 0, 0), (1, 1, 1), 1.0)
+    pts = torch.from_numpy(
+        (np.random.RandomState(0).rand(300, 3) * np.float32([4, 4, 1])).astype(np.float32))
+    up = torch.tensor([0.0, 0.0, 1.0]).expand(300, 3)
+    pg, px = build_packed_grid_and_proxy(pts, 0.5, 8, min_points=3, with_normals=True, feats=up)
+    packed = tuple(np.asarray(a) for a in (
+        pg.origin_fine, pg.cell_fine, pg.nb_dims, pg.block_row, pg.row_key, pg.pts_packed,
+        pg.idx_packed, pg.row_over, px.means, px.counts, px.valid))
+    normals = px.normals.numpy()
+    return {
+        "voxel_map": lambda **kw: convert.voxel_map_from_numpy(*voxel, **kw).table,
+        "ndt_map": lambda **kw: convert.ndt_map_from_numpy(
+            *voxel, one(1, 3, 3), one(1, 6), **kw).table,
+        "packed_grid": lambda **kw: convert.packed_grid_from_numpy(*packed, **kw)[0].pts_packed,
+        "plane_icp_target": lambda **kw: convert.plane_icp_target_from_numpy(
+            pts.numpy(), up.numpy(), *packed, proxy_normals=normals, **kw).normals,
+    }
+
+
+@pytest.mark.parametrize("converter", ["voxel_map", "ndt_map", "packed_grid", "plane_icp_target"])
+def test_converters_land_on_the_default_device(monkeypatch, converter):
+    """The converters of ``utils.convert`` follow the entry points' rule: no
+    ``device`` means ``default_device()``, a named device wins."""
+    from point_cloud_registration_tpu_torch.core import device as device_mod
+
+    calls = []
+
+    def fake_default():
+        calls.append(1)
+        return torch.device("cpu")
+
+    fn = _converter_cases()[converter]
+    monkeypatch.setattr(device_mod, "default_device", fake_default)
+    assert fn().device.type == "cpu" and calls
+    calls.clear()
+    assert fn(device="cpu").device.type == "cpu" and not calls

@@ -56,7 +56,7 @@ def scene():
     jm = build_voxel_map(pts, 1.0, min_points=5, rich="normals")
     tm = voxel_map_from_numpy(
         jm.means, jm.covs, jm.normals, jm.counts, jm.valid,
-        jm.grid.origin_cell, jm.grid.dims, jm.grid.cell_size,
+        jm.grid.origin_cell, jm.grid.dims, jm.grid.cell_size, device="cpu",
     )
     return jm, tm, scan
 
@@ -220,4 +220,5 @@ def test_library_path_is_keyed_by_sources():
     path = _build.library_path("fused_align")
     assert path.parent.parent == _build.BUILD_ROOT
     assert path.name == "libfused_align.so"
-    assert [p.name for p in _build._sources()] == ["fused_align.cu", "point_align.cu"]
+    assert [p.name for p in _build._sources()] == ["exact_nn.cu", "fused_align.cu",
+                                                  "knn_normals.cu", "point_align.cu"]

@@ -104,7 +104,7 @@ def _carried(jt) -> PointCorrTarget:
     pg, px = packed_grid_from_numpy(
         jt.packed.origin_fine, jt.packed.cell_fine, jt.packed.nb_dims, jt.packed.block_row,
         jt.packed.row_key, jt.packed.pts_packed, jt.packed.idx_packed, jt.packed.row_over,
-        jt.proxy.means, jt.proxy.counts, jt.proxy.valid,
+        jt.proxy.means, jt.proxy.counts, jt.proxy.valid, device="cpu",
     )
     return PointCorrTarget(points=torch.from_numpy(np.array(jt.points)), packed=pg, proxy=px)
 
@@ -267,7 +267,7 @@ def test_align_on_carried_target_matches_jax(scenes):
 
 def test_port_build_equals_carried_target(scene_target):
     pts, _, tt = scene_target
-    ours = build_point_corr(pts, CorrespondenceConfig(**PACKED), MAX_DIST)
+    ours = build_point_corr(pts, CorrespondenceConfig(**PACKED), MAX_DIST, device="cpu")
     for name in ("block_row", "row_key", "pts_packed", "idx_packed", "row_over", "row_count"):
         torch.testing.assert_close(getattr(ours.packed, name), getattr(tt.packed, name),
                                    rtol=0, atol=0)
@@ -315,7 +315,7 @@ def test_check_operands_rejects_bad_inputs():
 
 
 def test_library_per_source():
-    assert _build.library_names() == ["fused_align", "point_align"]
+    assert _build.library_names() == ["exact_nn", "fused_align", "knn_normals", "point_align"]
     a, b = _build.library_path("fused_align"), _build.library_path("point_align")
     assert a.parent != b.parent and a.name == "libfused_align.so"
     with pytest.raises(ValueError):

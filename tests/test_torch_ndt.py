@@ -169,6 +169,7 @@ def blob_scene():
     tm = ndt_map_from_numpy(
         jm.means, jm.covs, jm.normals, jm.counts, jm.valid, jm.grid.origin_cell,
         jm.grid.dims, jm.grid.cell_size, jm.icovs, jax_sqrt_icov_u6(jm.icovs),
+        device="cpu",
     )
     return jm, tm, scan
 
@@ -234,14 +235,15 @@ def test_ndt_table_layout(blob_scene):
     jm, _, _ = blob_scene
     pts = np.asarray(jm.means)[np.asarray(jm.valid)]
     vm = build_voxel_map(np.repeat(pts, 12, axis=0) + np.random.RandomState(4).randn(
-        len(pts) * 12, 3).astype(np.float32) * 0.1, 1.0, with_icov=True, rich="sqrt_icov")
+        len(pts) * 12, 3).astype(np.float32) * 0.1, 1.0, with_icov=True, rich="sqrt_icov",
+        device="cpu")
     assert vm.table.shape == (int(np.prod(vm.dims)), NDT_TABLE_WIDTH)
     v = vm.valid
     torch.testing.assert_close(vm.table[v, 0:3], vm.means[v], rtol=0, atol=0)
     torch.testing.assert_close(vm.table[v, 4:10], sqrt_icov_u6(vm.icovs)[v], rtol=0, atol=0)
     assert float(vm.table[~v, 3:].abs().sum()) == 0.0 and float(vm.table[v, 3].min()) == 1.0
     with pytest.raises(ValueError, match="with_icov"):
-        build_voxel_map(pts, 1.0, rich="sqrt_icov")
+        build_voxel_map(pts, 1.0, rich="sqrt_icov", device="cpu")
 
 
 def test_cpu_wrapper_runs_plain_version_without_launching(blob_scene):
@@ -301,7 +303,7 @@ def test_align_on_carried_map_matches_jax(scenes):
     T_j, it_j, _, jm = _jax_ndt_align(pts, scan)
     tm = ndt_map_from_numpy(jm.means, jm.covs, jm.normals, jm.counts, jm.valid,
                             jm.grid.origin_cell, jm.grid.dims, jm.grid.cell_size, jm.icovs,
-                            jax_sqrt_icov_u6(jm.icovs))
+                            jax_sqrt_icov_u6(jm.icovs), device="cpu")
     src, w = pad_points(scan)
     res = ndt_align(tm, src, w, torch.eye(4), NDTConfig(**PARAMS))
     np.testing.assert_allclose(res.T.numpy(), T_j, rtol=0, atol=1e-4)

@@ -11,6 +11,11 @@ the rest are padding on both sides. Proxy means are sums of up to ``cap``
 float32 values taken in another order: within 4 ulp of 1 m (1e-6 m, on
 clouds of a few tens of metres). Tier-1 indices and the resolved flags are
 equal; distances agree to float32 rounding (rtol 1e-6).
+
+Rows that carry per-point features (width 6, PlaneICP's normals) and the cap
+chosen by ``auto_cap`` are held equal too. The proxy voxels' normals are
+smallest eigenvectors of float32 covariances summed in another order: they
+agree by ``|n . n'| > 1 - 1e-5`` on valid voxels with a clear eigen-gap.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ import pytest
 import torch
 
 from point_cloud_registration_tpu.ops.pointgrid import (
+    build_packed_grid as jax_build_packed_grid,
     build_packed_grid_and_proxy as jax_build,
     nearest_point_packed as jax_nearest,
 )
@@ -118,6 +124,7 @@ def test_converted_grid_equals_port_build(grids):
     cg, cx = packed_grid_from_numpy(
         jpg.origin_fine, jpg.cell_fine, jpg.nb_dims, jpg.block_row, jpg.row_key,
         jpg.pts_packed, jpg.idx_packed, jpg.row_over, jpx.means, jpx.counts, jpx.valid,
+        device="cpu",
     )
     for name in ("block_row", "row_key", "pts_packed", "idx_packed", "row_over", "row_count"):
         torch.testing.assert_close(getattr(cg, name), getattr(pg, name), rtol=0, atol=0)
@@ -141,3 +148,89 @@ def test_index_hash_wraps_like_int32():
 def test_empty_cloud_raises():
     with pytest.raises(ValueError, match="empty"):
         build_packed_grid(torch.zeros((0, 3)), CELL_FINE)
+
+
+# -- packed features, auto_cap and proxy normals (PlaneICP's target) ----------
+
+
+@pytest.fixture(scope="module", params=[0, 1])
+def feat_grids(request):
+    pts = _cloud(request.param)
+    rng = np.random.RandomState(request.param + 10)
+    feats = rng.randn(len(pts), 3).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    jpg, jpx = jax_build(pts, CELL_FINE, cap=CAP, min_points=12, with_normals=True, feats=feats)
+    pg, px = build_packed_grid_and_proxy(torch.from_numpy(pts), CELL_FINE, CAP, min_points=12,
+                                         with_normals=True, feats=torch.from_numpy(feats))
+    return pts, feats, jpg, jpx, pg, px
+
+
+def test_width6_rows_bit_equal(feat_grids):
+    pts, feats, jpg, _, pg, _ = feat_grids
+    n = pg.pts_packed.shape[0] - 1
+    assert pg.width == 6 == jpg.width and pg.cap == CAP
+    np.testing.assert_array_equal(pg.pts_packed.numpy()[:n], np.asarray(jpg.pts_packed)[:n])
+    np.testing.assert_array_equal(pg.idx_packed.numpy()[:n], np.asarray(jpg.idx_packed)[:n])
+    np.testing.assert_array_equal(pg.row_over.numpy()[:n], np.asarray(jpg.row_over)[:n])
+    # every kept slot carries its point and that point's features
+    slots = pg.pts_packed.numpy().reshape(n + 1, CAP, 6)
+    idx = pg.idx_packed.numpy()
+    kept = idx >= 0
+    np.testing.assert_array_equal(slots[kept][:, :3], pts[idx[kept]])
+    np.testing.assert_array_equal(slots[kept][:, 3:], feats[idx[kept]])
+    assert np.isinf(slots[~kept]).all()
+
+
+def test_proxy_normals_match(feat_grids):
+    _, _, jpg, jpx, pg, px = feat_grids
+    n = pg.pts_packed.shape[0] - 1
+    valid = px.valid.numpy()[:n]
+    np.testing.assert_array_equal(valid, np.asarray(jpx.valid)[:n])
+    assert valid.sum() > 50 and (~valid).sum() > 0  # min_points leaves some voxels out
+    # a clear eigen-gap: elsewhere the smallest eigenvector is ill-defined
+    vals = np.linalg.eigvalsh(_cov33(np.asarray(jpx.covs)[:n]))
+    clear = valid & ((vals[:, 1] - vals[:, 0]) > 0.05 * vals[:, 2])
+    dots = np.abs((px.normals.numpy()[:n] * np.asarray(jpx.normals)[:n]).sum(1))
+    assert clear.sum() > 50 and dots[clear].min() > 1 - 1e-5
+    # the query table carries each valid voxel's normal at its block key
+    keys = pg.row_key[:n].long()
+    torch.testing.assert_close(px.table[keys, 4:7][px.valid[:n]], px.normals[:n][px.valid[:n]],
+                               rtol=0, atol=0)
+    assert float(px.table[keys, 4:7][~px.valid[:n]].abs().sum()) == 0.0
+
+
+def _cov33(c6):
+    c = np.zeros((len(c6), 3, 3))
+    for k, (i, j) in enumerate([(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]):
+        c[:, i, j] = c[:, j, i] = c6[:, k]
+    return c
+
+
+def test_nearest_point_packed_returns_the_slot_features(feat_grids):
+    pts, feats, _, _, pg, _ = feat_grids
+    rng = np.random.RandomState(3)
+    q = (pts[rng.choice(len(pts), 1500)] + rng.randn(1500, 3) * 0.1).astype(np.float32)
+    nn = nearest_point_packed(pg, torch.from_numpy(q))
+    found = nn.idx.numpy() >= 0
+    np.testing.assert_array_equal(nn.feat.numpy()[found], feats[nn.idx.numpy()[found]])
+    np.testing.assert_array_equal(nn.point.numpy()[found], pts[nn.idx.numpy()[found]])
+
+
+@pytest.mark.parametrize("clump,expect", [(0, 1), (300, 2), (3000, 3)])
+def test_auto_cap_escalates_like_jax(clump, expect):
+    """More than 1 % of the points truncated at ``cap`` doubles it; more
+    than 1 % still truncated at ``2 * cap`` triples it."""
+    rng = np.random.RandomState(clump)
+    sheet = (rng.rand(1500, 3) * np.float32([12, 12, 0.05])).astype(np.float32)
+    # a denser patch of the sheet (over cap, under 2 * cap), or a tight clump
+    extent = np.float32([3, 3, 0.05]) if clump < 1000 else np.float32(0.4)
+    dense = (rng.rand(clump, 3) * extent + np.float32(3.0)).astype(np.float32)
+    pts = np.concatenate([sheet, dense])
+    base = 8
+    jpg = jax_build_packed_grid(pts, 0.3, cap=base, auto_cap=True)
+    pg = build_packed_grid(torch.from_numpy(pts), 0.3, base, auto_cap=True)
+    assert pg.cap == jpg.cap == expect * base
+    n = pg.pts_packed.shape[0] - 1
+    np.testing.assert_array_equal(pg.pts_packed.numpy()[:n], np.asarray(jpg.pts_packed)[:n])
+    np.testing.assert_array_equal(pg.row_over.numpy()[:n], np.asarray(jpg.row_over)[:n])
+    assert build_packed_grid(torch.from_numpy(pts), 0.3, base).cap == base

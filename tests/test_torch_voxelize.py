@@ -42,7 +42,7 @@ def built(request):
     make, voxel, min_points = SCENES[request.param]
     pts = make()
     jm = jvox.build_voxel_map(pts, voxel, min_points=min_points, with_icov=True)
-    tm = tvox.build_voxel_map(pts, voxel, min_points=min_points, with_icov=True)
+    tm = tvox.build_voxel_map(pts, voxel, min_points=min_points, with_icov=True, device="cpu")
     return jm, tm
 
 
@@ -92,7 +92,7 @@ def test_build_normals_match_jax(built):
 
 def test_build_from_tensor_equals_from_numpy():
     pts = make_scene(np.random.RandomState(5))
-    a = tvox.build_voxel_map(pts, 1.0)
+    a = tvox.build_voxel_map(pts, 1.0, device="cpu")
     b = tvox.build_voxel_map(torch.from_numpy(pts), 1.0)
     assert a.dims == b.dims and a.origin_cell == b.origin_cell
     torch.testing.assert_close(a.table, b.table, rtol=0, atol=0)
@@ -102,8 +102,9 @@ def test_build_is_bitwise_independent_of_point_order():
     """The per-cell sums are exact, so any order of the points (or of the
     atomic adds on a card) gives the same map bits."""
     pts = make_scene(np.random.RandomState(5))
-    a = tvox.build_voxel_map(pts, 1.0)
-    b = tvox.build_voxel_map(pts[np.random.RandomState(1).permutation(len(pts))], 1.0)
+    a = tvox.build_voxel_map(pts, 1.0, device="cpu")
+    b = tvox.build_voxel_map(pts[np.random.RandomState(1).permutation(len(pts))], 1.0,
+                              device="cpu")
     torch.testing.assert_close(b.table, a.table, rtol=0, atol=0)
     torch.testing.assert_close(b.covs, a.covs, rtol=0, atol=0)
 
@@ -174,9 +175,9 @@ def test_cell_coords_and_bbox_match_jax():
 def test_over_budget_map_raises_not_implemented():
     pts = np.array([[0, 0, 0], [500, 500, 500]], np.float32)
     with pytest.raises(NotImplementedError):
-        tvox.build_voxel_map(pts, 1.0)
+        tvox.build_voxel_map(pts, 1.0, device="cpu")
 
 
 def test_empty_cloud_raises():
     with pytest.raises(ValueError):
-        tvox.build_voxel_map(np.zeros((0, 3), np.float32), 1.0)
+        tvox.build_voxel_map(np.zeros((0, 3), np.float32), 1.0, device="cpu")

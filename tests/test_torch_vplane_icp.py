@@ -75,7 +75,8 @@ def test_align_on_carried_map_matches_jax(scene):
     scan, _ = make_scan(np.random.RandomState(7), pts, np.array(SCANS["small_offset"][1]))
     T_j, it_j, _ = _jax_align(jm, scan)
     tm = voxel_map_from_numpy(jm.means, jm.covs, jm.normals, jm.counts, jm.valid,
-                              jm.grid.origin_cell, jm.grid.dims, jm.grid.cell_size)
+                              jm.grid.origin_cell, jm.grid.dims, jm.grid.cell_size,
+                              device="cpu")
     src, w = pad_points(scan)
     res = vplane_align(tm, src, w, torch.eye(4), VPlaneICPConfig(**PARAMS))
     np.testing.assert_allclose(res.T.numpy(), T_j, rtol=0, atol=1e-4)
