@@ -35,9 +35,11 @@ Between ICP and PlaneICP:
    1.2M points, launch counts reset just before and read just after (the
    k-NN moments kernel must have run once per tier); the kernel against its
    plain version on the main path's queries, every map point at radius 2
-   and the uncertified tail at radius 4; warm time of the whole call and of
-   each launch. PlaneICP's target takes these normals
-   (``set_target(map, norm=normals)``).
+   and the uncertified tail at radius 4, and on a shuffled sample of the map,
+   whose results must equal the unshuffled ones bit for bit; how the queries
+   group by candidate box; warm time of the whole call, of each launch and
+   of the grouping alone, and each tier's bound. PlaneICP's target takes
+   these normals (``set_target(map, norm=normals)``).
 
 After PlaneICP:
 
@@ -118,6 +120,11 @@ K_NORMALS = 15
 # order, relative to the query's largest covariance entry
 TOL_COV = 1e-5
 TOL_FLAGS = 8  # queries whose flags or counts may differ (none expected)
+N_SHUFFLED = 65536  # map points of the k-NN kernel's query-order check
+# estimate_normals on the seeded map: queries of the wide tier, points left
+# to the plain fallback and points certified exact, as first recorded with
+# the one-thread-per-query kernel; the function has not changed since
+NORMALS_REF = {"n_wide": 215_988, "n_unresolved": 314, "n_exact": 1_139_014}
 N_EXACT = 4096  # queries of the exact 1-NN phase
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
@@ -215,6 +222,50 @@ def compare_knn(label: str, k_out, p_out) -> float:
     if not (d_flags <= TOL_FLAGS and rk_rel <= 1e-6 and cov_rel < TOL_COV):
         raise AssertionError(f"{label}: the kernel disagrees with its plain version")
     return cov_abs
+
+
+def knn_tier_stats(tag: str, pg, q, radius: int, selected: float) -> dict:
+    """How the queries ``q`` of one ``knn_moments`` launch group by candidate
+    box, the time of the grouping alone and the launch's bound: the function
+    needs every input and output once (of the packed rows, the kept points of
+    the rows that a query's box holds), each candidate's distance once and
+    the moments (18 flops) of the ``selected`` points."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+
+    n = q.shape[0]
+    order, starts = kn.box_groups_cuda(pg, q, radius)
+    # the grouping's two kernels against its plain version, with int32 keys and, as
+    # for a grid of so many blocks that int32 cannot hold a box key, with int64 keys
+    vast = pg._replace(nb_dims=(1 << 12, 1 << 12, 1 << 11))
+    for grid, got in ((pg, (order, starts)), (vast, kn.box_groups_cuda(vast, q, radius))):
+        if not all(torch.equal(a, b) for a, b in zip(got, kn.box_groups(grid, q, radius))):
+            raise AssertionError(f"{tag} r = {radius}: box_groups_cuda disagrees with box_groups")
+    n_items = starts.shape[0]
+    n_boxes = torch.unique(kn._box_start(pg, q, radius), dim=0).shape[0]
+    group_ms = cuda_ms(lambda: kn.box_groups_cuda(pg, q, radius), 10)
+    group_plain_ms = cuda_ms(lambda: kn.box_groups(pg, q, radius), 10)
+    cand = 0.0
+    held = torch.zeros_like(pg.row_over)  # rows that some query's box holds
+    for a in range(0, n, 1 << 16):
+        rows = kn.box_rows(pg, q[a:a + (1 << 16)], radius)
+        cand += float(pg.row_count[rows].sum())
+        held[rows.reshape(-1)] = True
+    row_bytes = 12 * int(pg.row_count[held].sum())
+    b_ms, b_by = bound_ms(
+        row_bytes + nbytes(pg.row_count, pg.block_row, pg.row_over, q) + 4 * n + 40 * n,
+        cand * FLOPS_DIST + selected * 18)
+    log(f"{tag} r = {radius}: {n} queries in {n_items} work items of at most {kn.ITEM} "
+        f"({n / max(n_items, 1):.2f} per item) for {n_boxes} boxes ({n / max(n_boxes, 1):.2f} per box), "
+        f"{cand / max(n, 1):.1f} candidates per query; grouping alone {group_ms:.3f} ms (its plain "
+        f"version, equal in every index, {group_plain_ms:.3f} ms); "
+        f"bound {b_ms:.4f} ms by {b_by} ({row_bytes / 1e6:.1f} MB of kept points in the boxes' rows)")
+    return {"queries": n, "items": n_items, "boxes": n_boxes,
+            "queries_per_item": n / max(n_items, 1),
+            "candidates_per_query": cand / max(n, 1), "group_ms": group_ms,
+            "group_plain_ms": group_plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def compare_stats(k, p) -> dict:
@@ -510,8 +561,10 @@ def run_normals(map_t, dev) -> tuple:
     unit = float((normals.norm(dim=1) - 1).abs().max())
     if not unit < 1e-4:
         raise AssertionError(f"{tag} normals are not unit vectors: {unit}")
-    if not 0.5 < exact_frac <= 1.0:
-        raise AssertionError(f"{tag} certified-exact fraction {exact_frac}")
+    got = {"n_wide": info["n_wide"], "n_unresolved": info["n_unresolved"],
+           "n_exact": int(info["exact"].sum())}
+    if got != NORMALS_REF:
+        raise AssertionError(f"{tag} tiers and certificate {got}, recorded {NORMALS_REF}")
     warm = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -552,25 +605,43 @@ def run_normals(map_t, dev) -> tuple:
                                   k_base, p_base),
                       compare_knn(f"{tag} kernel vs plain, wide tier (r = {nm.WIDE_RADIUS})",
                                   wide(), p_wide))
-    log(f"{tag} knn_moments per launch: base tier (kernel, plain, kernel) {base_ms:.3f}, "
-        f"{plain_ms:.1f}, {base_ms_2:.3f} ms; wide tier ({q_w.shape[0]} queries; kernel, plain) "
-        f"{wide_ms:.3f}, {plain_wide_ms:.1f} ms")
-    # Bound of the base-tier launch: the function needs each candidate's
-    # distance once and the moments (18 flops) of the selected points
-    cand = 0.0
-    for a in range(0, n, 1 << 16):
-        cand += float(pg.row_count[kn.box_rows(pg, map_t[a:a + (1 << 16)],
-                                               nm.BASE_RADIUS)].sum())
-    b_ms, b_by = bound_ms(
-        nbytes(pg.pts_packed, pg.row_count, pg.block_row, pg.row_over, map_t, ones) + 40 * n,
-        cand * FLOPS_DIST + float(cnt.sum()) * 18)
-    log(f"{tag} base tier: {cand / n:.1f} candidates per query; bound {b_ms:.4f} ms by {b_by}")
+    wide_ms_2 = cuda_ms(wide, 3)
+    log(f"{tag} knn_moments per launch, grouping included: base tier (kernel, plain, kernel) "
+        f"{base_ms:.3f}, {plain_ms:.1f}, {base_ms_2:.3f} ms; wide tier ({q_w.shape[0]} queries; "
+        f"kernel, plain, kernel) {wide_ms:.3f}, {plain_wide_ms:.1f}, {wide_ms_2:.3f} ms")
+    # The outputs must not depend on the order of the queries: a shuffled
+    # sample of the map gives, point for point, the bits of the full launch
+    pick = torch.from_numpy(np.random.RandomState(SEED).permutation(n)[:N_SHUFFLED]).to(dev)
+    q_s = map_t[pick].contiguous()
+    k_shuf = kn.knn_moments(pg, q_s, ones[:N_SHUFFLED], K_NORMALS, nm.BASE_RADIUS)
+    max_abs_err = max(max_abs_err, compare_knn(
+        f"{tag} kernel vs plain, shuffled sample (r = {nm.BASE_RADIUS})", k_shuf,
+        kn.knn_moments_reference(pg, q_s, ones[:N_SHUFFLED], K_NORMALS, nm.BASE_RADIUS)))
+    if not all(torch.equal(a, b[pick]) for a, b in zip(k_shuf, k_base)):
+        raise AssertionError(f"{tag} the kernel's outputs depend on the order of the queries")
+    log(f"{tag} {N_SHUFFLED} shuffled map points: bit-equal to the same points of the full launch")
+    # The paths the main path's grid does not take: rows that do not start at
+    # multiples of 16 bytes (a cap that is no multiple of four: copied word by
+    # word) and the buffer of 32 (k > 16), on a fifth of the map
+    pg_odd = build_packed_grid(map_t[:n // 5], info["cell_size"], cap=30)
+    for k_odd in (K_NORMALS, 20):
+        args = (pg_odd, q_s, ones[:N_SHUFFLED], k_odd, nm.BASE_RADIUS)
+        max_abs_err = max(max_abs_err, compare_knn(
+            f"{tag} kernel vs plain, cap {pg_odd.cap}, k = {k_odd}", kn.knn_moments(*args),
+            kn.knn_moments_reference(*args)))
+    tiers = {
+        "base": knn_tier_stats(tag, pg, map_t, nm.BASE_RADIUS, float(cnt.sum())),
+        "wide": knn_tier_stats(tag, pg, q_w, nm.WIDE_RADIUS, float(p_wide[1].sum())),
+    }
+    tiers["base"].update(kernel_ms=[base_ms, base_ms_2], plain_ms=[plain_ms])
+    tiers["wide"].update(kernel_ms=[wide_ms, wide_ms_2], plain_ms=[plain_wide_ms])
     return normals, {
         "first_call_s": first_s, "estimate_normals_s": min(warm), "cell_size": info["cell_size"],
         "cap": info["cap"], "n_wide": info["n_wide"], "n_unresolved": info["n_unresolved"],
-        "exact_frac": exact_frac, "candidates_per_query": cand / n, "wide_ms": wide_ms,
-        "plain_wide_ms": plain_wide_ms, "kernel_ms": [base_ms, base_ms_2], "plain_ms": [plain_ms], "launches": launches,
-        "max_abs_err": max_abs_err, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "exact_frac": exact_frac, "tiers": tiers,
+        "kernel_ms": [base_ms, base_ms_2], "plain_ms": [plain_ms], "launches": launches,
+        "max_abs_err": max_abs_err, "bound_ms": tiers["base"]["bound_ms"],
+        "bound_by": tiers["base"]["bound_by"], "library_ms": None,
     }
 
 
@@ -704,11 +775,16 @@ def main() -> None:
     for r in results.values():
         r.pop("T", None)
     log("summary: " + json.dumps({"card": smi, "build_s": build_s, **results}))
+    # knn_moments: the top-level numbers are the base tier's; "tiers" holds both
     print(json.dumps({"kernels": [{
         "name": kernel.__name__, "route": "cuda", "source": source, "replaces": replaces,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": min(r["kernel_ms"]), "plain_ms": min(r["plain_ms"]),
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **({"tiers": {name: {"queries": t["queries"], "kernel_ms": min(t["kernel_ms"]),
+                             "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+                             "bound_by": t["bound_by"]} for name, t in r["tiers"].items()}}
+           if "tiers" in r else {}),
     } for kernel, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

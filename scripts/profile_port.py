@@ -5,6 +5,8 @@
 
 Builds the seed-42 bench data (1.2M-point map, 100k-point scan), warms each
 path once, then traces one ``estimate_normals(map, k=15)``, one
+``knn_moments`` call of each of its tiers (the k-NN kernel beside the two
+grouping kernels and the sort before it), one
 ``PlaneICP.set_target(map, norm=normals)`` and one ``align(scan)`` with
 ``torch.profiler`` and prints, for each, the wall time, the device time
 ("Self CUDA time total") and the kernels that take most of it. Prints the
@@ -24,7 +26,10 @@ from torch.profiler import ProfilerActivity, profile
 
 import point_cloud_registration_tpu_torch as pt
 from bench import make_city_map, make_scan
+from point_cloud_registration_tpu_torch.ops import normals as nm
+from point_cloud_registration_tpu_torch.ops.kernels.knn_normals import knn_moments
 from point_cloud_registration_tpu_torch.ops.normals import estimate_normals
+from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid
 
 
 def traced(label, fn):
@@ -60,6 +65,18 @@ def main() -> None:
     traced("estimate_normals(map, k=15)", lambda: estimate_normals(map_t, k=15))
     traced("estimate_normals(map, k=15, exact_tail=False)",
            lambda: estimate_normals(map_t, k=15, exact_tail=False))
+    # the two launches of the k-NN moments wrapper, on the queries estimate_normals sends
+    _, info = estimate_normals(map_t, k=15, return_info=True)
+    pg = build_packed_grid(map_t, info["cell_size"], cap=32, auto_cap=True)
+    ones = torch.ones(map_t.shape[0], device="cuda")
+    _, _, rk2, unres, exact = knn_moments(pg, map_t, ones, 15, nm.BASE_RADIUS)
+    tail = torch.nonzero(~exact & ~unres
+                         & (rk2 < float(np.float32((6.0 * pg.cell_fine) ** 2))))[:, 0]
+    q_w = map_t[tail].contiguous()
+    traced(f"knn_moments, base tier (r = {nm.BASE_RADIUS}, {map_t.shape[0]} queries)",
+           lambda: knn_moments(pg, map_t, ones, 15, nm.BASE_RADIUS))
+    traced(f"knn_moments, wide tier (r = {nm.WIDE_RADIUS}, {q_w.shape[0]} queries)",
+           lambda: knn_moments(pg, q_w, ones[:q_w.shape[0]], 15, nm.WIDE_RADIUS))
     normals = estimate_normals(map_t, k=15)
     solver = pt.PlaneICP(max_iter=30, max_dist=2.0, tol=1e-3, device="cuda")
     traced("PlaneICP.set_target(map, norm=normals)",

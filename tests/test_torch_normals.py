@@ -207,6 +207,117 @@ def test_knn_moments_wrapper_checks_and_counts():
     assert kn.box_blocks(2) == (4, 4, 3) and kn.box_blocks(4) == (6, 6, 5)
 
 
+def _edge_queries(pts, seed):
+    """The cloud itself plus queries on the grid's faces, just outside it
+    and far outside it (so far that the cell index is clamped)."""
+    rng = np.random.RandomState(seed)
+    lo, hi = pts.min(0), pts.max(0)
+    on_faces = lo + (hi - lo) * rng.randint(0, 2, size=(200, 3)) * rng.rand(200, 3).round(1)
+    near = lo - 3 + (hi - lo + 6) * rng.rand(300, 3)
+    far = np.float32([[1e12, 0, 0], [-1e12, -1e12, 5], [0, 3e10, -2e11], [np.inf, 1, 1]])
+    return np.vstack([pts, on_faces, near, near + 40, far]).astype(np.float32)
+
+
+def _assert_groups(pg, q, radius, order, starts, item):
+    """Every query in exactly one work item; an item holds at most ``item``
+    queries, all with the same candidate box, in the caller's order."""
+    n = q.shape[0]
+    assert order.dtype == torch.int64 and starts.dtype == torch.int64
+    np.testing.assert_array_equal(np.sort(order.numpy()), np.arange(n))
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(n)
+    torch.testing.assert_close(q[order][inverse], q, rtol=0, atol=0, equal_nan=True)
+    ends = torch.cat([starts[1:], torch.tensor([n])])
+    size = ends - starts
+    assert starts.numel() == 0 or (starts[0] == 0 and (size >= 1).all() and (size <= item).all())
+    rows = kn.box_rows(pg, q, radius)[order]
+    first = torch.repeat_interleave(starts, size)  # of each position's item
+    assert (rows == rows[first]).all()
+    assert (order[1:] > order[:-1])[first[1:] == first[:-1]].all()  # stable inside an item
+    return size
+
+
+@pytest.mark.parametrize("radius,item", [(2, kn.ITEM), (4, kn.ITEM), (2, 5), (4, 3)])
+def test_box_groups_share_a_box(radius, item):
+    pts = _scene(3000)
+    pg = build_packed_grid(torch.from_numpy(pts), 0.4, 32)
+    q = torch.from_numpy(_edge_queries(pts, radius))
+    order, starts = kn.box_groups(pg, q, radius, item)
+    size = _assert_groups(pg, q, radius, order, starts, item)
+    assert (size == item).any() and (size < item).any()
+    # a box with more queries than an item holds takes several items in a row
+    # (told by its rows: only boxes off the grid have the same rows, none, under two keys)
+    rows = kn.box_rows(pg, q, radius)[order[starts]]
+    on_grid = (rows != pg.pts_packed.shape[0] - 1).any(dim=1)
+    again = (rows[1:] == rows[:-1]).all(dim=1) & on_grid[1:]
+    assert again.any() and (size[:-1][again] == item).all()
+    n_boxes = torch.unique(kn._box_start(pg, q[:len(pts)], radius), dim=0).shape[0]
+    assert starts.numel() >= n_boxes
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+def test_box_groups_of_a_shuffled_subset(radius):
+    """The wide tier's case: some of the points, in an order of their own."""
+    pts = _scene(4000)
+    pg = build_packed_grid(torch.from_numpy(pts), 0.4, 32)
+    pick = np.random.RandomState(radius).permutation(len(pts))[:1500]
+    q = torch.from_numpy(pts[pick])
+    order, starts = kn.box_groups(pg, q, radius)
+    size = _assert_groups(pg, q, radius, order, starts, kn.ITEM)
+    # the same boxes as the sorted subset's, whatever the order of the queries
+    q_s = torch.from_numpy(pts[np.sort(pick)])
+    order_s, starts_s = kn.box_groups(pg, q_s, radius)
+    size_s = _assert_groups(pg, q_s, radius, order_s, starts_s, kn.ITEM)
+    np.testing.assert_array_equal(size.numpy(), size_s.numpy())
+    np.testing.assert_array_equal(kn.box_rows(pg, q, radius)[order[starts]].numpy(),
+                                  kn.box_rows(pg, q_s, radius)[order_s[starts_s]].numpy())
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+def test_box_groups_of_a_key_space_beyond_int32(radius):
+    """A block grid so large that a box key needs int64: the queries inside
+    the real grid group as they do there (keys order the boxes alike)."""
+    pts = _scene(3000)
+    pg = build_packed_grid(torch.from_numpy(pts), 0.4, 32)
+    vast = pg._replace(nb_dims=(1 << 12, 1 << 12, 1 << 11))
+    assert kn._box_key_space(pg, radius)[2] <= kn._INT32_MAX < kn._box_key_space(vast, radius)[2]
+    q = torch.from_numpy(pts[np.random.RandomState(radius).permutation(len(pts))])
+    order, starts = kn.box_groups(vast, q, radius)
+    _assert_groups(pg, q, radius, order, starts, kn.ITEM)
+    for a, b in zip((order, starts), kn.box_groups(pg, q, radius)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_box_groups_of_no_and_one_query(n):
+    pts = torch.from_numpy(_scene(500))
+    pg = build_packed_grid(pts, 0.4, 32)
+    order, starts = kn.box_groups(pg, pts[:n], 2)
+    assert order.tolist() == list(range(n)) and starts.tolist() == list(range(n))
+    out = kn.knn_moments(pg, pts[:n], torch.ones(n), 5, 2)
+    assert [tuple(o.shape) for o in out] == [(n, 6), (n,), (n,), (n,), (n,)]
+
+
+@pytest.mark.parametrize("cap", [30, 45])
+def test_knn_moments_takes_a_cap_that_is_no_multiple_of_four(cap):
+    """Rows of such a cap do not start at multiples of 16 bytes; the wrapper's
+    checks pass and the grouping and the plain version do not care."""
+    pts = torch.from_numpy(_scene(2000))
+    pg = build_packed_grid(pts, 0.4, cap)
+    assert pg.cap == cap and (cap * pg.width * 4) % 16 != 0
+    kn._check_grid(pg, pts)
+    order, starts = kn.box_groups(pg, pts, 2)
+    _assert_groups(pg, pts, 2, order, starts, kn.ITEM)
+    ref = _port_moments(pts.numpy(), 10, 0.4, 2, cap=32)
+    got = [o.numpy() for o in kn.knn_moments(pg, pts, torch.ones(len(pts)), 10, 2)]
+    untruncated = ~pg.row_over[kn.box_rows(pg, pts, 2)].any(dim=1).numpy()
+    assert untruncated.mean() > 0.5
+    for a, b in zip(got[1:], ref[1:]):  # the same kept points wherever no row was cut
+        np.testing.assert_array_equal(a[untruncated], b[untruncated])
+    scale = np.abs(ref[0]).max(axis=1, keepdims=True)  # sums in another order
+    assert (np.abs(got[0] - ref[0]) <= REL * scale + 1e-12)[untruncated].all()
+
+
 @pytest.mark.parametrize("n,k", [(3000, 15), (300_000, 15), (200, 5)])
 def test_sample_knn_radius_matches_jax(n, k):
     """The same draws, the same k-th distances, the same median: the cell
