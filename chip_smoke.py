@@ -27,7 +27,13 @@ scan, with the bench parameters:
    the first, and the kernel's per-iteration time beside the plain
    version's.
 5. The path with the plain stats: the GN loop over the plain version must
-   reach the kernel's T with the same iteration count.
+   reach the kernel's T with the same iteration count; for ICP and PlaneICP
+   it also counts, per iteration, the queries that take the proxy voxel.
+   For these two the packed-grid kernel is also held to its plain version on
+   a small lattice target: queries exactly midway between two kept points of
+   two blocks, of one block and between two proxy centroids, a query outside
+   the grid, a scan that goes to the proxy whole, and caps whose rows are no
+   multiple of 16 bytes.
 
 Between ICP and PlaneICP:
 
@@ -48,14 +54,19 @@ After PlaneICP:
    as the oracle of the packed grid: every such query that
    ``nearest_point_packed`` resolves within blocks that are not truncated
    has the exact distance. Timed beside chunked ``torch.cdist(...).min``.
+   Before that, bit for bit against the plain version at small ragged shapes
+   with a NaN query and with references duplicated across a tile border and
+   a segment border of the kernel (the first index must win).
 8. No JAX was imported.
 
 The line before the last is a JSON object describing each kernel: its
 launches on its path, its error against the plain version, its time, the
 plain version's, the least time the card could take for the same work
-(``bound_ms``: the larger of the bytes of every input and output once over
-3.35 TB/s and the operations over 67 TFLOP/s fp32) and, where one PyTorch
-call computes the same function, that call's time. The last line is
+(``bound_ms``: the larger of the bytes the function needs of every input
+and output once over 3.35 TB/s and the operations over 67 TFLOP/s fp32;
+``exact_nn`` also has ``contract_bound_ms``, its 8 separately rounded
+operations per pair at half that rate) and, where one PyTorch call computes
+the same function, that call's time. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -363,21 +374,63 @@ def point_args(s, src, w, T):
             proxy_radius(s.cfg.corr, s.cfg.max_dist), s.cfg.huber_delta)
 
 
-def point_work(row_flops):
+def point_work(row_flops, slot_bytes, proxy_row_bytes):
     def work(s, src, w, T, n_inliers):
-        # every kept point of the 2x2x2 blocks around each query is one
-        # distance; the proxy window of the few unresolved queries is left out
+        # The function needs, once each: the scan and its weights, block_row,
+        # row_count, the kept points of the rows in the queries' windows, and
+        # of the proxy table the rows in the windows of the queries that tier
+        # 1 leaves unresolved. Every kept point of a query's 2x2x2 blocks and
+        # every in-grid proxy cell of an unresolved query is one distance.
         import torch
+
+        from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
 
         tg = getattr(s._target, "corr", s._target)
         pg = tg.packed
         q = src @ T[:3, :3].T.to(src.device) + T[:3, 3].to(src.device)
         rows = _window_rows(pg, q)
+        held = torch.zeros_like(pg.row_over)  # rows in some query's window
+        held[rows[rows >= 0]] = True
+        row_bytes = slot_bytes * int(pg.row_count[held].sum())
         cand = torch.where(rows >= 0, pg.row_count[rows.clamp(min=0)], 0).sum(dim=1)
-        return (nbytes(pg.pts_packed, pg.row_count, pg.block_row, tg.proxy.table, src, w)
-                + 29 * 4,
-                float((cand * (w > 0)).sum()) * FLOPS_DIST + n_inliers * row_flops)
+        unresolved = _unresolved(pg, q, w)
+        keys = _proxy_window_keys(tg.proxy, q[unresolved],
+                                  proxy_radius(s.cfg.corr, s.cfg.max_dist))
+        n_bytes = (row_bytes + nbytes(pg.row_count, pg.block_row, src, w) + 29 * 4
+                   + proxy_row_bytes * torch.unique(keys[keys >= 0]).numel())
+        padded = nbytes(pg.pts_packed, pg.row_count, pg.block_row, tg.proxy.table, src, w) + 29 * 4
+        flops = (float((cand * (w > 0)).sum()) + float((keys >= 0).sum())) * FLOPS_DIST \
+            + n_inliers * row_flops
+        log(f"[{s.__class__.__name__}] bytes the function needs: {n_bytes / 1e6:.1f} MB "
+            f"({row_bytes / 1e6:.1f} MB of kept points in the windows' rows, "
+            f"{int(unresolved.sum())} queries to the proxy); with the padded row and proxy tables "
+            f"counted whole, as before: {padded / 1e6:.1f} MB, "
+            f"{bound_ms(padded, flops)[0]:.5f} ms")
+        return n_bytes, flops
     return work
+
+
+def _unresolved(pg, q, w):
+    """(N,) bool: the weighted queries that tier 1 leaves to the proxy."""
+    from point_cloud_registration_tpu_torch.ops.pointgrid import nearest_point_packed
+
+    return ~nearest_point_packed(pg, q).resolved & (w > 0)
+
+
+def _proxy_window_keys(proxy, q, radius: int):
+    """(M, (2 radius + 1)^3) keys of the proxy cells in each query's window,
+    -1 outside the grid."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.pointgrid import _cells
+
+    c = _cells(q, proxy.cell_size, proxy.origin_cell)
+    r = torch.arange(-radius, radius + 1, device=q.device)
+    off = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+    cells = c[:, None, :] + off[None]
+    dims = torch.tensor(proxy.dims, device=q.device)
+    ok = ((cells >= 0) & (cells < dims)).all(dim=-1)
+    return torch.where(ok, cells[..., 0] + dims[0] * (cells[..., 1] + dims[1] * cells[..., 2]), -1)
 
 
 def plain_target(s, m):
@@ -401,7 +454,7 @@ def solver_paths() -> list[SolverPath]:
                    T_REF_NDT, 3, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550"),
         SolverPath("icp", lambda d: pt.ICP(**PARAMS, device=d),
                    pa.point_stats, pa.point_stats_reference, point_args,
-                   point_work(FLOPS_M3_POINT), plain_target, "entry",
+                   point_work(FLOPS_M3_POINT, 12, 16), plain_target, "entry",
                    T_REF_ICP, 6, f"{CSRC}/point_align.cu", f"{PALLAS}/point_align.py:594"),
     ]
 
@@ -414,7 +467,7 @@ def plane_icp_path(normals) -> SolverPath:
 
     return SolverPath("plane_icp", lambda d: pt.PlaneICP(**PARAMS, k=K_NORMALS, device=d),
                       pa.plane_point_stats, pa.plane_point_stats_reference, point_args,
-                      point_work(FLOPS_PLANE_ROW), lambda s, m: s.set_target(m, norm=normals),
+                      point_work(FLOPS_PLANE_ROW, 24, 32), lambda s, m: s.set_target(m, norm=normals),
                       "entry", T_REF_PLANE_ICP, 3, f"{CSRC}/point_align.cu",
                       f"{PALLAS}/point_align.py:594")
 
@@ -508,11 +561,22 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
     log(f"{tag} bound {b_ms:.5f} ms by {b_by}")
 
     # 5. The path with the plain stats function on the card
+    packed_grid = path.args is point_args
+    proxy_share = []  # per iteration: the share of the queries that take the proxy
+
     def plain_stats(T):
+        if packed_grid:
+            pg = getattr(solver._target, "corr", solver._target).packed
+            q = src @ T[:3, :3].T.to(dev) + T[:3, 3].to(dev)
+            proxy_share.append(float(_unresolved(pg, q, w).sum()) / float((w > 0).sum()))
         return stats_from_packed(path.plain(*path.args(solver, src, w, T)).cpu())
 
     cfg = solver.cfg
     T_p, d_p = pt.gauss_newton(plain_stats, torch.eye(4), cfg.max_iter, cfg.tol)
+    if packed_grid:
+        log(f"{tag} share of the {int((w > 0).sum())} queries that take the proxy, per "
+            f"iteration: " + ", ".join(f"{x:.5f}" for x in proxy_share))
+        max_abs_err = max(max_abs_err, point_edge_cases(path, dev))
     dT = float(np.abs(T_p.numpy().astype(np.float64) - T_k).max())
     log(f"{tag} plain-stats GN: {d_p.iterations} iterations, max |dT| vs kernel {dT:.3e}")
     if not (dT < TOL_T and d_p.iterations == d.iterations):
@@ -525,7 +589,73 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         "plain_ms": [plain_ms, plain_ms_2], "offset_err": off_err, "dT_jax": ref_err,
         "dT_plain": dT, "launches": launches, "max_abs_err": max_abs_err,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "T": T_k,
+        **({"proxy_share": proxy_share} if packed_grid else {}),
     }
+
+
+def lattice_scene():
+    """A small target whose ties are exact: one point per 0.5 m fine cell of a
+    4 m cube (eight per packed block, every coordinate a multiple of 1/4), a
+    seeded random unit normal per point, and scans named by what they test."""
+    g = np.arange(8, dtype=np.float32) * 0.5 + 0.25
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+    rng = np.random.RandomState(SEED)
+    normals = rng.randn(len(pts), 3)
+    normals = (normals / np.linalg.norm(normals, axis=1, keepdims=True)).astype(np.float32)
+    above = np.stack(np.meshgrid(g, g, [4.5, 4.75, 5.0], indexing="ij"), axis=-1).reshape(-1, 3)
+    scans = {
+        # midway between two kept points of two blocks: the block probed first wins
+        "tie of two blocks": [[1.0, 0.25, 0.25]],
+        # midway between two kept points of one block: the earlier slot wins
+        "tie in one block": [[0.5, 0.25, 0.25]],
+        # beyond cell_fine of every point, midway between two proxy centroids
+        "tie of two proxy voxels": [[1.0, 0.5, 4.6]],
+        # no block of the window in the grid; a window that the grid cuts; one
+        # that reaches a proxy voxel from outside
+        "outside the grid": [[100.0, 100.0, 100.0], [-0.2, 0.3, 0.3], [-1.0, 2.0, 2.0]],
+        # every query at least cell_fine above the top layer: all to the proxy
+        "all to the proxy": above + rng.rand(len(above), 3) * 0.1,
+        "generic": rng.rand(3000, 3) * 5.0 - 0.5,
+    }
+    return pts, normals, {k: np.asarray(v, np.float32) for k, v in scans.items()}
+
+
+def point_edge_cases(path: SolverPath, dev) -> float:
+    """The packed-grid stats kernel of ``path`` against its plain version on
+    the lattice scene; returns the largest absolute error."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid_and_proxy
+
+    plane = path.name == "plane_icp"
+    pts, normals, scans = lattice_scene()
+    pts_t = torch.from_numpy(pts).to(dev)
+    feats = torch.from_numpy(normals).to(dev) if plane else None
+    worst = 0.0
+    # rows of 32 slots are multiples of 16 bytes; 30 x 12 and 31 x 24 bytes are not
+    for cap in (32, 30, 31):
+        pg, proxy = build_packed_grid_and_proxy(pts_t, 0.5, cap, min_points=3 if plane else 1,
+                                                with_normals=plane, feats=feats)
+        for name, scan in scans.items():
+            src = torch.from_numpy(scan).to(dev)
+            w = torch.ones(len(scan), device=dev)
+            for T in (torch.tensor(np.float32(
+                    [[1, 0, 0, 0.5], [0, 1, 0, 0.25], [0, 0, 1, -0.5], [0, 0, 0, 1]])),
+                    torch.eye(4)):
+                args = (pg, proxy, src, w, T[:3, :3], T[:3, 3], 2.0, 2, None)
+                k, p = path.kernel(*args), path.plain(*args)
+                err = float((k - p).abs().max())
+                if not (err <= 1e-5 * max(1.0, float(p.abs().max())) and k[28] == p[28]):
+                    raise AssertionError(f"[{path.name}] {name}, cap {cap}: kernel {k.tolist()} "
+                                         f"against plain {p.tolist()}")
+                worst = max(worst, err)
+            # p is now the plain version's result at T = I
+            if name == "all to the proxy" and not (
+                    _unresolved(pg, src, w).all() and float(p[28]) == len(scan)):
+                raise AssertionError(f"[{path.name}] {name}: some query did not take the proxy")
+    log(f"[{path.name}] kernel vs plain on the lattice scene ({', '.join(scans)}; caps 32, 30, "
+        f"31; two poses): max abs err {worst:.3e}")
+    return worst
 
 
 def run_normals(map_t, dev) -> tuple:
@@ -654,6 +784,7 @@ def run_exact_nn(map_t, scan_np, T_icp, icp_target, dev) -> dict:
     from point_cloud_registration_tpu_torch.ops.pointgrid import nearest_point_packed
 
     tag = "[exact_nn]"
+    exact_nn_edge_cases(tag, dev)
     sel = np.sort(np.random.RandomState(SEED).choice(len(scan_np), N_EXACT, replace=False))
     T = torch.as_tensor(T_icp, dtype=torch.float32)
     q = (torch.from_numpy(scan_np[sel]).to(dev) @ T[:3, :3].T.to(dev) + T[:3, 3].to(dev))
@@ -694,13 +825,56 @@ def run_exact_nn(map_t, scan_np, T_icp, icp_target, dev) -> dict:
     library_ms = cuda_ms(cdist_min, 3)
     plain_ms = cuda_ms(lambda: en.exact_nn_reference(q, map_t), 1)
     ms_2 = cuda_ms(lambda: en.exact_nn(q, map_t), 5)
-    b_ms, b_by = bound_ms(nbytes(q, map_t) + 8 * N_EXACT,
-                          float(N_EXACT) * map_t.shape[0] * FLOPS_DIST)
+    pairs = float(N_EXACT) * map_t.shape[0]
+    b_ms, b_by = bound_ms(nbytes(q, map_t) + 8 * N_EXACT, pairs * FLOPS_DIST)
+    # The contract forbids fused multiply-adds (each of the 8 operations of a
+    # pair is rounded by itself), and an unfused instruction does one operation
+    # where the card's peak counts two.
+    contract_ms = 1e3 * pairs * FLOPS_DIST / (FP32_FLOP_PER_S / 2)
     log(f"{tag} kernel, cdist().min, plain, kernel: {ms:.3f}, {library_ms:.3f}, {plain_ms:.1f}, "
-        f"{ms_2:.3f} ms; bound {b_ms:.4f} ms by {b_by}; max |cdist - exact| {lib_err:.3e}")
+        f"{ms_2:.3f} ms; bound {b_ms:.4f} ms by {b_by} (8 fused flops per pair), "
+        f"contract_bound_ms {contract_ms:.4f} (8 separately rounded operations per pair at half "
+        f"the peak); max |cdist - exact| {lib_err:.3e}")
     return {"kernel_ms": [ms, ms_2], "plain_ms": [plain_ms], "library_ms": library_ms,
             "launches": launches, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-            "certified": n_cert}
+            "contract_bound_ms": contract_ms, "certified": n_cert}
+
+
+def exact_nn_edge_cases(tag: str, dev) -> None:
+    """The exact 1-NN kernel against its plain version, bit for bit, at ragged
+    shapes: a reference count that is no multiple of four, one reference, one
+    query, a NaN query, and references duplicated across a border of the
+    kernel's tiles and of its segments, where the first index must win."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
+
+    tile = 1024  # reference points per shared-memory tile of the kernel
+    rng = np.random.RandomState(SEED)
+    for nq, nr in ((1, 1), (7, 513), (1025, 300), (300, 4097), (2000, 1), (4096, 200_001)):
+        ref = (rng.rand(nr, 3) * [20, 20, 3]).astype(np.float32)
+        q = (rng.rand(nq, 3) * [22, 22, 4] - 1).astype(np.float32)
+        segments, seg_len = en.launch_shape(nq, nr, dev)
+        # a duplicate across the first border of each kind that this shape has
+        borders = {"tile": tile if seg_len > tile else 0, "segment": seg_len if segments > 1 else 0}
+        for k, at in enumerate(borders.values()):
+            if 0 < at < nr and k < nq:
+                ref[at] = ref[at - 1]
+                q[k] = ref[at]
+        if nq > 2:
+            q[2] = np.nan
+        q_t, ref_t = torch.from_numpy(q).to(dev), torch.from_numpy(ref).to(dev)
+        d_k, i_k = en.exact_nn(q_t, ref_t)
+        d_p, i_p = en.exact_nn_reference(q_t, ref_t)
+        first = all(int(i_k[k]) == at - 1 and float(d_k[k]) == 0.0
+                    for k, at in enumerate(borders.values()) if 0 < at < nr and k < nq)
+        nan_kept = nq <= 2 or (int(i_k[2]) == -1 and float(d_k[2]) == float("inf"))
+        dups = ", ".join(f"{name} border {at}" for name, at in borders.items() if 0 < at < nr)
+        same_d, same_i = torch.equal(d_k, d_p), torch.equal(i_k, i_p)
+        log(f"{tag} {nq} x {nr} ({segments} segments of {seg_len}; duplicates across "
+            f"{dups or 'no border: one tile'}): distances equal {same_d}, indices equal {same_i}")
+        if not (same_d and same_i and first and nan_kept):
+            raise AssertionError(f"{tag} kernel disagrees with its plain version at {nq} x {nr}")
 
 
 def _window_rows(pg, q):
@@ -781,6 +955,7 @@ def main() -> None:
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": min(r["kernel_ms"]), "plain_ms": min(r["plain_ms"]),
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **({"contract_bound_ms": r["contract_bound_ms"]} if "contract_bound_ms" in r else {}),
         **({"tiers": {name: {"queries": t["queries"], "kernel_ms": min(t["kernel_ms"]),
                              "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
                              "bound_by": t["bound_by"]} for name, t in r["tiers"].items()}}

@@ -138,12 +138,14 @@ __device__ __forceinline__ void accumulate_whitened(
   acc[28] += w;
 }
 
-// Sums the block's per-thread accumulators (warp shuffles, then shared
-// memory) into row blockIdx.x of `partials` (n_blocks, 29). No atomics: for
-// a fixed launch shape the sums repeat bit for bit from run to run.
+// Sums the per-thread accumulators of a block of kBlockWarps warps (warp
+// shuffles, then shared memory) into row blockIdx.x of `partials`
+// (n_blocks, 29). No atomics: for a fixed launch shape the sums repeat bit
+// for bit from run to run.
+template <int kBlockWarps = kWarps>
 __device__ __forceinline__ void block_reduce_store(const float* acc,
                                                    float* __restrict__ partials) {
-  __shared__ float warp_sums[kWarps][kStats];
+  __shared__ float warp_sums[kBlockWarps][kStats];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < kStats; ++k) {
@@ -156,7 +158,7 @@ __device__ __forceinline__ void block_reduce_store(const float* acc,
   if (threadIdx.x < kStats) {
     float s = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += warp_sums[wi][threadIdx.x];
+    for (int wi = 0; wi < kBlockWarps; ++wi) s += warp_sums[wi][threadIdx.x];
     partials[blockIdx.x * kStats + threadIdx.x] = s;
   }
 }

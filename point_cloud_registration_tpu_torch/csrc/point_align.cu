@@ -32,7 +32,7 @@
 // resolved query has the same winner.
 //
 // The Morton layout, tile key lists and VMEM tile tables of the TPU kernel
-// exist for its memory system and have no counterpart: a thread reads its
+// exist for its memory system and have no counterpart: the lanes read their
 // blocks straight from the packed rows.
 //
 // Tables (see ops/pointgrid.py): pts (R+1, cap * width) f32, the kept points
@@ -41,22 +41,54 @@
 // key or -1; proxy (NB, 8) f32 rows [mu_x, mu_y, mu_z, valid, n_x, n_y, n_z, 0]
 // in block-key order (the normal is read by plane_pt only).
 //
-// Bound: memory latency. Tier 1 reads at most 8 rows of cap points of
-// 12 bytes per query (3 KB at cap 32, at most 0.3 GB per iteration at 100k
-// queries; plane_pt reads the same 12 bytes at a stride of 24, and the
-// winner's normal once). The packed rows of the bench map (0.2M x 384 B =
-// 77 MB, 154 MB for plane_pt) exceed the 50 MB L2, but neighbouring queries
-// share rows. Only unresolved
-// queries probe the proxy window (125 16-byte loads).
+// Bound: bytes. The function needs the scan and its weights, block_row,
+// row_count, the kept points of the rows in the queries' windows (at most
+// the map's points once, 12 or 24 bytes each) and the proxy rows of the
+// queries that reach the proxy: under ten microseconds at 100k queries and
+// a 1.2M-point map. What a kernel really pays is the serial work of a query:
+// one thread per query walks its eight blocks one after the other, each a
+// chain of dependent loads (block_row -> row_count -> points) read by 4-byte
+// loads, every lane of a warp from a row of its own. The design spreads a
+// query over lanes and widens the loads:
+//
+//   * A group of kGroup = 8 lanes serves its 8 queries in turn, one round per
+//     query. In a round lane b takes block b of the query's window
+//     (b = 4 dbx + 2 dby + dbz, the probe order), so the eight blocks are
+//     looked up at once. (Looking the blocks of all eight rounds up ahead of
+//     the first row, with or without prefetches of the rows, costs eight
+//     registers and was measured to gain nothing: the loads' latency is not
+//     what the rounds wait for.)
+//   * A lane reads the kept prefix of its row with 16-byte loads, four
+//     points (width 3) or two points with their normals (width 6) per three
+//     loads, where rows start at multiples of 16 bytes; else word by word, in
+//     the same kernel. It keeps its first minimum (strict "<" in slot order).
+//   * The eight lanes merge by three xor-shuffles on (d2, lane): the smaller
+//     d2 wins and, at equal d2, the lower lane, which is the first minimum in
+//     probe order. The four groups of a warp go through the rounds in step, so
+//     every shuffle names the whole warp. An unresolved query's proxy probes are split over the
+//     eight lanes, probe p to lane p mod 8, and merged by (d2, probe index)
+//     the same way.
+//   * The winner's address goes to the lane that owns the query. After the
+//     eight rounds every lane loads its own target and accumulates its own
+//     query: the 29-term update runs with full lanes.
+//   * Blocks of 128 threads, six resident per SM: the 100k queries of the
+//     bench scan are one wave of 24 warps per SM. A query of weight 0 takes
+//     no round, so the padding behind a scan costs nothing.
+// No atomics; the order of the sums depends on the launch shape only.
+
+#include <climits>
+#include <cstdint>
 
 #include "gn_accumulate.cuh"
 
 namespace {
 
-using pcr::kBlock;
 using pcr::kStats;
 using pcr::Pose;
 
+constexpr int kThreads = 128;  // threads per block
+constexpr int kBlocksPerSm = 6;
+constexpr int kGroup = 8;  // lanes per query: one per block of the 2x2x2 window
 // A true division, as in hashgrid.cell_coords (not fused_align.cu's multiply).
 __device__ __forceinline__ int cell_div(float v, float cell, int origin) {
   return pcr::clamped_cell(floorf(v / cell), origin);
@@ -66,103 +98,237 @@ __device__ __forceinline__ int floor_div2(int v) { return (v - (v < 0)) / 2; }
 
 enum Kind { kPoint = 0, kPlanePt = 1 };
 
+// The packed grid and its proxy map.
+struct Tables {
+  const float* pts;
+  const int* row_count;
+  const int* block_row;
+  int cap, nbx, nby, nbz, ofx, ofy, ofz;
+  float cell_fine;
+  const float4* proxy;
+  int pox, poy, poz;
+  float proxy_cell;
+  int proxy_radius;
+  bool aligned;  // rows start at multiples of 16 bytes
+};
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Minimum of (d2, order) over the kGroup lanes of each group of the warp: the
+// smaller d2 and, at equal d2, the lower order. Every lane gets its group's
+// winner. The whole warp must call it.
+__device__ __forceinline__ void group_min(float& d2, int& order) {
+#pragma unroll
+  for (int off = kGroup / 2; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(kFull, d2, off, kGroup);
+    const int oo = __shfl_xor_sync(kFull, order, off, kGroup);
+    if (od < d2 || (od == d2 && oo < order)) {
+      d2 = od;
+      order = oo;
+    }
+  }
+}
+
+// First minimum of the squared distance from (qx, qy, qz) over the first
+// `cnt` slots of the packed row at `row`: its d2 (+inf if cnt is 0) and slot.
+template <int kWidth>
+__device__ __forceinline__ void scan_row(const float* __restrict__ row, int cnt,
+                                         bool aligned, float qx, float qy,
+                                         float qz, float& best, int& best_s) {
+  best = __int_as_float(0x7f800000);
+  best_s = 0;
+  auto consider = [&](float x, float y, float z, int s) {
+    const float dx = qx - x, dy = qy - y, dz = qz - z;
+    const float d2 = dx * dx + dy * dy + dz * dz;
+    if (s < cnt && d2 < best) {
+      best = d2;
+      best_s = s;
+    }
+  };
+  if (aligned) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    if constexpr (kWidth == 3) {
+      for (int s = 0; s < cnt; s += 4, r4 += 3) {
+        const float4 a = __ldg(r4), b = __ldg(r4 + 1), c = __ldg(r4 + 2);
+        consider(a.x, a.y, a.z, s);
+        consider(a.w, b.x, b.y, s + 1);
+        consider(b.z, b.w, c.x, s + 2);
+        consider(c.y, c.z, c.w, s + 3);
+      }
+    } else {
+      static_assert(kWidth == 6, "slots are xyz or xyz + normal");
+      for (int s = 0; s < cnt; s += 2, r4 += 3) {
+        const float4 a = __ldg(r4), b = __ldg(r4 + 1), c = __ldg(r4 + 2);
+        consider(a.x, a.y, a.z, s);
+        consider(b.z, b.w, c.x, s + 1);
+      }
+    }
+  } else {
+    for (int s = 0; s < cnt; ++s) {
+      const float* c = row + kWidth * s;
+      consider(__ldg(c), __ldg(c + 1), __ldg(c + 2), s);
+    }
+  }
+}
+
+// pcr::nearest_valid_cell on the proxy table, by the kGroup lanes of a group
+// together: the probes of the clipped window, x fastest and z slowest, go to
+// the lanes in turn, and the lanes merge by (d2, probe index), which keeps
+// the first minimum in probe order. Every lane returns the winner's key (-1
+// when the window holds no valid cell) and its squared distance in best_d2.
+// The whole warp must call it; a group that is not `active` probes nothing.
+__device__ __forceinline__ int group_nearest_proxy(bool active, int gl,
+                                                   const Tables& tb, float qx,
+                                                   float qy, float qz,
+                                                   float& best_d2) {
+  const int cx = cell_div(qx, tb.proxy_cell, tb.pox);
+  const int cy = cell_div(qy, tb.proxy_cell, tb.poy);
+  const int cz = cell_div(qz, tb.proxy_cell, tb.poz);
+  const int r = tb.proxy_radius;
+  const int x0 = max(cx - r, 0), y0 = max(cy - r, 0), z0 = max(cz - r, 0);
+  const int wx = max(min(cx + r, tb.nbx - 1) - x0 + 1, 0);
+  const int wy = max(min(cy + r, tb.nby - 1) - y0 + 1, 0);
+  const int wz = max(min(cz + r, tb.nbz - 1) - z0 + 1, 0);
+  const int total = active ? wx * wy * wz : 0;
+  float best = __int_as_float(0x7f800000);
+  int best_p = INT_MAX;
+  for (int p = gl; p < total; p += kGroup) {
+    const int t = p / wx;
+    const int key = x0 + p % wx + tb.nbx * (y0 + t % wy + tb.nby * (z0 + t / wy));
+    const float4 c = __ldg(&tb.proxy[2 * key]);
+    if (c.w > 0.f) {
+      const float dx = qx - c.x, dy = qy - c.y, dz = qz - c.z;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      if (d2 < best) {
+        best = d2;
+        best_p = p;
+      }
+    }
+  }
+  group_min(best, best_p);
+  best_d2 = best;
+  if (best_p == INT_MAX) return -1;
+  const int t = best_p / wx;
+  return x0 + best_p % wx + tb.nbx * (y0 + t % wy + tb.nby * (z0 + t / wy));
+}
+
 template <int kKind>
-__global__ void __launch_bounds__(kBlock) point_stats_kernel(
-    const float* __restrict__ pts, const int* __restrict__ row_count,
-    const int* __restrict__ block_row, int cap, int nbx, int nby, int nbz,
-    int ofx, int ofy, int ofz, float cell_fine, const float4* __restrict__ proxy,
-    int pox, int poy, int poz, float proxy_cell, int proxy_radius,
-    const float* __restrict__ src, const float* __restrict__ w, int n, Pose T,
-    float max_dist, int use_huber, float huber_delta,
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) point_stats_kernel(
+    Tables tb, const float* __restrict__ src, const float* __restrict__ w, int n,
+    Pose T, float max_dist, int use_huber, float huber_delta,
     float* __restrict__ partials) {
   constexpr int kWidth = kKind == kPoint ? 3 : 6;  // floats per packed slot
   const float kInf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (kGroup - 1);  // lane of its group = block of the window
+  const int dbx = gl >> 2, dby = (gl >> 1) & 1, dbz = gl & 1;
+  const long long row_floats = static_cast<long long>(tb.cap) * kWidth;
   float acc[kStats];
 #pragma unroll
   for (int k = 0; k < kStats; ++k) acc[k] = 0.f;
 
-  for (int i = blockIdx.x * kBlock + threadIdx.x; i < n;
-       i += gridDim.x * kBlock) {
-    const float px = src[3 * i], py = src[3 * i + 1], pz = src[3 * i + 2];
+  // Whole blocks stride over the scan, so the lanes of a group stay together;
+  // a lane behind the scan's end has weight 0 and serves the others' queries.
+  for (int base = blockIdx.x * kThreads; base < n; base += gridDim.x * kThreads) {
+    const int i = base + threadIdx.x;
+    const bool live = i < n;
+    const float wi = live ? w[i] : 0.f;
+    const float px = live ? src[3 * i] : 0.f, py = live ? src[3 * i + 1] : 0.f,
+                pz = live ? src[3 * i + 2] : 0.f;
     // q = R p + t in the JAX package's order: ((x R0 + y R1) + z R2) + t.
     const float qx = px * T.r00 + py * T.r01 + pz * T.r02 + T.t0;
     const float qy = px * T.r10 + py * T.r11 + pz * T.r12 + T.t1;
     const float qz = px * T.r20 + py * T.r21 + pz * T.r22 + T.t2;
+    // Tier 1 probes the 2x2x2 blocks from this one on.
+    const int bx0 = floor_div2(cell_div(qx, tb.cell_fine, tb.ofx) - 1);
+    const int by0 = floor_div2(cell_div(qy, tb.cell_fine, tb.ofy) - 1);
+    const int bz0 = floor_div2(cell_div(qz, tb.cell_fine, tb.ofz) - 1);
 
-    // Tier 1: nearest kept point of the 2x2x2 blocks around the fine cell.
-    const int bx0 = floor_div2(cell_div(qx, cell_fine, ofx) - 1);
-    const int by0 = floor_div2(cell_div(qy, cell_fine, ofy) - 1);
-    const int bz0 = floor_div2(cell_div(qz, cell_fine, ofz) - 1);
-    float best = kInf;
-    long long best_off = -1;  // offset of the winner's x in pts
-    for (int dbx = 0; dbx < 2; ++dbx) {
-      const int bx = bx0 + dbx;
-      if (bx < 0 || bx >= nbx) continue;
-      for (int dby = 0; dby < 2; ++dby) {
-        const int by = by0 + dby;
-        if (by < 0 || by >= nby) continue;
-        for (int dbz = 0; dbz < 2; ++dbz) {
-          const int bz = bz0 + dbz;
-          if (bz < 0 || bz >= nbz) continue;
-          const int row = __ldg(&block_row[bx + nbx * (by + nby * bz)]);
-          if (row < 0) continue;
-          const int cnt = __ldg(&row_count[row]);
-          const long long base = static_cast<long long>(row) * cap * kWidth;
-          for (int s = 0; s < cnt; ++s) {
-            const float* c = pts + base + kWidth * s;
-            const float dx = qx - __ldg(c), dy = qy - __ldg(c + 1),
-                        dz = qz - __ldg(c + 2);
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            if (d2 < best) {
-              best = d2;
-              best_off = base + kWidth * s;
-            }
-          }
+    float my_d2 = kInf;
+    long long my_off = -1;  // offset of the matched point's x in pts, or
+    int my_key = -1;        // the key of the matched proxy voxel
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      // A query of weight 0 (the scan's padding) adds nothing: its group idles
+      // through the round, and a round that no group needs is left out.
+      const bool weighted = __shfl_sync(kFull, wi != 0.f, k, kGroup);
+      if (!__any_sync(kFull, weighted)) continue;
+      const float ax = __shfl_sync(kFull, qx, k, kGroup);
+      const float ay = __shfl_sync(kFull, qy, k, kGroup);
+      const float az = __shfl_sync(kFull, qz, k, kGroup);
+      // This lane's block of the window: its packed row and kept points.
+      const int bx = __shfl_sync(kFull, bx0, k, kGroup) + dbx;
+      const int by = __shfl_sync(kFull, by0, k, kGroup) + dby;
+      const int bz = __shfl_sync(kFull, bz0, k, kGroup) + dbz;
+      const bool inside = weighted && bx >= 0 && bx < tb.nbx && by >= 0 &&
+                          by < tb.nby && bz >= 0 && bz < tb.nbz;
+      const int row =
+          inside ? __ldg(&tb.block_row[bx + tb.nbx * (by + tb.nby * bz)]) : -1;
+      const int cnt = row >= 0 ? min(__ldg(&tb.row_count[row]), tb.cap) : 0;
+      float best;
+      int slot;
+      scan_row<kWidth>(tb.pts + max(row, 0) * row_floats, cnt, tb.aligned, ax, ay, az,
+                       best, slot);
+      int winner = gl;
+      group_min(best, winner);
+      const int win_row = __shfl_sync(kFull, row, winner, kGroup);
+      const int win_slot = __shfl_sync(kFull, slot, winner, kGroup);
+      const bool resolved = sqrtf(best) < tb.cell_fine;
+      const long long off = resolved ? win_row * row_floats + kWidth * win_slot : -1;
+      int key = -1;
+      // Unresolved: nearest valid proxy-voxel centroid in the window. The warp
+      // enters together, the groups that have no such query probe nothing.
+      const bool to_proxy = weighted && !resolved;
+      if (__any_sync(kFull, to_proxy)) {
+        float best_p;
+        const int key_p = group_nearest_proxy(to_proxy, gl, tb, ax, ay, az, best_p);
+        if (to_proxy) {
+          key = key_p;
+          best = best_p;
         }
+      }
+      if (gl == k) {
+        my_d2 = best;
+        my_off = off;
+        my_key = key;
       }
     }
 
-    float dist = sqrtf(best), tx, ty, tz, nx = 0.f, ny = 0.f, nz = 0.f;
-    if (dist < cell_fine) {
-      tx = __ldg(&pts[best_off]);
-      ty = __ldg(&pts[best_off + 1]);
-      tz = __ldg(&pts[best_off + 2]);
+    float tx, ty, tz, nx = 0.f, ny = 0.f, nz = 0.f;
+    if (my_off >= 0) {
+      tx = __ldg(&tb.pts[my_off]);
+      ty = __ldg(&tb.pts[my_off + 1]);
+      tz = __ldg(&tb.pts[my_off + 2]);
       if constexpr (kKind == kPlanePt) {
-        nx = __ldg(&pts[best_off + 3]);
-        ny = __ldg(&pts[best_off + 4]);
-        nz = __ldg(&pts[best_off + 5]);
+        nx = __ldg(&tb.pts[my_off + 3]);
+        ny = __ldg(&tb.pts[my_off + 4]);
+        nz = __ldg(&tb.pts[my_off + 5]);
       }
-    } else {
-      // Unresolved: nearest valid proxy-voxel centroid in the window.
-      float best_p;
-      const int key = pcr::nearest_valid_cell<2>(
-          proxy, nbx, nby, nbz, cell_div(qx, proxy_cell, pox),
-          cell_div(qy, proxy_cell, poy), cell_div(qz, proxy_cell, poz),
-          proxy_radius, qx, qy, qz, best_p);
-      if (!(best_p < kInf)) continue;  // no valid voxel in the window
-      const float4 mu = __ldg(&proxy[2 * key]);
-      dist = sqrtf(best_p);
+    } else if (my_key >= 0) {
+      const float4 mu = __ldg(&tb.proxy[2 * my_key]);
       tx = mu.x;
       ty = mu.y;
       tz = mu.z;
       if constexpr (kKind == kPlanePt) {
-        const float4 nrm = __ldg(&proxy[2 * key + 1]);
+        const float4 nrm = __ldg(&tb.proxy[2 * my_key + 1]);
         nx = nrm.x;
         ny = nrm.y;
         nz = nrm.z;
       }
+    } else {
+      continue;  // no kept point within cell_fine, no valid voxel in the window
     }
-    if (!(dist < max_dist)) continue;
+    if (!(sqrtf(my_d2) < max_dist)) continue;
     if constexpr (kKind == kPlanePt) {
-      pcr::accumulate_plane(acc, w[i], T, px, py, pz, nx, ny, nz, qx - tx,
+      pcr::accumulate_plane(acc, wi, T, px, py, pz, nx, ny, nz, qx - tx,
                             qy - ty, qz - tz, use_huber, huber_delta);
     } else {
       const float u[6] = {1.f, 0.f, 0.f, 1.f, 0.f, 1.f};
-      pcr::accumulate_whitened(acc, w[i], u, T, px, py, pz, qx - tx, qy - ty,
+      pcr::accumulate_whitened(acc, wi, u, T, px, py, pz, qx - tx, qy - ty,
                                qz - tz, use_huber, huber_delta);
     }
   }
-  pcr::block_reduce_store(acc, partials);
+  pcr::block_reduce_store<kThreads / 32>(acc, partials);
 }
 
 template <int kKind>
@@ -174,12 +340,16 @@ int launch(const float* pts, const int* row_count, const int* block_row, int cap
            float r21, float r22, float t0, float t1, float t2, float max_dist,
            int use_huber, float huber_delta, float* partials, int n_blocks,
            void* stream) {
+  constexpr int kWidth = kKind == kPoint ? 3 : 6;
   const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  point_stats_kernel<kKind><<<n_blocks, kBlock, 0,
+  const bool aligned = (static_cast<long long>(cap) * kWidth * 4) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(pts) % 16 == 0;
+  const Tables tb{pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz,
+                  cell_fine, reinterpret_cast<const float4*>(proxy), pox, poy, poz,
+                  proxy_cell, proxy_radius, aligned};
+  point_stats_kernel<kKind><<<n_blocks, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz, cell_fine,
-      reinterpret_cast<const float4*>(proxy), pox, poy, poz, proxy_cell,
-      proxy_radius, src, w, n, T, max_dist, use_huber, huber_delta, partials);
+      tb, src, w, n, T, max_dist, use_huber, huber_delta, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -188,7 +358,7 @@ int launch(const float* pts, const int* row_count, const int* block_row, int cap
 extern "C" {
 
 // Threads per block; the wrapper sizes the partials as (n_blocks, 29).
-int pcr_point_block_size() { return kBlock; }
+int pcr_point_block_size() { return kThreads; }
 
 // Each launches its kernel on `stream` and returns cudaGetLastError().
 int pcr_point_stats(const float* pts, const int* row_count, const int* block_row,

@@ -24,10 +24,6 @@ from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import require_cuda
 from point_cloud_registration_tpu_torch.ops.knn import brute_force_nn
 
-# Blocks the launch aims for: a few per SM of a 132-SM card.
-_TARGET_BLOCKS = 528
-_REF_TILE = 1024  # reference points per shared-memory tile of the kernel
-
 
 def exact_nn_reference(query: torch.Tensor, ref: torch.Tensor,
                        chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
@@ -43,10 +39,22 @@ def _kernel_fn():
     c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
     fn.argtypes = [c_ptr, c_int, c_ptr, c_int, c_int] + [c_ptr] * 5
     fn.restype = c_int
-    block = lib.pcr_exact_nn_block_size
-    block.argtypes = []
-    block.restype = c_int
-    return fn, int(block())
+    for shape_fn in (lib.pcr_exact_nn_segments, lib.pcr_exact_nn_segment_length):
+        shape_fn.argtypes = [c_int, c_int]
+        shape_fn.restype = c_int
+    return fn, lib.pcr_exact_nn_segments, lib.pcr_exact_nn_segment_length
+
+
+def launch_shape(nq: int, nr: int, device) -> tuple[int, int]:
+    """``(segments, references per segment)`` of the kernel's launch for
+    ``nq`` queries and ``nr`` references on the CUDA card ``device``: segment
+    ``s`` holds the references from ``s`` times the length on."""
+    _, segments_fn, length_fn = _kernel_fn()
+    with torch.cuda.device(device):
+        segments = segments_fn(nq, nr)
+    if segments < 1:
+        raise RuntimeError(f"exact_nn: CUDA error {-segments} reading the device")
+    return segments, length_fn(nr, segments)
 
 
 def _check(name: str, x: torch.Tensor, device) -> None:
@@ -72,9 +80,12 @@ def exact_nn(query: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torc
     idx = torch.full((nq,), -1, dtype=torch.int32, device=query.device)
     if nq == 0 or nr == 0:
         return dist, idx
-    fn, block = _kernel_fn()
-    q_blocks = -(-nq // block)
-    segments = max(1, min(-(-_TARGET_BLOCKS // q_blocks), -(-nr // _REF_TILE)))
+    fn = _kernel_fn()[0]
+    if ref.data_ptr() % 16:
+        # the kernel's bulk copies need a 16-byte aligned source: an unaligned
+        # view (a slice that starts at an odd point) is copied once
+        ref = ref.clone()
+    segments, _ = launch_shape(nq, nr, query.device)  # segments that fill the card
     part_d2 = torch.empty((segments, nq), dtype=torch.float32, device=query.device)
     part_idx = torch.empty((segments, nq), dtype=torch.int32, device=query.device)
     rc = fn(query.data_ptr(), nq, ref.data_ptr(), nr, segments, part_d2.data_ptr(),

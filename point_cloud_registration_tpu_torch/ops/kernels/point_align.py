@@ -103,9 +103,8 @@ _C_SYMBOLS = {"point": "pcr_point_stats", "plane_pt": "pcr_plane_point_stats"}
 _WIDTHS = {"point": 3, "plane_pt": 6}
 
 
-@functools.cache
-def _kernel_fn(kind: str):
-    lib = load_library("point_align")
+def _bind(lib: ctypes.CDLL, kind: str):
+    """``(C function, threads per block)`` of ``kind`` in a built library."""
     fn = getattr(lib, _C_SYMBOLS[kind])
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
@@ -121,6 +120,11 @@ def _kernel_fn(kind: str):
     block.argtypes = []
     block.restype = c_int
     return fn, int(block())
+
+
+@functools.cache
+def _kernel_fn(kind: str):
+    return _bind(load_library("point_align"), kind)
 
 
 def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
@@ -145,14 +149,12 @@ def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
         raise ValueError(f"proxy dims {proxy.dims} are not the block grid {pg.nb_dims}")
 
 
-def _launch(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta) -> torch.Tensor:
-    require_cuda(src)
-    check_operands(src, w)
-    _check_tables(kind, pg, proxy, src)
+def launch_partials(kind, bound, pg, proxy, src, w, R, t, max_dist, proxy_radius,
+                    huber_delta) -> torch.Tensor:
+    """Launch the kernel ``bound`` (:func:`_bind`) on checked operands and
+    return its (n_blocks, 29) per-block partial sums."""
+    fn, block = bound
     n = src.shape[0]
-    if n == 0:
-        return torch.zeros(STATS_WIDTH, dtype=torch.float32, device=src.device)
-    fn, block = _kernel_fn(kind)
     n_blocks = min(-(-n // block), MAX_BLOCKS)
     partials = torch.empty((n_blocks, STATS_WIDTH), dtype=torch.float32,
                            device=src.device)
@@ -171,6 +173,17 @@ def _launch(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius, hube
     )
     if rc != 0:
         raise RuntimeError(f"{kind} stats kernel launch failed: CUDA error {rc}")
+    return partials
+
+
+def _launch(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta) -> torch.Tensor:
+    require_cuda(src)
+    check_operands(src, w)
+    _check_tables(kind, pg, proxy, src)
+    if src.shape[0] == 0:
+        return torch.zeros(STATS_WIDTH, dtype=torch.float32, device=src.device)
+    partials = launch_partials(kind, _kernel_fn(kind), pg, proxy, src, w, R, t, max_dist,
+                               proxy_radius, huber_delta)
     counter.launches += 1
     return partials.sum(dim=0)
 

@@ -104,3 +104,67 @@ def test_brute_force_knn_matches_jax(k):
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6)
     np.testing.assert_array_equal(np.sort(i.numpy(), axis=1), np.sort(np.asarray(ji), axis=1))
     assert (np.diff(d.numpy(), axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("border", [512, 1024, 4096, 600], ids=lambda b: f"border{b}")
+def test_duplicates_across_borders_and_nan_query(border):
+    """A reference duplicated at ``border - 1`` and ``border``: across the TPU
+    kernel's reference tile (512), the CUDA kernel's (1024), the plain
+    version's (4096) and, with ``chunk=600``, behind the plain version's query
+    chunk. The query on it takes the earlier index; a NaN query keeps
+    (inf, -1) in both packages."""
+    q, ref = _clouds(1300, 4200, border)
+    ref[border] = ref[border - 1]
+    q[border % 1300] = ref[border]  # distance 0 to both copies
+    q[7] = np.nan
+    d, i = exact_nn_reference(torch.from_numpy(q), torch.from_numpy(ref), chunk=600)
+    jd, ji = exact_nn_pallas(q, ref, interpret=True)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6)
+    assert int(i[border % 1300]) == border - 1 and float(d[border % 1300]) == 0.0
+    assert int(i[7]) == -1 and np.isinf(float(d[7]))
+
+
+def _grouped_first_argmin(d2, group, tile, seg_len):
+    """A model in NumPy of how the CUDA kernel carries the index: per segment
+    the running minimum over groups of ``group`` values (tiles padded with
+    +inf to whole groups) with a strict "<" that keeps the first group, then
+    the first value of that group equal to the minimum; the segments merge in
+    order with a strict "<"."""
+    best, best_idx = np.inf, -1
+    for r0 in range(0, len(d2), seg_len):
+        seg_best, seg_group = np.inf, -1
+        r1 = min(r0 + seg_len, len(d2))
+        for base in range(r0, r1, tile):
+            t = d2[base:min(base + tile, r1)]
+            t = np.concatenate([t, np.full(-len(t) % group, np.inf)])
+            for g, m in enumerate(np.fmin.reduce(t.reshape(-1, group), axis=1)):
+                if m < seg_best:
+                    seg_best, seg_group = m, base + g * group
+        idx = -1
+        if seg_group >= 0:
+            for j in range(min(seg_group + group, r1) - 1, seg_group - 1, -1):
+                if d2[j] == seg_best:
+                    idx = j
+        if seg_best < best:
+            best, best_idx = seg_best, idx
+    return best, best_idx
+
+
+@pytest.mark.parametrize("n,seg_len", [(1, 4), (37, 12), (513, 100), (2000, 2000), (4097, 684)])
+def test_minimum_first_index_after_model(n, seg_len):
+    """The grouped minimum-then-locate walk gives ``argmin``'s first index,
+    whatever the ties (values drawn from few integers) and the NaNs."""
+    rng = np.random.RandomState(n)
+    for trial in range(20):
+        d2 = rng.randint(0, 6, n).astype(np.float32)
+        if trial % 3 == 0:
+            d2[rng.randint(0, n, max(n // 7, 1))] = np.nan
+        if trial % 5 == 4:
+            d2[:] = np.inf  # no candidate: (inf, -1)
+        want = np.where(np.isnan(d2), np.inf, d2)
+        best, idx = _grouped_first_argmin(d2, group=8, tile=64, seg_len=seg_len)
+        if np.isinf(want.min()):
+            assert (best, idx) == (np.inf, -1)
+        else:
+            assert (best, idx) == (want.min(), int(np.argmin(want)))

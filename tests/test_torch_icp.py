@@ -333,3 +333,112 @@ def test_reference_fixture_rotation(cube):
     icp.set_target(cube)
     np.testing.assert_allclose(icp.align(src), T_j, rtol=0, atol=1e-3)
     assert icp.last_diagnostics.iterations == it_j
+
+
+def tie_scene():
+    """A lattice target (one point per 0.5 m fine cell of a 4 m cube, eight
+    per packed block, every coordinate a multiple of 1/4) and queries whose
+    two nearest candidates are exactly as far: ``(target, {kind: (query,
+    the two tied targets)})``."""
+    g = np.arange(8, dtype=np.float32) * 0.5 + 0.25
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1).reshape(-1, 3)
+    ties = {
+        # midway between kept points of two blocks: the block probed first wins
+        "two_blocks": ([1.0, 0.25, 0.25], ([0.75, 0.25, 0.25], [1.25, 0.25, 0.25])),
+        # midway between two kept points of one block: the earlier slot wins
+        "one_block": ([0.5, 0.25, 0.25], ([0.25, 0.25, 0.25], [0.75, 0.25, 0.25])),
+        # beyond cell_fine of every point, midway between two proxy centroids:
+        # the voxel probed first (x fastest) wins
+        "two_proxies": ([1.0, 0.5, 4.6], ([0.5, 0.5, 3.5], [1.5, 0.5, 3.5])),
+    }
+    # The tie query stands second, behind a query that sits on a target point:
+    # the JAX package's compacted proxy tier pads its index list with 0, so an
+    # unresolved query 0 loses its proxy match there (models/_point_corr.py).
+    return pts.astype(np.float32), {k: (np.float32([pts[100], q]), np.float32(t))
+                                    for k, (q, t) in ties.items()}
+
+
+def tie_winner(packed, pts, kind, tied):
+    """The target that ``match_points`` must pick for the tie ``kind``."""
+    if kind != "one_block":
+        return tied[0]  # the lower block / proxy key is probed first
+    ids = [int(np.flatnonzero((pts == t).all(axis=1))[0]) for t in tied]
+    row = packed.idx_packed[int(packed.block_row[0])].tolist()
+    return tied[int(row.index(ids[1]) < row.index(ids[0]))]
+
+
+@pytest.mark.parametrize("kind", ["two_blocks", "one_block", "two_proxies"])
+def test_ties_take_the_first_candidate_in_probe_order(kind):
+    """What the kernel's lane merge must keep: at equal distance the first
+    block in probe order, the first slot in a block, the first proxy voxel;
+    the same winner as the JAX package's ``match_points``, seen in the sign of
+    the residual."""
+    pts, ties = tie_scene()
+    q, tied = ties[kind]
+    jt = jax_build_icp_target(pts, JaxICPConfig(**PARAMS, corr=JaxCorr(**PACKED)))
+    tt = build_point_corr(pts, CorrespondenceConfig(**PACKED), MAX_DIST, device="cpu")
+    assert tt.packed.cell_fine == 0.5 and tt.packed.cap == 32
+    a = jax_match_points(jt, jnp.asarray(q), JaxCorr(**PACKED), MAX_DIST)
+    b = match_points(tt, torch.from_numpy(q), CorrespondenceConfig(**PACKED), MAX_DIST)
+    want = tie_winner(tt.packed, pts, kind, tied)
+    np.testing.assert_array_equal(b.target.numpy()[1], want)
+    np.testing.assert_array_equal(np.asarray(a.target)[1], want)
+    np.testing.assert_array_equal(b.point_idx.numpy(), np.asarray(a.point_idx))
+    assert (int(b.point_idx[1]) >= 0) == (kind != "two_proxies")
+    np.testing.assert_array_equal(b.weight.numpy(), [1.0, 1.0])
+    np.testing.assert_array_equal(np.asarray(a.weight), [1.0, 1.0])
+    d = np.abs(q[1] - tied).sum(axis=1)
+    assert d[0] == d[1]  # an exact tie
+    st = stats_from_packed(_port_point_stats(tt, q, np.eye(4)))
+    want_st = jax_point_stats(jnp.asarray(q), jnp.asarray(q), a.target, a.weight, jnp.eye(3))
+    np.testing.assert_array_equal(st.g.numpy(), np.asarray(want_st.g))
+    # g = J^T r with J = [I | ...]; the query on a target point adds nothing
+    np.testing.assert_array_equal(st.g.numpy()[:3], q[1] - want)
+
+
+def _lane_merge(d2, order):
+    """The kernel's merge over 8 lanes in NumPy: three xor-shuffle steps on
+    (d2, order); the smaller d2 wins and, at equal d2, the lower order."""
+    d2, order = d2.copy(), order.copy()
+    for off in (4, 2, 1):
+        od, oo = d2[np.arange(8) ^ off], order[np.arange(8) ^ off]
+        take = (od < d2) | ((od == d2) & (oo < order))
+        d2, order = np.where(take, od, d2), np.where(take, oo, order)
+    return d2, order
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_lane_merge_model_keeps_the_first_minimum(seed):
+    """Eight lanes each keep the first minimum of their own candidates (a
+    block's slots, or every eighth proxy probe); the xor merge then yields the
+    first minimum of all candidates in probe order, in every lane, whatever
+    the ties and the empty lanes."""
+    rng = np.random.RandomState(seed)
+    for _ in range(50):
+        counts = rng.randint(0, 6, 8)
+        # blocks: lane b holds block b's slots, probe order = (lane, slot)
+        rows = [rng.randint(0, 4, c).astype(np.float32) for c in counts]
+        lane_d2 = np.float32([r.min() if len(r) else np.inf for r in rows])
+        d2, lane = _lane_merge(lane_d2, np.arange(8))
+        flat = np.concatenate(rows) if counts.sum() else np.float32([])
+        if len(flat):
+            first = int(np.argmin(flat))  # first minimum in (lane, slot) order
+            starts = np.concatenate([[0], np.cumsum(counts)])
+            assert (lane == np.searchsorted(starts, first, side="right") - 1).all()
+            slot = int(np.argmin(rows[lane[0]]))
+            assert starts[lane[0]] + slot == first and (d2 == flat.min()).all()
+        else:
+            assert np.isinf(d2).all()
+        # proxy probes: probe p goes to lane p % 8, merged by (d2, probe index)
+        probes = rng.randint(0, 3, rng.randint(0, 40)).astype(np.float32)
+        probes[rng.rand(len(probes)) < 0.3] = np.inf  # invalid cells
+        best = np.full(8, np.inf, np.float32)
+        best_p = np.full(8, np.iinfo(np.int32).max)
+        for p, v in enumerate(probes):
+            if v < best[p % 8]:
+                best[p % 8], best_p[p % 8] = v, p
+        d2, p = _lane_merge(best, best_p)
+        if np.isfinite(probes).any():
+            assert (p == int(np.argmin(probes))).all() and (d2 == probes.min()).all()
+        else:
+            assert (p == np.iinfo(np.int32).max).all()

@@ -300,3 +300,37 @@ def test_small_target_needs_the_packed_method():
     with pytest.raises(NotImplementedError, match="not ported"):
         PlaneICP(device="cpu").set_target(np.random.RandomState(0).rand(500, 3),
                                           norm=np.tile([0.0, 0.0, 1.0], (500, 1)))
+
+
+@pytest.mark.parametrize("kind", ["two_blocks", "one_block", "two_proxies"])
+def test_ties_take_the_first_candidate_in_probe_order(kind):
+    """The tie scene of tests/test_torch_icp.py with a random unit normal per
+    point: at equal distance the plain "plane_pt" version takes the candidate
+    the JAX package takes (the first block in probe order, the first slot of a
+    block, the first proxy voxel), seen in r = n . (q - t) of the winner."""
+    from test_torch_icp import tie_scene, tie_winner
+
+    pts, ties = tie_scene()
+    q, tied = ties[kind]
+    rng = np.random.RandomState(7)
+    normals = rng.randn(len(pts), 3)
+    normals = (normals / np.linalg.norm(normals, axis=1, keepdims=True)).astype(np.float32)
+    jt = jax_build_plane_icp_target(pts, JaxPlaneICPConfig(**PARAMS, corr=JaxCorr(**PACKED)),
+                                    normals=normals)
+    js = _jax_picp(**PARAMS)
+    js._target = jt
+    ps = _port_picp(**PARAMS)
+    ps._target = _carry(jt)
+    want = js.calc_H_g_e2(np.eye(4), q)
+    got = ps.calc_H_g_e2(np.eye(4), q)
+    _normalised_close(got, want, atol=1e-6)
+    own = _port_picp(**PARAMS)
+    own.set_target(pts, norm=normals)  # the port's own build: the same rows
+    _normalised_close(own.calc_H_g_e2(np.eye(4), q), want, atol=1e-6)
+    if kind != "two_proxies":
+        winner = tie_winner(ps._target.corr.packed, pts, kind, tied)
+        r = {tuple(t): float(normals[np.flatnonzero((pts == t).all(axis=1))[0]] @ (q[1] - t))
+             for t in tied}
+        loser = tied[1] if (winner == tied[0]).all() else tied[0]
+        assert abs(r[tuple(winner)] ** 2 - r[tuple(loser)] ** 2) > 1e-4
+        np.testing.assert_allclose(got[2], r[tuple(winner)] ** 2, rtol=1e-5)
