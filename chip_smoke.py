@@ -33,7 +33,13 @@ scan, with the bench parameters:
    a small lattice target: queries exactly midway between two kept points of
    two blocks, of one block and between two proxy centroids, a query outside
    the grid, a scan that goes to the proxy whole, and caps whose rows are no
-   multiple of 16 bytes.
+   multiple of 16 bytes. For VPlaneICP and NDT the fused voxel kernel is held
+   to its plain version on a lattice voxel map, one query per launch (so the
+   sums name the winner): queries exactly midway between two valid cells of
+   two rows and of two bitmap words of one row, a window with no valid cell,
+   queries on and beyond every face of the grid; then 1,000 queries with zero
+   weights, in the caller's order and ordered by cell. Phase 4 of these two
+   prints the valid cells per window (mean, p99) beside the bound.
 
 Between ICP and PlaneICP:
 
@@ -48,6 +54,12 @@ Between ICP and PlaneICP:
    these normals (``set_target(map, norm=normals)``).
 
 After PlaneICP:
+
+6b. k = 40, above one walk of the k-NN kernel: ``estimate_normals(map,
+   k=40)`` through the kernel (once per tier), the kernel against its plain
+   version at that k, and ``PlaneICP(k=40)`` with normals of its own through
+   the k-NN and plane_pt kernels, converged near the scan's offset (there is
+   no JAX reference at this k and size).
 
 7. Exact 1-NN: the kernel against its plain version on 4,096 scan points at
    ICP's converged T against the whole map (distance and index equal), and
@@ -127,6 +139,8 @@ T_REF_PLANE_ICP = np.array([
     [2.2827965e-07, 9.9732824e-07, 1.0, -2.9965439e-01],
 ])
 K_NORMALS = 15
+K_ROUNDS = 40  # above knn_normals.ROUND_K: the k-NN kernel selects in rounds
+K_DEEP = (80, 100)  # two and three rounds, checked kernel against plain
 # cov6 of kernel vs plain: float32 sums of up to ~50 products in another
 # order, relative to the query's largest covariance entry
 TOL_COV = 1e-5
@@ -341,27 +355,86 @@ def launch_counts() -> dict:
 def voxel_args(s, src, w, T):
     """The arguments of a fused voxel-stats wrapper for solver ``s`` at ``T``."""
     vm = s._target
-    return (vm.table, vm.origin_cell, vm.dims, vm.cell_size, src, w,
+    return (vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w,
             T[:3, :3], T[:3, 3], s.cfg.max_dist, s.cfg.huber_delta)
+
+
+def voxel_windows(vm, q, w, radius: int, chunk: int = 1 << 14) -> dict:
+    """What the windows of the weighted queries ``q`` touch in the map's cell
+    index: the valid cells per window (mean, p99), the distinct rows and
+    bitmap words, and the in-grid cells (what a dense probe reads)."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.knn import compact_rows, window_offsets
+
+    dev = q.device
+    n_rows = vm.cells.centers.shape[0] - 1
+    rows_hit = torch.zeros(n_rows + 1, dtype=torch.bool, device=dev)
+    words_hit = torch.zeros(vm.cells.occ.shape[0], dtype=torch.bool, device=dev)
+    dims = torch.tensor(vm.dims, device=dev)
+    offs = window_offsets(radius, dev)
+    inv = torch.tensor(np.float32(1.0 / np.float32(vm.cell_size)), device=dev)
+    origin = torch.tensor(vm.origin_cell, device=dev)
+    live = q[w > 0]
+    per_window, in_grid = [], 0.0
+    for a in range(0, live.shape[0], chunk):
+        c = torch.floor(live[a:a + chunk] * inv).clamp(-1e9, 1e9).long() - origin
+        cells = c[:, None, :] + offs[None]
+        ok = ((cells >= 0) & (cells < dims)).all(dim=-1)
+        key = torch.where(ok, cells[..., 0] + dims[0] * (cells[..., 1] + dims[1] * cells[..., 2]),
+                          0)
+        row = torch.where(ok, compact_rows(vm.cells.occ, key, n_rows), n_rows)
+        rows_hit[row.reshape(-1)] = True
+        words_hit[(key >> 5)[ok]] = True
+        per_window.append((row < n_rows).sum(dim=1))
+        in_grid += float(ok.sum())
+    per_window = torch.cat(per_window).float()
+    return {"valid_per_window": float(per_window.mean()),
+            "valid_per_window_p99": float(torch.quantile(per_window, 0.99)),
+            "distances": float(per_window.sum()), "rows": int(rows_hit[:n_rows].sum()),
+            "words": int(words_hit.sum()), "in_grid_probes": in_grid}
 
 
 def voxel_work(row_flops):
     def work(s, src, w, T, n_inliers):
-        # every in-grid cell of each query's window is one distance
+        # The function needs, once each: the scan's points of nonzero weight,
+        # all weights and the 29 sums; the centroid of every valid cell that
+        # some window touches, and the features of every cell that wins for
+        # an inlier; the bitmap words those windows cover. Every valid cell of
+        # a window is one distance, every inlier one linearization.
         import torch
 
+        from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
         from point_cloud_registration_tpu_torch.ops.knn import window_radius
 
         vm = s._target
-        r = window_radius(s.cfg.max_dist, vm.cell_size)
         q = src @ T[:3, :3].T.to(src.device) + T[:3, 3].to(src.device)
-        c = torch.floor(q / vm.cell_size).long() - torch.tensor(vm.origin_cell,
-                                                                device=src.device)
-        dims = torch.tensor(vm.dims, device=src.device)
-        span = (torch.minimum(c + r, dims - 1) - torch.clamp(c - r, min=0) + 1).clamp(min=0)
-        probes = float((span.prod(dim=1) * (w > 0)).sum())
-        return (nbytes(vm.table, src, w) + 29 * 4,
-                probes * FLOPS_DIST + n_inliers * row_flops)
+        hit = voxel_windows(vm, q, w, window_radius(s.cfg.max_dist, vm.cell_size))
+        _, _, best_row, wq = fa._voxel_matches(vm.cells, vm.origin_cell, vm.dims, vm.cell_size,
+                                               src, w, T[:3, :3], T[:3, 3], s.cfg.max_dist,
+                                               8192)
+        winners = int(torch.unique(best_row[wq != 0]).numel())
+        feat_bytes = vm.cells.feats.shape[1] * 4
+        n_live = int((w != 0).sum())
+        n_bytes = (12 * n_live + 4 * w.shape[0] + 29 * 4 + 16 * hit["rows"]
+                   + feat_bytes * winners + 8 * hit["words"])
+        flops = hit["distances"] * FLOPS_DIST + n_inliers * row_flops
+        # the counts before: every touched valid row with its features and the
+        # whole scan; and before the cell index, the dense table whole (rows
+        # of 8 and 12 floats) and every in-grid probe
+        touched = nbytes(src, w) + 29 * 4 + (16 + feat_bytes) * hit["rows"] + 8 * hit["words"]
+        dense = nbytes(src, w) + 29 * 4 + int(np.prod(vm.dims)) * (16 + feat_bytes)
+        old_ms = bound_ms(dense, hit["in_grid_probes"] * FLOPS_DIST + n_inliers * row_flops)
+        log(f"[{s.__class__.__name__}] valid cells per window: mean "
+            f"{hit['valid_per_window']:.2f}, p99 {hit['valid_per_window_p99']:.0f} (of "
+            f"{hit['in_grid_probes'] / max(float((w > 0).sum()), 1.0):.1f} in-grid cells); "
+            f"bytes the function needs: {n_bytes / 1e6:.3f} MB ({hit['rows']} of "
+            f"{vm.cells.centers.shape[0] - 1} valid centroids, features of {winners} winning "
+            f"cells, {hit['words']} bitmap words, {n_live} of {w.shape[0]} scan points); "
+            f"with the features of every touched cell and the whole scan: "
+            f"{touched / 1e6:.3f} MB; with the dense table counted whole: "
+            f"{dense / 1e6:.1f} MB, {old_ms[0]:.5f} ms by {old_ms[1]}")
+        return n_bytes, flops
     return work
 
 
@@ -577,6 +650,8 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         log(f"{tag} share of the {int((w > 0).sum())} queries that take the proxy, per "
             f"iteration: " + ", ".join(f"{x:.5f}" for x in proxy_share))
         max_abs_err = max(max_abs_err, point_edge_cases(path, dev))
+    else:
+        max_abs_err = max(max_abs_err, voxel_edge_cases(path, dev))
     dT = float(np.abs(T_p.numpy().astype(np.float64) - T_k).max())
     log(f"{tag} plain-stats GN: {d_p.iterations} iterations, max |dT| vs kernel {dT:.3e}")
     if not (dT < TOL_T and d_p.iterations == d.iterations):
@@ -655,6 +730,110 @@ def point_edge_cases(path: SolverPath, dev) -> float:
                 raise AssertionError(f"[{path.name}] {name}: some query did not take the proxy")
     log(f"[{path.name}] kernel vs plain on the lattice scene ({', '.join(scans)}; caps 32, 30, "
         f"31; two poses): max abs err {worst:.3e}")
+    return worst
+
+
+def voxel_lattice(kind: str, dev):
+    """A small voxel map whose distances are exact: cells of 1 m on a grid of
+    (37, 9, 7) (rows of 37 cells cross the 32-cell words of the bitmap at
+    every offset), centroids at the cell centres, a quarter of the cells
+    valid, with seeded random unit normals ("plane") or random upper
+    triangular U ("ndt"); a 7x7x7 block left empty. Returns ``(cells, dims,
+    valid, ties)``: ``ties`` holds queries midway between two valid cells,
+    of two rows and of two words of one row."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.knn import cell_index
+
+    dims = (37, 9, 7)
+    rng = np.random.RandomState(SEED)
+    d = int(np.prod(dims))
+    key = np.arange(d)
+    xyz = np.stack([key % dims[0], (key // dims[0]) % dims[1], key // (dims[0] * dims[1])], 1)
+    valid = rng.rand(d) < 0.25
+    valid[(xyz[:, 0] >= 20) & (xyz[:, 0] < 27) & (xyz[:, 1] >= 1) & (xyz[:, 1] < 8)] = False
+    ties = []
+    for low, high, mid in ((31, 32, [32.0, 0.5, 0.5]), (63, 64, [27.0, 1.5, 0.5]),
+                           (5, 5 + dims[0], [5.5, 1.0, 0.5]),
+                           (140, 140 + dims[0], [29.5, 4.0, 0.5])):
+        valid[[low, high]] = True
+        ties.append(mid)
+    if kind == "plane":
+        feats = rng.randn(d, 3)
+        feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    else:
+        feats = rng.randn(d, 6) * 0.3 + np.array([1.0, 0.0, 0.0, 1.0, 0.0, 1.0])
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    cells = cell_index(t(xyz + 0.5), torch.from_numpy(valid).to(dev), t(feats))
+    return cells, dims, valid, np.asarray(ties, np.float32)
+
+
+def voxel_edge_cases(path: SolverPath, dev) -> float:
+    """The fused voxel kernel of ``path`` against its plain version on the
+    lattice map: each tie query, a query whose window holds no valid cell and
+    queries on, across and beyond every face of the grid, one launch each
+    (the sums of one query name its winner); then 1,000 queries (no multiple
+    of the 256-thread block) with weights of which a third are 0, and the same
+    scan ordered by cell. Returns the largest absolute error."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.knn import nearest_valid_cell
+
+    kind = "plane" if path.name == "vplane_icp" else "ndt"
+    cells, dims, valid, ties = voxel_lattice(kind, dev)
+    rng = np.random.RandomState(SEED + 1)
+    hi = np.float32(dims)
+    singles = {
+        "tie": ties,
+        "empty window": np.float32([[23.5, 4.5, 3.5]]),
+        "faces": np.vstack([rng.rand(40, 3) * (hi + 6) - 3,
+                            np.float32([[0.0, 4.2, 3.1], [36.99, 4.2, 3.1], [10.1, 0.0, 6.99],
+                                        [10.1, 8.99, 0.0], [-2.5, 4.5, 3.5], [39.4, 8.0, 6.0],
+                                        [1e12, 0.0, 0.0], [5.0, -3e9, 2.0]])]),
+    }
+    worst = 0.0
+    eye, zero = torch.eye(3), torch.zeros(3)
+
+    def check(label, src, w, max_dist):
+        nonlocal worst
+        args = (cells, (0, 0, 0), dims, 1.0, src, w, eye, zero, max_dist, None)
+        k, p = path.kernel(*args), path.plain(*args)
+        err = float((k - p).abs().max())
+        # n is the summed weight: equal for weights of 1, to rounding for others
+        if not (err <= 1e-5 * max(1.0, float(p.abs().max()))
+                and abs(float(k[28] - p[28])) <= 1e-5 * max(1.0, float(p[28]))):
+            raise AssertionError(f"[{path.name}] {label}: kernel {k.tolist()} against plain "
+                                 f"{p.tolist()}")
+        worst = max(worst, err)
+        return p
+
+    for max_dist in (2.0, 1.0):  # windows of radius 2 and 1
+        for name, qs in singles.items():
+            for j, qn in enumerate(qs):
+                src = torch.from_numpy(qn[None].astype(np.float32)).to(dev)
+                p = check(f"{name} {qn.tolist()} at max_dist {max_dist}", src,
+                          torch.ones(1, device=dev), max_dist)
+                if name == "empty window" and float(p[28]) != 0.0:
+                    raise AssertionError(f"[{path.name}] the empty window found a cell")
+        # each tie goes to the cell probed first, the lower key
+        q = torch.from_numpy(ties).to(dev)
+        _, row = nearest_valid_cell(cells.centers, dims, torch.floor(q).long(), q, int(max_dist),
+                                    occ=cells.occ)
+        keys = np.flatnonzero(valid)[row.cpu().numpy()]
+        if not np.array_equal(keys, [31, 63, 5, 140]):
+            raise AssertionError(f"[{path.name}] the plain version's tie winners are {keys}")
+        many = torch.from_numpy((rng.rand(1000, 3) * (hi + 2) - 1).astype(np.float32)).to(dev)
+        w = torch.from_numpy((rng.rand(1000) > 0.33).astype(np.float32)
+                             * rng.rand(1000).astype(np.float32)).to(dev)
+        check(f"1000 queries, {int((w == 0).sum())} of weight 0", many, w, max_dist)
+        c = torch.floor(many) + 2  # ordered by cell, as a LiDAR's scan lines nearly are
+        order = torch.argsort(c[:, 0] + 64 * (c[:, 1] + 64 * c[:, 2]), stable=True)
+        check("the same ordered by cell", many[order].contiguous(), w[order].contiguous(),
+              max_dist)
+    log(f"[{path.name}] kernel vs plain on the voxel lattice (ties of two rows and of two "
+        f"words of a row, an empty window, the grid's faces, one query per launch; 1,000 "
+        f"queries with zero weights, in the caller's order and by cell; radius 2 and 1): "
+        f"max abs err {worst:.3e}")
     return worst
 
 
@@ -752,13 +931,21 @@ def run_normals(map_t, dev) -> tuple:
     log(f"{tag} {N_SHUFFLED} shuffled map points: bit-equal to the same points of the full launch")
     # The paths the main path's grid does not take: rows that do not start at
     # multiples of 16 bytes (a cap that is no multiple of four: copied word by
-    # word) and the buffer of 32 (k > 16), on a fifth of the map
+    # word), the buffer of 32 (k > 16) and its rounds (k > 32; three rounds at
+    # k = 100), on a fifth of the map, where some boxes hold between 32 and k
+    # candidates and some more than k
     pg_odd = build_packed_grid(map_t[:n // 5], info["cell_size"], cap=30)
-    for k_odd in (K_NORMALS, 20):
+    for k_odd in (K_NORMALS, 20, K_ROUNDS) + K_DEEP:
         args = (pg_odd, q_s, ones[:N_SHUFFLED], k_odd, nm.BASE_RADIUS)
-        max_abs_err = max(max_abs_err, compare_knn(
-            f"{tag} kernel vs plain, cap {pg_odd.cap}, k = {k_odd}", kn.knn_moments(*args),
-            kn.knn_moments_reference(*args)))
+        plain = kn.knn_moments_reference(*args)
+        label = f"{tag} kernel vs plain, cap {pg_odd.cap}, k = {k_odd}"
+        if k_odd > kn.ROUND_K:
+            short = int((plain[3] & (plain[1] > kn.ROUND_K)).sum())
+            full = int((~plain[3]).sum())
+            label += f" ({short} queries with {kn.ROUND_K + 1} to {k_odd - 1} candidates, {full} with k)"
+            if not (short > 0 and full > 0):
+                raise AssertionError(f"{label}: the rounds' exits are not all taken")
+        max_abs_err = max(max_abs_err, compare_knn(label, kn.knn_moments(*args), plain))
     tiers = {
         "base": knn_tier_stats(tag, pg, map_t, nm.BASE_RADIUS, float(cnt.sum())),
         "wide": knn_tier_stats(tag, pg, q_w, nm.WIDE_RADIUS, float(p_wide[1].sum())),
@@ -773,6 +960,65 @@ def run_normals(map_t, dev) -> tuple:
         "max_abs_err": max_abs_err, "bound_ms": tiers["base"]["bound_ms"],
         "bound_by": tiers["base"]["bound_by"], "library_ms": None,
     }
+
+
+def run_rounds(map_np, scan_np, dev) -> dict:
+    """Phase 6b: k = 40, above one walk of the k-NN kernel, through the
+    entry points: ``estimate_normals(map, k=40)`` (the kernel must run once
+    per tier; the kernel against its plain version on a shuffled sample of
+    the map with this k's grid) and ``PlaneICP(k=40)`` (normals of its own,
+    then ``align``: through the k-NN and the plane_pt kernels, converged near
+    the scan's offset)."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.ops import normals as nm
+    from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+    from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid
+
+    tag = f"[normals k = {K_ROUNDS}]"
+    map_t = torch.from_numpy(map_np).to(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    normals, info = nm.estimate_normals(map_t, k=K_ROUNDS, return_info=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    tiers = 1 + (info["n_wide"] > 0)
+    log(f"{tag} estimate_normals (first call): {first_s:.3f} s; cell_size "
+        f"{info['cell_size']:.6f}, cap {info['cap']}, wide tier {info['n_wide']}, unresolved "
+        f"{info['n_unresolved']}, certified exact {float(info['exact'].float().mean()):.4f}; "
+        f"launch counts {launch_counts()}")
+    if kn.knn_moments.launches != tiers:
+        raise AssertionError(f"{tag} knn_moments launched {kn.knn_moments.launches} times "
+                             f"for {tiers} tiers")
+    if not (torch.isfinite(normals).all() and float((normals.norm(dim=1) - 1).abs().max()) < 1e-4):
+        raise AssertionError(f"{tag} normals are not finite unit vectors")
+    warm_s = cuda_ms_once(lambda: nm.estimate_normals(map_t, k=K_ROUNDS))[1]
+    pg = build_packed_grid(map_t, info["cell_size"], cap=32, auto_cap=True)
+    pick = torch.from_numpy(np.random.RandomState(SEED).permutation(len(map_np))[:N_SHUFFLED])
+    q = map_t[pick.to(dev)].contiguous()
+    ones = torch.ones(q.shape[0], device=dev)
+    args = (pg, q, ones, K_ROUNDS, nm.BASE_RADIUS)
+    err = compare_knn(f"{tag} kernel vs plain, shuffled sample, cap {pg.cap}",
+                      kn.knn_moments(*args), kn.knn_moments_reference(*args))
+    reset_launches()
+    solver = pt.PlaneICP(**PARAMS, k=K_ROUNDS, device=dev)
+    solver.set_target(map_np)
+    T = solver.align(scan_np)
+    d = solver.last_diagnostics
+    counts = launch_counts()
+    off_err = float(np.linalg.norm(T[:3, 3] + SCAN_OFFSET))
+    log(f"{tag} PlaneICP(k={K_ROUNDS}): {d.iterations} iterations, converged {d.converged}, "
+        f"|t - (0, 0, -0.3)| = {off_err:.5f}, max |T - T_jax(k = {K_NORMALS})| = "
+        f"{float(np.abs(T[:3] - T_REF_PLANE_ICP).max()):.2e}; launch counts {counts}")
+    if not (d.converged and np.isfinite(T).all() and off_err < TOL_OFFSET
+            and counts["knn_moments"] == tiers
+            and counts["plane_point_stats"] == d.iterations == pa.plane_point_stats.launches):
+        raise AssertionError(f"{tag} PlaneICP(k={K_ROUNDS}) off its path or its offset")
+    return {"first_call_s": first_s, "estimate_normals_ms": warm_s, "max_abs_err": err,
+            "iterations": d.iterations, "offset_err": off_err}
 
 
 def run_exact_nn(map_t, scan_np, T_icp, icp_target, dev) -> dict:
@@ -929,6 +1175,10 @@ def main() -> None:
     normals, results["normals"] = run_normals(map_t, dev)
     paths["plane_icp"] = plane_icp_path(normals)
     results["plane_icp"] = run_path(paths["plane_icp"], map_np, scan_np, dev)
+    # 6b. k above one walk of the k-NN kernel
+    results["rounds"] = run_rounds(map_np, scan_np, dev)
+    results["normals"]["max_abs_err"] = max(results["normals"]["max_abs_err"],
+                                            results["rounds"]["max_abs_err"])
     # 7. Exact 1-NN, on ICP's target at ICP's converged T
     icp = paths["icp"].make(dev)
     icp.set_target(map_t)

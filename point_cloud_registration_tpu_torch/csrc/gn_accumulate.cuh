@@ -1,9 +1,8 @@
 // Shared pieces of the Gauss-Newton stats kernels (fused_align.cu,
-// point_align.cu): the launch shape, the cell rule's clamp, the window search
-// over a per-cell table, the 29-term accumulator of sum w [J|r|1]^T [J|r|1],
-// the one-row ("m = 1") plane linearization of VPlaneICP and PlaneICP, the
-// three-row ("m = 3") linearization of NDT and point-to-point ICP, and the
-// block reduction.
+// point_align.cu): the launch shape, the cell rule's clamp, the 29-term
+// accumulator of sum w [J|r|1]^T [J|r|1], the one-row ("m = 1") plane
+// linearization of VPlaneICP and PlaneICP, the three-row ("m = 3")
+// linearization of NDT and point-to-point ICP, and the block reduction.
 //
 // Accumulator layout: [H upper triangle, row-major (21) | g (6) | e2 | n].
 
@@ -27,41 +26,6 @@ struct Pose {
 // (or NaN) lands outside the grid instead of overflowing the conversion.
 __device__ __forceinline__ int clamped_cell(float f, int origin) {
   return static_cast<int>(fminf(fmaxf(f, -1e9f), 1e9f)) - origin;
-}
-
-// Nearest valid centroid in the cells [c - r, c + r]^3 of a table in
-// linear-key order (key = x + nx * (y + ny * z)) whose rows are kRow float4s,
-// the first one [mu_x, mu_y, mu_z, valid]. Cells outside the grid and invalid
-// cells are skipped; x runs fastest and z slowest, and a strict "<" keeps the
-// first minimum in probe order. Returns the winner's key (-1 when the window
-// holds no valid cell) and its squared distance in best_d2 (+inf if none).
-template <int kRow>
-__device__ __forceinline__ int nearest_valid_cell(
-    const float4* __restrict__ table, int nx, int ny, int nz, int cx, int cy,
-    int cz, int radius, float qx, float qy, float qz, float& best_d2) {
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_key = -1;
-  const int x0 = max(cx - radius, 0), x1 = min(cx + radius, nx - 1);
-  const int y0 = max(cy - radius, 0), y1 = min(cy + radius, ny - 1);
-  const int z0 = max(cz - radius, 0), z1 = min(cz + radius, nz - 1);
-  for (int z = z0; z <= z1; ++z) {
-    for (int y = y0; y <= y1; ++y) {
-      const int row = nx * (y + ny * z);
-      for (int x = x0; x <= x1; ++x) {
-        const float4 c = __ldg(&table[kRow * (row + x)]);
-        if (c.w > 0.f) {
-          const float dx = qx - c.x, dy = qy - c.y, dz = qz - c.z;
-          const float d2 = dx * dx + dy * dy + dz * dz;
-          if (d2 < best) {
-            best = d2;
-            best_key = row + x;
-          }
-        }
-      }
-    }
-  }
-  best_d2 = best;
-  return best_key;
 }
 
 // Adds w a a^T (upper triangle), w a r and w r^2 for one residual row

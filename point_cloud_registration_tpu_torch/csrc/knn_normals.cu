@@ -28,8 +28,11 @@
 // absent from its tile's key list, cannot arise: the box's blocks are looked
 // up in block_row itself. Its k rounds of next-minimum ascent compute the
 // same order statistic; here a sorted buffer of the smallest distances lives
-// in registers, and a second walk over the same candidates accumulates the
-// moments.
+// in registers (16 or 32 of them), and a last walk over the same candidates
+// accumulates the moments. A k above 32 selects in rounds of 32: each further
+// walk counts the candidates at or below the 32nd smallest distance of the
+// round before and keeps the 32 smallest above it, until the k-th is among
+// them; k = 40 takes two walks before the moments, k = 15 one.
 //
 // What bounds it on this card: the function needs every input and output
 // moved once (queries, the kept points of the packed rows, 40 B out per
@@ -331,7 +334,24 @@ __device__ __forceinline__ bool stream_box(const Grid& g, const Box& b,
   return __any_sync(kFull, over);
 }
 
+// The squared distance of a difference, rounded product by product and sum
+// by sum (no fused multiply-add), in the plain PyTorch version's order.
+__device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// Inserts v into the ascending buffer of kMax, dropping its largest entry.
 template <int kMax>
+__device__ __forceinline__ void insert_sorted(float (&buf)[kMax], float v) {
+#pragma unroll
+  for (int j = 0; j < kMax; ++j) {
+    const float lo = fminf(buf[j], v);
+    v = fmaxf(buf[j], v);
+    buf[j] = lo;
+  }
+}
+
+template <int kMax, bool kRounds>
 __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
     Grid g, Binning bn, float exact_d2, int k, const float* __restrict__ q,
     const float* __restrict__ w, int n, const long long* __restrict__ order,
@@ -380,26 +400,69 @@ __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
   const bool over = stream_box(
       g, box, st, lane, 0, fillings, staged, [&](const float* p, int m_staged) {
         for_each_staged(p, m_staged, [&](float px, float py, float pz) {
-          const float dx = qx - px, dy = qy - py, dz = qz - pz;
-          const float d2 = __fadd_rn(
-              __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-          if (d2 < buf[kMax - 1]) {
-            float v = d2;
-#pragma unroll
-            for (int j = 0; j < kMax; ++j) {
-              const float lo = fminf(buf[j], v);
-              v = fmaxf(buf[j], v);
-              buf[j] = lo;
-            }
-          }
+          const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
+          if (d2 < buf[kMax - 1]) insert_sorted<kMax>(buf, d2);
         });
       });
-  const bool done = buf[kMax - 1] < kFoundMax2;
-  const float rk = done ? buf[kMax - 1] : kMissD2;
+  bool done = buf[kMax - 1] < kFoundMax2;
+  float rk = done ? buf[kMax - 1] : kMissD2;
+  if constexpr (kRounds) {
+    // k > kMax: the buffer holds the kMax smallest; select in rounds. `lo` is
+    // the largest distance of the last round's buffer, `need` the rank of the
+    // k-th smallest among the candidates above it. The walks take the whole
+    // warp, so a lane that has its rk walks on with the others.
+    int need = k;
+    float lo = -kInf;
+    bool open = true;
+    for (;;) {
+      if (open) {
+        if (need <= kMax) {
+          float v = buf[0];
+#pragma unroll
+          for (int j = 1; j < kMax; ++j) v = j == need - 1 ? buf[j] : v;
+          done = v < kFoundMax2;
+          rk = done ? v : kMissD2;
+          open = false;
+        } else if (!(buf[kMax - 1] < kFoundMax2)) {
+          // fewer than k candidates; the first walk's done and rk, which
+          // count only kMax of them, do not stand
+          done = false;
+          rk = kMissD2;
+          open = false;
+        } else {
+          lo = buf[kMax - 1];
+        }
+      }
+      if (!__any_sync(kFull, open)) break;
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) buf[j] = kFoundMax2;
+      int at_or_below = 0;
+      int f2, s2;
+      stream_box(g, box, st, lane, fillings == 1 ? staged : 0, f2, s2,
+                 [&](const float* p, int m_staged) {
+                   for_each_staged(p, m_staged, [&](float px, float py, float pz) {
+                     const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
+                     if (d2 <= lo) {
+                       ++at_or_below;
+                     } else if (d2 < buf[kMax - 1]) {
+                       insert_sorted<kMax>(buf, d2);
+                     }
+                   });
+                 });
+      if (open) {
+        need = k - at_or_below;
+        if (need <= 0) {  // ties at lo reach the k-th
+          done = true;
+          rk = lo;
+          open = false;
+        }
+      }
+    }
+  }
   // selected: d2 <= take; without k candidates, all of them: d2 < kFoundMax2
   const float take = done ? rk : __int_as_float(__float_as_int(kFoundMax2) - 1);
 
-  // Second walk: moments over the selected candidates, from the stage where
+  // Last walk: moments over the selected candidates, from the stage where
   // it still holds the whole box.
   float cnt = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
   float c00 = 0.f, c11 = 0.f, c22 = 0.f, c01 = 0.f, c02 = 0.f, c12 = 0.f;
@@ -409,9 +472,7 @@ __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
                [&](const float* p, int m_staged) {
                  for_each_staged(p, m_staged, [&](float px, float py, float pz) {
                    const float dx = qx - px, dy = qy - py, dz = qz - pz;
-                   const float d2 = __fadd_rn(
-                       __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                       __fmul_rn(dz, dz));
+                   const float d2 = dist2_rn(dx, dy, dz);
                    if (!(d2 <= take)) return;
                    cnt += 1.f;
                    sx += dx;
@@ -443,16 +504,17 @@ __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
 
 // The dynamic shared memory limit is a property of the kernel on the current
 // device, so it is set on every launch and not remembered.
-template <int kMax>
+template <int kMax, bool kRounds>
 int launch(const Grid& g, const Binning& bn, float exact_d2, int k, const float* q,
            const float* w, int n, const long long* order, const long long* starts,
            int n_items, int stage_size, int warps, float* out, cudaStream_t st) {
   const int bytes = warps * stage_bytes(stage_size);
   const cudaError_t err = cudaFuncSetAttribute(
-      knn_moments_kernel<kMax>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      knn_moments_kernel<kMax, kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n_items + warps - 1) / warps;
-  knn_moments_kernel<kMax><<<blocks, 32 * warps, bytes, st>>>(
+  knn_moments_kernel<kMax, kRounds><<<blocks, 32 * warps, bytes, st>>>(
       g, bn, exact_d2, k, q, w, n, order, starts, n_items, stage_size, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -461,8 +523,8 @@ int launch(const Grid& g, const Binning& bn, float exact_d2, int k, const float*
 
 extern "C" {
 
-// The largest k the library was compiled for.
-int pcr_knn_max_k() { return 32; }
+// The most neighbours one walk selects; a larger k selects in rounds.
+int pcr_knn_round_k() { return 32; }
 
 // The most queries a work item may hold.
 int pcr_knn_item_size() { return kItem; }
@@ -471,13 +533,14 @@ int pcr_knn_item_size() { return kItem; }
 // row_over (R+1,) u8; q (n, 3), w (n,) f32 -> out (10, n) f32. The queries are
 // grouped into n_items work items of one candidate box each: item j holds the
 // queries order[starts[j] .. starts[j + 1]), the last item up to n (order (n,)
-// i64, starts (n_items,) i64), at most pcr_knn_item_size() of them. A warp's
+// i64, starts (n_items,) i64), at most pcr_knn_item_size() of them. Any
+// k >= 1; above pcr_knn_round_k() the selection takes rounds. A warp's
 // stage holds kStagePoints points, or one row where the cap is larger
 // (rounded up to a multiple of 16); kWarps work items share a block, fewer
 // where their stages would not fit its shared memory. Launches the kernel on
-// `stream` and returns cudaGetLastError(), or -1 for a k outside
-// [1, pcr_knn_max_k()], -3 when a stage of one row of this cap does not fit a
-// block's shared memory (a cap above about 15,000).
+// `stream` and returns cudaGetLastError(), or -1 for a k below 1, -3 when a
+// stage of one row of this cap does not fit a block's shared memory (a cap
+// above about 15,000).
 int pcr_knn_moments(const float* pts, const int* row_count, const int* block_row,
                     const unsigned char* row_over, int cap, int width, int nbx,
                     int nby, int nbz, int ofx, int ofy, int ofz, float inv_cell,
@@ -485,7 +548,7 @@ int pcr_knn_moments(const float* pts, const int* row_count, const int* block_row
                     const float* w, int n, const long long* order,
                     const long long* starts, int n_items, float* out,
                     void* stream) {
-  if (k < 1 || k > 32) return -1;
+  if (k < 1) return -1;
   const long long want = kStagePoints > cap ? kStagePoints : cap;
   const long long stage = (want + kMinStage - 1) / kMinStage * kMinStage;
   const long long fit = kMaxShared / (stage * stage_bytes(1));
@@ -498,10 +561,13 @@ int pcr_knn_moments(const float* pts, const int* row_count, const int* block_row
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_items == 0) return 0;
   if (k <= 16)
-    return launch<16>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
-                      static_cast<int>(stage), warps, out, st);
-  return launch<32>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
-                    static_cast<int>(stage), warps, out, st);
+    return launch<16, false>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
+                             static_cast<int>(stage), warps, out, st);
+  if (k <= 32)
+    return launch<32, false>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
+                             static_cast<int>(stage), warps, out, st);
+  return launch<32, true>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
+                          static_cast<int>(stage), warps, out, st);
 }
 
 // Grouping, first step: q (n, 3) f32 -> key (n,), int64 if `wide` else int32:

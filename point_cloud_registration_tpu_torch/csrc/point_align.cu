@@ -171,10 +171,10 @@ __device__ __forceinline__ void scan_row(const float* __restrict__ row, int cnt,
   }
 }
 
-// pcr::nearest_valid_cell on the proxy table, by the kGroup lanes of a group
-// together: the probes of the clipped window, x fastest and z slowest, go to
-// the lanes in turn, and the lanes merge by (d2, probe index), which keeps
-// the first minimum in probe order. Every lane returns the winner's key (-1
+// The proxy table's nearest_valid_cell (ops/knn.py), by the kGroup lanes of a
+// group together: the probes of the clipped window, x fastest and z slowest,
+// go to the lanes in turn, and the lanes merge by (d2, probe index), which
+// keeps the first minimum in probe order. Every lane returns the winner's key (-1
 // when the window holds no valid cell) and its squared distance in best_d2.
 // The whole warp must call it; a group that is not `active` probes nothing.
 __device__ __forceinline__ int group_nearest_proxy(bool active, int gl,

@@ -33,7 +33,7 @@ def fused_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tens
     (host float32 (4, 4)) -> GNStats on the host, with one device sync."""
     R, t = makeRt(T)
     packed = _STATS[kind](
-        vm.table, vm.origin_cell, vm.dims, vm.cell_size, source, src_weight,
+        vm.cells, vm.origin_cell, vm.dims, vm.cell_size, source, src_weight,
         R, t, cfg.max_dist, cfg.huber_delta,
     )
     return stats_from_packed(packed.cpu())

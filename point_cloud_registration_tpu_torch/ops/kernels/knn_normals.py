@@ -51,7 +51,7 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
 from point_cloud_registration_tpu_torch.ops.knn import CELL_CLAMP, FOUND_MAX
 from point_cloud_registration_tpu_torch.ops.pointgrid import PackedPointGrid, _block_ranks
 
-MAX_K = 32  # the largest k the kernel is compiled for
+ROUND_K = 32  # the most neighbours one walk of the kernel selects; a larger k takes rounds
 MISS_D2 = np.float32(1e30)  # rk2 of a query with fewer than k candidates
 ITEM = 32  # queries of one work item at most: the lanes of a warp
 _FUSED = (4, 4, 2)  # fine cells per fused block
@@ -192,7 +192,8 @@ def knn_moments_reference(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor,
         real = kept.reshape(m, -1) & (d2 < found_max2)
         d2 = torch.where(real, d2, float("inf"))
         done = real.sum(dim=1) >= k
-        kth = torch.topk(d2, k, dim=1, largest=False, sorted=True).values[:, k - 1]
+        kk = min(k, d2.shape[1])  # a box of fewer slots than k is never done
+        kth = torch.topk(d2, kk, dim=1, largest=False, sorted=True).values[:, kk - 1]
         rk = torch.where(done, kth, torch.full_like(kth, float(MISS_D2)))
         sel = (real & (d2 <= rk[:, None])).to(torch.float32)
         dx, dy, dz = (torch.where(real, v, 0.0) for v in (dx, dy, dz))
@@ -228,8 +229,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pcr_knn_item_flags.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr]
     for fn in (lib.pcr_knn_moments, lib.pcr_knn_box_keys, lib.pcr_knn_item_flags):
         fn.restype = c_int
-    if lib.pcr_knn_item_size() != ITEM or lib.pcr_knn_max_k() != MAX_K:
-        raise RuntimeError("csrc/knn_normals.cu was built for another item size or k")
+    if lib.pcr_knn_item_size() != ITEM or lib.pcr_knn_round_k() != ROUND_K:
+        raise RuntimeError("csrc/knn_normals.cu was built for another item size or round")
     return lib
 
 
@@ -239,7 +240,7 @@ def _library() -> ctypes.CDLL:
 
 
 _REFUSED = {
-    -1: "k is outside the range the kernel is built for",
+    -1: "k must be at least 1",
     -3: "the cap is too large: one packed row per warp does not fit in shared memory",
 }
 
@@ -286,13 +287,15 @@ def launch_moments(pg: PackedPointGrid, q, w, k: int, radius: int, order, starts
 def knn_moments(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor, k: int, radius: int):
     """k-NN moments of ``q`` (N, 3) with weights ``w`` (N,) against the
     packed grid ``pg`` -> ``(cov6, count, rk2, unresolved, exact)`` on the
-    device of ``q`` (see the module doc). ``k`` is at most :data:`MAX_K`; on
-    the card the cap of ``pg`` is at most about 15,000 (one packed row must
-    fit a warp's stage in shared memory).
+    device of ``q`` (see the module doc). Any ``k >= 1``: the kernel selects
+    up to :data:`ROUND_K` neighbours per walk of the box and a larger ``k``
+    in rounds (one walk more per round). On the card the cap of ``pg`` is at
+    most about 15,000 (one packed row must fit a warp's stage in shared
+    memory).
     CPU tensors take the plain version; CUDA tensors launch the kernel and
     add one to ``knn_moments.launches``."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k = {k} is outside [1, {MAX_K}], the range the kernel is built for")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if radius < 1:
         raise ValueError(f"radius must be at least 1, got {radius}")
     if q.device.type == "cpu":

@@ -13,8 +13,9 @@ The reference ``VoxelGrid.set_points`` pipeline (voxel.py:104-169) becomes:
   zero on invalid cells;
 * for NDT, the inverse covariances (``invert_cov_packed``) and their upper
   Cholesky factors (``sqrt_icov_u6``);
-* the per-cell query table the align kernel reads (``ops.knn.cell_table``:
-  normals for VPlaneICP, ``U`` for NDT).
+* the query layout the align kernel reads (``ops.knn.cell_index``: an
+  occupancy bitmap with ranks and the valid cells' rows, with normals for
+  VPlaneICP, ``U`` for NDT).
 
 The per-cell sums are exact integer sums of the moments in fixed point
 (``_segment_sum_fixed``), so their order does not matter: a build gives the
@@ -36,7 +37,7 @@ from point_cloud_registration_tpu_torch.ops.hashgrid import (
     _bbox_cells,
     cell_coords,
 )
-from point_cloud_registration_tpu_torch.ops.knn import cell_table
+from point_cloud_registration_tpu_torch.ops.knn import CellIndex, cell_index
 
 RICH_KINDS = ("normals", "sqrt_icov")
 
@@ -54,7 +55,7 @@ class VoxelMap(NamedTuple):
     counts: torch.Tensor  # (D,) i32
     valid: torch.Tensor  # (D,) bool, counts >= min_points
     icovs: torch.Tensor | None  # (D, 6) f32, present after with_icov builds
-    table: torch.Tensor  # ops.knn.cell_table: (D, 8), or (D, 12) for rich="sqrt_icov"
+    cells: CellIndex  # ops.knn.cell_index: rows (V + 1, 8), or (V + 1, 12) for rich="sqrt_icov"
 
     @property
     def num_voxels(self) -> int:
@@ -104,7 +105,7 @@ def sqrt_icov_packed(icovs: torch.Tensor) -> torch.Tensor:
 
 def sqrt_icov_u6(icovs: torch.Tensor) -> torch.Tensor:
     """(..., 6) packed icov -> (..., 6) ``[u00, u01, u02, u11, u12, u22]``
-    of :func:`sqrt_icov_packed`, the features of NDT's cell table
+    of :func:`sqrt_icov_packed`, the features of NDT's cell rows
     (voxelize.py:422-431)."""
     U = sqrt_icov_packed(icovs)
     return torch.stack(
@@ -130,7 +131,7 @@ def build_voxel_map(
     there is one) for NumPy input. The bounding box is read
     on the host once. A bounding box of more than ``DENSE_CELL_BUDGET``
     cells needs the sparse build, which is not ported yet. ``rich`` picks
-    the query table's features, as in the JAX package: ``"normals"`` for
+    the query rows' features, as in the JAX package: ``"normals"`` for
     VPlaneICP, ``"sqrt_icov"`` (which needs ``with_icov``) for NDT.
     """
     if rich not in RICH_KINDS:
@@ -180,7 +181,7 @@ def _segment_sum_fixed(key: torch.Tensor, vals: torch.Tensor, d_total: int,
 
 def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
                            min_points, with_icov, rich):
-    """Stats, normals and query table of the dense-direct map
+    """Stats, normals and query layout of the dense-direct map
     (``_build_voxel_map_dense`` of the JAX package, voxelize.py:437-570)."""
     dev = points.device
     nx, ny, nz = dims
@@ -233,7 +234,6 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
     )
     icovs = invert_cov_packed(covs) if with_icov else None
     feats = sqrt_icov_u6(icovs) if rich == "sqrt_icov" else normals
-    table = cell_table(means, valid, feats)
     return VoxelMap(
         origin_cell=tuple(origin_cell),
         dims=tuple(dims),
@@ -244,5 +244,5 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
         counts=counts,
         valid=valid,
         icovs=icovs,
-        table=table,
+        cells=cell_index(means, valid, feats),
     )

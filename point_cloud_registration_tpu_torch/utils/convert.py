@@ -13,7 +13,7 @@ import torch
 from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.models._point_corr import PointCorrTarget
 from point_cloud_registration_tpu_torch.models.plane_icp import PlaneICPTarget
-from point_cloud_registration_tpu_torch.ops.knn import cell_table
+from point_cloud_registration_tpu_torch.ops.knn import cell_index
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
     ProxyMap,
@@ -39,7 +39,7 @@ def voxel_map_from_numpy(
     device=None,
     icovs=None,
 ) -> VoxelMap:
-    """Port :class:`VoxelMap` (with its cell table) on ``device`` from the
+    """Port :class:`VoxelMap` (with its cell index) on ``device`` from the
     arrays of a dense-direct map of the JAX package, given as NumPy arrays
     (``vm.means``, ``vm.covs``, ``vm.normals``, ``vm.counts``, ``vm.valid``,
     ``vm.grid.origin_cell``, ``vm.grid.dims``, ``vm.grid.cell_size``).
@@ -67,7 +67,7 @@ def voxel_map_from_numpy(
         counts=_to_dev(counts, torch.int32, device),
         valid=valid_t,
         icovs=None if icovs is None else _to_dev(icovs, torch.float32, device),
-        table=cell_table(means_t, valid_t, normals_t),
+        cells=cell_index(means_t, valid_t, normals_t),
     )
 
 
@@ -84,14 +84,14 @@ def ndt_map_from_numpy(
     u6,
     device=None,
 ) -> VoxelMap:
-    """Port NDT map (with its (D, 12) NDT table) from the arrays of a
+    """Port NDT map (with the 12-wide rows of its cell index) from the arrays of a
     dense-direct JAX ``VoxelMap`` built ``with_icov=True``, as for
-    :func:`voxel_map_from_numpy` plus ``vm.icovs`` and the table's Cholesky
+    :func:`voxel_map_from_numpy` plus ``vm.icovs`` and the rows' Cholesky
     features ``u6`` (the JAX package's ``sqrt_icov_u6(vm.icovs)``)."""
     device = resolve_device(None, device)
     vm = voxel_map_from_numpy(means, covs, normals, counts, valid, origin_cell, dims,
                               cell_size, device=device, icovs=icovs)
-    return vm._replace(table=cell_table(vm.means, vm.valid, _to_dev(u6, torch.float32, device)))
+    return vm._replace(cells=cell_index(vm.means, vm.valid, _to_dev(u6, torch.float32, device)))
 
 
 def packed_grid_from_numpy(

@@ -37,8 +37,8 @@ from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
 from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid
 
 K = 15
-NO_CHAIN = ("for (int j = 0; j < kMax; ++j) {\n              const float lo",
-            "for (int j = kMax - 1; j < kMax; ++j) {\n              const float lo")
+NO_CHAIN = ("for (int j = 0; j < kMax; ++j) {\n    const float lo",
+            "for (int j = kMax - 1; j < kMax; ++j) {\n    const float lo")
 NO_SECOND_WALK = ("if (fillings > 0) {", "if (fillings < 0) {")
 FROM_CORNER = ("first_block = nx * (ny / 4 + ny * (nz / 2));", "first_block = 0;")
 STAGE, WARPS = "kStagePoints = 512;", "kWarps = 4;"

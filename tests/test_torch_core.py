@@ -273,9 +273,9 @@ def _device_cases():
     up = np.tile(np.float32([0.0, 0.0, 1.0]), (1200, 1))
     return {
         "build_vplane_target": lambda p, **kw: models.build_vplane_target(
-            p, VPlaneICPConfig(min_points=3), **kw).table,
+            p, VPlaneICPConfig(min_points=3), **kw).cells.centers,
         "build_ndt_target": lambda p, **kw: models.build_ndt_target(
-            p, NDTConfig(min_points=3), **kw).table,
+            p, NDTConfig(min_points=3), **kw).cells.feats,
         "build_icp_target": lambda p, **kw: models.build_icp_target(
             p, ICPConfig(corr=packed), **kw).points,
         "build_plane_icp_target": lambda p, **kw: models.build_plane_icp_target(
@@ -335,9 +335,9 @@ def _converter_cases():
         pg.idx_packed, pg.row_over, px.means, px.counts, px.valid))
     normals = px.normals.numpy()
     return {
-        "voxel_map": lambda **kw: convert.voxel_map_from_numpy(*voxel, **kw).table,
+        "voxel_map": lambda **kw: convert.voxel_map_from_numpy(*voxel, **kw).cells.centers,
         "ndt_map": lambda **kw: convert.ndt_map_from_numpy(
-            *voxel, one(1, 3, 3), one(1, 6), **kw).table,
+            *voxel, one(1, 3, 3), one(1, 6), **kw).cells.feats,
         "packed_grid": lambda **kw: convert.packed_grid_from_numpy(*packed, **kw)[0].pts_packed,
         "plane_icp_target": lambda **kw: convert.plane_icp_target_from_numpy(
             pts.numpy(), up.numpy(), *packed, proxy_normals=normals, **kw).normals,

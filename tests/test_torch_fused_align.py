@@ -88,7 +88,7 @@ def _port_stats(tm, scan, T, huber_delta, w=None):
     src = torch.from_numpy(scan)
     w = torch.ones(len(scan)) if w is None else w
     return fused_plane_stats_reference(
-        tm.table, tm.origin_cell, tm.dims, tm.cell_size, src, w,
+        tm.cells, tm.origin_cell, tm.dims, tm.cell_size, src, w,
         T[:3, :3], T[:3, 3], MAX_DIST, huber_delta,
     )
 
@@ -139,7 +139,7 @@ def test_zero_weights_drop_points(scene):
 
 def test_chunking_does_not_change_result(scene):
     _, tm, scan = scene
-    args = (tm.table, tm.origin_cell, tm.dims, tm.cell_size, torch.from_numpy(scan),
+    args = (tm.cells, tm.origin_cell, tm.dims, tm.cell_size, torch.from_numpy(scan),
             torch.ones(len(scan)), torch.eye(3), torch.zeros(3), MAX_DIST)
     torch.testing.assert_close(
         fused_plane_stats_reference(*args, chunk=97),
@@ -151,7 +151,7 @@ def test_cpu_wrapper_runs_plain_version_without_launching(scene):
     _, tm, scan = scene
     before = fused_plane_stats.launches
     T = torch.eye(4)
-    out = fused_plane_stats(tm.table, tm.origin_cell, tm.dims, tm.cell_size,
+    out = fused_plane_stats(tm.cells, tm.origin_cell, tm.dims, tm.cell_size,
                             torch.from_numpy(scan), torch.ones(len(scan)),
                             T[:3, :3], T[:3, 3], MAX_DIST)
     assert fused_plane_stats.launches == before == 0
@@ -161,8 +161,9 @@ def test_cpu_wrapper_runs_plain_version_without_launching(scene):
 
 def test_wrapper_rejects_mismatched_table(scene):
     _, tm, scan = scene
-    with pytest.raises(ValueError):
-        fused_plane_stats(tm.table[:-1], tm.origin_cell, tm.dims, tm.cell_size,
+    with pytest.raises(ValueError, match="occupancy"):
+        fused_plane_stats(tm.cells._replace(occ=tm.cells.occ[:-1]), tm.origin_cell,
+                          tm.dims, tm.cell_size,
                           torch.from_numpy(scan), torch.ones(len(scan)),
                           torch.eye(3), torch.zeros(3), MAX_DIST)
 
@@ -195,8 +196,8 @@ def test_import_and_cpu_path_need_no_nvcc(tmp_path):
         "import torch\n"
         "from point_cloud_registration_tpu_torch.ops.kernels.fused_align import "
         "fused_plane_stats\n"
-        "from point_cloud_registration_tpu_torch.ops.knn import cell_table\n"
-        "t = cell_table(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), torch.zeros(8, 3))\n"
+        "from point_cloud_registration_tpu_torch.ops.knn import cell_index\n"
+        "t = cell_index(torch.zeros(8, 3), torch.ones(8, dtype=torch.bool), torch.zeros(8, 3))\n"
         "out = fused_plane_stats(t, (0, 0, 0), (2, 2, 2), 1.0, torch.rand(5, 3), "
         "torch.ones(5), torch.eye(3), torch.zeros(3), 2.0)\n"
         "assert fused_plane_stats.launches == 0 and out.shape == (29,)\n"

@@ -44,7 +44,6 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     fused_ndt_stats_reference,
     stats_from_packed,
 )
-from point_cloud_registration_tpu_torch.ops.knn import NDT_TABLE_WIDTH
 from point_cloud_registration_tpu_torch.ops.reduce import ndt_stats, whitened_stats
 from point_cloud_registration_tpu_torch.ops.voxelize import (
     build_voxel_map,
@@ -198,7 +197,7 @@ def _jax_fused_ndt(jm, scan, T, huber_delta):
 def _port_ndt(tm, scan, T, huber_delta=None):
     T = torch.as_tensor(T, dtype=torch.float32)
     return fused_ndt_stats_reference(
-        tm.table, tm.origin_cell, tm.dims, tm.cell_size, torch.from_numpy(scan),
+        tm.cells, tm.origin_cell, tm.dims, tm.cell_size, torch.from_numpy(scan),
         torch.ones(len(scan)), T[:3, :3], T[:3, 3], MAX_DIST, huber_delta,
     )
 
@@ -237,11 +236,14 @@ def test_ndt_table_layout(blob_scene):
     vm = build_voxel_map(np.repeat(pts, 12, axis=0) + np.random.RandomState(4).randn(
         len(pts) * 12, 3).astype(np.float32) * 0.1, 1.0, with_icov=True, rich="sqrt_icov",
         device="cpu")
-    assert vm.table.shape == (int(np.prod(vm.dims)), NDT_TABLE_WIDTH)
     v = vm.valid
-    torch.testing.assert_close(vm.table[v, 0:3], vm.means[v], rtol=0, atol=0)
-    torch.testing.assert_close(vm.table[v, 4:10], sqrt_icov_u6(vm.icovs)[v], rtol=0, atol=0)
-    assert float(vm.table[~v, 3:].abs().sum()) == 0.0 and float(vm.table[v, 3].min()) == 1.0
+    centers, feats = vm.cells.centers, vm.cells.feats
+    assert centers.shape == (int(v.sum()) + 1, 4) and feats.shape == (int(v.sum()) + 1, 8)
+    assert vm.cells.occ.shape == (-(-int(np.prod(vm.dims)) // 32), 2)
+    torch.testing.assert_close(centers[:-1, 0:3], vm.means[v], rtol=0, atol=0)
+    torch.testing.assert_close(feats[:-1, 0:6], sqrt_icov_u6(vm.icovs)[v], rtol=0, atol=0)
+    assert float(centers[-1].abs().sum()) == 0.0 and float(centers[:-1, 3].min()) == 1.0
+    assert float(feats[-1].abs().sum()) == 0.0 and float(feats[:, 6:].abs().sum()) == 0.0
     with pytest.raises(ValueError, match="with_icov"):
         build_voxel_map(pts, 1.0, rich="sqrt_icov", device="cpu")
 
@@ -249,7 +251,7 @@ def test_ndt_table_layout(blob_scene):
 def test_cpu_wrapper_runs_plain_version_without_launching(blob_scene):
     _, tm, scan = blob_scene
     T = torch.eye(4)
-    out = fused_ndt_stats(tm.table, tm.origin_cell, tm.dims, tm.cell_size,
+    out = fused_ndt_stats(tm.cells, tm.origin_cell, tm.dims, tm.cell_size,
                           torch.from_numpy(scan), torch.ones(len(scan)),
                           T[:3, :3], T[:3, 3], MAX_DIST)
     assert fused_ndt_stats.launches == 0
@@ -260,7 +262,8 @@ def test_cpu_wrapper_runs_plain_version_without_launching(blob_scene):
 def test_wrapper_rejects_plane_table(blob_scene):
     _, tm, scan = blob_scene
     with pytest.raises(ValueError, match="ndt"):
-        fused_ndt_stats(tm.table[:, :8].contiguous(), tm.origin_cell, tm.dims, tm.cell_size,
+        fused_ndt_stats(tm.cells._replace(feats=tm.cells.feats[:, :4].contiguous()),
+                        tm.origin_cell, tm.dims, tm.cell_size,
                         torch.from_numpy(scan), torch.ones(len(scan)),
                         torch.eye(3), torch.zeros(3), MAX_DIST)
 
@@ -342,7 +345,7 @@ def test_voxels_and_unported_update(scenes):
     with pytest.raises(ValueError, match="Target is not set"):
         ndt.align(np.zeros((10, 3), np.float32))
     ndt.set_target(scenes[9])
-    assert ndt.voxels.icovs is not None and ndt.voxels.table.shape[1] == NDT_TABLE_WIDTH
+    assert ndt.voxels.icovs is not None and ndt.voxels.cells.feats.shape[1] == 8
     with pytest.raises(NotImplementedError):
         ndt.update_target(scenes[9])
     with pytest.raises(ValueError):

@@ -36,7 +36,7 @@ from point_cloud_registration_tpu.ops.pointgrid import knn_packed as jax_knn_pac
 from point_cloud_registration_tpu_torch.ops import normals as port_normals
 from point_cloud_registration_tpu_torch.ops.eigh3 import eigh_sym3
 from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
-from point_cloud_registration_tpu_torch.ops.knn import brute_force_knn
+from point_cloud_registration_tpu_torch.ops.knn import FOUND_MAX, brute_force_knn
 from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid, knn_packed
 
 K = 15
@@ -194,8 +194,8 @@ def test_knn_moments_wrapper_checks_and_counts():
     pts = torch.from_numpy(_scene(600))
     pg = build_packed_grid(pts, 0.5, 32)
     w = torch.ones(600)
-    with pytest.raises(ValueError, match="outside"):
-        kn.knn_moments(pg, pts, w, kn.MAX_K + 1, 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        kn.knn_moments(pg, pts, w, 0, 2)
     with pytest.raises(ValueError, match="radius"):
         kn.knn_moments(pg, pts, w, 5, 0)
     before = kn.knn_moments.launches
@@ -398,6 +398,128 @@ def test_wide_tier_raises_the_certified_fraction(fused_normals):
     exact_j = np.asarray(jax_normals.estimate_normals(
         pts, k=K, backend="pallas", exact_tail=False, return_info=True)[1]["exact"])
     assert not (exact_j & ~e0).any() and (e0 & ~exact_j).mean() < 0.02
+
+
+K_ROUNDS = 40  # above kn.ROUND_K: the kernel selects in two rounds
+
+
+def test_knn_moments_reference_matches_jax_kernel_in_rounds():
+    """k above one walk's buffer: the order statistic, the selection and the
+    flags still equal the JAX kernel's (k rounds of next-minimum ascent)."""
+    pts = _scene(2000)
+    assert K_ROUNDS > kn.ROUND_K
+    p = _port_moments(pts, K_ROUNDS, 0.4, 2)
+    assert p[4].any() and p[3].any(), "both certified and unresolved queries"
+    _assert_moments_equal(_jax_moments(pts, K_ROUNDS, 0.4, 2), p)
+
+
+def _rounds_model(d2, k, kmax=kn.ROUND_K):
+    """The kernel's selection for ``k > kmax`` (``csrc/knn_normals.cu``,
+    ``kRounds``) in NumPy, with the kernel's state: ``(done, rk, exit)`` of
+    one query from the squared distances of its box. ``exit`` names the
+    branch that ended the rounds."""
+    found = np.float32(FOUND_MAX) ** 2
+    cand = d2[d2 < found]
+
+    def walk(v):  # the sorted buffer of kmax; its bar starts at found
+        v = np.sort(v)[:kmax]
+        return np.concatenate([v, np.full(kmax - len(v), found, np.float32)])
+
+    buf = walk(cand)
+    done = buf[-1] < found
+    rk = buf[-1] if done else kn.MISS_D2
+    need = k
+    while True:
+        if need <= kmax:
+            v = buf[need - 1]
+            done = v < found
+            return done, (v if done else kn.MISS_D2), "pick"
+        if not buf[-1] < found:  # fewer than k candidates
+            return False, kn.MISS_D2, "short"
+        lo = buf[-1]
+        buf = walk(cand[cand > lo])
+        need = k - int((cand <= lo).sum())
+        if need <= 0:  # ties at lo reach the k-th
+            return True, lo, "ties"
+
+
+def _lattice(n_side=30, step=0.25):
+    g = np.arange(n_side, dtype=np.float32) * np.float32(step)
+    x, y = np.meshgrid(g, g, indexing="ij")
+    return np.stack([x.ravel(), y.ravel(), np.zeros(x.size, np.float32)], 1)
+
+
+@pytest.mark.parametrize("scene_name,k", [("floor and wall", 80), ("floor and wall", 100),
+                                          ("lattice", 70)])
+def test_rounds_model_matches_reference(scene_name, k):
+    """A model of the kernel's rounds loop against the plain version's top-k,
+    where boxes hold fewer than 32, between 32 and k, and more than k
+    candidates (k = 100 takes three rounds; on the lattice, exact ties at a
+    round's last distance reach the k-th)."""
+    pts = _scene(2000) if scene_name == "floor and wall" else _lattice()
+    q = torch.from_numpy(pts)
+    pg = build_packed_grid(q, 0.4, 32)
+    _, cnt, rk2, unres, _ = kn.knn_moments_reference(pg, q, torch.ones(len(pts)), k, 2)
+    row = kn.box_rows(pg, q, 2)
+    cand = pg.pts_packed[row].reshape(len(pts), -1, pg.cap, pg.width)[..., :3]
+    kept = torch.arange(pg.cap)[None, None, :] < pg.row_count[row][..., None]
+    d = q[:, None, None, :] - cand
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    d2 = torch.where(kept, d2, float("inf")).reshape(len(pts), -1).numpy()
+    exits = set()
+    for i in range(len(pts)):
+        done, rk, how = _rounds_model(d2[i], k)
+        exits.add(how)
+        assert done == (not unres[i]) and rk == rk2[i], (i, how)
+        take = rk if done else np.float32(FOUND_MAX) ** 2
+        assert int(((d2[i] <= take) & (d2[i] < np.float32(FOUND_MAX) ** 2)).sum()) == cnt[i]
+    if scene_name == "lattice":
+        assert "ties" in exits
+    else:
+        n_cand = np.isfinite(d2).sum(1)
+        assert ((n_cand > kn.ROUND_K) & (n_cand < k)).any() and (n_cand > k).any()
+        assert {"pick", "short"} <= exits
+
+
+def test_estimate_normals_in_rounds_matches_jax_pallas():
+    """``estimate_normals(k=40)`` on the kernel path: the JAX package's
+    normals where both certify, the same certificate and tiers."""
+    pts = _scene(2000)
+    nj, info_j = jax_normals.estimate_normals(pts, k=K_ROUNDS, backend="pallas",
+                                              return_info=True)
+    nt, info = port_normals.estimate_normals(pts, k=K_ROUNDS, return_info=True, device="cpu")
+    exact_j, exact_t = np.asarray(info_j["exact"]), info["exact"].numpy()
+    assert info["n_wide"] > 0 and exact_t.any()
+    np.testing.assert_array_equal(exact_t, exact_j)
+    assert np.abs(np.linalg.norm(nt.numpy(), axis=1) - 1).max() < 1e-5
+    dots = np.abs((nt.numpy() * np.asarray(nj)).sum(1))
+    assert dots[exact_t].min() > 1 - 1e-4 and np.median(dots) > 1 - 1e-6
+
+
+def test_plane_icp_in_rounds_matches_jax():
+    """``PlaneICP(k=40)``: each package estimates the target's normals, the
+    port on its kernel path; the same iteration count and T within 1e-3."""
+    import dataclasses
+
+    from point_cloud_registration_tpu import PlaneICP as JaxPlaneICP
+    from point_cloud_registration_tpu.core.config import CorrespondenceConfig as JaxCorr
+    from oracles import make_scan, make_scene
+
+    pts = make_scene(np.random.RandomState(0), n_floor=1400, n_wall=300)
+    scan, T_true = make_scan(np.random.RandomState(1), pts,
+                             np.array([0.02, -0.02, 0.04, 0.008, -0.01, 0.012]))
+    params = dict(max_iter=30, max_dist=2.0, tol=1e-3, k=K_ROUNDS)
+    js = JaxPlaneICP(**params)
+    js.cfg = dataclasses.replace(js.cfg, corr=JaxCorr(method="packed"), backend="xla")
+    js.set_target(pts)
+    Tj = js.align(scan)
+    ps = port.PlaneICP(**params, device="cpu")
+    ps.cfg = dataclasses.replace(ps.cfg, corr=port.CorrespondenceConfig(method="packed"))
+    ps.set_target(pts)
+    Tp = ps.align(scan)
+    assert ps.last_diagnostics.iterations == int(js.last_diagnostics.iterations)
+    assert np.abs(Tp - Tj).max() < 1e-3
+    assert np.abs(Tp @ T_true - np.eye(4)).max() < 0.03
 
 
 def test_estimate_normals_gather_path_matches_jax_xla(scene):

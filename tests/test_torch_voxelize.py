@@ -83,11 +83,15 @@ def test_build_normals_match_jax(built):
     assert separated.sum() > 10
     dots = np.abs(np.sum(tm.normals.numpy() * np.asarray(jm.normals), axis=-1))
     assert dots[separated].min() > 1 - 1e-4
-    # zero on invalid cells, and the table carries them the same way
+    # zero on invalid cells; the cell index carries the valid cells' rows in
+    # key order, then a sentinel row
     assert np.all(tm.normals.numpy()[~valid] == 0)
-    np.testing.assert_array_equal(tm.table[:, 3].numpy(), valid.astype(np.float32))
-    np.testing.assert_array_equal(tm.table[:, 4:7].numpy(), tm.normals.numpy())
-    np.testing.assert_array_equal(tm.table[:, 0:3].numpy(), tm.means.numpy())
+    centers, feats = tm.cells.centers.numpy(), tm.cells.feats.numpy()
+    assert centers.shape == (valid.sum() + 1, 4) and feats.shape == (valid.sum() + 1, 4)
+    np.testing.assert_array_equal(centers[:-1, 3], np.ones(valid.sum(), np.float32))
+    np.testing.assert_array_equal(feats[:-1, 0:3], tm.normals.numpy()[valid])
+    np.testing.assert_array_equal(centers[:-1, 0:3], tm.means.numpy()[valid])
+    assert not centers[-1].any() and not feats[-1].any() and not feats[:, 3].any()
 
 
 def test_build_from_tensor_equals_from_numpy():
@@ -95,7 +99,8 @@ def test_build_from_tensor_equals_from_numpy():
     a = tvox.build_voxel_map(pts, 1.0, device="cpu")
     b = tvox.build_voxel_map(torch.from_numpy(pts), 1.0)
     assert a.dims == b.dims and a.origin_cell == b.origin_cell
-    torch.testing.assert_close(a.table, b.table, rtol=0, atol=0)
+    for x, y in zip(a.cells, b.cells):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 def test_build_is_bitwise_independent_of_point_order():
@@ -105,7 +110,8 @@ def test_build_is_bitwise_independent_of_point_order():
     a = tvox.build_voxel_map(pts, 1.0, device="cpu")
     b = tvox.build_voxel_map(pts[np.random.RandomState(1).permutation(len(pts))], 1.0,
                               device="cpu")
-    torch.testing.assert_close(b.table, a.table, rtol=0, atol=0)
+    for x, y in zip(b.cells, a.cells):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
     torch.testing.assert_close(b.covs, a.covs, rtol=0, atol=0)
 
 
