@@ -69,7 +69,31 @@ After PlaneICP:
    Before that, bit for bit against the plain version at small ragged shapes
    with a NaN query and with references duplicated across a tile border and
    a segment border of the kernel (the first index must win).
-8. No JAX was imported.
+Then the paths on the hashed grid (phases 9-12), each held to the JAX
+package's result on the same seeded data (``T_REF_*`` and the
+``VOXEL_FILTER_*`` constants, from ``scripts/jax_reference_grid.py``):
+
+9. Small targets: ``ICP()`` and ``PlaneICP()`` with default configurations
+   on a 40,000-point LiDAR target (``bench.make_lidar_map``) and a
+   10,000-point scan of it: the ``"grid"`` method (CSR bucket scan, plain
+   stats), no packed-grid kernel launch; PlaneICP's normals through the k-NN
+   kernel. Then ``nearest_point`` against the exact 1-NN kernel at ICP's
+   converged T, wherever the window had no overflow and the match lies
+   within a cell; warm times and the time of one stats call.
+10. Over-budget map: the city tile plus the same tile 3 km away (2.4M
+   points, about 2.15e8 cells): ``VPlaneICP`` and ``NDT`` on the hashed map,
+   by the plain stats (no fused launch); build and align times, peak memory.
+11. ``update_target``: the map split in two by a seeded permutation;
+   ``set_target(half 1)``, ``update_target(half 2)``, ``align(scan)``: the
+   fused kernel once per iteration on the rebuilt cell index, and held to its
+   plain version there; counts and valid cells equal a full rebuild's.
+12. Utilities at full size: ``KDTree(map).query(scan, k=1)`` equal to the
+   exact 1-NN kernel (its escapes run that kernel), ``query(k=8)`` to
+   ``brute_force_knn``; ``VoxelGrid`` ``set_points`` / ``calc_icov`` /
+   ``query``; ``voxel_filter(map, 0.5)`` against the JAX package's count and
+   rows.
+
+8. No JAX was imported (checked last, after phases 9-12).
 
 The line before the last is a JSON object describing each kernel: its
 launches on its path, its error against the plain version, its time, the
@@ -78,7 +102,8 @@ plain version's, the least time the card could take for the same work
 and output once over 3.35 TB/s and the operations over 67 TFLOP/s fp32;
 ``exact_nn`` also has ``contract_bound_ms``, its 8 separately rounded
 operations per pair at half that rate) and, where one PyTorch call computes
-the same function, that call's time. The last line is
+the same function, that call's time; ``paths`` gives its launches on every
+path that runs it (its main path first, then phases 9-12). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +176,69 @@ N_SHUFFLED = 65536  # map points of the k-NN kernel's query-order check
 # the one-thread-per-query kernel; the function has not changed since
 NORMALS_REF = {"n_wide": 215_988, "n_unresolved": 314, "n_exact": 1_139_014}
 N_EXACT = 4096  # queries of the exact 1-NN phase
+# Phases 9-12. The JAX package's results on the same seeded data (JAX 0.9.0
+# on the CPU, scripts/jax_reference_grid.py; rows 0-2 of T).
+N_SMALL, N_SMALL_SCAN = 40_000, 10_000  # phase 9: a LiDAR target below auto_threshold
+T_REF_ICP_GRID = np.array([  # 5 iterations
+    [1.0000002384e+00, -2.3136537948e-06, 2.2141684894e-06, 2.0029963343e-04],
+    [1.9600379346e-06, 1.0000001192e+00, -2.5174158509e-06, -2.7826384758e-04],
+    [-2.2105889457e-06, 2.5215840651e-06, 1.0000003576e+00, -2.9999551177e-01],
+])
+# with the normals of the JAX k-NN kernel path (backend="pallas", the function
+# of the port's kernel); with its CPU default (the gather path) JAX takes 2
+# iterations and lands 6.4e-4 away
+T_REF_PLANE_ICP_GRID = np.array([  # 3 iterations
+    [1.0, -1.1050958619e-06, -1.1029878806e-06, -2.5256304070e-05],
+    [1.1202562291e-06, 1.0, -7.5899879448e-07, -3.2163783908e-04],
+    [1.1114789231e-06, 7.5719435699e-07, 1.0, -3.0023872852e-01],
+])
+TILE_SHIFT = np.float32([3000.0, 3000.0, 0.0])  # phase 10: the second tile
+T_REF_VPLANE_HASHED = np.array([  # 4 iterations
+    [1.0, 4.6283865231e-05, -4.8695792429e-06, -1.4128923649e-03],
+    [-4.6284032578e-05, 1.0, -5.4369695135e-05, 7.4022398330e-03],
+    [4.8683778004e-06, 5.4369796999e-05, 1.0, -3.6949470639e-01],
+])
+T_REF_NDT_HASHED = np.array([  # 3 iterations, the icov form on both sides
+    [1.0, -1.2928582692e-05, -1.4378070773e-05, 2.8961212374e-03],
+    [1.2928196156e-05, 1.0, -4.9533366109e-05, -1.0072856676e-03],
+    [1.4377555090e-05, 4.9533169658e-05, 1.0, -3.7634879351e-01],
+])
+SPLIT_SEED = 7  # phase 11: the map split by np.random.RandomState(7).permutation
+T_REF_VPLANE_UPDATE = np.array([  # 4 iterations
+    [1.0, 4.628562237e-05, -4.870300472e-06, -1.413418213e-03],
+    [-4.628578972e-05, 1.0, -5.436920401e-05, 7.402469870e-03],
+    [4.869099030e-06, 5.436930951e-05, 1.0, -3.694947064e-01],
+])
+T_REF_NDT_UPDATE = np.array([  # 3 iterations; JAX's CPU NDT takes the icov form
+    [1.0, -1.292100569e-05, -1.437651099e-05, 2.896857914e-03],
+    [1.292062097e-05, 1.0, -4.942181113e-05, -1.008179504e-03],
+    [1.437600167e-05, 4.942162195e-05, 1.0, -3.763411045e-01],
+])
+# phase 12: voxel_filter(map, 0.5) of the JAX package: the centroid count and
+# 16 rows spread over its output (in the cells' key order, as the port's)
+VOXEL_FILTER_COUNT = 491_375
+VOXEL_FILTER_ROWS = [0, 32758, 65516, 98274, 131033, 163791, 196549, 229307, 262066, 294824,
+                     327582, 360340, 393099, 425857, 458615, 491374]
+VOXEL_FILTER_REF = np.array([
+    [6.591689587e-01, 2.614038289e-01, -8.466839790e-03],
+    [1.175849152e+02, 4.837220764e+01, -2.323862910e-02],
+    [2.468243599e+01, 9.681309509e+01, -1.247563958e-02],
+    [1.162549133e+02, 1.447152863e+02, -2.739465237e-02],
+    [7.839582062e+01, 1.932333679e+02, -2.237805724e-02],
+    [1.163854828e+02, 4.068720245e+01, 3.248023242e-02],
+    [9.172700500e+01, 8.817884827e+01, 2.282039262e-02],
+    [4.892893600e+01, 1.355949097e+02, 1.329137478e-02],
+    [3.030044937e+01, 1.832094879e+02, 1.294311732e-01],
+    [1.407565689e+01, 4.234670639e+01, 1.032078624e+00],
+    [2.774733925e+01, 1.345426273e+01, 2.409578562e+00],
+    [1.036597252e+01, 1.881728821e+02, 2.816321373e+00],
+    [1.473406525e+02, 1.634071808e+02, 3.705329180e+00],
+    [4.960070801e+01, 1.355272064e+02, 4.848175049e+00],
+    [1.814516754e+02, 1.037328110e+02, 5.640537739e+00],
+    [8.593728638e+01, 1.876911316e+02, 1.956024551e+01],
+])
+N_KNN = 4096  # queries of KDTree.query(k=8)
+K_KNN = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
 CSRC = "point_cloud_registration_tpu_torch/csrc"
@@ -1141,6 +1229,326 @@ def _window_rows(pg, q):
     return torch.stack(rows, dim=1)
 
 
+def check_T(tag: str, T, d, t_ref, iterations_ref: int) -> float:
+    """Hold a transform and its GN diagnostics to the JAX package's result."""
+    ref_err = float(np.abs(T[:3] - t_ref).max())
+    log(f"{tag} {d.iterations} iterations (JAX: {iterations_ref}), converged {d.converged}; "
+        f"max |T - T_jax| = {ref_err:.2e}")
+    if not (np.isfinite(T).all() and d.converged and not d.solver_failed
+            and ref_err < TOL_REF and d.iterations == iterations_ref):
+        raise AssertionError(f"{tag} transform off the JAX package's: {ref_err}, {d}")
+    return ref_err
+
+
+def warm_runs(solver, set_target, scan_t, T_first, reps: int = 3) -> list:
+    """``reps`` warm ``set_target`` + ``align`` runs on device-resident
+    inputs, each bit-identical to the first run: [(set_target s, align s)]."""
+    import torch
+
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        set_target(solver)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        T = solver.align(scan_t)
+        runs.append((t1 - t0, time.perf_counter() - t1))
+        if not np.array_equal(T, T_first):
+            raise AssertionError("a warm run gave another result than the first")
+    return runs
+
+
+def run_grid_targets(dev) -> dict:
+    """Phase 9: ICP and PlaneICP with default configurations on a target below
+    ``auto_threshold``, which takes the ``"grid"`` method and the plain stats
+    (no packed-grid kernel); PlaneICP's normals through the k-NN kernel."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from bench import make_lidar_map, make_scan
+    from point_cloud_registration_tpu_torch.models._point_corr import grid_cell_of
+    from point_cloud_registration_tpu_torch.models._point_fused import fused_point_stats
+    from point_cloud_registration_tpu_torch.models.base import pad_points
+    from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
+    from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
+    from point_cloud_registration_tpu_torch.ops.knn import nearest_point
+
+    rng = np.random.RandomState(SEED)
+    target = make_lidar_map(rng, N_SMALL)
+    scan = make_scan(rng, target, N_SMALL_SCAN)
+    target_t, scan_t = torch.from_numpy(target).to(dev), torch.from_numpy(scan).to(dev)
+    out = {}
+    for name, cls, t_ref, its in (("icp", pt.ICP, T_REF_ICP_GRID, 5),
+                                  ("plane_icp", pt.PlaneICP, T_REF_PLANE_ICP_GRID, 3)):
+        tag = f"[{name} grid]"
+        reset_launches()
+        t0 = time.perf_counter()
+        s = cls(**PARAMS, device=dev)
+        s.set_target(target)
+        T = s.align(scan)
+        first_s = time.perf_counter() - t0
+        counts = launch_counts()
+        corr = getattr(s._target, "corr", s._target)
+        method = s.cfg.corr.resolved_method(N_SMALL)
+        log(f"{tag} {N_SMALL}-point LiDAR target, {N_SMALL_SCAN}-point scan: method {method}, "
+            f"{corr.grid.n_cells} occupied cells of {grid_cell_of(s.cfg.corr, s.cfg.max_dist)} m, "
+            f"largest bucket {int(corr.buckets.counts.max())} (cap {s.cfg.corr.cell_cap}); "
+            f"first call {first_s:.3f} s; launch counts {counts}")
+        if method != "grid" or corr.packed is not None:
+            raise AssertionError(f"{tag} the target is not a grid target")
+        if counts["point_stats"] or counts["plane_point_stats"]:
+            raise AssertionError(f"{tag} a packed-grid kernel ran on a grid target")
+        if name == "plane_icp" and counts["knn_moments"] < 1:
+            raise AssertionError(f"{tag} the normals did not go through the k-NN kernel")
+        d = s.last_diagnostics
+        err = check_T(tag, T, d, t_ref, its)
+        normals = s._target.normals if name == "plane_icp" else None
+        warm = warm_runs(s, lambda x: x.set_target(target_t), scan_t, T)
+        src, w = pad_points(scan_t, device=dev)
+        Tc = torch.as_tensor(T, dtype=torch.float32)
+        kind = "plane_pt" if name == "plane_icp" else "point"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fused_point_stats(corr, src, w, Tc, s.cfg, kind, normals)
+        stats_ms = (time.perf_counter() - t0) * 100.0
+        estimated = "; normals estimated in set_target" if normals is not None else ""
+        log(f"{tag} warm (device-resident inputs{estimated}), set_target s / align s: "
+            + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in warm)
+            + f"; align per iteration {min(b for _, b in warm) / d.iterations * 1e3:.2f} ms; "
+              f"one stats call (CSR scan + reduction + copy) {stats_ms:.2f} ms")
+        out[name] = {"first_call_s": first_s, "set_target_s": min(a for a, _ in warm),
+                     "align_s": min(b for _, b in warm), "iterations": d.iterations,
+                     "stats_ms": stats_ms, "dT_jax": err, "launches": counts}
+    # nearest_point against the exact 1-NN kernel at ICP's converged T: equal
+    # wherever the window had no overflow and the match lies within a cell
+    s = pt.ICP(**PARAMS, device=dev)
+    s.set_target(target_t)
+    corr, cell = s._target, grid_cell_of(s.cfg.corr, s.cfg.max_dist)
+    T_icp = torch.as_tensor(s.align(scan_t), dtype=torch.float32).to(dev)
+    q = (scan_t @ T_icp[:3, :3].T + T_icp[:3, 3]).contiguous()
+    nn, over = nearest_point(corr.grid, corr.buckets, corr.points, q,
+                             search_offsets(s.cfg.max_dist, cell), s.cfg.corr.cell_cap,
+                             with_overflow=True)
+    d_x, i_x = en.exact_nn(q, corr.points)
+    sure = ~over & (nn.dist < cell)
+    d_err = float(((nn.dist - d_x).abs() / d_x.clamp(min=1e-30))[sure].max())
+    diff = sure & (nn.idx != i_x)
+    tie_err = float((corr.points[nn.idx[diff].long()] - q[diff]).norm(dim=1).sub(d_x[diff])
+                    .abs().max()) if bool(diff.any()) else 0.0
+    log(f"[icp grid] nearest_point vs exact_nn on the {N_SMALL_SCAN} scan points at the converged "
+        f"T: {int(sure.sum())} without overflow within a cell ({int(over.sum())} windows over the "
+        f"cap); max rel |d - d_exact| {d_err:.3e}; indices differing {int(diff.sum())} (at equal "
+        f"distance within {tie_err:.3e})")
+    if not (int(sure.sum()) > N_SMALL_SCAN // 2 and d_err <= 1e-6 and tie_err <= 1e-6):
+        raise AssertionError("[icp grid] nearest_point disagrees with the exact 1-NN kernel")
+    out["nearest_point_checked"] = int(sure.sum())
+    return out
+
+
+def run_hashed_map(map_np, scan_np, dev) -> dict:
+    """Phase 10: VPlaneICP and NDT on a map over the dense budget (two
+    districts: the city tile and the same tile 3 km away): hashed, aligned by
+    the plain stats (no fused launch), as in the JAX package."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.ops.hashgrid import DENSE_CELL_BUDGET
+
+    two = np.vstack([map_np, map_np + TILE_SHIFT])
+    two_t, scan_t = torch.from_numpy(two).to(dev), torch.from_numpy(scan_np).to(dev)
+    out = {}
+    for name, cls, t_ref, its in (("vplane_icp", pt.VPlaneICP, T_REF_VPLANE_HASHED, 4),
+                                  ("ndt", pt.NDT, T_REF_NDT_HASHED, 3)):
+        tag = f"[{name} hashed]"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        s = cls(voxel_size=1.0, **PARAMS, device=dev)
+        s.set_target(two)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        T = s.align(scan_np)
+        t2 = time.perf_counter()
+        counts = launch_counts()
+        vm = s.voxels
+        cells = int(np.prod(vm.dims))
+        log(f"{tag} {len(two)} points, box {vm.dims} = {cells} cells (budget {DENSE_CELL_BUDGET}): "
+            f"hashed {vm.hashed}, {vm.grid.n_cells} occupied of {vm.means.shape[0]} slots, "
+            f"{vm.num_voxels} valid; first set_target {t1 - t0:.3f} s, align {t2 - t1:.3f} s; "
+            f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB; launch counts "
+            f"{counts}")
+        if not (vm.hashed and vm.grid.dense is None and cells > DENSE_CELL_BUDGET):
+            raise AssertionError(f"{tag} the map is not hashed")
+        if counts["fused_plane_stats"] or counts["fused_ndt_stats"]:
+            raise AssertionError(f"{tag} the fused kernel ran on a hashed map")
+        err = check_T(tag, T, s.last_diagnostics, t_ref, its)
+        warm = warm_runs(s, lambda x: x.set_target(two_t), scan_t, T)
+        align_s = min(b for _, b in warm)
+        log(f"{tag} warm, set_target s / align s: "
+            + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in warm)
+            + f"; align per iteration {align_s / its * 1e3:.2f} ms")
+        out[name] = {"set_target_s": min(a for a, _ in warm), "align_s": align_s,
+                     "iterations": its, "dT_jax": err,
+                     "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    return out
+
+
+def run_update_target(map_np, scan_np, dev) -> dict:
+    """Phase 11: ``set_target(half 1)``, ``update_target(half 2)``,
+    ``align(scan)`` for VPlaneICP and NDT: the updated map's cell index feeds
+    the fused kernel, once per iteration; counts and valid cells equal a full
+    rebuild's."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.models import pad_points
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+
+    perm = np.random.RandomState(SPLIT_SEED).permutation(len(map_np))
+    half = len(map_np) // 2
+    part_a, part_b = map_np[perm[:half]], map_np[perm[half:]]
+    pb_t = torch.from_numpy(part_b).to(dev)
+    out = {}
+    for name, cls, kernel, t_ref, its in (
+            ("vplane_icp", pt.VPlaneICP, fa.fused_plane_stats, T_REF_VPLANE_UPDATE, 4),
+            ("ndt", pt.NDT, fa.fused_ndt_stats, T_REF_NDT_UPDATE, 3)):
+        tag = f"[{name} update_target]"
+        reset_launches()
+        s = cls(voxel_size=1.0, **PARAMS, device=dev)
+        s.set_target(part_a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.update_target(part_b)
+        torch.cuda.synchronize()
+        first_update_s = time.perf_counter() - t0
+        T = s.align(scan_np)
+        counts = launch_counts()
+        d = s.last_diagnostics
+        log(f"{tag} halves of {len(part_a)} / {len(part_b)} points; first update "
+            f"{first_update_s:.3f} s; launch counts {counts}")
+        err = check_T(tag, T, d, t_ref, its)
+        launches = kernel.launches  # before the comparisons below launch it again
+        if launches != d.iterations:
+            raise AssertionError(f"{tag} {kernel.__name__} launched {launches} times for "
+                                 f"{d.iterations} iterations")
+        full = cls(voxel_size=1.0, **PARAMS, device=dev)
+        full.set_target(map_np)
+        a, b = s.voxels, full.voxels
+        if not (a.dims == b.dims and torch.equal(a.counts, b.counts)
+                and torch.equal(a.valid, b.valid)):
+            raise AssertionError(f"{tag} counts or valid cells differ from a full rebuild")
+        v = b.valid
+        mean_err = float((a.means[v] - b.means[v]).abs().max())
+        cov_err = float(((a.covs[v] - b.covs[v]).abs()
+                         / b.covs[v].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)).max())
+        # the kernel against its plain version on the updated map's cell index
+        src, w = pad_points(scan_np, device=dev)
+        args = voxel_args(s, src, w, torch.as_tensor(T, dtype=torch.float32))
+        kerr = compare_stats(kernel(*args), getattr(fa, f"{kernel.__name__}_reference")(*args))
+        if not (kerr["max"] < TOL_H and kerr["g"] < TOL_G and kerr["n"] <= TOL_N):
+            raise AssertionError(f"{tag} the kernel disagrees with its plain version: {kerr}")
+        times = []
+        for _ in range(3):
+            s.set_target(part_a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.update_target(pb_t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"{tag} against a full rebuild: counts and valid equal ({int(v.sum())} valid "
+            f"cells); max |mean - mean_rebuild| {mean_err:.3e} m, max |cov - cov_rebuild| "
+            f"{cov_err:.3e} of the cell's largest entry; kernel vs plain at the converged T: "
+            f"rel err H {kerr['max']:.3e}, n diff {kerr['n']:.0f}; warm update_target s "
+            + ", ".join(f"{x:.4f}" for x in times))
+        out[name] = {"iterations": d.iterations, "launches": launches, "dT_jax": err,
+                     "update_s": min(times), "mean_err": mean_err, "cov_err": cov_err}
+    return out
+
+
+def run_utilities(map_np, scan_np, dev) -> dict:
+    """Phase 12: ``KDTree``, ``VoxelGrid`` and ``voxel_filter`` at full size."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
+    from point_cloud_registration_tpu_torch.ops.knn import brute_force_knn
+
+    tag = "[utilities]"
+    map_t, scan_t = torch.from_numpy(map_np).to(dev), torch.from_numpy(scan_np).to(dev)
+    out = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = pt.KDTree(map_t)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    d, i = tree.query(scan_t, k=1)
+    t2 = time.perf_counter()
+    build_s, query_s = t1 - t0, t2 - t1
+    launches = en.exact_nn.launches
+    d_x, i_x = (x.cpu().numpy() for x in en.exact_nn(scan_t, map_t))
+    diff = i != i_x
+    tie = (float(np.abs(np.linalg.norm(map_np[i[diff]] - scan_np[diff], axis=1) - d_x[diff]).max())
+           if diff.any() else 0.0)
+    log(f"{tag} KDTree(map): cell {tree.cell_size:.4f} m, build {build_s:.3f} s; query(scan, "
+        f"k=1) {query_s:.3f} s with {launches} exact_nn launch(es) for its escapes; against "
+        f"exact_nn: distances equal {np.array_equal(d, d_x)}, indices differing {int(diff.sum())} "
+        f"(at equal distance within {tie:.2e})")
+    if not (launches >= 1 and np.array_equal(d, d_x) and tie <= 1e-6):
+        raise AssertionError(f"{tag} KDTree.query(k=1) is not the exact 1-NN")
+    q = scan_t[:N_KNN].contiguous()
+    t0 = time.perf_counter()
+    dk, ik = tree.query(q, k=K_KNN)
+    t1 = time.perf_counter()
+    db, ib = (x.cpu().numpy() for x in brute_force_knn(q, map_t, K_KNN, chunk=64))
+    t2 = time.perf_counter()
+    rel = float((np.abs(dk - db) / np.maximum(db, 1e-30)).max())
+    diff = ik != ib
+    # an index may differ only between neighbours at one distance
+    tie_ok = bool(np.all(np.isin(dk[diff], db[diff]))) if diff.any() else True
+    log(f"{tag} query({N_KNN} scan points, k={K_KNN}) {t1 - t0:.3f} s against brute_force_knn "
+        f"({t2 - t1:.3f} s): max rel |d - d_exact| {rel:.3e}, indices differing "
+        f"{int(diff.sum())} (ties only: {tie_ok})")
+    if not (rel <= 1e-6 and tie_ok):
+        raise AssertionError(f"{tag} KDTree.query(k={K_KNN}) is not the exact k-NN")
+    out["kdtree"] = {"build_s": build_s, "query_s": query_s, "knn_query_s": t1 - t0,
+                     "exact_nn_launches": launches}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg = pt.VoxelGrid(1.0, device=dev)
+    vg.set_points(map_t)
+    vg.calc_icov()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = vg.query(scan_t, ["mean", "norm", "icov"])
+    t2 = time.perf_counter()
+    if not (np.isfinite(res["dist"]).all() and res["icov"].shape == (len(scan_np), 3, 3)
+            and np.isfinite(res["mean"]).all()):
+        raise AssertionError(f"{tag} VoxelGrid.query gave non-finite fields")
+    log(f"{tag} VoxelGrid(1.0): set_points + calc_icov {t1 - t0:.3f} s ({len(vg.mean)} valid "
+        f"voxels); query(scan, mean/norm/icov) {t2 - t1:.3f} s, max dist {res['dist'].max():.3f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cent = pt.voxel_filter(map_t, 0.5)
+    t1 = time.perf_counter()
+    scale = np.maximum(1.0, np.abs(VOXEL_FILTER_REF))
+    err = float((np.abs(cent[VOXEL_FILTER_ROWS] - VOXEL_FILTER_REF) / scale).max()) \
+        if len(cent) == VOXEL_FILTER_COUNT else float("inf")
+    again = pt.voxel_filter(map_t, 0.5)
+    t2 = time.perf_counter()
+    log(f"{tag} voxel_filter(map, 0.5): {len(cent)} centroids (JAX: {VOXEL_FILTER_COUNT}), "
+        f"{t1 - t0:.3f} s, warm {t2 - t1:.3f} s; max rel err of {len(VOXEL_FILTER_ROWS)} rows "
+        f"against the JAX package's {err:.2e}; a second call bit-equal "
+        f"{np.array_equal(cent, again)}")
+    if not (len(cent) == VOXEL_FILTER_COUNT and err <= 1e-5 and np.array_equal(cent, again)):
+        raise AssertionError(f"{tag} voxel_filter disagrees with the JAX package")
+    out["voxel_filter_s"] = t2 - t1
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1184,7 +1592,14 @@ def main() -> None:
     icp.set_target(map_t)
     results["exact_nn"] = run_exact_nn(map_t, scan_np, results["icp"]["T"], icp._target, dev)
 
-    # 8. No JAX
+    # 9-12. Small targets (the grid method), an over-budget (hashed) map,
+    # update_target, and the utilities
+    results["grid"] = run_grid_targets(dev)
+    results["hashed"] = run_hashed_map(map_np, scan_np, dev)
+    results["update"] = run_update_target(map_np, scan_np, dev)
+    results["utilities"] = run_utilities(map_np, scan_np, dev)
+
+    # 8. No JAX, after every phase
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1196,6 +1611,24 @@ def main() -> None:
                  results["normals"]))
     rows.append((en.exact_nn, f"{CSRC}/exact_nn.cu", f"{PALLAS}/exact_nn.py:77",
                  results["exact_nn"]))
+    # launches on each path that runs the kernel, the main path's first
+    grid = results["grid"]
+    path_launches = {
+        "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
+                              "update_target": results["update"]["vplane_icp"]["launches"],
+                              "hashed_map": 0},
+        "fused_ndt_stats": {"ndt": results["ndt"]["launches"],
+                            "update_target": results["update"]["ndt"]["launches"],
+                            "hashed_map": 0},
+        "point_stats": {"icp": results["icp"]["launches"],
+                        "icp_grid": grid["icp"]["launches"]["point_stats"]},
+        "plane_point_stats": {"plane_icp": results["plane_icp"]["launches"],
+                              "plane_icp_grid": grid["plane_icp"]["launches"]["plane_point_stats"]},
+        "knn_moments": {"estimate_normals": results["normals"]["launches"],
+                        "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
+        "exact_nn": {"oracle": results["exact_nn"]["launches"],
+                     "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
+    }
     for r in results.values():
         r.pop("T", None)
     log("summary: " + json.dumps({"card": smi, "build_s": build_s, **results}))
@@ -1205,6 +1638,7 @@ def main() -> None:
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": min(r["kernel_ms"]), "plain_ms": min(r["plain_ms"]),
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "paths": path_launches[kernel.__name__],
         **({"contract_bound_ms": r["contract_bound_ms"]} if "contract_bound_ms" in r else {}),
         **({"tiers": {name: {"queries": t["queries"], "kernel_ms": min(t["kernel_ms"]),
                              "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],

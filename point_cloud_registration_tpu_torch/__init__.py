@@ -1,17 +1,24 @@
 """PyTorch and CUDA port of point_cloud_registration_tpu.
 
-Imports ``torch`` and never ``jax``. Ported so far: VPlaneICP and NDT (the
-dense voxel-map build and the fused correspondence + linearization +
-reduction kernel, kinds "plane" and "ndt"), ICP and PlaneICP (the packed
+Imports ``torch`` and never ``jax``. Ported: VPlaneICP and NDT (the dense
+voxel-map build with the fused correspondence + linearization + reduction
+kernel, kinds "plane" and "ndt"; the hashed build for boxes over the dense
+budget, with plain stats; ``update_target``), ICP and PlaneICP (the packed
 point grid with its proxy voxel map and the point stats kernel, kinds
-"point" and "plane_pt"), each with the host Gauss-Newton loop, k-NN PCA
-normals (the k-NN moments kernel) and the exact 1-NN oracle kernel. The package's module names mirror the JAX package's, so
-each counterpart is easy to find.
+"point" and "plane_pt", from 50k target points; the CSR grid with plain
+stats below that), each with the host Gauss-Newton loop, k-NN PCA normals
+(the k-NN moments kernel) and the exact 1-NN kernel (the exact escapes of
+``KDTree``); the reference's utilities ``KDTree`` / ``VoxelGrid``,
+``voxel_filter``, ``color_by_voxel``, the Caratheodory coresets and PCD IO.
+Not ported yet: FastVPlaneICP, the batched and the multi-device paths. The
+package's module names mirror the JAX package's, so each counterpart is
+easy to find.
 """
 
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.compat import KDTree, NeighborIndex, VoxelGrid
 from point_cloud_registration_tpu_torch.core.config import (
     CorrespondenceConfig,
     ICPConfig,
@@ -41,14 +48,23 @@ from point_cloud_registration_tpu_torch.core.se3 import (
     transform_points,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
+from point_cloud_registration_tpu_torch.models.coreset import (
+    caratheodory,
+    create_gn_set,
+    fast_caratheodory,
+)
 from point_cloud_registration_tpu_torch.models.icp import ICP
 from point_cloud_registration_tpu_torch.models.ndt import NDT
 from point_cloud_registration_tpu_torch.models.plane_icp import PlaneICP
 from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import VPlaneICP
 from point_cloud_registration_tpu_torch.ops import normals as _normals
 from point_cloud_registration_tpu_torch.ops.normals import get_norm_lines
-from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, build_voxel_map
-
+from point_cloud_registration_tpu_torch.ops.voxelize import (
+    VoxelMap,
+    build_voxel_map,
+    color_by_voxel,
+    voxel_filter,
+)
 
 
 def estimate_normals(points, k: int = 15) -> np.ndarray:
@@ -81,18 +97,25 @@ __all__ = [
     "GNStats",
     "ICP",
     "ICPConfig",
+    "KDTree",
     "NDT",
     "NDTConfig",
+    "NeighborIndex",
     "PlaneICP",
     "PlaneICPConfig",
     "Registration",
     "VPlaneICP",
     "VPlaneICPConfig",
+    "VoxelGrid",
     "VoxelMap",
     "build_voxel_map",
+    "caratheodory",
+    "color_by_voxel",
+    "create_gn_set",
     "estimate_norm_with_tree",
     "estimate_normals",
     "expSO3",
+    "fast_caratheodory",
     "gauss_newton",
     "get_norm_lines",
     "huber_weight",
@@ -107,4 +130,5 @@ __all__ = [
     "skews",
     "solve_6x6",
     "transform_points",
+    "voxel_filter",
 ]

@@ -54,12 +54,12 @@ class CorrespondenceConfig:
 
     ``method``: ``"auto"`` picks ``"packed"`` (packed block tables + proxy
     voxel fallback, ``ops/pointgrid.py``) for targets of at least
-    ``auto_threshold`` points and ``"grid"`` (the CSR bucket scan, not
-    ported: it raises) for smaller ones. ``cell_fine`` is the packed
-    method's fine-cell size (None = max_dist / 4), also the radius within
-    which its tier-1 match is provably exact; ``packed_cap`` is the number
-    of points packed per block. ``cell_size`` and ``cell_cap`` belong to the
-    grid method.
+    ``auto_threshold`` points and ``"grid"`` (the CSR bucket scan of
+    ``ops/hashgrid.py`` and ``ops/knn.nearest_point``) for smaller ones.
+    ``cell_fine`` is the packed method's fine-cell size (None = max_dist /
+    4), also the radius within which its tier-1 match is provably exact;
+    ``packed_cap`` is the number of points packed per block. ``cell_size``
+    (None = max_dist / 2) and ``cell_cap`` belong to the grid method.
     """
 
     method: str = "auto"

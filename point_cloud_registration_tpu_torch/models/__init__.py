@@ -1,6 +1,11 @@
 """Solvers: the reference-compatible class API over the functional core."""
 
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration, pad_points
+from point_cloud_registration_tpu_torch.models.coreset import (
+    caratheodory,
+    create_gn_set,
+    fast_caratheodory,
+)
 from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import (
     VPlaneICP,
     build_vplane_target,

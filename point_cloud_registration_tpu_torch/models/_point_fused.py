@@ -1,13 +1,22 @@
-"""Gauss-Newton align over the point stats kernels (counterpart of
+"""Gauss-Newton align of ICP and PlaneICP (counterpart of
 ``point_cloud_registration_tpu/models/_point_fused.py``, kinds "point" for ICP
-and "plane_pt" for PlaneICP).
+and "plane_pt" for PlaneICP, and of the plain ``icp_stats`` /
+``plane_icp_stats``).
 
-Each iteration is one launch of ``ops/kernels/point_align.point_stats`` or
-``plane_point_stats`` over the whole scan and one copy of its 29 stat values to the host. The kernel
-resolves every query itself (tier 1 or the proxy voxel), so the TPU align's
-Morton layout, tile key lists, dense fused rows and fallback tiers
-(_point_fused.py:38-66, :110-167), which serve its VMEM tiles, have no
-counterpart.
+The target's layout picks the stats, as in the JAX package:
+
+* a packed target: each iteration is one launch of
+  ``ops/kernels/point_align.point_stats`` or ``plane_point_stats`` over the
+  whole scan. The kernel resolves every query itself (tier 1 or the proxy
+  voxel), so the TPU align's Morton layout, tile key lists, dense fused rows
+  and fallback tiers (_point_fused.py:38-66, :110-167), which serve its VMEM
+  tiles, have no counterpart;
+* a grid target (small targets, ``"grid"`` correspondence): the CSR scan of
+  ``match_points`` and the plain reductions of ``ops/reduce.py``
+  (icp.py:48-56, plane_icp.py:60-85), which the JAX package also runs
+  without a Pallas kernel (``point_fused_spec`` needs a packed target).
+
+Either way one copy of the 29 stat values reaches the host per iteration.
 """
 
 from __future__ import annotations
@@ -16,25 +25,59 @@ import torch
 
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, gauss_newton
-from point_cloud_registration_tpu_torch.core.se3 import makeRt
+from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
+    match_points,
     proxy_radius,
 )
-from point_cloud_registration_tpu_torch.ops.kernels.fused_align import stats_from_packed
+from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
+    packed_from_stats,
+    stats_from_packed,
+)
 from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
     plane_point_stats,
     point_stats,
 )
+from point_cloud_registration_tpu_torch.ops.reduce import plane_stats
+from point_cloud_registration_tpu_torch.ops.reduce import point_stats as reduce_point_stats
 
 _STATS_FN = {"point": point_stats, "plane_pt": plane_point_stats}
 
 
+def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: torch.Tensor,
+                     T: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
+                     normals: torch.Tensor | None = None) -> GNStats:
+    """Grid correspondence + the point (``normals`` None) or point-to-plane
+    linearization at ``T`` (host float32 (4, 4)), as ``icp_stats`` and
+    ``plane_icp_stats`` of the JAX package: a raw match takes
+    ``normals[point_idx]``. -> GNStats on the host, with one device sync."""
+    Td = T.to(source.device)
+    R, _ = makeRt(Td)
+    src_trans = transform_points(Td, source)
+    m = match_points(target, src_trans, cfg.corr, cfg.max_dist)
+    w = src_weight * m.weight
+    if normals is None:
+        stats = reduce_point_stats(source, src_trans, m.target, w, R,
+                                   huber_delta=cfg.huber_delta)
+    else:
+        safe = m.point_idx.clamp(0, normals.shape[0] - 1)
+        stats = plane_stats(source, src_trans, m.target, normals[safe], w, R,
+                            huber_delta=cfg.huber_delta)
+    return stats_from_packed(packed_from_stats(stats).cpu())
+
+
 def fused_point_stats(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, T: torch.Tensor,
-                      cfg: ICPConfig | PlaneICPConfig, kind: str = "point") -> GNStats:
-    """Packed correspondence + linearization of ``kind`` at ``T`` (host
-    float32 (4, 4)) -> GNStats on the host, with one device sync."""
+                      cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
+                      normals: torch.Tensor | None = None) -> GNStats:
+    """Correspondence + linearization of ``kind`` at ``T`` (host float32
+    (4, 4)) -> GNStats on the host, with one device sync: the kernel of
+    ``kind`` on a packed target, :func:`grid_point_stats` on a grid target
+    (``normals``: PlaneICP's per-point normals)."""
+    if target.packed is None:
+        return grid_point_stats(target, source, src_weight, T, cfg,
+                                normals if kind == "plane_pt" else None)
     R, t = makeRt(T)
     packed = _STATS_FN[kind](
         target.packed, target.proxy, source, src_weight, R, t, cfg.max_dist,
@@ -45,11 +88,11 @@ def fused_point_stats(target: PointCorrTarget, source: torch.Tensor,
 
 def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, init_T, cfg: ICPConfig | PlaneICPConfig,
-                      kind: str = "point") -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` with the point kernel of ``kind``: returns
-    ``(T, GNDiagnostics)``."""
+                      kind: str = "point", normals: torch.Tensor | None = None,
+                      ) -> tuple[torch.Tensor, GNDiagnostics]:
+    """``align`` over :func:`fused_point_stats`: returns ``(T, GNDiagnostics)``."""
 
     def stats_fn(T):
-        return fused_point_stats(target, source, src_weight, T, cfg, kind)
+        return fused_point_stats(target, source, src_weight, T, cfg, kind, normals)
 
     return gauss_newton(stats_fn, init_T, cfg.max_iter, cfg.tol)

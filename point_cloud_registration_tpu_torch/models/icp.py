@@ -1,10 +1,11 @@
 """Point-to-point ICP (counterpart of ``point_cloud_registration_tpu/models/icp.py``).
 
 Objective ``sum_i || T p_i - q_i ||^2`` with gated nearest-neighbour
-correspondences, the reference solver at icp.py:12-57. The target is
-indexed by the packed point grid with its proxy voxel map
-(``models/_point_corr.py``); each Gauss-Newton iteration is one launch of
-the point stats kernel.
+correspondences, the reference solver at icp.py:12-57. A target of 50k
+points and more is indexed by the packed point grid with its proxy voxel
+map, and each Gauss-Newton iteration is one launch of the point stats
+kernel; a smaller one by the CSR grid, with the plain stats
+(``models/_point_corr.py``, ``models/_point_fused.py``).
 """
 
 from __future__ import annotations
@@ -50,10 +51,8 @@ class ICP(Registration):
     """Reference-compatible shim (constructor signature of icp.py:13-15).
 
     The default correspondence engine (``cfg.corr``) resolves to the packed
-    method for targets of at least 50k points; the CSR grid method it picks
-    below that is not ported and raises ``NotImplementedError``. Replace
-    ``cfg`` with one whose ``corr`` has ``method="packed"`` for smaller
-    targets, as the JAX package's tests do.
+    method for targets of at least 50k points and to the CSR grid method
+    below that; a ``cfg`` whose ``corr`` names a method keeps it at any size.
     """
 
     def __init__(self, max_iter: int = 30, max_dist: float = 2, tol: float = 1e-3,

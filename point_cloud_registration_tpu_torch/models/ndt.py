@@ -3,9 +3,11 @@ of ``point_cloud_registration_tpu/models/ndt.py``).
 
 Objective ``sum_i (T p_i - mu_i)^T Sigma_i^{-1} (T p_i - mu_i)`` against the
 nearest voxel Gaussian, the reference solver at ndt.py:12-57 (plain GN on
-the Mahalanobis cost, not Magnusson's exponential-likelihood NDT). The stats
-kernel takes the whitened form: ``U (T p - mu)`` with ``U^T U = icov`` read
-from the winner's row of the (D, 12) NDT table.
+the Mahalanobis cost, not Magnusson's exponential-likelihood NDT). On a
+dense map (also after ``update_target``) the stats kernel takes the whitened
+form: ``U (T p - mu)`` with ``U^T U = icov`` read from the winner's row of
+the cell index; a hashed map (a box over the dense budget) takes the plain
+icov form, as the JAX package's CPU path does.
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_stats,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
-from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, build_voxel_map
+from point_cloud_registration_tpu_torch.ops.voxelize import (
+    VoxelMap,
+    build_voxel_map,
+    update_voxel_map,
+)
 
 __all__ = ["NDT", "build_ndt_target", "ndt_align", "ndt_solver_stats"]
 
@@ -68,6 +74,19 @@ class NDT(Registration):
 
     def set_target(self, target) -> None:
         self._target = build_ndt_target(target, self.cfg, device=self.device)
+
+    def update_target(self, target) -> None:
+        """Merge ``target``'s points into the map (the reference's declared
+        ``update_target``, registration.py:36-43; ``models/ndt.py:132`` of the
+        JAX package):
+        ``ops.voxelize.update_voxel_map`` on a dense map, whose cell index
+        is rebuilt for the next align's kernel. Points outside the map's
+        box are dropped; a hashed map raises ``NotImplementedError``. With
+        no target yet it sets one."""
+        if self._target is None:
+            self.set_target(target)
+            return
+        self._target = update_voxel_map(self._target, target, min_points=self.cfg.min_points)
 
     @property
     def voxels(self) -> VoxelMap:

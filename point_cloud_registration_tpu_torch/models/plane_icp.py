@@ -4,11 +4,14 @@
 Objective ``sum_i (n_i^T (T p_i - q_i))^2`` against the target's k-NN PCA
 normals, the reference solver at plane_icp.py:13-69. Correspondences are
 gated raw-point 1-NN as in ICP; the residual is the projection on the
-matched point's normal, which rides in the packed rows beside the point.
-Queries beyond the packed tier's exactness radius take the proxy voxel's
-centroid and plane. Each Gauss-Newton iteration is one launch of the
-"plane_pt" stats kernel. Precomputed normals can be injected
-(plane_icp.py:19-28), so that alignment is timed apart from normal
+matched point's normal. On a packed target (50k points and more) the normal
+rides in the packed rows beside the point, queries beyond the packed tier's
+exactness radius take the proxy voxel's centroid and plane, and each
+Gauss-Newton iteration is one launch of the "plane_pt" stats kernel; a
+smaller target takes the grid method and the plain stats
+(``models/_point_fused.py``). Either way ``set_target`` estimates the
+normals through the k-NN moments kernel (``ops/normals.py``) unless they are
+given (plane_icp.py:19-28), so that alignment is timed apart from normal
 estimation.
 """
 
@@ -61,12 +64,14 @@ def plane_icp_stats(target: PlaneICPTarget, source: torch.Tensor, src_weight: to
                     T: torch.Tensor, cfg: PlaneICPConfig):
     """Correspondence + plane linearization + reduction for one GN iteration
     (plane_icp.py:30-69) -> GNStats on the host."""
-    return fused_point_stats(target.corr, source, src_weight, T, cfg, "plane_pt")
+    return fused_point_stats(target.corr, source, src_weight, T, cfg, "plane_pt",
+                             target.normals)
 
 
 def plane_icp_align(target: PlaneICPTarget, source: torch.Tensor, src_weight: torch.Tensor,
                     init_T, cfg: PlaneICPConfig) -> AlignResult:
-    T, diag = fused_point_align(target.corr, source, src_weight, init_T, cfg, "plane_pt")
+    T, diag = fused_point_align(target.corr, source, src_weight, init_T, cfg, "plane_pt",
+                                target.normals)
     return AlignResult(T=T, diagnostics=diag)
 
 
@@ -74,8 +79,8 @@ class PlaneICP(Registration):
     """Reference-compatible shim (constructor of plane_icp.py:14-17).
 
     As for :class:`ICP`, the default correspondence engine resolves to the
-    packed method for targets of at least 50k points; below that it picks
-    the CSR grid method, which is not ported and raises.
+    packed method for targets of at least 50k points and to the CSR grid
+    method below that.
     """
 
     def __init__(self, max_iter: int = 30, max_dist: float = 2, tol: float = 1e-3,

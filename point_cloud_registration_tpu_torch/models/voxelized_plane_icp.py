@@ -3,8 +3,9 @@
 
 Correspondences are the nearest *voxel Gaussian* (mean + normal) of a voxel
 map, the reference solver at voxelized_plane_icp.py:12-64. The nearest voxel
-is found in a window of cells that provably covers ``max_dist``, inside the
-fused stats kernel.
+is found in a window of cells that provably covers ``max_dist``: inside the
+fused stats kernel on a dense map (also after ``update_target``), by plain
+torch ops on a hashed one (a box over the dense budget).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_stats as vplane_stats,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
-from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, build_voxel_map
+from point_cloud_registration_tpu_torch.ops.voxelize import (
+    VoxelMap,
+    build_voxel_map,
+    update_voxel_map,
+)
 
 __all__ = ["VPlaneICP", "build_vplane_target", "vplane_align", "vplane_stats"]
 
@@ -60,6 +65,19 @@ class VPlaneICP(Registration):
 
     def set_target(self, target) -> None:
         self._target = build_vplane_target(target, self.cfg, device=self.device)
+
+    def update_target(self, target) -> None:
+        """Merge ``target``'s points into the map (the reference's declared
+        ``update_target``, registration.py:36-43; ``models/voxelized_plane_icp.py:134`` of the
+        JAX package):
+        ``ops.voxelize.update_voxel_map`` on a dense map, whose cell index
+        is rebuilt for the next align's kernel. Points outside the map's
+        box are dropped; a hashed map raises ``NotImplementedError``. With
+        no target yet it sets one."""
+        if self._target is None:
+            self.set_target(target)
+            return
+        self._target = update_voxel_map(self._target, target, min_points=self.cfg.min_points)
 
     @property
     def voxels(self) -> VoxelMap:

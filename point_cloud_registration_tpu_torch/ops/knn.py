@@ -21,6 +21,17 @@ its grid (:func:`cell_table`)::
 
 A probe is one 16-byte load of the centroid and the validity flag; the
 normal is a second 16-byte load, made only for the winning cell.
+
+The hashed grid's queries (``ops/hashgrid.build_grid``) are plain torch ops,
+as the JAX package leaves them to XLA: :func:`nearest_voxel` (nearest valid
+centroid of a hashed voxel map), :func:`nearest_point` (gated 1-NN over the
+CSR buckets of raw points) and :func:`knn_points` (k-NN over them). Each
+visits the cells of ``hashgrid.search_offsets`` in their order and, within a
+cell, the first ``cap`` points of its bucket; the first minimum in that order
+wins (the JAX package's strict ``<`` over a sequential scan). The CSR scans
+lay out only the candidates they scan, enumerated (query, offset, bucket
+position), so the first minimum is the smallest enumeration position among
+the minima, and a stable sort keeps that order among equal distances.
 """
 
 from __future__ import annotations
@@ -30,13 +41,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.ops.hashgrid import (  # noqa: F401 (CELL_CLAMP)
+    CELL_CLAMP,
+    Buckets,
+    Grid,
+    coords_to_key,
+    lookup_slots,
+    query_cells,
+)
+
 # Finite miss sentinel of the JAX tables, kept for API parity: a squared
 # distance of at least FOUND_MAX**2 means "no valid cell was found".
 MISS_COORD = np.float32(1e30)
 FOUND_MAX = np.float32(1e14)
-# Cell coordinates are clamped to +-CELL_CLAMP before the integer conversion,
-# as in the kernels (gn_accumulate.cuh clamped_cell).
-CELL_CLAMP = 1e9
+# Candidates of one chunk of a CSR scan: 2**22 hold 50 MB of coordinates
+# (and about four times that in indices and distances on the way).
+SCAN_BUDGET = 1 << 22
+# Queries per chunk of nearest_voxel: 2**15 x 125 window cells.
+VOXEL_CHUNK = 1 << 15
 
 TABLE_WIDTH = 8
 WORD_BITS = 32  # cells per word of the occupancy bitmap
@@ -212,14 +234,160 @@ def brute_force_nn(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tens
 def brute_force_knn(query: torch.Tensor, ref: torch.Tensor, k: int,
                     chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN by chunked exhaustive search (knn.py:568, the validation
-    oracle): ``(dist (Nq, k) ascending, idx (Nq, k) i32)``. Among equal
-    distances the order is unspecified."""
+    oracle): ``(dist (Nq, k) ascending, idx (Nq, k) i32)``; among equal
+    distances the lower index comes first, as ``lax.top_k`` gives it. The
+    distance block is ``chunk * len(ref)`` floats."""
     dists, idxs = [], []
+    ar = torch.arange(ref.shape[0], dtype=torch.int64, device=ref.device)
     for a in range(0, query.shape[0], chunk):
         diff = query[a:a + chunk, None, :] - ref[None, :, :]
         d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
               + diff[..., 2] * diff[..., 2])
-        top, arg = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-        dists.append(torch.sqrt(top))
-        idxs.append(arg.to(torch.int32))
+        # float32 bits of a distance >= 0 order as the distance: with the
+        # index below them, one int64 key per pair is unique and ranks ties
+        key = (d2.contiguous().view(torch.int32).to(torch.int64) << 32) | ar
+        top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+        dists.append(torch.sqrt((top >> 32).to(torch.int32).view(torch.float32)))
+        idxs.append((top & 0xFFFFFFFF).to(torch.int32))
     return torch.cat(dists), torch.cat(idxs)
+
+
+class NNResult(NamedTuple):
+    dist: torch.Tensor  # (N,) f32: Euclidean distance, inf when no candidate
+    idx: torch.Tensor  # (N,) i32: matched slot or point index, -1 when none
+
+
+def _window_slots(grid: Grid, query: torch.Tensor, offsets) -> torch.Tensor:
+    """(N, K) int32 slots of the cells of ``query``'s window (-1: empty or
+    outside the grid), in the order of ``offsets`` (K, 3)."""
+    off = torch.as_tensor(np.asarray(offsets), dtype=torch.int64, device=query.device)
+    cells = query_cells(query, grid.cell_size)[:, None, :] + off[None]
+    return lookup_slots(grid, coords_to_key(cells, grid.origin_cell, grid.dims))
+
+
+def _sq_dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``sum((q - c)^2)`` over the last axis, never the GEMM expansion."""
+    d = q - c
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+
+
+def _first_min(d2: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row the first minimum of ``d2`` (M, L) and its ``idx``: ``(inf,
+    -1)`` where no entry is finite (no candidate, or a NaN query)."""
+    arg = torch.argmin(d2, dim=1, keepdim=True)
+    best = torch.gather(d2, 1, arg)[:, 0]
+    found = best < float("inf")
+    best = torch.where(found, best, torch.full_like(best, float("inf")))
+    won = torch.gather(idx, 1, arg)[:, 0].to(torch.int32)
+    return best, torch.where(found, won, torch.full_like(won, -1))
+
+
+def nearest_voxel(grid: Grid, means: torch.Tensor, valid: torch.Tensor, query: torch.Tensor,
+                  offsets) -> NNResult:
+    """Nearest valid voxel centroid within the offset window (knn.py:78):
+    ``means`` (C, 3) and ``valid`` (C,) per slot; returns the winning slot.
+    Queries go in chunks of ``VOXEL_CHUNK``."""
+    n, dev, chunk = query.shape[0], query.device, VOXEL_CHUNK
+    best_d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    best_slot = torch.empty(n, dtype=torch.int32, device=dev)
+    for a in range(0, n, chunk):
+        q = query[a:a + chunk]
+        slot = _window_slots(grid, q, offsets)
+        safe = slot.clamp(0, means.shape[0] - 1).to(torch.int64)
+        d2 = _sq_dist(q[:, None, :], means[safe])
+        d2 = torch.where((slot >= 0) & valid[safe], d2, torch.full_like(d2, float("inf")))
+        best_d2[a:a + chunk], best_slot[a:a + chunk] = _first_min(d2, slot)
+    return NNResult(dist=torch.sqrt(best_d2), idx=best_slot)
+
+
+def _ragged_candidates(buckets: Buckets, points: torch.Tensor, q: torch.Tensor,
+                       slot: torch.Tensor, cap: int):
+    """The scanned candidates of the queries ``q`` (M, 3) in their window
+    slots ``slot`` (M, K): each (query, offset) pair holds ``min(count,
+    cap)`` of them, enumerated (query, offset, bucket position), the probe
+    order. Returns ``(qi, d2, pidx)``: each candidate's query, squared
+    distance (NaN as ``inf``) and point index (int64)."""
+    dev = q.device
+    m, n_off = slot.shape
+    slot = slot.reshape(-1)
+    safe = slot.clamp(0, buckets.starts.shape[0] - 1).to(torch.int64)
+    rep = torch.where(slot >= 0, buckets.counts[safe], torch.zeros_like(slot)).clamp(max=cap)
+    rep = rep.to(torch.int64)
+    pair = torch.repeat_interleave(torch.arange(m * n_off, device=dev), rep)
+    first_of_pair = torch.cumsum(rep, dim=0) - rep
+    pos = buckets.starts[safe].to(torch.int64)[pair] + (
+        torch.arange(pair.shape[0], device=dev) - first_of_pair[pair])
+    pidx = buckets.perm[pos].to(torch.int64)
+    qi = torch.div(pair, n_off, rounding_mode="floor")
+    d2 = _sq_dist(q[qi], points[pidx])
+    return qi, torch.where(torch.isnan(d2), torch.full_like(d2, float("inf")), d2), pidx
+
+
+def _scan_chunks(grid: Grid, buckets: Buckets, query: torch.Tensor, offsets, cap: int):
+    """``(slot (N, K), overflow (N,), chunk)``: the window slots of every
+    query, whether a window holds a cell of more than ``cap`` points, and
+    the queries per chunk that keep a chunk's scanned candidates under
+    ``SCAN_BUDGET`` (one host read of their count)."""
+    slot = _window_slots(grid, query, offsets)
+    safe = slot.clamp(0, buckets.starts.shape[0] - 1).to(torch.int64)
+    count = torch.where(slot >= 0, buckets.counts[safe], torch.zeros_like(slot))
+    n_chunks = max(1, -(-int(count.clamp(max=cap).sum()) // SCAN_BUDGET))
+    return slot, (count > cap).any(dim=1), max(1, -(-query.shape[0] // n_chunks))
+
+
+def nearest_point(grid: Grid, buckets: Buckets, points: torch.Tensor, query: torch.Tensor,
+                  offsets, cap: int, with_overflow: bool = False):
+    """Gated 1-NN over raw points through the CSR buckets (knn.py:410).
+
+    A cell contributes the first ``cap`` points of its bucket, in their input
+    order. ``with_overflow`` also returns a per-query bool: the window touched
+    a cell of more than ``cap`` points, so the match is not provably the
+    nearest. Only the scanned candidates are laid out (a window's empty cells
+    and a bucket's unused cap cost nothing); a query's first minimum is its
+    smallest enumeration position among its minima."""
+    n, dev = query.shape[0], query.device
+    slot, over, chunk = _scan_chunks(grid, buckets, query, offsets, cap)
+    best_d2 = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    best_idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for a in range(0, n, chunk):
+        qi, d2, pidx = _ragged_candidates(buckets, points, query[a:a + chunk],
+                                          slot[a:a + chunk], cap)
+        if d2.numel() == 0:
+            continue
+        m = slot[a:a + chunk].shape[0]
+        best = torch.full((m,), float("inf"), dtype=torch.float32, device=dev)
+        best = best.scatter_reduce(0, qi, d2, "amin")
+        hit = (d2 == best[qi]) & (d2 < float("inf"))
+        first = torch.full((m,), d2.numel(), dtype=torch.int64, device=dev)
+        first = first.scatter_reduce(0, qi[hit], torch.arange(d2.numel(), device=dev)[hit],
+                                     "amin")
+        best_d2[a:a + chunk] = best
+        best_idx[a:a + chunk] = torch.where(first < d2.numel(),
+                                            pidx[first.clamp(max=d2.numel() - 1)], -1).int()
+    res = NNResult(dist=torch.sqrt(best_d2), idx=best_idx)
+    return (res, over) if with_overflow else res
+
+
+def knn_points(grid: Grid, buckets: Buckets, points: torch.Tensor, query: torch.Tensor,
+               offsets, cap: int, k: int, with_overflow: bool = False):
+    """k-NN over raw points: ``(dist (N, k), idx (N, k) int32)`` ascending
+    (knn.py:472), ``inf`` and -1 past the candidates found. Ties keep the
+    probe order (offset, then bucket position), as ``lax.top_k`` keeps the
+    lower position: two stable sorts, by distance and then by query.
+    ``with_overflow`` as in :func:`nearest_point`."""
+    n, dev = query.shape[0], query.device
+    slot, over, chunk = _scan_chunks(grid, buckets, query, offsets, cap)
+    dist = torch.full((n, k), float("inf"), dtype=torch.float32, device=dev)
+    idx = torch.full((n, k), -1, dtype=torch.int32, device=dev)
+    for a in range(0, n, chunk):
+        qi, d2, pidx = _ragged_candidates(buckets, points, query[a:a + chunk],
+                                          slot[a:a + chunk], cap)
+        order = torch.sort(d2, stable=True).indices
+        order = order[torch.sort(qi[order], stable=True).indices]
+        qs, ds, ps = qi[order], d2[order], pidx[order]
+        per_query = torch.bincount(qs, minlength=slot[a:a + chunk].shape[0])
+        rank = torch.arange(qs.shape[0], device=dev) - (torch.cumsum(per_query, 0) - per_query)[qs]
+        keep = (rank < k) & (ds < float("inf"))
+        dist[a + qs[keep], rank[keep]] = torch.sqrt(ds[keep])
+        idx[a + qs[keep], rank[keep]] = ps[keep].to(torch.int32)
+    return (dist, idx, over) if with_overflow else (dist, idx)

@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port.
 
 A target index plays the part of a model's weights: with these functions the
-same voxel map, packed point grid or PlaneICP target, built once by the JAX package, drives
-both aligners.
+same voxel map (dense or hashed), packed point grid, hashed grid with its
+buckets or PlaneICP target, built once by the JAX package, drives both
+aligners.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.models._point_corr import PointCorrTarget
 from point_cloud_registration_tpu_torch.models.plane_icp import PlaneICPTarget
+from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid
 from point_cloud_registration_tpu_torch.ops.knn import cell_index
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
@@ -157,3 +159,52 @@ def plane_icp_target_from_numpy(points, normals, *packed_args, device=None,
         raise ValueError(f"a PlaneICP target packs xyz + normal (width 6), got {pg.width}")
     corr = PointCorrTarget(points=_to_dev(points, torch.float32, device), packed=pg, proxy=proxy)
     return PlaneICPTarget(corr=corr, normals=_to_dev(normals, torch.float32, device))
+
+
+def grid_from_numpy(origin_cell, cell_size, dims, keys, n_cells, dense=None,
+                    device=None) -> Grid:
+    """Port :class:`~point_cloud_registration_tpu_torch.ops.hashgrid.Grid` from
+    the arrays of a JAX ``Grid`` (``grid.origin_cell``, ``.cell_size``,
+    ``.dims``, ``.keys``, ``.n_cells`` and ``.dense``, None over the budget)."""
+    device = resolve_device(None, device)
+    return Grid(
+        origin_cell=tuple(int(x) for x in np.asarray(origin_cell)),
+        cell_size=float(np.float32(cell_size)),
+        dims=tuple(int(x) for x in np.asarray(dims)),
+        keys=_to_dev(keys, torch.int32, device),
+        n_cells=int(n_cells),
+        dense=None if dense is None else _to_dev(dense, torch.int32, device),
+    )
+
+
+def buckets_from_numpy(perm, starts, counts, device=None) -> Buckets:
+    """Port CSR :class:`~point_cloud_registration_tpu_torch.ops.hashgrid.Buckets`
+    from the arrays of a JAX ``Buckets``."""
+    device = resolve_device(None, device)
+    return Buckets(perm=_to_dev(perm, torch.int32, device),
+                   starts=_to_dev(starts, torch.int32, device),
+                   counts=_to_dev(counts, torch.int32, device))
+
+
+def hashed_voxel_map_from_numpy(grid: Grid, means, covs, normals, counts, valid,
+                                icovs=None, device=None) -> VoxelMap:
+    """Port hashed :class:`VoxelMap` on ``grid`` (:func:`grid_from_numpy`)
+    from the per-slot arrays of a JAX ``VoxelMap`` built by ``build_grid``
+    (``vm.means`` ... ``vm.valid``, ``vm.icovs`` for NDT). The port keeps
+    the normals of invalid slots at zero."""
+    device = resolve_device(None, device)
+    valid_t = _to_dev(valid, torch.bool, device)
+    normals_t = _to_dev(normals, torch.float32, device)
+    return VoxelMap(
+        origin_cell=grid.origin_cell,
+        dims=grid.dims,
+        cell_size=grid.cell_size,
+        means=_to_dev(means, torch.float32, device),
+        covs=_to_dev(covs, torch.float32, device),
+        normals=torch.where(valid_t[:, None], normals_t, torch.zeros_like(normals_t)),
+        counts=_to_dev(counts, torch.int32, device),
+        valid=valid_t,
+        icovs=None if icovs is None else _to_dev(icovs, torch.float32, device),
+        cells=None,
+        grid=grid,
+    )

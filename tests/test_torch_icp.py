@@ -284,13 +284,18 @@ def test_cpu_wrapper_runs_plain_version_without_launching(scene_target):
 
 
 def test_auto_and_grid_methods_raise_on_small_targets(cube):
-    # "auto" picks the CSR grid below auto_threshold points; it is not ported
+    # "auto" picks the CSR grid below auto_threshold points, as "grid" does
+    # at any size: the target is a grid with buckets, no packed rows (the
+    # grid path's parity is in tests/test_torch_icp_grid.py); only unknown
+    # methods and backends raise
     for corr in (CorrespondenceConfig(), CorrespondenceConfig(method="grid")):
         icp = ICP(device="cpu")
         icp.cfg = dataclasses.replace(icp.cfg, corr=corr)
-        with pytest.raises(NotImplementedError, match="grid"):
-            icp.set_target(cube)
+        icp.set_target(cube)
+        assert icp._target.packed is None and icp._target.proxy is None
+        assert int(icp._target.buckets.counts.sum()) == len(cube)
     assert CorrespondenceConfig().resolved_method(50_000) == "packed"
+    assert CorrespondenceConfig().resolved_method(49_999) == "grid"
     with pytest.raises(ValueError):
         CorrespondenceConfig(method="kdtree")
     with pytest.raises(ValueError):

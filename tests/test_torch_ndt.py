@@ -346,7 +346,10 @@ def test_voxels_and_unported_update(scenes):
         ndt.align(np.zeros((10, 3), np.float32))
     ndt.set_target(scenes[9])
     assert ndt.voxels.icovs is not None and ndt.voxels.cells.feats.shape[1] == 8
-    with pytest.raises(NotImplementedError):
-        ndt.update_target(scenes[9])
+    # update_target merges into the map (parity in tests/test_torch_voxel_sparse.py)
+    counts = ndt.voxels.counts.clone()
+    ndt.update_target(scenes[9])
+    assert torch.equal(ndt.voxels.counts, 2 * counts)
+    assert ndt.voxels.cells.feats.shape[1] == 8
     with pytest.raises(ValueError):
         NDTConfig(backend="pallas")

@@ -297,9 +297,16 @@ def test_align_before_set_target_raises():
 
 
 def test_small_target_needs_the_packed_method():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PlaneICP(device="cpu").set_target(np.random.RandomState(0).rand(500, 3),
-                                          norm=np.tile([0.0, 0.0, 1.0], (500, 1)))
+    # A small target takes the CSR grid (its parity with the JAX package is
+    # in tests/test_torch_icp_grid.py): no packed rows, the given normals kept.
+    pts = np.random.RandomState(0).rand(500, 3).astype(np.float32)
+    picp = PlaneICP(device="cpu")
+    picp.set_target(pts, norm=np.tile([0.0, 0.0, 1.0], (500, 1)))
+    assert picp._target.corr.packed is None and picp._target.corr.grid is not None
+    assert bool((picp.normal[:, 2] == 1.0).all())
+    # one normal for all points leaves H of rank 3: the solver stops, flagged
+    T = picp.align(pts + np.float32([0.0, 0.0, 0.01]))
+    assert np.isfinite(T).all() and picp.last_diagnostics.solver_failed
 
 
 @pytest.mark.parametrize("kind", ["two_blocks", "one_block", "two_proxies"])

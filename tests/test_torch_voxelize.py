@@ -179,9 +179,17 @@ def test_cell_coords_and_bbox_match_jax():
 
 
 def test_over_budget_map_raises_not_implemented():
+    # A box over the dense budget is hashed (its build and align are in
+    # tests/test_torch_voxel_sparse.py); only merging points into it, as in
+    # the JAX package, and a box past the int32 keyspace raise.
     pts = np.array([[0, 0, 0], [500, 500, 500]], np.float32)
+    vm = tvox.build_voxel_map(pts, 1.0, min_points=1, device="cpu")
+    assert vm.hashed and vm.grid.dense is None and vm.grid.n_cells == 2
     with pytest.raises(NotImplementedError):
-        tvox.build_voxel_map(pts, 1.0, device="cpu")
+        tvox.update_voxel_map(vm, pts)
+    with pytest.raises(ValueError, match="int32"):
+        tvox.build_voxel_map(np.array([[0, 0, 0], [2e3, 2e3, 1e3]], np.float32), 1.0,
+                             device="cpu")
 
 
 def test_empty_cloud_raises():

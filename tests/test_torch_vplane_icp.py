@@ -20,7 +20,7 @@ from point_cloud_registration_tpu.core.config import VPlaneICPConfig as JaxConfi
 from point_cloud_registration_tpu.models._fused import fused_voxel_align
 from point_cloud_registration_tpu.ops.pallas.fused_align import voxel_fused_spec
 from point_cloud_registration_tpu.ops.voxelize import build_voxel_map
-from point_cloud_registration_tpu_torch import VPlaneICP
+from point_cloud_registration_tpu_torch import ICP, PlaneICP, VPlaneICP
 from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
 from point_cloud_registration_tpu_torch.models import pad_points, vplane_align
 from point_cloud_registration_tpu_torch.utils.convert import voxel_map_from_numpy
@@ -129,9 +129,14 @@ def test_value_error_before_set_target(method):
 
 
 def test_update_target_not_implemented(scene):
+    # VPlaneICP merges (parity in tests/test_torch_voxel_sparse.py): with no
+    # target yet it sets one; ICP and PlaneICP keep the reference's raise
     vp = VPlaneICP(device="cpu")
-    with pytest.raises(NotImplementedError):
-        vp.update_target(scene[0])
+    vp.update_target(scene[0])
+    assert vp.is_target_set() and vp.voxels.cells is not None
+    for solver in (ICP(device="cpu"), PlaneICP(device="cpu")):
+        with pytest.raises(NotImplementedError):
+            solver.update_target(scene[0])
 
 
 def test_backend_other_than_auto_raises():
