@@ -93,7 +93,37 @@ package's result on the same seeded data (``T_REF_*`` and the
    ``query``; ``voxel_filter(map, 0.5)`` against the JAX package's count and
    rows.
 
-8. No JAX was imported (checked last, after phases 9-12).
+Then the batched streams and the coreset solver (phases 13-15), held to the
+JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
+``scripts/jax_reference_batched.py``):
+
+13. The batched voxel stream: bench.py's B = 8 scans of 16,384 points
+   (``make_scan(RandomState(100 + b), map, 16384)``) against VPlaneICP's
+   and NDT's targets from T = I through
+   ``models._fused.fused_voxel_align_batched``: the batched kernel once per
+   batched iteration (launches = the largest iteration count, no single
+   launch); each problem's T within 1e-5 of its single ``align`` with equal
+   iterations and flags, and within 1e-3 of the JAX package's with equal
+   iterations. Before it the batched kernel against its plain version and
+   its single entry at these shapes and 8 distinct poses, and at n = 1, 7,
+   257 points a problem (a problem's tail must read nothing of the next
+   one's). A mixed batch: one scan 100 m up (all outliers: failed, T = I,
+   one iteration) and one with half its weights 0; the others keep the
+   clean batch's T bit for bit. Warm wall time, registrations/s, Mpts/s,
+   device time and busy share by ``torch.profiler``.
+14. The batched point stream: the same for ICP's packed target and
+   PlaneICP's (phase 6's normals), through
+   ``models._point_fused.fused_point_align_batched``.
+15. FastVPlaneICP on the map and the 100k scan: ``"auto"`` equal to phase
+   4's VPlaneICP bit for bit (T, iterations, fused launches); ``"always"``
+   with the switch ``FAST_SWITCH``: phase 1's iterations equal to JAX's,
+   one fused launch per phase-2 iteration on the ``N_target`` coreset rows,
+   T within 6e-2 of JAX's and of VPlaneICP's; the live points, the host
+   lift's seconds and microseconds a live point beside one full-cloud
+   iteration's wall and nanoseconds a point, and their ratio: the card's
+   breakeven in remaining iterations.
+
+8. No JAX was imported (checked last, after phases 9-15).
 
 The line before the last is a JSON object describing each kernel: its
 launches on its path, its error against the plain version, its time, the
@@ -103,8 +133,10 @@ and output once over 3.35 TB/s and the operations over 67 TFLOP/s fp32;
 ``exact_nn`` also has ``contract_bound_ms``, its 8 separately rounded
 operations per pair at half that rate) and, where one PyTorch call computes
 the same function, that call's time; ``paths`` gives its launches on every
-path that runs it (its main path first, then phases 9-12). The last line is
-``{"ok": true, "device": {...}}``.
+path that runs it (its main path first, then phases 9-15); the four align
+kernels also carry ``batched``: the batched entry's launches, error, time,
+plain time, the time of B single launches and bound at phase 13's and 14's
+shapes. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -237,6 +269,99 @@ VOXEL_FILTER_REF = np.array([
     [1.814516754e+02, 1.037328110e+02, 5.640537739e+00],
     [8.593728638e+01, 1.876911316e+02, 1.956024551e+01],
 ])
+# Phases 13-15. The batched streams: bench.py's batched scans (bench.py:807-809)
+N_BATCHES, N_BATCH = 8, 16384
+BATCH_TAILS = (1, 7, 257)  # scans of no multiple of 8 or of a block, kernel vs plain
+TOL_BATCHED = 1e-5  # max |T - T_single| of a problem of a batched align
+BATCHED_KINDS = {"vplane_icp": "plane", "ndt": "ndt", "icp": "point", "plane_icp": "plane_pt"}
+# The JAX package's per-scan results (JAX 0.9.0 on the CPU, the class API one
+# scan at a time; JAX_PLATFORMS=cpu python3 scripts/jax_reference_batched.py):
+# kind -> [(iterations, rows 0-2 of T)] per scan
+BATCHED_REF = {
+    "plane": [
+        (5, [1, 6.32884548e-05, 3.10843316e-05, -0.00672493922, -6.32783049e-05, 1,
+             -6.1637882e-05, 0.0090647107, -3.1085252e-05, 6.1636063e-05, 1, -0.363829374]),
+        (5, [1, -4.34263748e-05, -4.0595045e-05, 0.000215811306, 4.34287795e-05, 1,
+             0.000110774192, 0.00553553412, 4.05911815e-05, -0.000110775822, 1, -0.359401464]),
+        (5, [1, 6.70419904e-05, -2.83731401e-06, -0.00253277784, -6.7039924e-05, 1,
+             0.000105505824, 0.0111196535, 2.84036196e-06, -0.000105505278, 1, -0.349240571]),
+        (4, [1, 2.46538002e-06, 8.59619904e-05, -0.00323001714, -2.46588729e-06, 1,
+             6.45892987e-06, 0.00941320788, -8.59607317e-05, -6.45845012e-06, 1, -0.356624037]),
+        (4, [1, 7.94239677e-05, 0.000194900931, -0.0132679958, -7.94138323e-05, 1,
+             -0.000148829611, 0.0170767177, -0.000194901819, 0.000148826628, 1, -0.363548905]),
+        (4, [1, 0.000196818699, 0.000118975098, -0.0180764496, -0.00019681672, 1,
+             -2.71619392e-05, 0.00320373313, -0.00011896967, 2.71478602e-05, 1, -0.351673961]),
+        (4, [1, -4.6026591e-05, 0.0001754572, 0.00314076757, 4.60185947e-05, 1,
+             9.74426657e-05, 0.000976959826, -0.000175459252, -9.74380964e-05, 1, -0.333349198]),
+        (4, [1, 0.000119408935, 9.19578815e-05, -0.0177295096, -0.000119414493, 1,
+             3.81901846e-05, 0.0134526864, -9.19522718e-05, -3.81899154e-05, 1, -0.347756922]),
+    ],
+    "ndt": [
+        (4, [1, 1.00027537e-05, 0.000148672232, -0.000823972921, -9.99545227e-06, 1,
+             -3.16901569e-05, 0.00266343774, -0.000148669525, 3.16899241e-05, 1, -0.357889563]),
+        (3, [1, -3.89020715e-05, 1.77247639e-05, 0.00634216145, 3.89047236e-05, 1,
+             2.6368567e-05, 0.00172409345, -1.77267429e-05, -2.63665643e-05, 1, -0.360882491]),
+        (4, [1, -2.97696692e-06, 1.85451409e-05, -0.000567989657, 2.97825545e-06, 1,
+             0.000144196776, -0.00169512199, -1.85451208e-05, -0.000144195568, 1, -0.347054005]),
+        (4, [1, -8.79768413e-05, -1.85491863e-05, 0.00616778387, 8.7978915e-05, 1,
+             2.91743636e-05, -0.000216987217, 1.85464123e-05, -2.91744836e-05, 1, -0.365767807]),
+        (4, [1, -1.25939778e-05, 0.00020653446, -0.000292064389, 1.26025307e-05, 1,
+             -0.00010804167, 0.0113938143, -0.000206532539, 0.000108043379, 1, -0.37008971]),
+        (4, [1, 0.000123139776, 0.000212421903, -0.0113423029, -0.000123146587, 1,
+             3.80208185e-05, 0.0049687922, -0.000212416067, -3.80360288e-05, 1, -0.339609951]),
+        (3, [1, -2.27115215e-05, 0.000216468004, 0.0011007397, 2.26919001e-05, 1,
+             0.00018475292, 0.0042347298, -0.000216470566, -0.000184746357, 1, -0.328792334]),
+        (4, [1, -2.53702319e-06, 0.000106325701, 0.00195952994, 2.53665735e-06, 1,
+             -4.92332329e-05, 0.00428956468, -0.000106324435, 4.92375912e-05, 1, -0.359115243]),
+    ],
+    "point": [
+        (6, [1, -3.47887919e-07, -1.48769959e-06, -0.00020284683, 3.69478272e-07, 1,
+             7.12202564e-09, 8.67113995e-05, 1.48828985e-06, -1.25006636e-08, 1, -0.300212175]),
+        (6, [1, -1.52744406e-06, 1.26709711e-06, 0.000100899437, 1.55307498e-06, 1,
+             5.25362657e-06, -0.000292912242, -1.26717259e-06, -5.25259384e-06, 1, -0.29950884]),
+        (6, [1, -1.65762003e-06, -2.20100173e-06, 7.06221763e-05, 1.67903409e-06, 1,
+             -1.8316988e-06, -1.09884613e-05, 2.20134007e-06, 1.82881763e-06, 1, -0.300429761]),
+        (6, [1.00000012, 6.53491554e-07, 4.14059514e-06, 1.42762583e-05, -6.39935138e-07, 1,
+             -3.3685285e-07, -7.66611629e-05, -4.14038277e-06, 3.33704008e-07, 1.00000012, -0.299452454]),
+        (6, [1, 1.79266942e-06, 1.68369934e-06, -0.000132059897, -1.78184655e-06, 1,
+             -6.42239229e-06, 0.000537910441, -1.68363567e-06, 6.41962924e-06, 1, -0.300647765]),
+        (6, [1.00000012, 1.7280787e-06, 2.35714651e-07, -0.000582760549, -1.69538487e-06, 1,
+             -1.18741195e-06, 0.00019724865, -2.35743911e-07, 1.18799801e-06, 1.00000012, -0.300073087]),
+        (6, [1.00000012, -1.72151727e-06, 4.04798129e-06, 0.000268440403, 1.73303204e-06, 1,
+             -5.920474e-07, 1.15609837e-05, -4.04787943e-06, 5.88745991e-07, 1.00000012, -0.299694061]),
+        (6, [1.00000012, -4.17181627e-06, -3.66832319e-06, 0.000337887876, 4.19306389e-06, 1,
+             -1.94214249e-06, -0.000546979194, 3.66852896e-06, 1.94148197e-06, 1.00000012, -0.300509453]),
+    ],
+    "plane_pt": [
+        (3, [1, 5.43339229e-06, -1.76228423e-06, -0.000437365088, -5.4331872e-06, 1,
+             -2.09597238e-06, 0.00111017993, 1.76209642e-06, 2.09603968e-06, 1, -0.300121725]),
+        (3, [1, -2.1659398e-06, -2.67314135e-07, 0.000270448509, 2.1660428e-06, 1,
+             8.34820639e-08, 4.28696221e-05, 2.67298674e-07, -8.34611456e-08, 1, -0.299486071]),
+        (3, [1, -6.8447066e-06, -1.48839763e-06, 0.000281558081, 6.8447207e-06, 1,
+             -2.43349132e-06, -0.000681076024, 1.48847255e-06, 2.43346722e-06, 1, -0.299791217]),
+        (3, [1, 1.20292179e-06, -1.2038272e-06, 0.000492934254, -1.2025364e-06, 1,
+             -2.70404416e-06, 7.17343355e-05, 1.20373988e-06, 2.70410237e-06, 1, -0.2998766]),
+        (3, [1, 5.0276708e-06, 3.81827704e-07, -0.000529150595, -5.02687408e-06, 1,
+             -1.58608418e-06, 0.00135363988, -3.81858627e-07, 1.58611328e-06, 1, -0.29962638]),
+        (3, [1, -3.62059751e-07, 7.35402864e-07, -0.000248568307, 3.61922247e-07, 1,
+             -4.41748853e-07, 0.000481498428, -7.3541014e-07, 4.41737029e-07, 1, -0.299558073]),
+        (3, [1, -7.55899282e-06, 1.38402038e-06, 0.000684224477, 7.55938845e-06, 1,
+             -1.81174983e-07, -0.000224498741, -1.38328187e-06, 1.81058567e-07, 1, -0.299465418]),
+        (3, [1, -1.84615365e-05, -2.64864707e-06, 0.00191601692, 1.84616802e-05, 1,
+             4.58843715e-07, -0.00213896111, 2.64797222e-06, -4.58642717e-07, 1, -0.299689472]),
+    ],
+}
+# FastVPlaneICP "always" (the same script's "fast" phase): the switch between
+# VPlaneICP's second and third step norms on the 100k scan, phase 1's and all
+# iterations, rows 0-2 of T
+FAST_SWITCH = 7.5e-3
+FAST_REF_PHASE1, FAST_REF_ITERATIONS = 3, 7
+FAST_REF_T = np.array([
+    1.000000000e+00, 1.411803896e-05, 2.589712312e-05, 5.738548934e-03,
+    -1.411649373e-05, 1.000000000e+00, -7.135313354e-05, 9.325046092e-03,
+    -2.589702490e-05, 7.135215856e-05, 1.000000000e+00, -3.673594296e-01,
+])
+TOL_FAST = 6e-2  # tests/test_fast_vpicp.py:48-50: the coreset objective's optimum
 N_KNN = 4096  # queries of KDTree.query(k=8)
 K_KNN = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -421,14 +546,16 @@ FLOPS_M3_POINT = 330
 
 
 def all_kernels() -> list:
-    """Every kernel wrapper of the package, each with its ``launches`` count."""
+    """Every kernel wrapper of the package, each with its ``launches`` count
+    (the batched entries of a kernel count apart from its single entry)."""
     from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
     return [fa.fused_plane_stats, fa.fused_ndt_stats, pa.point_stats, pa.plane_point_stats,
-            kn.knn_moments, en.exact_nn]
+            kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
+            pa.point_stats_batched, pa.plane_point_stats_batched]
 
 
 def reset_launches() -> None:
@@ -441,10 +568,11 @@ def launch_counts() -> dict:
 
 
 def voxel_args(s, src, w, T):
-    """The arguments of a fused voxel-stats wrapper for solver ``s`` at ``T``."""
+    """The arguments of a fused voxel-stats wrapper for solver ``s`` at ``T``
+    (also of its batched twin: ``src`` (B, n, 3), ``w`` (B, n), ``T`` (B, 4, 4))."""
     vm = s._target
     return (vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w,
-            T[:3, :3], T[:3, 3], s.cfg.max_dist, s.cfg.huber_delta)
+            T[..., :3, :3], T[..., :3, 3], s.cfg.max_dist, s.cfg.huber_delta)
 
 
 def voxel_windows(vm, q, w, radius: int, chunk: int = 1 << 14) -> dict:
@@ -527,11 +655,12 @@ def voxel_work(row_flops):
 
 
 def point_args(s, src, w, T):
-    """The arguments of a packed-grid stats wrapper for solver ``s`` at ``T``."""
+    """The arguments of a packed-grid stats wrapper for solver ``s`` at ``T``
+    (also of its batched twin)."""
     from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
 
     tg = getattr(s._target, "corr", s._target)
-    return (tg.packed, tg.proxy, src, w, T[:3, :3], T[:3, 3], s.cfg.max_dist,
+    return (tg.packed, tg.proxy, src, w, T[..., :3, :3], T[..., :3, 3], s.cfg.max_dist,
             proxy_radius(s.cfg.corr, s.cfg.max_dist), s.cfg.huber_delta)
 
 
@@ -1549,6 +1678,275 @@ def run_utilities(map_np, scan_np, dev) -> dict:
     return out
 
 
+def device_busy(fn, wall_s: float) -> tuple:
+    """``(device ms, kernels, busy share)`` of one traced call of ``fn`` by
+    ``torch.profiler``: the kernels' own device time over ``wall_s``, the
+    untraced wall of the same call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernel rows only: an aten op's row repeats the time of the kernels it launched
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return device_ms, sum(e.count for e in rows), device_ms / (1e3 * wall_s)
+
+
+def batched_align(path: SolverPath, s, src, w, Ts):
+    """The batched align of ``path``'s kind on solver ``s``'s target."""
+    from point_cloud_registration_tpu_torch.models._fused import fused_voxel_align_batched
+    from point_cloud_registration_tpu_torch.models._point_fused import fused_point_align_batched
+
+    kind = BATCHED_KINDS[path.name]
+    if path.args is voxel_args:
+        return fused_voxel_align_batched(s._target, src, w, Ts, s.cfg, kind)
+    return fused_point_align_batched(getattr(s._target, "corr", s._target),
+                                     getattr(s._target, "normals", None), src, w, Ts, s.cfg, kind)
+
+
+def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
+    """Phases 13 and 14 for one kind: B = 8 scans of 16,384 points against
+    ``path``'s target through the batched kernel entry ``batched``."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from bench import make_scan
+
+    tag = f"[batched {path.name}]"
+    B, n = N_BATCHES, N_BATCH
+    s = path.make(dev)
+    path.set_target(s, map_np)
+    scans = np.stack([make_scan(np.random.RandomState(100 + b), map_np, n) for b in range(B)])
+    src = torch.from_numpy(scans).to(dev)
+    w = torch.ones((B, n), device=dev)
+    eye = torch.eye(4).expand(B, 4, 4).clone()
+
+    # The batched kernel against its plain version and against its single
+    # entry, at these shapes and B distinct poses
+    Ts_p = torch.stack([pt.plus(torch.eye(4), torch.tensor(PERTURBATION) * (b - 3.5) / 4)
+                        for b in range(B)])
+    args = path.args(s, src, w, Ts_p)
+    k_out, p_out = batched(*args), plain(*args)
+    single = torch.stack([path.kernel(*path.args(s, src[b], w[b], Ts_p[b])) for b in range(B)])
+    max_abs_err = 0.0
+    for b in range(B):
+        err = compare_stats(k_out[b], p_out[b])
+        if not (err[path.h_metric] < TOL_H and err["g"] < TOL_G and err["e2"] < TOL_E2
+                and err["n"] <= TOL_N):
+            raise AssertionError(f"{tag} problem {b}: the batched kernel disagrees with its "
+                                 f"plain version: {err}")
+        max_abs_err = max(max_abs_err, err["max_abs"])
+    rows_equal = torch.equal(k_out, single)
+    log(f"{tag} batched kernel vs plain at {B} distinct poses: max abs {max_abs_err:.3e}; "
+        f"rows bit-equal to {B} single launches: {rows_equal} (max abs "
+        f"{float((k_out - single).abs().max()):.3e})")
+    # Scans of n points that are no multiple of 8 or of a block: a problem's
+    # tail must read nothing of the next problem's points
+    for n_t in BATCH_TAILS:
+        sub = src[:3, :n_t].contiguous()
+        a = path.args(s, sub, w[:3, :n_t].contiguous(), Ts_p[:3])
+        k_t, p_t = batched(*a), plain(*a)
+        one = torch.stack([path.kernel(*path.args(s, sub[b], w[b, :n_t].contiguous(), Ts_p[b]))
+                           for b in range(3)])
+        scale = float(p_t.abs().max()) + 1e-30
+        d_single = float((k_t - one).abs().max()) / scale
+        d_plain = float((k_t - p_t).abs().max()) / scale
+        log(f"{tag} n = {n_t}: rel diff vs single launches {d_single:.3e}, vs plain {d_plain:.3e}, "
+            f"n_inliers {k_t[:, 28].tolist()} (plain {p_t[:, 28].tolist()})")
+        if not (d_single <= 1e-6 and d_plain <= 1e-4
+                and torch.equal(k_t[:, 28].round(), p_t[:, 28].round())):
+            raise AssertionError(f"{tag} n = {n_t}: the batched kernel's rows are off")
+
+    # 13/14. Main path: the batched align with the counts reset just before
+    reset_launches()
+    t0 = time.perf_counter()
+    Ts, d = batched_align(path, s, src, w, eye)
+    first_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = batched.launches
+    its = d.iterations.tolist()
+    log(f"{tag} {B} x {n} points, first call {first_s:.3f} s: iterations {its}, launch counts "
+        f"{counts}")
+    if not (bool(d.converged.all()) and not bool(d.solver_failed.any())
+            and np.isfinite(Ts.numpy()).all()):
+        raise AssertionError(f"{tag} a problem did not converge: {d}")
+    if launches != max(its) or counts[path.kernel.__name__] != 0:
+        raise AssertionError(f"{tag} {launches} batched launches for {max(its)} batched "
+                             f"iterations (single launches {counts[path.kernel.__name__]})")
+    # Each problem against its single align and the JAX package's
+    dT_single, dT_jax, bit_equal = 0.0, 0.0, True
+    for b in range(B):
+        T_1 = s.align(scans[b])
+        d_1 = s.last_diagnostics
+        dT_single = max(dT_single, float(np.abs(Ts[b].numpy() - T_1).max()))
+        bit_equal &= bool(np.array_equal(Ts[b].numpy(), T_1.astype(np.float32)))
+        if not (int(d.iterations[b]) == d_1.iterations and bool(d.converged[b]) == d_1.converged
+                and bool(d.solver_failed[b]) == d_1.solver_failed):
+            raise AssertionError(f"{tag} problem {b}: batched {int(d.iterations[b])} iterations, "
+                                 f"single {d_1.iterations}")
+        its_ref, rows_ref = BATCHED_REF[BATCHED_KINDS[path.name]][b]
+        dT_jax = max(dT_jax, float(np.abs(Ts[b].numpy()[:3].reshape(-1) - rows_ref).max()))
+        if int(d.iterations[b]) != its_ref:
+            raise AssertionError(f"{tag} problem {b}: {int(d.iterations[b])} iterations, JAX "
+                                 f"{its_ref}")
+    log(f"{tag} max |T - T_single| {dT_single:.3e} (bit-equal {bit_equal}), max |T - T_jax| "
+        f"{dT_jax:.3e}, iterations equal to both")
+    if not (dT_single < TOL_BATCHED and dT_jax < TOL_REF):
+        raise AssertionError(f"{tag} a problem's T is off its single align or the JAX package's")
+    # A mixed batch: problem 1 moved 100 m up (all outliers), problem 2 with
+    # half its weights 0; the others must keep the clean batch's T
+    src_m, w_m = src.clone(), w.clone()
+    src_m[1, :, 2] += 100.0
+    w_m[2, ::2] = 0.0
+    Ts_m, d_m = batched_align(path, s, src_m, w_m, eye)
+    others = [b for b in range(B) if b not in (1, 2)]
+    log(f"{tag} mixed batch: iterations {d_m.iterations.tolist()}, failed "
+        f"{d_m.solver_failed.tolist()}; half-weight problem converged {bool(d_m.converged[2])}")
+    if not (bool(d_m.solver_failed[1]) and int(d_m.iterations[1]) == 1
+            and torch.equal(Ts_m[1], torch.eye(4)) and bool(d_m.converged[2])
+            and all(torch.equal(Ts_m[b], Ts[b]) for b in others)):
+        raise AssertionError(f"{tag} the mixed batch went wrong: {d_m}")
+
+    # Warm runs, the device time by the profiler, the kernel alone
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Ts_w, _ = batched_align(path, s, src, w, eye)
+        walls.append(time.perf_counter() - t0)
+        if not torch.equal(Ts_w, Ts):
+            raise AssertionError(f"{tag} a warm run gave another result than the first")
+    wall = min(walls)
+    device_ms, n_kernels, busy = device_busy(lambda: batched_align(path, s, src, w, eye), wall)
+    args = path.args(s, src, w, Ts)
+    kernel_ms = cuda_ms(lambda: batched(*args), 20)
+    plain_ms = cuda_ms(lambda: plain(*args), 2)
+    singles_ms = cuda_ms(lambda: [path.kernel(*path.args(s, src[b], w[b], Ts[b]))
+                                  for b in range(B)], 20)
+    R, t = Ts[:, :3, :3].to(dev), Ts[:, :3, 3].to(dev)
+    q_all = (torch.einsum("bij,bnj->bni", R, src) + t[:, None, :]).reshape(-1, 3).contiguous()
+    n_inliers = float(batched(*args)[:, 28].sum())
+    b_ms, b_by = bound_ms(*path.work(s, q_all, w.reshape(-1), torch.eye(4), n_inliers))
+    log(f"{tag} warm batched align s: " + ", ".join(f"{x:.4f}" for x in walls)
+        + f"; batched_regs_per_s {B / wall:.1f}, batched_mpts_per_s {B * n / wall / 1e6:.2f}; "
+          f"device {device_ms:.3f} ms in {n_kernels} kernels (busy {100 * busy:.1f} % of the "
+          f"untraced wall)")
+    log(f"{tag} one batched launch (events) {kernel_ms:.4f} ms, its plain version "
+        f"{plain_ms:.2f} ms, {B} single launches {singles_ms:.4f} ms; bound {b_ms:.5f} ms by {b_by}")
+    return {"launches": launches, "iterations": its, "first_call_s": first_s, "align_s": wall,
+            "align_walls_s": walls, "regs_per_s": B / wall, "mpts_per_s": B * n / wall / 1e6,
+            "device_ms": device_ms, "kernels": n_kernels, "busy": busy, "ms": kernel_ms,
+            "plain_ms": plain_ms, "singles_ms": singles_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": max_abs_err, "rows_bit_equal": rows_equal, "dT_single": dT_single,
+            "T_bit_equal": bit_equal, "dT_jax": dT_jax}
+
+
+def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
+    """Phase 15: FastVPlaneICP on the map and the 100k scan. ``"auto"`` is
+    VPlaneICP bit for bit (``vplane``: phase 4's results); ``"always"``
+    engages the coreset and runs phase 2 on the fused kernel."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.models import _fused
+    from point_cloud_registration_tpu_torch.models.coreset import create_gn_set, fast_caratheodory
+    from point_cloud_registration_tpu_torch.models.fast_vplane_icp import vplane_linearize
+    from point_cloud_registration_tpu_torch.models.base import pad_points
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+
+    tag = "[fast_vplane_icp]"
+    reset_launches()
+    fast = pt.FastVPlaneICP(voxel_size=1.0, **PARAMS, device=dev)
+    fast.set_target(map_np)
+    T_auto = fast.align(scan_np)
+    d = fast.last_diagnostics
+    auto_launches = fa.fused_plane_stats.launches
+    log(f"{tag} auto: {d.iterations} iterations, {auto_launches} fused launches; equal to "
+        f"VPlaneICP: T {np.array_equal(T_auto, vplane['T'])}, iterations "
+        f"{d.iterations == vplane['iterations']}, launches {auto_launches == vplane['launches']}")
+    if not (np.array_equal(T_auto, vplane["T"]) and d.iterations == vplane["iterations"]
+            and auto_launches == vplane["launches"]):
+        raise AssertionError(f"{tag} \"auto\" is not VPlaneICP bit for bit")
+
+    # "always": record phase 1, and the rows of every fused launch
+    fast = pt.FastVPlaneICP(voxel_size=1.0, **PARAMS, coreset="always",
+                            coreset_switch=FAST_SWITCH, device=dev)
+    fast.set_target(map_np)
+    phase1 = {}
+    inner = fast._phase1
+
+    def record(*args):
+        T, diag = inner(*args)
+        phase1.update(T=T, diag=diag, launches=fa.fused_plane_stats.launches)
+        return T, diag
+
+    fast._phase1 = record
+    rows_per_launch = []
+    plane_stats = _fused._STATS["plane"]
+
+    def counted(cells, origin, dims, cell, src, *rest):
+        rows_per_launch.append(src.shape[0])
+        return plane_stats(cells, origin, dims, cell, src, *rest)
+
+    reset_launches()
+    _fused._STATS["plane"] = counted
+    try:
+        t0 = time.perf_counter()
+        T = fast.align(scan_np)
+        first_s = time.perf_counter() - t0
+    finally:
+        _fused._STATS["plane"] = plane_stats
+    d, d1 = fast.last_diagnostics, phase1["diag"]
+    launches = fa.fused_plane_stats.launches
+    it2 = d.iterations - d1.iterations
+    phase2_rows = rows_per_launch[d1.iterations:]
+    dT_jax = float(np.abs(T[:3].reshape(-1) - FAST_REF_T).max())
+    dT_plain = float(np.abs(T - vplane["T"]).max())
+    log(f"{tag} always, switch {FAST_SWITCH}: first call {first_s:.3f} s; phase 1 {d1.iterations} "
+        f"iterations (JAX {FAST_REF_PHASE1}), phase 2 {it2} (in all {d.iterations}, JAX "
+        f"{FAST_REF_ITERATIONS}), converged {d.converged}; fused launches {launches} "
+        f"(phase 2 on rows {sorted(set(phase2_rows))}); max |T - T_jax| {dT_jax:.3e}, "
+        f"max |T - T_vplane| {dT_plain:.3e}")
+    log(f"{tag} T =\n{np.array2string(T, precision=7)}")
+    if not (d1.iterations == FAST_REF_PHASE1 and it2 >= 1 and not d.solver_failed
+            and launches == d.iterations and len(phase2_rows) == it2
+            and set(phase2_rows) == {fast.N_target} and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
+        raise AssertionError(f"{tag} \"always\" is off: {d}")
+
+    # The lift against one full-cloud iteration, both on the live points
+    src, w = pad_points(scan_np, device=dev)
+    J, r, wl = (x.cpu().numpy() for x in vplane_linearize(fast._target, src, w, phase1["T"],
+                                                          fast.cfg))
+    live = np.where(wl > 0)[0]
+    t0 = time.perf_counter()
+    P = create_gn_set(J[live], r[live])
+    fast_caratheodory(P, wl[live].astype(np.float64), fast.coreset_clusters, fast.N_target)
+    lift_s = time.perf_counter() - t0
+    iter_s = vplane["align_s"] / vplane["iterations"]
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T_w = fast.align(scan_np)
+        walls.append(time.perf_counter() - t0)
+        if not np.array_equal(T_w, T):
+            raise AssertionError(f"{tag} a warm run gave another result than the first")
+    log(f"{tag} {len(live)} live points; lift (host float64) {lift_s:.3f} s = "
+        f"{1e6 * lift_s / len(live):.3f} us a live point; one full-cloud iteration (VPlaneICP's "
+        f"warm align / iterations) {1e3 * iter_s:.3f} ms = {1e9 * iter_s / len(live):.2f} ns a "
+        f"point; breakeven {lift_s / iter_s:.0f} iterations; warm \"always\" align s "
+        + ", ".join(f"{x:.3f}" for x in walls))
+    return {"auto_launches": auto_launches, "always_launches": launches,
+            "phase1_iterations": d1.iterations, "phase2_iterations": it2, "dT_jax": dT_jax,
+            "dT_plain": dT_plain, "live": int(len(live)), "lift_s": lift_s,
+            "lift_us_per_point": 1e6 * lift_s / len(live), "iteration_s": iter_s,
+            "iteration_ns_per_point": 1e9 * iter_s / len(live), "breakeven": lift_s / iter_s,
+            "always_align_s": min(walls)}
+
+
 def main() -> None:
     import torch
 
@@ -1599,6 +1997,20 @@ def main() -> None:
     results["update"] = run_update_target(map_np, scan_np, dev)
     results["utilities"] = run_utilities(map_np, scan_np, dev)
 
+    # 13-14. The batched streams (voxel kinds, then point kinds), 15. FastVPlaneICP
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+
+    batched = {}
+    for path_name, kernel, plain in (
+            ("vplane_icp", fa.fused_plane_stats_batched, fa.fused_plane_stats_batched_reference),
+            ("ndt", fa.fused_ndt_stats_batched, fa.fused_ndt_stats_batched_reference),
+            ("icp", pa.point_stats_batched, pa.point_stats_batched_reference),
+            ("plane_icp", pa.plane_point_stats_batched, pa.plane_point_stats_batched_reference)):
+        batched[path_name] = run_batched(paths[path_name], kernel, plain, map_np, dev)
+    results["batched"] = batched
+    results["fast"] = run_fast(map_np, scan_np, dev, results["vplane_icp"])
+
     # 8. No JAX, after every phase
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -1606,24 +2018,29 @@ def main() -> None:
     from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
 
-    rows = [(p.kernel, p.source, p.replaces, results[p.name]) for p in paths.values()]
-    rows.append((kn.knn_moments, f"{CSRC}/knn_normals.cu", f"{PALLAS}/knn_normals.py:293",
-                 results["normals"]))
-    rows.append((en.exact_nn, f"{CSRC}/exact_nn.cu", f"{PALLAS}/exact_nn.py:77",
+    rows = [(p.name, p.kernel, p.source, p.replaces, results[p.name]) for p in paths.values()]
+    rows.append(("normals", kn.knn_moments, f"{CSRC}/knn_normals.cu",
+                 f"{PALLAS}/knn_normals.py:293", results["normals"]))
+    rows.append(("exact_nn", en.exact_nn, f"{CSRC}/exact_nn.cu", f"{PALLAS}/exact_nn.py:77",
                  results["exact_nn"]))
     # launches on each path that runs the kernel, the main path's first
     grid = results["grid"]
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
                               "update_target": results["update"]["vplane_icp"]["launches"],
-                              "hashed_map": 0},
+                              "hashed_map": 0,
+                              "batched_vplane_icp": batched["vplane_icp"]["launches"],
+                              "fast_vplane_icp_auto": results["fast"]["auto_launches"],
+                              "fast_vplane_icp_always": results["fast"]["always_launches"]},
         "fused_ndt_stats": {"ndt": results["ndt"]["launches"],
                             "update_target": results["update"]["ndt"]["launches"],
-                            "hashed_map": 0},
+                            "hashed_map": 0, "batched_ndt": batched["ndt"]["launches"]},
         "point_stats": {"icp": results["icp"]["launches"],
-                        "icp_grid": grid["icp"]["launches"]["point_stats"]},
+                        "icp_grid": grid["icp"]["launches"]["point_stats"],
+                        "batched_icp": batched["icp"]["launches"]},
         "plane_point_stats": {"plane_icp": results["plane_icp"]["launches"],
-                              "plane_icp_grid": grid["plane_icp"]["launches"]["plane_point_stats"]},
+                              "plane_icp_grid": grid["plane_icp"]["launches"]["plane_point_stats"],
+                              "batched_plane_icp": batched["plane_icp"]["launches"]},
         "knn_moments": {"estimate_normals": results["normals"]["launches"],
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
@@ -1640,13 +2057,18 @@ def main() -> None:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "paths": path_launches[kernel.__name__],
         **({"contract_bound_ms": r["contract_bound_ms"]} if "contract_bound_ms" in r else {}),
+        # the batched entry of the kernel at the batched main path's shapes
+        **({"batched": {k: batched[name][k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "singles_ms", "bound_ms", "bound_by")}}
+           if name in batched else {}),
         **({"tiers": {name: {"queries": t["queries"], "kernel_ms": min(t["kernel_ms"]),
                              "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
                              "bound_by": t["bound_by"]} for name, t in r["tiers"].items()}}
            if "tiers" in r else {}),
-    } for kernel, source, replaces, r in rows]}))
+    } for name, kernel, source, replaces, r in rows]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
 
 

@@ -8,11 +8,15 @@ point grid with its proxy voxel map and the point stats kernel, kinds
 "point" and "plane_pt", from 50k target points; the CSR grid with plain
 stats below that), each with the host Gauss-Newton loop, k-NN PCA normals
 (the k-NN moments kernel) and the exact 1-NN kernel (the exact escapes of
-``KDTree``); the reference's utilities ``KDTree`` / ``VoxelGrid``,
-``voxel_filter``, ``color_by_voxel``, the Caratheodory coresets and PCD IO.
-Not ported yet: FastVPlaneICP, the batched and the multi-device paths. The
-package's module names mirror the JAX package's, so each counterpart is
-easy to find.
+``KDTree``); FastVPlaneICP (the fused plane kernel, the float64 coreset
+lift, the coreset phase); the batched multi-scan aligns of all four kinds
+against one map, one batched kernel launch per Gauss-Newton iteration
+(``models._fused.fused_voxel_align_batched``,
+``models._point_fused.fused_point_align_batched``); the reference's
+utilities ``KDTree`` / ``VoxelGrid``, ``voxel_filter``, ``color_by_voxel``,
+the Caratheodory coresets and PCD IO. Not ported yet: the multi-device
+paths. The package's module names mirror the JAX package's, so each
+counterpart is easy to find.
 """
 
 import numpy as np
@@ -53,6 +57,7 @@ from point_cloud_registration_tpu_torch.models.coreset import (
     create_gn_set,
     fast_caratheodory,
 )
+from point_cloud_registration_tpu_torch.models.fast_vplane_icp import FastVPlaneICP
 from point_cloud_registration_tpu_torch.models.icp import ICP
 from point_cloud_registration_tpu_torch.models.ndt import NDT
 from point_cloud_registration_tpu_torch.models.plane_icp import PlaneICP
@@ -93,6 +98,7 @@ def estimate_norm_with_tree(points, kdtree=None, k: int = 15) -> np.ndarray:
 __all__ = [
     "AlignResult",
     "CorrespondenceConfig",
+    "FastVPlaneICP",
     "GNDiagnostics",
     "GNStats",
     "ICP",

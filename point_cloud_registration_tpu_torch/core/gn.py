@@ -56,27 +56,30 @@ class GNDiagnostics(NamedTuple):
     final_e2: float
 
 
-def solve_6x6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Solve ``H dx = -g`` for the GN step (registration.py:103), on the host.
+def solve_6x6_batched(H, g) -> np.ndarray:
+    """Solve ``H[b] dx[b] = -g[b]`` for B problems at once, on the host:
+    ``H`` (B, 6, 6) and ``g`` (B, 6), tensors or arrays -> (B, 6) float32 NumPy.
 
     The unrolled scalar Cholesky of the JAX package after Jacobi (diagonal)
-    scaling, in float32 with the same operation order. H is symmetric PSD
-    by construction; a singular H yields NaNs (never an exception), which
-    the GN loop reports as ``solver_failed``. Returns a float32 CPU tensor.
+    scaling, in float32 with the same operation order, each scalar step an
+    elementwise NumPy operation over the B problems (the counterpart of
+    ``jax.vmap(solve_6x6)``). Every step rounds once per element, so row b is
+    the single solve of problem b, bit for bit. A singular H yields NaNs in
+    its row (never an exception).
     """
-    Hn = H.detach().to("cpu", torch.float32).numpy()
-    gn = g.detach().to("cpu", torch.float32).numpy()
+    Hn = np.asarray(torch.as_tensor(H).detach().to("cpu", torch.float32))
+    gn = np.asarray(torch.as_tensor(g).detach().to("cpu", torch.float32))
     one = np.float32(1.0)
     with np.errstate(all="ignore"):
-        s = one / np.sqrt(np.maximum(np.diagonal(Hn), np.float32(1e-30)))
-        Hs = Hn * s[:, None] * s[None, :]
+        s = one / np.sqrt(np.maximum(np.diagonal(Hn, axis1=1, axis2=2), np.float32(1e-30)))
+        Hs = Hn * s[:, :, None] * s[:, None, :]
         b = -(gn * s)
 
         # Unrolled Cholesky factorization Hs = L L^T.
         L = [[None] * 6 for _ in range(6)]
         for i in range(6):
             for j in range(i + 1):
-                acc = Hs[i, j]
+                acc = Hs[:, i, j]
                 for k in range(j):
                     acc = acc - L[i][k] * L[j][k]
                 if i == j:
@@ -86,7 +89,7 @@ def solve_6x6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         # Forward substitution L y = b.
         y = [None] * 6
         for i in range(6):
-            acc = b[i]
+            acc = b[:, i]
             for k in range(i):
                 acc = acc - L[i][k] * y[k]
             y[i] = acc / L[i][i]
@@ -97,8 +100,18 @@ def solve_6x6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             for k in range(i + 1, 6):
                 acc = acc - L[k][i] * x[k]
             x[i] = acc / L[i][i]
-        dx = np.asarray(x, np.float32) * s
-    return torch.from_numpy(dx)
+        return np.stack(x, axis=1).astype(np.float32) * s
+
+
+def solve_6x6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Solve ``H dx = -g`` for the GN step (registration.py:103), on the host:
+    :func:`solve_6x6_batched` of the one problem. H is symmetric PSD by
+    construction; a singular H yields NaNs (never an exception), which the
+    GN loop reports as ``solver_failed``. Returns a float32 CPU tensor.
+    """
+    H = torch.as_tensor(H).reshape(1, 6, 6)
+    g = torch.as_tensor(g).reshape(1, 6)
+    return torch.from_numpy(solve_6x6_batched(H, g)[0])
 
 
 def gauss_newton(

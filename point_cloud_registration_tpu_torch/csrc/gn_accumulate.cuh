@@ -21,6 +21,15 @@ struct Pose {
   float r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2;
 };
 
+// The pose of one problem of a batched launch: its row of the (B, 12) device
+// array [R row-major | t]. Every thread of the problem's blocks reads the same
+// 48 bytes.
+__device__ __forceinline__ Pose load_pose(const float* __restrict__ row) {
+  return Pose{__ldg(row),     __ldg(row + 1), __ldg(row + 2),  __ldg(row + 3),
+              __ldg(row + 4), __ldg(row + 5), __ldg(row + 6),  __ldg(row + 7),
+              __ldg(row + 8), __ldg(row + 9), __ldg(row + 10), __ldg(row + 11)};
+}
+
 // Integer cell coordinate of the float cell index f, relative to origin. f is
 // clamped before the float -> int conversion, so a query far outside the map
 // (or NaN) lands outside the grid instead of overflowing the conversion.
@@ -103,9 +112,11 @@ __device__ __forceinline__ void accumulate_whitened(
 }
 
 // Sums the per-thread accumulators of a block of kBlockWarps warps (warp
-// shuffles, then shared memory) into row blockIdx.x of `partials`
-// (n_blocks, 29). No atomics: for a fixed launch shape the sums repeat bit
-// for bit from run to run.
+// shuffles, then shared memory) into row blockIdx.y * gridDim.x + blockIdx.x
+// of `partials` (B, n_blocks, 29): a batched launch runs problem blockIdx.y
+// on its row of gridDim.x blocks, a single one (gridDim.y = 1) writes row
+// blockIdx.x. No atomics: for a fixed launch shape the sums repeat bit for
+// bit from run to run.
 template <int kBlockWarps = kWarps>
 __device__ __forceinline__ void block_reduce_store(const float* acc,
                                                    float* __restrict__ partials) {
@@ -123,7 +134,8 @@ __device__ __forceinline__ void block_reduce_store(const float* acc,
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kBlockWarps; ++wi) s += warp_sums[wi][threadIdx.x];
-    partials[blockIdx.x * kStats + threadIdx.x] = s;
+    const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+    partials[row * kStats + threadIdx.x] = s;
   }
 }
 

@@ -9,7 +9,8 @@
 // models/_point_corr.py match_points). One pass per query does all of
 // match_points' work, so no query is left unresolved:
 //
-//   q = R p + t, formed in registers (R and t are passed by value);
+//   q = R p + t, formed in registers (R and t are passed by value, or read
+//     from the poses array by a batched launch);
 //   tier 1 (ops/pointgrid.py nearest_point_packed): the fine cell
 //     f = floor(q / cell_fine) - origin_fine (a true division, as in
 //     hashgrid.cell_coords), the first block lo = floor((f - 1) / 2), and the
@@ -75,6 +76,16 @@
 //     bench scan are one wave of 24 warps per SM. A query of weight 0 takes
 //     no round, so the padding behind a scan costs nothing.
 // No atomics; the order of the sums depends on the launch shape only.
+//
+// Batched entries (pcr_*_stats_batched): B problems, each a scan of n points
+// with its own pose, against one target in one launch, the counterpart of the
+// TPU kernel's per_tile mode (point_align.py:594-660). The grid is
+// (n_blocks, B): blockIdx.y is the problem, whose blocks read its rows of the
+// (B, n, 3) scan and (B, n) weights and its pose from a (B, 12) device array
+// and write its rows of the (B, n_blocks, 29) partials. A group's eight
+// queries all lie in one problem: the whole blocks stride over that problem's
+// n queries, and a lane past its end is dead, so no tail reads the next
+// problem's points. A problem's partials are those of its single launch.
 
 #include <climits>
 #include <cstdint>
@@ -212,11 +223,17 @@ __device__ __forceinline__ int group_nearest_proxy(bool active, int gl,
   return x0 + best_p % wx + tb.nbx * (y0 + t % wy + tb.nby * (z0 + t / wy));
 }
 
-template <int kKind>
+template <int kKind, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) point_stats_kernel(
     Tables tb, const float* __restrict__ src, const float* __restrict__ w, int n,
-    Pose T, float max_dist, int use_huber, float huber_delta,
-    float* __restrict__ partials) {
+    Pose T, const float* __restrict__ poses, float max_dist, int use_huber,
+    float huber_delta, float* __restrict__ partials) {
+  if constexpr (kBatched) {  // problem blockIdx.y: its scan, weights and pose
+    const size_t b = blockIdx.y;
+    src += 3 * n * b;
+    w += n * b;
+    T = pcr::load_pose(poses + 12 * b);
+  }
   constexpr int kWidth = kKind == kPoint ? 3 : 6;  // floats per packed slot
   const float kInf = __int_as_float(0x7f800000);
   const int lane = threadIdx.x & 31;
@@ -331,25 +348,24 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) point_stats_kernel(
   pcr::block_reduce_store<kThreads / 32>(acc, partials);
 }
 
-template <int kKind>
+// One launch of B problems (B = 1 and poses null for the single entries, whose
+// pose T comes by value).
+template <int kKind, bool kBatched>
 int launch(const float* pts, const int* row_count, const int* block_row, int cap,
            int nbx, int nby, int nbz, int ofx, int ofy, int ofz, float cell_fine,
            const float* proxy, int pox, int poy, int poz, float proxy_cell,
-           int proxy_radius, const float* src, const float* w, int n, float r00,
-           float r01, float r02, float r10, float r11, float r12, float r20,
-           float r21, float r22, float t0, float t1, float t2, float max_dist,
-           int use_huber, float huber_delta, float* partials, int n_blocks,
-           void* stream) {
+           int proxy_radius, const float* src, const float* w, int n, int B,
+           Pose T, const float* poses, float max_dist, int use_huber,
+           float huber_delta, float* partials, int n_blocks, void* stream) {
   constexpr int kWidth = kKind == kPoint ? 3 : 6;
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
   const bool aligned = (static_cast<long long>(cap) * kWidth * 4) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(pts) % 16 == 0;
   const Tables tb{pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz,
                   cell_fine, reinterpret_cast<const float4*>(proxy), pox, poy, poz,
                   proxy_cell, proxy_radius, aligned};
-  point_stats_kernel<kKind><<<n_blocks, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      tb, src, w, n, T, max_dist, use_huber, huber_delta, partials);
+  point_stats_kernel<kKind, kBatched>
+      <<<dim3(n_blocks, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          tb, src, w, n, T, poses, max_dist, use_huber, huber_delta, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,11 +386,12 @@ int pcr_point_stats(const float* pts, const int* row_count, const int* block_row
                     float r20, float r21, float r22, float t0, float t1,
                     float t2, float max_dist, int use_huber, float huber_delta,
                     float* partials, int n_blocks, void* stream) {
-  return launch<kPoint>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy,
-                        ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
-                        proxy_radius, src, w, n, r00, r01, r02, r10, r11, r12,
-                        r20, r21, r22, t0, t1, t2, max_dist, use_huber,
-                        huber_delta, partials, n_blocks, stream);
+  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
+  return launch<kPoint, false>(pts, row_count, block_row, cap, nbx, nby, nbz,
+                               ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
+                               proxy_cell, proxy_radius, src, w, n, 1, T,
+                               nullptr, max_dist, use_huber, huber_delta,
+                               partials, n_blocks, stream);
 }
 
 int pcr_plane_point_stats(const float* pts, const int* row_count,
@@ -387,11 +404,48 @@ int pcr_plane_point_stats(const float* pts, const int* row_count,
                           float r21, float r22, float t0, float t1, float t2,
                           float max_dist, int use_huber, float huber_delta,
                           float* partials, int n_blocks, void* stream) {
-  return launch<kPlanePt>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx,
-                          ofy, ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
-                          proxy_radius, src, w, n, r00, r01, r02, r10, r11, r12,
-                          r20, r21, r22, t0, t1, t2, max_dist, use_huber,
-                          huber_delta, partials, n_blocks, stream);
+  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
+  return launch<kPlanePt, false>(pts, row_count, block_row, cap, nbx, nby, nbz,
+                                 ofx, ofy, ofz, cell_fine, proxy, pox, poy,
+                                 poz, proxy_cell, proxy_radius, src, w, n, 1,
+                                 T, nullptr, max_dist, use_huber, huber_delta,
+                                 partials, n_blocks, stream);
+}
+
+// The batched entries: src (B, n, 3), w (B, n), poses (B, 12) f32 on the
+// device ([R row-major | t] per problem, 1 <= B <= 65,535); partials
+// (B, n_blocks, 29), the rows of problem b from b * n_blocks on.
+int pcr_point_stats_batched(const float* pts, const int* row_count,
+                            const int* block_row, int cap, int nbx, int nby,
+                            int nbz, int ofx, int ofy, int ofz, float cell_fine,
+                            const float* proxy, int pox, int poy, int poz,
+                            float proxy_cell, int proxy_radius,
+                            const float* src, const float* w, int n, int B,
+                            const float* poses, float max_dist, int use_huber,
+                            float huber_delta, float* partials, int n_blocks,
+                            void* stream) {
+  return launch<kPoint, true>(pts, row_count, block_row, cap, nbx, nby, nbz,
+                              ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
+                              proxy_cell, proxy_radius, src, w, n, B, Pose{},
+                              poses, max_dist, use_huber, huber_delta,
+                              partials, n_blocks, stream);
+}
+
+int pcr_plane_point_stats_batched(const float* pts, const int* row_count,
+                                  const int* block_row, int cap, int nbx,
+                                  int nby, int nbz, int ofx, int ofy, int ofz,
+                                  float cell_fine, const float* proxy, int pox,
+                                  int poy, int poz, float proxy_cell,
+                                  int proxy_radius, const float* src,
+                                  const float* w, int n, int B,
+                                  const float* poses, float max_dist,
+                                  int use_huber, float huber_delta,
+                                  float* partials, int n_blocks, void* stream) {
+  return launch<kPlanePt, true>(pts, row_count, block_row, cap, nbx, nby, nbz,
+                                ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
+                                proxy_cell, proxy_radius, src, w, n, B, Pose{},
+                                poses, max_dist, use_huber, huber_delta,
+                                partials, n_blocks, stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ from point_cloud_registration_tpu_torch.models.ndt import (
     ndt_align,
     ndt_solver_stats,
 )
+from point_cloud_registration_tpu_torch.models.fast_vplane_icp import FastVPlaneICP
 from point_cloud_registration_tpu_torch.models.plane_icp import (
     PlaneICP,
     build_plane_icp_target,

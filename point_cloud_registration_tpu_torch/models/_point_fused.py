@@ -17,6 +17,10 @@ The target's layout picks the stats, as in the JAX package:
   without a Pallas kernel (``point_fused_spec`` needs a packed target).
 
 Either way one copy of the 29 stat values reaches the host per iteration.
+
+:func:`fused_point_align_batched` aligns B scans against one packed target
+with one launch of the batched kernel per Gauss-Newton iteration, driven by
+``models/_fused.batched_gauss_newton``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, gauss_newton
 from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
+from point_cloud_registration_tpu_torch.models._fused import batched_gauss_newton
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
     match_points,
@@ -37,12 +42,15 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
 )
 from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
     plane_point_stats,
+    plane_point_stats_batched,
     point_stats,
+    point_stats_batched,
 )
 from point_cloud_registration_tpu_torch.ops.reduce import plane_stats
 from point_cloud_registration_tpu_torch.ops.reduce import point_stats as reduce_point_stats
 
 _STATS_FN = {"point": point_stats, "plane_pt": plane_point_stats}
+_BATCHED_STATS_FN = {"point": point_stats_batched, "plane_pt": plane_point_stats_batched}
 
 
 def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: torch.Tensor,
@@ -96,3 +104,37 @@ def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
         return fused_point_stats(target, source, src_weight, T, cfg, kind, normals)
 
     return gauss_newton(stats_fn, init_T, cfg.max_iter, cfg.tol)
+
+
+def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | None, sources,
+                              src_weights, init_Ts, cfg: ICPConfig | PlaneICPConfig,
+                              kind: str = "point") -> tuple[torch.Tensor, GNDiagnostics]:
+    """Batched multi-scan ``align`` of ``kind`` against one packed target, one
+    launch of the batched point kernel per Gauss-Newton iteration
+    (``models/_point_fused.py::fused_point_align_batched`` of the JAX package).
+
+    ``sources`` (B, n, 3), ``src_weights`` (B, n) and ``init_Ts`` (B, 4, 4).
+    Kind ``"plane_pt"`` takes the target that ``PlaneICP.set_target`` builds,
+    whose packed slots carry the normals; ``normals``, the JAX function's
+    operand for its fallback tiers, is not read: the kernel resolves every
+    query itself. Returns ``(Ts (B, 4, 4), GNDiagnostics with leading dim
+    B)``, as :func:`models._fused.batched_gauss_newton`. A grid target (no
+    packed grid) raises ``ValueError``, as the JAX function needs a packed
+    spec.
+    """
+    if target.packed is None:
+        raise ValueError("a grid target has no packed grid for the batched point kernel; "
+                         "align its scans one by one")
+    dev = target.packed.pts_packed.device
+    src = torch.as_tensor(sources, dtype=torch.float32).to(dev).contiguous()
+    w = torch.as_tensor(src_weights, dtype=torch.float32).to(dev).contiguous()
+    stats_fn = _BATCHED_STATS_FN[kind]
+    radius = proxy_radius(cfg.corr, cfg.max_dist)
+
+    def stats_all(Ts):
+        R, t = makeRt(Ts)
+        packed = stats_fn(target.packed, target.proxy, src, w, R, t, cfg.max_dist, radius,
+                          cfg.huber_delta)
+        return stats_from_packed(packed.cpu())
+
+    return batched_gauss_newton(stats_all, init_Ts, cfg.max_iter, cfg.tol)

@@ -21,6 +21,10 @@ For CUDA tensors they launch the hand-written kernels of
 versions, ``fused_*_stats_reference``, which the tests and ``chip_smoke.py``
 also call directly. There is no fallback between the two.
 
+``fused_*_stats_batched`` compute the same stats for B scans, each with its
+own pose, against one map in one launch (the TPU kernel's ``per_tile``
+mode): (B, 29), row b equal to the single wrapper's stats of problem b.
+
 The TPU kernel's band layout, region DMA, bf16x3 one-hot gathers and
 straggler fallback exist for the TPU's memory system and have no
 counterpart: a CUDA thread walks its window's bits and reads the centroids
@@ -58,8 +62,10 @@ _TRIU = torch.triu_indices(6, 6)
 _FEAT_WIDTHS = {"plane": FEAT_WIDTHS[3], "ndt": FEAT_WIDTHS[6]}
 
 __all__ = [
-    "STATS_WIDTH", "fused_ndt_stats", "fused_ndt_stats_reference",
-    "fused_plane_stats", "fused_plane_stats_reference", "inv_cell_f32",
+    "MAX_PROBLEMS", "STATS_WIDTH", "fused_ndt_stats", "fused_ndt_stats_batched",
+    "fused_ndt_stats_batched_reference", "fused_ndt_stats_reference", "fused_plane_stats",
+    "fused_plane_stats_batched", "fused_plane_stats_batched_reference",
+    "fused_plane_stats_reference", "inv_cell_f32",
     "packed_from_stats", "stats_from_packed", "window_offsets", "window_radius",
 ]
 
@@ -82,12 +88,14 @@ def packed_from_stats(stats: GNStats) -> torch.Tensor:
 
 
 def stats_from_packed(packed: torch.Tensor) -> GNStats:
-    """The (29,) kernel output -> GNStats (H symmetric), on its device."""
+    """The (..., 29) kernel output -> GNStats (H symmetric) with the same
+    leading dims, on its device: (29,) gives one problem's, (B, 29) B
+    problems' stats."""
     triu = _TRIU.to(packed.device)
-    H = torch.zeros((6, 6), dtype=packed.dtype, device=packed.device)
-    H[triu[0], triu[1]] = packed[:21]
-    H[triu[1], triu[0]] = packed[:21]
-    return GNStats(H=H, g=packed[21:27], e2=packed[27], n_inliers=packed[28])
+    H = torch.zeros(packed.shape[:-1] + (6, 6), dtype=packed.dtype, device=packed.device)
+    H[..., triu[0], triu[1]] = packed[..., :21]
+    H[..., triu[1], triu[0]] = packed[..., :21]
+    return GNStats(H=H, g=packed[..., 21:27], e2=packed[..., 27], n_inliers=packed[..., 28])
 
 
 def _check_geometry(cells: CellIndex, dims, kind):
@@ -181,18 +189,46 @@ def fused_ndt_stats_reference(
     return packed_from_stats(stats)
 
 
+def per_problem(stats_fn, src, w, R, t) -> torch.Tensor:
+    """(B, 29): ``stats_fn(src[b], w[b], R[b], t[b])``, a plain
+    single-problem version, of each problem b."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    t = torch.as_tensor(t, dtype=torch.float32)
+    return torch.stack([stats_fn(src[b], w[b], R[b], t[b]) for b in range(src.shape[0])])
+
+
+def fused_plane_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w, R, t,
+                                        max_dist, huber_delta=None) -> torch.Tensor:
+    """Plain version of the batched plane kernel: :func:`fused_plane_stats_reference`
+    of each problem b (``src`` (B, n, 3), ``w`` (B, n), ``R`` (B, 3, 3),
+    ``t`` (B, 3)). Returns the (B, 29) stats."""
+    return per_problem(lambda *p: fused_plane_stats_reference(
+        cells, origin_cell, dims, cell_size, *p, max_dist, huber_delta), src, w, R, t)
+
+
+def fused_ndt_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w, R, t,
+                                      max_dist, huber_delta=None) -> torch.Tensor:
+    """Plain version of the batched NDT kernel: :func:`fused_ndt_stats_reference`
+    of each problem. Returns the (B, 29) stats."""
+    return per_problem(lambda *p: fused_ndt_stats_reference(
+        cells, origin_cell, dims, cell_size, *p, max_dist, huber_delta), src, w, R, t)
+
+
 _C_SYMBOLS = {"plane": "pcr_fused_plane_stats", "ndt": "pcr_fused_ndt_stats"}
+# Most problems of one batched launch: they run along the grid's y dimension.
+MAX_PROBLEMS = 65535
 
 
-def bind(lib: ctypes.CDLL, kind: str):
+def bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
     """``(fn, threads per block)`` of the ``kind`` entry point of a build of
-    ``csrc/fused_align.cu``, with its argument types set."""
-    fn = getattr(lib, _C_SYMBOLS[kind])
+    ``csrc/fused_align.cu`` (its batched twin with ``batched``), with its
+    argument types set."""
+    fn = getattr(lib, _C_SYMBOLS[kind] + ("_batched" if batched else ""))
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
         [c_ptr] * 3 + [c_int] * 6 + [c_float, c_int]  # occ, centers, feats, geometry
-        + [c_ptr, c_ptr, c_int]  # src, w, n
-        + [c_float] * 12  # R (row-major), t
+        + ([c_ptr, c_ptr, c_int, c_int, c_ptr]  # src, w, n per problem, B, poses
+           if batched else [c_ptr, c_ptr, c_int] + [c_float] * 12)  # src, w, n, R, t
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int]  # partials, n_blocks
         + [c_ptr]  # stream
@@ -205,8 +241,8 @@ def bind(lib: ctypes.CDLL, kind: str):
 
 
 @functools.cache
-def _kernel_fn(kind: str):
-    return bind(load_library("fused_align"), kind)
+def _kernel_fn(kind: str, batched: bool = False):
+    return bind(load_library("fused_align"), kind, batched)
 
 
 def check_operands(src: torch.Tensor, w: torch.Tensor, **tensors) -> None:
@@ -231,23 +267,58 @@ def rt_args(R, t) -> list[float]:
     return [float(v) for v in r + tv]
 
 
+def pose_rows(R, t, device) -> torch.Tensor:
+    """(B, 12) float32 on ``device``: each problem's ``R`` (row-major) and
+    ``t``, the poses a batched kernel reads. The copy is ordered on the
+    current stream, before the launch that reads it."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    t = torch.as_tensor(t, dtype=torch.float32)
+    B = R.shape[0]
+    return torch.cat([R.reshape(B, 9), t.reshape(B, 3)], dim=1).to(device).contiguous()
+
+
+def check_batched(src: torch.Tensor, w: torch.Tensor, R, t) -> None:
+    """Raise unless ``src`` (B, n, 3), ``w`` (B, n), ``R`` (B, 3, 3) and
+    ``t`` (B, 3) match, with 1 <= B <= MAX_PROBLEMS."""
+    B = src.shape[0] if src.dim() == 3 else -1
+    if (src.dim() != 3 or src.shape[2] != 3 or tuple(w.shape) != tuple(src.shape[:2])
+            or tuple(torch.as_tensor(R).shape) != (B, 3, 3)
+            or tuple(torch.as_tensor(t).shape) != (B, 3)):
+        raise ValueError(f"src {tuple(src.shape)}, w {tuple(w.shape)}, R "
+                         f"{tuple(torch.as_tensor(R).shape)} and t {tuple(torch.as_tensor(t).shape)} "
+                         "are not (B, n, 3), (B, n), (B, 3, 3) and (B, 3)")
+    if not 1 <= B <= MAX_PROBLEMS:
+        raise ValueError(f"{B} problems: a batched launch takes 1 to {MAX_PROBLEMS}")
+
+
+def sum_partials(partials: torch.Tensor) -> torch.Tensor:
+    """(B, n_blocks, 29) block partials -> (B, 29): each problem's rows summed
+    as the single-problem wrapper sums its (n_blocks, 29), so a problem's
+    stats are those of its single launch, bit for bit."""
+    return torch.stack([p.sum(dim=0) for p in partials])
+
+
 def launch_stats(kind, bound, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
                  huber_delta, partials=None) -> torch.Tensor:
     """Launch the kernel ``bound`` (:func:`bind`) on checked operands; returns
     the (n_blocks, 29) per-block partial sums. ``partials``, when given, is
-    the float32 buffer the blocks write, at least ``n_blocks * 29`` long."""
+    the float32 buffer the blocks write, at least ``n_blocks * 29`` long.
+    A batched ``bound`` takes ``src`` (B, n, 3), ``w`` (B, n) and the (B, 12)
+    ``pose_rows`` as ``R`` (``t`` unused) and returns (B, n_blocks, 29)."""
     fn, block = bound
-    n = src.shape[0]
+    batched = src.dim() == 3
+    n = src.shape[-2]
     n_blocks = min(-(-n // block), MAX_BLOCKS)
     if partials is None:
-        partials = torch.empty((n_blocks, STATS_WIDTH), dtype=torch.float32, device=src.device)
+        partials = torch.empty(src.shape[:-2] + (n_blocks, STATS_WIDTH), dtype=torch.float32,
+                               device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     rc = fn(
         cells.occ.data_ptr(), cells.centers.data_ptr(), cells.feats.data_ptr(),
         *(int(d) for d in dims), *(int(o) for o in origin_cell),
         float(inv_cell_f32(cell_size)), window_radius(max_dist, cell_size),
         src.data_ptr(), w.data_ptr(), n,
-        *rt_args(R, t),
+        *([src.shape[0], R.data_ptr()] if batched else rt_args(R, t)),
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
         partials.data_ptr(), n_blocks, stream,
@@ -275,6 +346,20 @@ def _launch(kind, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
     partials = launch_stats(kind, _kernel_fn(kind), cells, origin_cell, dims, cell_size, src,
                             w, R, t, max_dist, huber_delta)
     return partials.sum(dim=0)
+
+
+def _launch_batched(kind, counter, cells, origin_cell, dims, cell_size, src, w, R, t,
+                    max_dist, huber_delta) -> torch.Tensor:
+    require_cuda(src)
+    check_batched(src, w, R, t)
+    check_launch(kind, cells, dims, src.reshape(-1, 3), w.reshape(-1))
+    if src.shape[1] == 0:
+        return torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
+    poses = pose_rows(R, t, src.device)
+    partials = launch_stats(kind, _kernel_fn(kind, True), cells, origin_cell, dims, cell_size,
+                            src, w, poses, None, max_dist, huber_delta)
+    counter.launches += 1
+    return sum_partials(partials)
 
 
 def require_cuda(src: torch.Tensor) -> None:
@@ -341,5 +426,39 @@ def fused_ndt_stats(
     return out
 
 
+def fused_plane_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: float,
+                              src: torch.Tensor, w: torch.Tensor, R, t, max_dist: float,
+                              huber_delta: float | None = None) -> torch.Tensor:
+    """:func:`fused_plane_stats` of B problems against one map in one launch
+    -> (B, 29) float32 stats on the device of ``src``.
+
+    ``src`` (B, n, 3) and ``w`` (B, n) hold each problem's scan and weights,
+    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values). Row b equals the
+    single wrapper's stats of problem b. CPU tensors take the plain version;
+    CUDA tensors launch the kernel once, with the problems along the grid's y
+    dimension, and add one to ``fused_plane_stats_batched.launches``.
+    """
+    if src.device.type == "cpu":
+        return fused_plane_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w,
+                                                   R, t, max_dist, huber_delta)
+    return _launch_batched("plane", fused_plane_stats_batched, cells, origin_cell, dims,
+                           cell_size, src, w, R, t, max_dist, huber_delta)
+
+
+def fused_ndt_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: float,
+                            src: torch.Tensor, w: torch.Tensor, R, t, max_dist: float,
+                            huber_delta: float | None = None) -> torch.Tensor:
+    """:func:`fused_ndt_stats` of B problems in one launch -> (B, 29), as
+    :func:`fused_plane_stats_batched`. CUDA tensors add one to
+    ``fused_ndt_stats_batched.launches``."""
+    if src.device.type == "cpu":
+        return fused_ndt_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w,
+                                                 R, t, max_dist, huber_delta)
+    return _launch_batched("ndt", fused_ndt_stats_batched, cells, origin_cell, dims,
+                           cell_size, src, w, R, t, max_dist, huber_delta)
+
+
 fused_plane_stats.launches = 0
 fused_ndt_stats.launches = 0
+fused_plane_stats_batched.launches = 0
+fused_ndt_stats_batched.launches = 0

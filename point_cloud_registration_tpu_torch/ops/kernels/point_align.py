@@ -23,6 +23,11 @@ versions, :func:`point_stats_reference` and
 :func:`plane_point_stats_reference` (``ops.pointgrid.match_packed`` followed
 by ``ops.reduce.point_stats`` or ``plane_stats``), which the tests and
 ``chip_smoke.py`` also call directly. There is no fallback between the two.
+
+``point_stats_batched`` and ``plane_point_stats_batched`` compute the same
+stats for B scans, each with its own pose, against one target in one launch
+(the TPU kernel's ``per_tile`` mode): (B, 29), row b equal to the single
+wrapper's stats of problem b.
 """
 
 from __future__ import annotations
@@ -38,10 +43,14 @@ from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     MAX_BLOCKS,
     STATS_WIDTH,
+    check_batched,
     check_operands,
     packed_from_stats,
+    per_problem,
+    pose_rows,
     require_cuda,
     rt_args,
+    sum_partials,
 )
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
@@ -99,19 +108,37 @@ def plane_point_stats_reference(
     return packed_from_stats(stats)
 
 
+def point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
+                                  huber_delta=None) -> torch.Tensor:
+    """Plain version of the batched point kernel: :func:`point_stats_reference`
+    of each problem b (``src`` (B, n, 3), ``w`` (B, n), ``R`` (B, 3, 3),
+    ``t`` (B, 3)). Returns the (B, 29) stats."""
+    return per_problem(lambda *p: point_stats_reference(
+        pg, proxy, *p, max_dist, proxy_radius, huber_delta), src, w, R, t)
+
+
+def plane_point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
+                                        huber_delta=None) -> torch.Tensor:
+    """Plain version of the batched "plane_pt" kernel:
+    :func:`plane_point_stats_reference` of each problem. Returns (B, 29)."""
+    return per_problem(lambda *p: plane_point_stats_reference(
+        pg, proxy, *p, max_dist, proxy_radius, huber_delta), src, w, R, t)
+
+
 _C_SYMBOLS = {"point": "pcr_point_stats", "plane_pt": "pcr_plane_point_stats"}
 _WIDTHS = {"point": 3, "plane_pt": 6}
 
 
-def _bind(lib: ctypes.CDLL, kind: str):
-    """``(C function, threads per block)`` of ``kind`` in a built library."""
-    fn = getattr(lib, _C_SYMBOLS[kind])
+def _bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
+    """``(C function, threads per block)`` of ``kind`` (its batched twin with
+    ``batched``) in a built library."""
+    fn = getattr(lib, _C_SYMBOLS[kind] + ("_batched" if batched else ""))
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
         [c_ptr, c_ptr, c_ptr] + [c_int] * 7 + [c_float]  # packed grid
         + [c_ptr] + [c_int] * 3 + [c_float, c_int]  # proxy map
-        + [c_ptr, c_ptr, c_int]  # src, w, n
-        + [c_float] * 12  # R (row-major), t
+        + ([c_ptr, c_ptr, c_int, c_int, c_ptr]  # src, w, n per problem, B, poses
+           if batched else [c_ptr, c_ptr, c_int] + [c_float] * 12)  # src, w, n, R, t
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int, c_ptr]  # partials, n_blocks, stream
     )
@@ -123,8 +150,8 @@ def _bind(lib: ctypes.CDLL, kind: str):
 
 
 @functools.cache
-def _kernel_fn(kind: str):
-    return _bind(load_library("point_align"), kind)
+def _kernel_fn(kind: str, batched: bool = False):
+    return _bind(load_library("point_align"), kind, batched)
 
 
 def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
@@ -152,11 +179,14 @@ def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
 def launch_partials(kind, bound, pg, proxy, src, w, R, t, max_dist, proxy_radius,
                     huber_delta) -> torch.Tensor:
     """Launch the kernel ``bound`` (:func:`_bind`) on checked operands and
-    return its (n_blocks, 29) per-block partial sums."""
+    return its (n_blocks, 29) per-block partial sums. A batched ``bound``
+    takes ``src`` (B, n, 3), ``w`` (B, n) and the (B, 12) ``pose_rows`` as
+    ``R`` (``t`` unused) and returns (B, n_blocks, 29)."""
     fn, block = bound
-    n = src.shape[0]
+    batched = src.dim() == 3
+    n = src.shape[-2]
     n_blocks = min(-(-n // block), MAX_BLOCKS)
-    partials = torch.empty((n_blocks, STATS_WIDTH), dtype=torch.float32,
+    partials = torch.empty(src.shape[:-2] + (n_blocks, STATS_WIDTH), dtype=torch.float32,
                            device=src.device)
     rc = fn(
         pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
@@ -165,7 +195,7 @@ def launch_partials(kind, bound, pg, proxy, src, w, R, t, max_dist, proxy_radius
         proxy.table.data_ptr(), *(int(o) for o in proxy.origin_cell),
         float(proxy.cell_size), int(proxy_radius),
         src.data_ptr(), w.data_ptr(), n,
-        *rt_args(R, t),
+        *([src.shape[0], R.data_ptr()] if batched else rt_args(R, t)),
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
         partials.data_ptr(), n_blocks,
@@ -186,6 +216,21 @@ def _launch(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius, hube
                                proxy_radius, huber_delta)
     counter.launches += 1
     return partials.sum(dim=0)
+
+
+def _launch_batched(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius,
+                    huber_delta) -> torch.Tensor:
+    require_cuda(src)
+    check_batched(src, w, R, t)
+    check_operands(src.reshape(-1, 3), w.reshape(-1))
+    _check_tables(kind, pg, proxy, src)
+    if src.shape[1] == 0:
+        return torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
+    poses = pose_rows(R, t, src.device)
+    partials = launch_partials(kind, _kernel_fn(kind, True), pg, proxy, src, w, poses, None,
+                               max_dist, proxy_radius, huber_delta)
+    counter.launches += 1
+    return sum_partials(partials)
 
 
 def point_stats(
@@ -237,5 +282,39 @@ def plane_point_stats(
                    proxy_radius, huber_delta)
 
 
+def point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
+                        w: torch.Tensor, R, t, max_dist: float, proxy_radius: int,
+                        huber_delta: float | None = None) -> torch.Tensor:
+    """:func:`point_stats` of B problems against one target in one launch
+    -> (B, 29) float32 stats on the device of ``src``.
+
+    ``src`` (B, n, 3) and ``w`` (B, n) hold each problem's scan and weights,
+    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values). Row b equals the
+    single wrapper's stats of problem b. CPU tensors take the plain version;
+    CUDA tensors launch the kernel once, with the problems along the grid's y
+    dimension, and add one to ``point_stats_batched.launches``.
+    """
+    if src.device.type == "cpu":
+        return point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
+                                             huber_delta)
+    return _launch_batched("point", point_stats_batched, pg, proxy, src, w, R, t, max_dist,
+                           proxy_radius, huber_delta)
+
+
+def plane_point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
+                              w: torch.Tensor, R, t, max_dist: float, proxy_radius: int,
+                              huber_delta: float | None = None) -> torch.Tensor:
+    """:func:`plane_point_stats` of B problems in one launch -> (B, 29), as
+    :func:`point_stats_batched`. CUDA tensors add one to
+    ``plane_point_stats_batched.launches``."""
+    if src.device.type == "cpu":
+        return plane_point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist,
+                                                   proxy_radius, huber_delta)
+    return _launch_batched("plane_pt", plane_point_stats_batched, pg, proxy, src, w, R, t,
+                           max_dist, proxy_radius, huber_delta)
+
+
 point_stats.launches = 0
 plane_point_stats.launches = 0
+point_stats_batched.launches = 0
+plane_point_stats_batched.launches = 0

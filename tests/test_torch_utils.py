@@ -27,7 +27,7 @@ from point_cloud_registration_tpu_torch.utils import (
 )
 
 REFERENCE_EXPORTS = [
-    "Registration", "ICP", "PlaneICP", "VPlaneICP", "NDT",
+    "Registration", "ICP", "PlaneICP", "VPlaneICP", "NDT", "FastVPlaneICP",
     "makeRt", "expSO3", "makeT", "skews", "huber_weight", "plus", "transform_points",
     "skew_time_vector",
     "KDTree", "VoxelGrid", "voxel_filter", "color_by_voxel",
