@@ -123,7 +123,40 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
    iteration's wall and nanoseconds a point, and their ratio: the card's
    breakeven in remaining iterations.
 
-8. No JAX was imported (checked last, after phases 9-15).
+Then the multi-device paths (phase 16, ``point_cloud_registration_tpu_torch.parallel``),
+held to the JAX package's results of the same paths (``SHARDED_REF``,
+``MAP_REF``, ``BATCHED_REF``, from ``scripts/jax_reference_parallel.py``);
+each part prints the card's name and power limit, the backend and the world
+size:
+
+16a. World size 1 with NCCL, in this process (``initialize`` on a
+   ``HashStore``, ``make_mesh(1, 1)``): ``align_sharded`` of VPlaneICP, NDT,
+   ICP and PlaneICP (phase 6's normals) equal to phase 4's T bit for bit,
+   with its iterations and flags and one kernel launch per iteration;
+   ``align_batched_sharded`` and ``align_batched_fused_sharded`` of the four
+   kinds on phases 13-14's 8 scans equal to their per-problem T bit for bit,
+   one batched launch per batched iteration; ``align_map_sharded`` of
+   VPlaneICP and NDT (``make_map_mesh(1, 1)``, plain query and stats, no
+   kernel) within 5e-5 of phase 4's T with equal iterations. The process
+   group is destroyed afterwards.
+16b. ``N_RANKS`` = 4 processes on the one card (``python3 chip_smoke.py
+   --phase16-rank SPEC`` each, a FileStore, gloo on the host, compute on
+   ``cuda:0``), each under a timeout of ``RANK_TIMEOUT_S``:
+   ``align_sharded`` on ``make_mesh(1, 4)`` within 1e-5 of phase 4's T
+   (equal iterations, one launch per iteration on every rank, the same
+   bits on every rank); ``align_batched_fused_sharded`` on ``make_mesh(2,
+   2)`` with B = 8 (over all four ranks) and B = 6 (over the batch axis
+   alone) bit for bit phases 13-14's per-problem T; ``align_batched_sharded``
+   on (2, 2) within 1e-5; ``align_map_sharded`` on
+   ``shard_voxel_map_on_mesh(map, 1.0, make_map_mesh(4, 1))`` (auto axis)
+   within 5e-5 of phase 4's T, the on-mesh builder's meta at axis 2 equal to
+   ``shard_voxel_map``'s; each slab's valid cells and the queries each rank
+   selects; per rank the launches, iterations and warm align time, and the
+   host time of one all-reduce of 29 floats on each backend. These are
+   correctness runs on one card: no number of phase 16 is a scaling figure.
+
+8. No JAX was imported (checked last, after phases 9-16; each rank of 16b
+   checks its own).
 
 The line before the last is a JSON object describing each kernel: its
 launches on its path, its error against the plain version, its time, the
@@ -133,7 +166,10 @@ and output once over 3.35 TB/s and the operations over 67 TFLOP/s fp32;
 ``exact_nn`` also has ``contract_bound_ms``, its 8 separately rounded
 operations per pair at half that rate) and, where one PyTorch call computes
 the same function, that call's time; ``paths`` gives its launches on every
-path that runs it (its main path first, then phases 9-15); the four align
+path that runs it (its main path first, then phases 9-16; phase 16's
+paths are named after the path, the mode ``nccl1`` or ``gloo4_rank0``, and
+for the batched fused path the batch: ``batched_fused_sharded_plane_8_nccl1``;
+the map-sharded paths run no kernel and show 0); the four align
 kernels also carry ``batched``: the batched entry's launches, error, time,
 plain time, the time of B single launches and bound at phase 13's and 14's
 shapes. The last line is ``{"ok": true, "device": {...}}``.
@@ -362,6 +398,42 @@ FAST_REF_T = np.array([
     -2.589702490e-05, 7.135215856e-05, 1.000000000e+00, -3.673594296e-01,
 ])
 TOL_FAST = 6e-2  # tests/test_fast_vpicp.py:48-50: the coreset objective's optimum
+# Phase 16. The multi-device paths (parallel/): world size 1 with NCCL in this
+# process, then N_RANKS gloo processes on the one card
+SHARDED_KINDS = ("vplane_icp", "ndt", "icp", "plane_icp")
+KERNELS_OF = {  # the single and the batched entry of each solver's stats kernel
+    "vplane_icp": ("fused_plane_stats", "fused_plane_stats_batched"),
+    "ndt": ("fused_ndt_stats", "fused_ndt_stats_batched"),
+    "icp": ("point_stats", "point_stats_batched"),
+    "plane_icp": ("plane_point_stats", "plane_point_stats_batched"),
+}
+N_RANKS = 4
+RANK_TIMEOUT_S = 120  # per rank process of phase 16b
+GLOO_FUSED_BATCHES = (N_BATCHES, 6)  # over all four ranks, over the batch axis alone
+TOL_SHARDED = 1e-5  # sharded vs single, tests/test_sharded.py:63
+TOL_MAP = 5e-5  # map-sharded (plain query and stats) vs the kernel, tests/test_map_sharded.py:188
+# The JAX package's results of the same paths (JAX 0.9.0 on the CPU, eight virtual
+# devices; JAX_PLATFORMS=cpu python3 scripts/jax_reference_parallel.py): align_sharded
+# on 1 x 4 and align_map_sharded on 4 x 1 (auto axis)
+SHARDED_REF = {  # kind: (iterations, rows 0-2 of T)
+    "vplane_icp": (4, np.array([1, 4.62838507e-05, -4.86956469e-06, -0.00141287176,
+        -4.6284018e-05, 1, -5.43696988e-05, 0.00740225567, 4.86836279e-06, 5.43698043e-05, 1,
+        -0.369494706])),
+    "ndt": (3, np.array([1, -1.29213613e-05, -1.43711341e-05, 0.00289758295, 1.29209748e-05, 1,
+        -4.95251916e-05, -0.00101045798, 1.43706193e-05, 4.95249988e-05, 1, -0.376347423])),
+    "icp": (6, np.array([1, 4.56590641e-07, 5.96769951e-07, -0.000146566526, -4.38304539e-07,
+        1, -2.04117919e-06, 2.35433799e-06, -5.96479367e-07, 2.03855097e-06, 1, -0.300190866])),
+    "plane_icp": (3, np.array([1, -2.92141976e-06, -2.28256567e-07, 0.000194545908,
+        2.92141954e-06, 1, -9.97310963e-07, -0.00019303977, 2.28184362e-07, 9.97310053e-07, 1,
+        -0.299654365])),
+}
+MAP_REF = {  # kind: (iterations, rows 0-2 of T)
+    "vplane_icp": (4, np.array([1, 4.62838689e-05, -4.86954059e-06, -0.00141290284,
+        -4.62840362e-05, 1, -5.43697242e-05, 0.00740225427, 4.86833915e-06, 5.43698297e-05, 1,
+        -0.369494677])),
+    "ndt": (3, np.array([1, -1.2937644e-05, -1.43913057e-05, 0.00289859716, 1.29372575e-05, 1,
+        -4.94533488e-05, -0.00100828474, 1.43907882e-05, 4.94531523e-05, 1, -0.376348317])),
+}
 N_KNN = 4096  # queries of KDTree.query(k=8)
 K_KNN = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -1837,8 +1909,8 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
           f"untraced wall)")
     log(f"{tag} one batched launch (events) {kernel_ms:.4f} ms, its plain version "
         f"{plain_ms:.2f} ms, {B} single launches {singles_ms:.4f} ms; bound {b_ms:.5f} ms by {b_by}")
-    return {"launches": launches, "iterations": its, "first_call_s": first_s, "align_s": wall,
-            "align_walls_s": walls, "regs_per_s": B / wall, "mpts_per_s": B * n / wall / 1e6,
+    return {"Ts": Ts.numpy(), "launches": launches, "iterations": its, "first_call_s": first_s,
+            "align_s": wall, "align_walls_s": walls, "regs_per_s": B / wall, "mpts_per_s": B * n / wall / 1e6,
             "device_ms": device_ms, "kernels": n_kernels, "busy": busy, "ms": kernel_ms,
             "plain_ms": plain_ms, "singles_ms": singles_ms, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": max_abs_err, "rows_bit_equal": rows_equal, "dT_single": dT_single,
@@ -1947,6 +2019,394 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
             "always_align_s": min(walls)}
 
 
+def sharded_targets(map_src, normals, dev) -> dict:
+    """Phase 16: name -> (path, solver with its target set) of the four
+    solvers, built as phase 4 builds them (PlaneICP on ``normals``)."""
+    paths = {p.name: p for p in solver_paths()}
+    paths["plane_icp"] = plane_icp_path(normals)
+    out = {}
+    for name in SHARDED_KINDS:
+        s = paths[name].make(dev)
+        paths[name].set_target(s, map_src)
+        out[name] = (paths[name], s)
+    return out
+
+
+def _result_row(result, counts: dict, kernel: str, **extra) -> dict:
+    d = result.diagnostics
+    return {"T": result.T.numpy(), "iterations": np.asarray(d.iterations),
+            "converged": np.asarray(d.converged), "failed": np.asarray(d.solver_failed),
+            "launches": counts[kernel], "launch_counts": counts, **extra}
+
+
+def drive_sharded(targets: dict, src, w, scans, mesh, mesh_batched, fused_batches) -> dict:
+    """Phase 16: ``align_sharded`` of each solver on ``mesh``, then
+    ``align_batched_sharded`` and ``align_batched_fused_sharded`` (B of
+    ``fused_batches``) of the batched scans ``scans`` on ``mesh_batched``;
+    launch counts reset just before each call and read just after."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.parallel import (
+        align_batched_fused_sharded,
+        align_batched_sharded,
+        align_sharded,
+    )
+
+    eye = torch.eye(4)
+    B = scans.shape[0]
+    eyes = eye.expand(B, 4, 4).clone()
+    ones = torch.ones(scans.shape[:2], device=scans.device)
+    out = {}
+    for name in SHARDED_KINDS:
+        path, s = targets[name]
+        single, batched = KERNELS_OF[name]
+        reset_launches()
+        t0 = time.perf_counter()
+        r = align_sharded(name, s._target, src, w, eye, s.cfg, mesh)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if src.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        align_sharded(name, s._target, src, w, eye, s.cfg, mesh)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        out[f"sharded_{name}"] = _result_row(r, counts, single, first_ms=first_ms,
+                                             warm_ms=warm_ms)
+        reset_launches()
+        r = align_batched_sharded(name, s._target, scans, ones, eyes, s.cfg, mesh_batched)
+        out[f"batched_sharded_{name}"] = _result_row(r, launch_counts(), batched)
+        kind = BATCHED_KINDS[name]
+        if path.args is voxel_args:
+            target, normals = s._target, None
+        else:  # ICP's target, or PlaneICP's packed target and its normals
+            target = getattr(s._target, "corr", s._target)
+            normals = getattr(s._target, "normals", None)
+        for b in fused_batches:
+            reset_launches()
+            r = align_batched_fused_sharded(target, normals, scans[:b], ones[:b], eyes[:b], s.cfg,
+                                            kind, mesh_batched)
+            out[f"batched_fused_sharded_{kind}_{b}"] = _result_row(r, launch_counts(), batched)
+    return out
+
+
+def map_selected(src, w, T, meta, rank: int, max_dist: float) -> int:
+    """Phase 16: how many weighted queries of ``src`` at ``T`` reach slab
+    ``rank`` (the set ``align_map_sharded`` queries there)."""
+    from point_cloud_registration_tpu_torch.parallel.map_sharded import slab_queries
+
+    T = T.to(src.device)
+    return int(slab_queries(src @ T[:3, :3].T + T[:3, 3], w, meta, rank, max_dist).sum())
+
+
+def drive_map(map_src, src, w, targets: dict, mesh, dev) -> dict:
+    """Phase 16: ``align_map_sharded`` of VPlaneICP and NDT on slabs that
+    ``shard_voxel_map_on_mesh`` (auto axis) builds on each rank."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.parallel import (
+        align_map_sharded,
+        shard_voxel_map_on_mesh,
+    )
+    from point_cloud_registration_tpu_torch.parallel.mesh import axes_rank
+
+    rank = axes_rank(mesh, ("model",))
+    out = {}
+    for name in ("vplane_icp", "ndt"):
+        cfg = targets[name][1].cfg
+        svm, meta = shard_voxel_map_on_mesh(map_src, cfg.voxel_size, mesh,
+                                            with_icov=name == "ndt", device=dev)
+        reset_launches()
+        r = align_map_sharded(name, svm, meta, src, w, torch.eye(4), cfg, mesh)
+        counts = launch_counts()
+        if src.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        align_map_sharded(name, svm, meta, src, w, torch.eye(4), cfg, mesh)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        out[f"map_sharded_{name}"] = _result_row(
+            r, counts, KERNELS_OF[name][0], all_launches=sum(counts.values()), warm_ms=warm_ms,
+            axis=meta.axis, dims_slab=list(meta.dims_slab),
+            valid_cells=int(svm.slabs[rank].valid.sum()),
+            selected=map_selected(src, w, r.T, meta, rank, cfg.max_dist))
+    return out
+
+
+def allreduce_host_ms(device, reps: int = 100) -> float:
+    """Host milliseconds of one SUM all-reduce of 29 float32 values over the
+    world, on ``device`` (synchronized after each on a card)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(29, device=device)
+    dist.all_reduce(x)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(x)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def batched_scans(map_np, dev):
+    """Phases 13, 14 and 16: bench.py's B = 8 scans of 16,384 points."""
+    import torch
+
+    from bench import make_scan
+
+    return torch.from_numpy(np.stack([make_scan(np.random.RandomState(100 + b), map_np, N_BATCH)
+                                      for b in range(N_BATCHES)])).to(dev)
+
+
+def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
+                  fused_batches, batch_mesh: tuple) -> None:
+    """Phase 16: hold rank 0's results to phase 4's T (``tol``; 0: bit for
+    bit), to JAX's within TOL_REF, with equal iterations and flags and one
+    launch per iteration; the batched paths to phases 13-14's per-problem T
+    (``align_batched_fused_sharded`` bit for bit, ``align_batched_sharded``
+    within ``tol``) with one batched launch per batched iteration of rank 0's
+    problems (the first B / ranks of the batch, on the (batch, data) mesh
+    ``batch_mesh``)."""
+    nb, nd = batch_mesh
+    for name in SHARDED_KINDS:
+        r, ref = out[f"sharded_{name}"], results[name]
+        dT = float(np.abs(r["T"].astype(np.float64) - ref["T"]).max())
+        its_jax, rows_jax = SHARDED_REF[name]
+        dT_jax = float(np.abs(r["T"][:3].reshape(-1) - rows_jax).max())
+        its = int(r["iterations"])
+        log(f"{tag} align_sharded {name}: {its} iterations, {r['launches']} launches, "
+            f"max |T - T_phase4| {dT:.3e}, max |T - T_jax| {dT_jax:.3e}; first "
+            f"{r['first_ms']:.2f} ms, warm {r['warm_ms']:.2f} ms")
+        if not (dT <= tol and dT_jax < TOL_REF and its == ref["iterations"] == its_jax
+                and bool(r["converged"]) and not bool(r["failed"]) and r["launches"] == its):
+            raise AssertionError(f"{tag} align_sharded {name} is off phase 4: {r}")
+        cases = [(f"batched_sharded_{name}", N_BATCHES, tol, N_BATCHES // nb)]
+        cases += [(f"batched_fused_sharded_{BATCHED_KINDS[name]}_{b}", b, 0.0,
+                   b // (nb * nd) if nd > 1 and b % (nb * nd) == 0 else b // nb)
+                  for b in fused_batches]
+        for key, b, tol_b, mine in cases:
+            r, ref = out[key], batched[name]
+            dT = float(np.abs(r["T"] - ref["Ts"][:b]).max())
+            its = r["iterations"].tolist()
+            jax_ref = BATCHED_REF[BATCHED_KINDS[name]][:b]
+            dT_jax = max(float(np.abs(T[:3].reshape(-1) - rows_jax).max())
+                         for T, (_, rows_jax) in zip(r["T"], jax_ref))
+            single = r["launch_counts"][KERNELS_OF[name][0]]
+            log(f"{tag} {key}: iterations {its}, {r['launches']} batched launches on rank 0 "
+                f"({mine} problems), max |T - T_phase13/14| {dT:.3e}, max |T - T_jax| "
+                f"{dT_jax:.3e}")
+            if not (dT <= tol_b and its == ref["iterations"][:b] == [i for i, _ in jax_ref]
+                    and dT_jax < TOL_REF and bool(r["converged"].all())
+                    and r["launches"] == max(its[:mine]) and single == 0):
+                raise AssertionError(f"{tag} {key} is off phases 13-14: {r}")
+
+
+def check_map(tag: str, out: dict, results: dict) -> None:
+    """Phase 16: map-sharded VPlaneICP and NDT within TOL_MAP of phase 4's T,
+    equal iterations, no kernel launched (as in the JAX package)."""
+    for name in ("vplane_icp", "ndt"):
+        r, ref = out[f"map_sharded_{name}"], results[name]
+        dT = float(np.abs(r["T"].astype(np.float64) - ref["T"]).max())
+        its_jax, rows_jax = MAP_REF[name]
+        dT_jax = float(np.abs(r["T"][:3].reshape(-1) - rows_jax).max())
+        log(f"{tag} align_map_sharded {name}: axis {r['axis']}, slab {r['dims_slab']} with "
+            f"{r['valid_cells']} valid cells, {r['selected']} queries selected at the final T; "
+            f"{int(r['iterations'])} iterations, max |T - T_phase4| {dT:.3e}, max |T - T_jax| "
+            f"{dT_jax:.3e}; launches {r['all_launches']}; warm {r['warm_ms']:.2f} ms")
+        if not (dT < TOL_MAP and dT_jax < TOL_REF
+                and int(r["iterations"]) == ref["iterations"] == its_jax
+                and r["all_launches"] == 0):
+            raise AssertionError(f"{tag} align_map_sharded {name} is off phase 4: {r}")
+
+
+def run_parallel_nccl1(map_np, scan_np, normals, results: dict, batched: dict, smi: str,
+                       dev) -> dict:
+    """Phase 16a: the multi-device paths at world size 1 with NCCL, in this
+    process: bit for bit phase 4's and phases 13-14's results."""
+    import torch.distributed as dist
+
+    from point_cloud_registration_tpu_torch.models.base import pad_points
+    from point_cloud_registration_tpu_torch.parallel import distributed, make_map_mesh, make_mesh
+
+    tag = "[16a nccl1]"
+    distributed.initialize(world_size=1, rank=0, store=dist.HashStore())
+    try:
+        info = distributed.process_info()
+        log(f"{tag} {smi}; backend {info['backend']}; world size {info['world_size']}; "
+            f"device {info['device']}")
+        targets = sharded_targets(map_np, normals, dev)
+        src, w = pad_points(scan_np, device=dev)
+        mesh = make_mesh(1, 1)
+        out = drive_sharded(targets, src, w, batched_scans(map_np, dev), mesh, mesh, (N_BATCHES,))
+        out.update(drive_map(map_np, src, w, targets, make_map_mesh(1, 1), dev))
+        out["allreduce_ms"] = allreduce_host_ms(dev)
+    finally:
+        distributed.shutdown()
+    check_sharded(tag, out, results, batched, 0.0, (N_BATCHES,), (1, 1))
+    check_map(tag, out, results)
+    log(f"{tag} host ms of one all-reduce of 29 floats (NCCL, one rank, synchronized): "
+        f"{out['allreduce_ms']:.4f} on {smi}")
+    return out
+
+
+def phase16_rank(spec: dict) -> None:
+    """Phase 16b, one rank: joins the gloo group through a FileStore, runs
+    the sharded paths on the card the spec names (``cuda:0``) and writes its
+    results to ``rank{r}.npz`` (``python3 chip_smoke.py --phase16-rank SPEC``)."""
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+
+    from point_cloud_registration_tpu_torch.models.base import pad_points
+    from point_cloud_registration_tpu_torch.parallel import (
+        distributed,
+        make_map_mesh,
+        make_mesh,
+        shard_voxel_map,
+        shard_voxel_map_on_mesh,
+    )
+
+    rank, where = spec["rank"], pathlib.Path(spec["dir"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    distributed.initialize(world_size=N_RANKS, rank=rank, device="cpu",
+                           store=dist.FileStore(str(where / "store"), N_RANKS))
+    tag = f"[16b gloo{N_RANKS} rank {rank}]"
+    info = distributed.process_info()
+    log(f"{tag} {spec['smi']}; backend {info['backend']}; world size {info['world_size']}; "
+        f"compute on {dev}")
+    idle_allreduce_ms = allreduce_host_ms("cpu")  # before any work on the card
+    map_np = np.load(where / "map.npy")
+    normals = torch.from_numpy(np.load(where / "normals.npy")).to(dev)
+    targets = sharded_targets(map_np, normals, dev)
+    src, w = pad_points(np.load(where / "scan.npy"), device=dev)
+    scans = torch.from_numpy(np.load(where / "scans.npy")).to(dev)
+    out = drive_sharded(targets, src, w, scans, make_mesh(1, N_RANKS, device_type="cpu"),
+                        make_mesh(2, 2, device_type="cpu"), GLOO_FUSED_BATCHES)
+    mesh = make_map_mesh(N_RANKS, 1, device_type="cpu")
+    out.update(drive_map(map_np, src, w, targets, mesh, dev))
+    _, meta_mesh = shard_voxel_map_on_mesh(map_np, 1.0, mesh, axis=2, device=dev)
+    _, meta_local = shard_voxel_map(map_np, 1.0, N_RANKS, device=dev)
+    out["meta_axis2_equal"] = meta_mesh == meta_local
+    out["allreduce_ms"] = allreduce_host_ms("cpu")
+    for name in SHARDED_KINDS:
+        r = out[f"sharded_{name}"]
+        log(f"{tag} align_sharded {name}: {r['launches']} launches, {int(r['iterations'])} "
+            f"iterations, warm {r['warm_ms']:.2f} ms on {spec['smi']}")
+    out["idle_allreduce_ms"] = idle_allreduce_ms
+    log(f"{tag} host ms of one all-reduce of 29 floats (gloo, {N_RANKS} ranks): "
+        f"{out['allreduce_ms']:.4f} after the aligns, {idle_allreduce_ms:.4f} before any work "
+        f"on the card")
+    if "jax" in sys.modules:
+        raise AssertionError(f"{tag} jax was imported")
+    flat = {}
+    for case, row in out.items():
+        if isinstance(row, dict):
+            for k, v in row.items():
+                flat[f"{case}/{k}"] = np.asarray(json.dumps(v) if isinstance(v, dict) else v)
+        else:
+            flat[case] = np.asarray(row)
+    np.savez(where / f"rank{rank}.npz", **flat)
+    distributed.shutdown()
+
+
+def _load_rank(path) -> dict:
+    """A rank's ``.npz`` back into phase 16's nested results."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            case, _, field = key.partition("/")
+            v = z[key]
+            if field == "launch_counts":
+                v = json.loads(str(v))
+            elif v.ndim == 0 and field not in ("T",):
+                v = v.item()
+            if field:
+                out.setdefault(case, {})[field] = v
+            else:
+                out[case] = v
+    return out
+
+
+def run_parallel_gloo4(map_np, scan_np, normals, results: dict, batched: dict, smi: str,
+                       dev) -> dict:
+    """Phase 16b: the multi-device paths on N_RANKS processes on the one
+    card, their collectives over gloo on the host. Correctness only: the
+    ranks share one card, so no number here is a scaling figure."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    tag = f"[16b gloo{N_RANKS}]"
+    log(f"{tag} {smi}; backend gloo; world size {N_RANKS}; {N_RANKS} processes on one card "
+        f"(correctness runs on one card, not a scaling measurement)")
+    with tempfile.TemporaryDirectory() as tmp:
+        where = pathlib.Path(tmp)
+        np.save(where / "map.npy", map_np)
+        np.save(where / "scan.npy", scan_np)
+        np.save(where / "normals.npy", normals.cpu().numpy())
+        np.save(where / "scans.npy", batched_scans(map_np, "cpu").numpy())
+        script = str(pathlib.Path(__file__).resolve())
+        device = "cuda:0" if torch.device(dev).type == "cuda" else str(dev)
+        logs = [open(where / f"rank{r}.log", "w+") for r in range(N_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, script, "--phase16-rank",
+             json.dumps({"rank": r, "dir": tmp, "smi": smi, "device": device})],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True) for r in range(N_RANKS)]
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for r, f in enumerate(logs):
+                f.seek(0)
+                for line in f.read().splitlines():
+                    log(f"  rank {r}: {line}")
+                f.close()
+        wall_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} rank {r} failed with code {p.returncode}")
+        ranks = [_load_rank(where / f"rank{r}.npz") for r in range(N_RANKS)]
+    log(f"{tag} all {N_RANKS} ranks done in {wall_s:.1f} s (limit {RANK_TIMEOUT_S} s each)")
+    out = ranks[0]
+    for key, row in out.items():
+        if isinstance(row, dict) and "T" in row:
+            for r in ranks[1:]:
+                if not (np.array_equal(r[key]["T"], row["T"])
+                        and np.array_equal(r[key]["iterations"], row["iterations"])):
+                    raise AssertionError(f"{tag} {key}: the ranks hold different results")
+    check_sharded(tag, out, results, batched, TOL_SHARDED, GLOO_FUSED_BATCHES, (2, 2))
+    check_map(tag, out, results)
+    if not all(bool(r["meta_axis2_equal"]) for r in ranks):
+        raise AssertionError(f"{tag} shard_voxel_map_on_mesh(axis=2) and shard_voxel_map differ")
+    log(f"{tag} slabs (auto axis {out['map_sharded_vplane_icp']['axis']}): valid cells "
+        f"{[r['map_sharded_vplane_icp']['valid_cells'] for r in ranks]}, queries selected "
+        f"{[r['map_sharded_vplane_icp']['selected'] for r in ranks]}; the on-mesh builder's "
+        f"meta at axis 2 equals shard_voxel_map's; host ms of one gloo all-reduce of 29 floats "
+        f"{[round(float(r['allreduce_ms']), 4) for r in ranks]} (before any work on the card: "
+        f"{[round(float(r['idle_allreduce_ms']), 4) for r in ranks]})")
+    out["wall_s"] = wall_s
+    return out
+
+
+def jsonable(x):
+    """Phase 16's results for the summary line: arrays as lists, without
+    transforms and launch tables."""
+    if isinstance(x, dict):
+        return {k: jsonable(v) for k, v in x.items() if k not in ("T", "launch_counts")}
+    if isinstance(x, (np.ndarray, np.generic)):
+        return x.tolist()
+    return x
+
+
 def main() -> None:
     import torch
 
@@ -2010,8 +2470,12 @@ def main() -> None:
         batched[path_name] = run_batched(paths[path_name], kernel, plain, map_np, dev)
     results["batched"] = batched
     results["fast"] = run_fast(map_np, scan_np, dev, results["vplane_icp"])
+    # 16. The multi-device paths: world size 1 with NCCL here, then N_RANKS gloo
+    # ranks on the one card
+    results["nccl1"] = run_parallel_nccl1(map_np, scan_np, normals, results, batched, smi, dev)
+    results["gloo4"] = run_parallel_gloo4(map_np, scan_np, normals, results, batched, smi, dev)
 
-    # 8. No JAX, after every phase
+    # 8. No JAX, after every phase (each rank of 16b checked its own)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2046,8 +2510,26 @@ def main() -> None:
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
     }
+    # launches of the kernels on phase 16's paths: the single entry's on
+    # align_sharded, the batched entry's on the batched paths, none on map-sharded
+    modes = {"nccl1": (results["nccl1"], (N_BATCHES,)),
+             f"gloo{N_RANKS}_rank0": (results["gloo4"], GLOO_FUSED_BATCHES)}
+    for name in SHARDED_KINDS:
+        row = path_launches[KERNELS_OF[name][0]]
+        for mode, (out, fused_batches) in modes.items():
+            row[f"sharded_{name}_{mode}"] = out[f"sharded_{name}"]["launches"]
+            row[f"batched_sharded_{name}_{mode}"] = out[f"batched_sharded_{name}"]["launches"]
+            for b in fused_batches:
+                key = f"batched_fused_sharded_{BATCHED_KINDS[name]}_{b}"
+                row[f"{key}_{mode}"] = out[key]["launches"]
+            if f"map_sharded_{name}" in out:
+                row[f"map_sharded_{name}_{mode}"] = out[f"map_sharded_{name}"]["all_launches"]
     for r in results.values():
         r.pop("T", None)
+    for r in batched.values():
+        r.pop("Ts", None)
+    for mode in ("nccl1", "gloo4"):
+        results[mode] = jsonable(results[mode])
     log("summary: " + json.dumps({"card": smi, "build_s": build_s, **results}))
     # knn_moments: the top-level numbers are the base tier's; "tiers" holds both
     print(json.dumps({"kernels": [{
@@ -2073,4 +2555,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase16-rank"]:
+        phase16_rank(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -30,7 +30,7 @@ from point_cloud_registration_tpu_torch.core.config import (
     PlaneICPConfig,
     VPlaneICPConfig,
 )
-from point_cloud_registration_tpu_torch.core.device import default_device
+from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.core.gn import (
     GNDiagnostics,
     GNStats,
@@ -72,24 +72,27 @@ from point_cloud_registration_tpu_torch.ops.voxelize import (
 )
 
 
-def estimate_normals(points, k: int = 15) -> np.ndarray:
+def estimate_normals(points, k: int = 15, *, device=None) -> np.ndarray:
     """k-NN PCA normals, NumPy in and out (reference
-    estimate_normals.py:11-24); computed on the card when there is one."""
-    return _normals.estimate_normals(points, k=k).cpu().numpy()
+    estimate_normals.py:11-24), computed on ``device``: by default the
+    tensor's device, or the card for NumPy input (an error without one;
+    ``device="cpu"`` runs on the CPU)."""
+    return _normals.estimate_normals(points, k=k, device=device).cpu().numpy()
 
 
-def estimate_norm_with_tree(points, kdtree=None, k: int = 15) -> np.ndarray:
+def estimate_norm_with_tree(points, kdtree=None, k: int = 15, *, device=None) -> np.ndarray:
     """k-NN PCA normals against a prebuilt neighbour index (reference
-    estimate_normals.py:27-87), NumPy in and out.
+    estimate_normals.py:27-87), NumPy in and out, on ``device`` as
+    :func:`estimate_normals`.
 
     ``kdtree`` is any object with ``.query(points, k)``: the neighbour
     indices come from it and, as in the reference, the moments gather from
     ``points`` at those indices. ``None`` derives the grid index from
     ``points``."""
     if kdtree is None:
-        return estimate_normals(points, k=k)
+        return estimate_normals(points, k=k, device=device)
     _, idx = kdtree.query(points, k=k)
-    dev = default_device()
+    dev = resolve_device(points, device)
     pts = torch.as_tensor(np.asarray(points, np.float32)).to(dev)
     idx = torch.as_tensor(np.asarray(idx).astype(np.int64)).to(dev)
     return _normals.normals_from_neighbors(pts, idx, pts).cpu().numpy()

@@ -6,7 +6,8 @@ of ``point_cloud_registration_tpu/compat.py``).
 escapes; ``VoxelGrid`` the surface of voxel.py:52-179 on a
 :class:`~point_cloud_registration_tpu_torch.ops.voxelize.VoxelMap`. Both take
 NumPy or tensors and return NumPy, as the reference does; the work runs on
-the points' device (a NumPy input goes to ``core.device.default_device()``).
+the points' device (a NumPy input goes to ``core.device.default_device()``,
+the card, and raises without one unless ``device="cpu"`` is named).
 """
 
 from __future__ import annotations

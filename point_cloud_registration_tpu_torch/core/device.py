@@ -1,7 +1,8 @@
 """Which device an entry point runs on.
 
 Entry points run on the card unless the caller asks for the CPU: a tensor
-keeps its device, a NumPy input goes to :func:`default_device`.
+keeps its device, a NumPy input goes to :func:`default_device`, which is
+the card or an error, never the CPU on its own.
 """
 
 from __future__ import annotations
@@ -10,8 +11,11 @@ import torch
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card. Raises ``RuntimeError`` when no CUDA device is
+    usable: a caller that means the CPU names ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is usable; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(points=None, device=None) -> torch.device:

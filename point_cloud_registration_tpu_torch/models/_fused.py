@@ -51,13 +51,14 @@ _STATS = {"plane": fused_plane_stats, "ndt": fused_ndt_stats}
 _BATCHED_STATS = {"plane": fused_plane_stats_batched, "ndt": fused_ndt_stats_batched}
 
 
-def hashed_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-                       T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
-                       kind: str = "plane") -> GNStats:
+def hashed_voxel_stats_packed(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
+                              T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
+                              kind: str = "plane") -> torch.Tensor:
     """The plain stats of a hashed map at ``T`` (host float32 (4, 4)):
     the nearest valid voxel in the ``search_offsets`` window, gated on
     ``dist < max_dist``; point-to-plane, or NDT's Mahalanobis form with the
-    cell's inverse covariance. -> GNStats on the host, with one device sync."""
+    cell's inverse covariance. -> the (29,) packed stats on the data's
+    device (``ops/kernels/fused_align.packed_from_stats``)."""
     Td = T.to(source.device)
     R, _ = makeRt(Td)
     src_trans = transform_points(Td, source)
@@ -70,23 +71,40 @@ def hashed_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Ten
     else:
         stats = ndt_stats(source, src_trans, vm.means[safe], vm.icovs[safe], w, R,
                           huber_delta=cfg.huber_delta)
-    return stats_from_packed(packed_from_stats(stats).cpu())
+    return packed_from_stats(stats)
+
+
+def hashed_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
+                       T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
+                       kind: str = "plane") -> GNStats:
+    """:func:`hashed_voxel_stats_packed` -> GNStats on the host, with one
+    device sync."""
+    return stats_from_packed(
+        hashed_voxel_stats_packed(vm, source, src_weight, T, cfg, kind).cpu())
+
+
+def fused_voxel_stats_packed(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
+                             T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
+                             kind: str = "plane") -> torch.Tensor:
+    """Nearest-voxel correspondence + the ``kind``'s linearization at ``T``
+    (host float32 (4, 4)) -> the (29,) packed stats on the data's device:
+    the fused kernel on a dense map, :func:`hashed_voxel_stats_packed` on a
+    hashed one."""
+    if vm.hashed:
+        return hashed_voxel_stats_packed(vm, source, src_weight, T, cfg, kind)
+    R, t = makeRt(T)
+    return _STATS[kind](
+        vm.cells, vm.origin_cell, vm.dims, vm.cell_size, source, src_weight,
+        R, t, cfg.max_dist, cfg.huber_delta,
+    )
 
 
 def fused_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
                       T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
                       kind: str = "plane") -> GNStats:
-    """Nearest-voxel correspondence + the ``kind``'s linearization at ``T``
-    (host float32 (4, 4)) -> GNStats on the host, with one device sync: the
-    fused kernel on a dense map, :func:`hashed_voxel_stats` on a hashed one."""
-    if vm.hashed:
-        return hashed_voxel_stats(vm, source, src_weight, T, cfg, kind)
-    R, t = makeRt(T)
-    packed = _STATS[kind](
-        vm.cells, vm.origin_cell, vm.dims, vm.cell_size, source, src_weight,
-        R, t, cfg.max_dist, cfg.huber_delta,
-    )
-    return stats_from_packed(packed.cpu())
+    """:func:`fused_voxel_stats_packed` -> GNStats on the host, with one
+    device sync."""
+    return stats_from_packed(fused_voxel_stats_packed(vm, source, src_weight, T, cfg, kind).cpu())
 
 
 def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
@@ -115,6 +133,20 @@ def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,
     (see the module's docstring). A hashed map raises ``ValueError``: it has
     no cell index for the kernel, as the JAX function needs a fused spec.
     """
+    stats_all = fused_voxel_stats_packed_batched(vm, sources, src_weights, cfg, kind)
+    return batched_gauss_newton(lambda Ts: stats_from_packed(stats_all(Ts).cpu()), init_Ts,
+                                cfg.max_iter, cfg.tol)
+
+
+def fused_voxel_stats_packed_batched(vm: VoxelMap, sources, src_weights,
+                                     cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane",
+                                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The stats of B scans against one dense map as a function of their
+    poses: ``Ts`` (B, 4, 4) host float32 -> (B, 29) packed stats on the
+    map's device, one launch of the batched fused kernel per call.
+    ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to the map's device
+    once. A hashed map raises ``ValueError``: it has no cell index for the
+    kernel, as the JAX function needs a fused spec."""
     if vm.hashed:
         raise ValueError("a hashed voxel map has no cell index for the batched fused kernel; "
                          "align its scans one by one")
@@ -125,11 +157,10 @@ def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,
 
     def stats_all(Ts):
         R, t = makeRt(Ts)
-        packed = stats_fn(vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w, R, t,
-                          cfg.max_dist, cfg.huber_delta)
-        return stats_from_packed(packed.cpu())
+        return stats_fn(vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w, R, t,
+                        cfg.max_dist, cfg.huber_delta)
 
-    return batched_gauss_newton(stats_all, init_Ts, cfg.max_iter, cfg.tol)
+    return stats_all
 
 
 def batched_gauss_newton(stats_all: Callable[[torch.Tensor], GNStats], init_Ts,

@@ -25,6 +25,8 @@ with one launch of the batched kernel per Gauss-Newton iteration, driven by
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
@@ -53,13 +55,15 @@ _STATS_FN = {"point": point_stats, "plane_pt": plane_point_stats}
 _BATCHED_STATS_FN = {"point": point_stats_batched, "plane_pt": plane_point_stats_batched}
 
 
-def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: torch.Tensor,
-                     T: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
-                     normals: torch.Tensor | None = None) -> GNStats:
+def grid_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
+                            src_weight: torch.Tensor, T: torch.Tensor,
+                            cfg: ICPConfig | PlaneICPConfig,
+                            normals: torch.Tensor | None = None) -> torch.Tensor:
     """Grid correspondence + the point (``normals`` None) or point-to-plane
     linearization at ``T`` (host float32 (4, 4)), as ``icp_stats`` and
     ``plane_icp_stats`` of the JAX package: a raw match takes
-    ``normals[point_idx]``. -> GNStats on the host, with one device sync."""
+    ``normals[point_idx]``. -> the (29,) packed stats on the data's device
+    (``ops/kernels/fused_align.packed_from_stats``)."""
     Td = T.to(source.device)
     R, _ = makeRt(Td)
     src_trans = transform_points(Td, source)
@@ -72,26 +76,44 @@ def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: 
         safe = m.point_idx.clamp(0, normals.shape[0] - 1)
         stats = plane_stats(source, src_trans, m.target, normals[safe], w, R,
                             huber_delta=cfg.huber_delta)
-    return stats_from_packed(packed_from_stats(stats).cpu())
+    return packed_from_stats(stats)
+
+
+def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: torch.Tensor,
+                     T: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
+                     normals: torch.Tensor | None = None) -> GNStats:
+    """:func:`grid_point_stats_packed` -> GNStats on the host, with one
+    device sync."""
+    return stats_from_packed(
+        grid_point_stats_packed(target, source, src_weight, T, cfg, normals).cpu())
+
+
+def fused_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
+                             src_weight: torch.Tensor, T: torch.Tensor,
+                             cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
+                             normals: torch.Tensor | None = None) -> torch.Tensor:
+    """Correspondence + linearization of ``kind`` at ``T`` (host float32
+    (4, 4)) -> the (29,) packed stats on the data's device: the kernel of
+    ``kind`` on a packed target, :func:`grid_point_stats_packed` on a grid
+    target (``normals``: PlaneICP's per-point normals)."""
+    if target.packed is None:
+        return grid_point_stats_packed(target, source, src_weight, T, cfg,
+                                       normals if kind == "plane_pt" else None)
+    R, t = makeRt(T)
+    return _STATS_FN[kind](
+        target.packed, target.proxy, source, src_weight, R, t, cfg.max_dist,
+        proxy_radius(cfg.corr, cfg.max_dist), cfg.huber_delta,
+    )
 
 
 def fused_point_stats(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, T: torch.Tensor,
                       cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
                       normals: torch.Tensor | None = None) -> GNStats:
-    """Correspondence + linearization of ``kind`` at ``T`` (host float32
-    (4, 4)) -> GNStats on the host, with one device sync: the kernel of
-    ``kind`` on a packed target, :func:`grid_point_stats` on a grid target
-    (``normals``: PlaneICP's per-point normals)."""
-    if target.packed is None:
-        return grid_point_stats(target, source, src_weight, T, cfg,
-                                normals if kind == "plane_pt" else None)
-    R, t = makeRt(T)
-    packed = _STATS_FN[kind](
-        target.packed, target.proxy, source, src_weight, R, t, cfg.max_dist,
-        proxy_radius(cfg.corr, cfg.max_dist), cfg.huber_delta,
-    )
-    return stats_from_packed(packed.cpu())
+    """:func:`fused_point_stats_packed` -> GNStats on the host, with one
+    device sync."""
+    return stats_from_packed(
+        fused_point_stats_packed(target, source, src_weight, T, cfg, kind, normals).cpu())
 
 
 def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
@@ -122,6 +144,20 @@ def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | N
     packed grid) raises ``ValueError``, as the JAX function needs a packed
     spec.
     """
+    stats_all = fused_point_stats_packed_batched(target, sources, src_weights, cfg, kind)
+    return batched_gauss_newton(lambda Ts: stats_from_packed(stats_all(Ts).cpu()), init_Ts,
+                                cfg.max_iter, cfg.tol)
+
+
+def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weights,
+                                     cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
+                                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The stats of B scans against one packed target as a function of
+    their poses: ``Ts`` (B, 4, 4) host float32 -> (B, 29) packed stats on
+    the target's device, one launch of the batched point kernel per call.
+    ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to the target's
+    device once. A grid target (no packed grid) raises ``ValueError``, as
+    the JAX function needs a packed spec."""
     if target.packed is None:
         raise ValueError("a grid target has no packed grid for the batched point kernel; "
                          "align its scans one by one")
@@ -133,8 +169,7 @@ def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | N
 
     def stats_all(Ts):
         R, t = makeRt(Ts)
-        packed = stats_fn(target.packed, target.proxy, src, w, R, t, cfg.max_dist, radius,
-                          cfg.huber_delta)
-        return stats_from_packed(packed.cpu())
+        return stats_fn(target.packed, target.proxy, src, w, R, t, cfg.max_dist, radius,
+                        cfg.huber_delta)
 
-    return batched_gauss_newton(stats_all, init_Ts, cfg.max_iter, cfg.tol)
+    return stats_all

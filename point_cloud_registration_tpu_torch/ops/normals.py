@@ -156,7 +156,8 @@ def estimate_normals(
 ):
     """Estimate unit normals for every point of a cloud (N, 3) -> (N, 3)
     tensor on ``device`` (default: the tensor's device, or
-    ``core.device.default_device()`` for NumPy input).
+    ``core.device.default_device()`` for NumPy input: the card, or an error
+    without one).
 
     ``cell_size`` defaults to the sampled median k-th-NN distance (at least
     1e-3). With ``exact_tail`` the kernel path searches the tail it could

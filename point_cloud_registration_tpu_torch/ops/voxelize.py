@@ -156,8 +156,8 @@ def build_voxel_map(
     on ``device``.
 
     ``points`` is a NumPy array or a tensor; ``device`` defaults to the
-    tensor's device, or ``core.device.default_device()`` (the card when
-    there is one) for NumPy input. The bounding box is read on the host
+    tensor's device, or ``core.device.default_device()`` (the card, or an
+    error without one) for NumPy input. The bounding box is read on the host
     once. A box of at most ``DENSE_CELL_BUDGET`` cells, with no
     ``capacity``, gets the dense-direct build; otherwise the map is hashed
     (voxelize.py:316-346): ``build_grid`` with ``capacity`` slots (default:

@@ -45,8 +45,8 @@ def voxel_map_from_numpy(
     arrays of a dense-direct map of the JAX package, given as NumPy arrays
     (``vm.means``, ``vm.covs``, ``vm.normals``, ``vm.counts``, ``vm.valid``,
     ``vm.grid.origin_cell``, ``vm.grid.dims``, ``vm.grid.cell_size``).
-    ``device`` defaults to ``core.device.default_device()``, here and in the
-    functions below."""
+    ``device`` defaults to ``core.device.default_device()`` (the card, or an
+    error without one), here and in the functions below."""
     device = resolve_device(None, device)
     dims = tuple(int(x) for x in np.asarray(dims))
     d_total = int(np.prod(dims))

@@ -29,8 +29,9 @@ class PhaseTimer:
             vm = build_voxel_map(...)
         print(timer.report())
 
-    ``device`` (default: ``core.device.default_device()``) picks the clock:
-    CUDA events on a card, the host clock on the CPU.
+    ``device`` (default: ``core.device.default_device()``, the card, or an
+    error without one) picks the clock: CUDA events on a card, the host
+    clock on the CPU.
     """
 
     def __init__(self, device=None) -> None:

@@ -311,7 +311,7 @@ def test_point_batched_matches_jax_class(scene, kind):
     B, n = 3, 500
     src = _scans(scene, B, n, seed=22, noise=0.004)
     T0 = _init_Ts(B)
-    normals = pt.estimate_normals(scene) if kind == "plane_pt" else None
+    normals = pt.estimate_normals(scene, device="cpu") if kind == "plane_pt" else None
     solver = jpcr.ICP(max_iter=10) if kind == "point" else jpcr.PlaneICP(max_iter=10)
     solver.cfg = dataclasses.replace(solver.cfg, corr=JaxCorr(**PACKED))
     solver.set_target(scene) if kind == "point" else solver.set_target(scene, norm=normals)

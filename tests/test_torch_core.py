@@ -288,8 +288,8 @@ def _device_cases():
                                    "build_plane_icp_target", "estimate_normals"])
 def test_numpy_input_builds_on_the_default_device(monkeypatch, entry):
     """With no ``device``: a NumPy input goes to ``default_device()`` (the
-    card when there is one), a tensor keeps its device, and a named device
-    wins. Pinned without a card by counting the calls of ``default_device``."""
+    card, or an error without one), a tensor keeps its device, and a named
+    device wins. Pinned without a card by counting the calls of ``default_device``."""
     from point_cloud_registration_tpu_torch.core import device as device_mod
 
     calls = []
@@ -361,3 +361,39 @@ def test_converters_land_on_the_default_device(monkeypatch, converter):
     assert fn().device.type == "cpu" and calls
     calls.clear()
     assert fn(device="cpu").device.type == "cpu" and not calls
+
+
+def _no_card_entries():
+    import point_cloud_registration_tpu_torch as port
+
+    cases = _device_cases()
+    return {
+        "build_vplane_target": cases["build_vplane_target"],
+        "build_icp_target": cases["build_icp_target"],
+        "ops.estimate_normals": cases["estimate_normals"],
+        "root.estimate_normals": lambda p: port.estimate_normals(p, k=5),
+        "root.estimate_norm_with_tree": lambda p: port.estimate_norm_with_tree(p, None, k=5),
+        "VPlaneICP": lambda p: port.VPlaneICP(),
+        "voxel_filter": lambda p: port.voxel_filter(p, 0.5),
+    }
+
+
+_NO_CARD_ENTRIES = ["build_vplane_target", "build_icp_target", "ops.estimate_normals",
+                    "root.estimate_normals", "root.estimate_norm_with_tree", "VPlaneICP",
+                    "voxel_filter"]
+
+
+@pytest.mark.parametrize("entry", _NO_CARD_ENTRIES)
+def test_numpy_input_without_a_card_raises(monkeypatch, entry):
+    """With no usable CUDA device, an entry point given NumPy and no
+    ``device`` raises; it never runs on the CPU on its own. Naming
+    ``device="cpu"`` is the way to the CPU."""
+    from point_cloud_registration_tpu_torch.core import device as device_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = (np.random.RandomState(0).rand(1200, 3) * np.float32([6, 6, 0.1])).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _no_card_entries()[entry](pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.default_device()
+    assert device_mod.resolve_device(pts, "cpu").type == "cpu"

@@ -94,13 +94,13 @@ def _jax_coreset(jm, scan, T1, n_target=1024, clusters=64):
 
 def test_constructor_defaults():
     # tests/test_api.py:57-58, and the reference's other defaults
-    fast = pt.FastVPlaneICP(voxel_size=1.0)
+    fast = pt.FastVPlaneICP(voxel_size=1.0, device="cpu")
     assert fast.N_target == 1024
     assert (fast.voxel_size, fast.max_iter, fast.max_dist, fast.tol) == (1.0, 30, 2, 1e-3)
     assert (fast.coreset_switch, fast.coreset_clusters, fast.coreset_mode) == (1e-2, 64, "auto")
     assert FastVPlaneICP.CORESET_BREAKEVEN_ITERS == jpcr.FastVPlaneICP.CORESET_BREAKEVEN_ITERS
     with pytest.raises(ValueError, match="coreset mode"):
-        pt.FastVPlaneICP(coreset="sometimes")
+        pt.FastVPlaneICP(coreset="sometimes", device="cpu")
 
 
 def test_vplane_linearize_matches_jax(scene, maps):

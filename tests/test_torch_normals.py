@@ -542,10 +542,10 @@ def test_estimate_normals_rejects_unknown_backend():
 
 def test_root_entry_points_numpy_in_and_out(scene):
     pts = _scene(3000)
-    n = port.estimate_normals(pts, k=10)
+    n = port.estimate_normals(pts, k=10, device="cpu")
     assert isinstance(n, np.ndarray) and n.shape == (3000, 3) and n.dtype == np.float32
     assert np.median(np.abs((n * jax_pkg.estimate_normals(pts, k=10)).sum(1))) > 1 - 1e-6
-    np.testing.assert_array_equal(port.estimate_norm_with_tree(pts, None, k=10), n)
+    np.testing.assert_array_equal(port.estimate_norm_with_tree(pts, None, k=10, device="cpu"), n)
     np.testing.assert_array_equal(port.get_norm_lines(pts, n, 0.2),
                                   jax_pkg.get_norm_lines(pts, n, 0.2))
 
@@ -560,7 +560,7 @@ def test_estimate_norm_with_tree_honours_the_index(scene):
             d, i = brute_force_knn(t, t, k)
             return d.numpy(), i.numpy()
 
-    got = port.estimate_norm_with_tree(pts, Tree(), k=12)
+    got = port.estimate_norm_with_tree(pts, Tree(), k=12, device="cpu")
     want = jax_pkg.estimate_norm_with_tree(pts, Tree(), k=12)
     dots = np.abs((got * want).sum(1))
     assert np.median(dots) > 1 - 1e-6 and (dots > 1 - 1e-3).mean() > 0.99
