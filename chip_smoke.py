@@ -155,7 +155,30 @@ size:
    host time of one all-reduce of 29 floats on each backend. These are
    correctness runs on one card: no number of phase 16 is a scaling figure.
 
-8. No JAX was imported (checked last, after phases 9-16; each rank of 16b
+Then the user's entry points (phase 17), held to the JAX package's results
+of the same demos on the same data (``DEMO_REF``, from
+``scripts/jax_reference_demos.py``); each time is printed with the card's
+name and power limit:
+
+17. The demos (``demos/*_torch.py``): phase 4's map written to a binary PCD
+   in a temporary directory with ``write_pcd`` and read back with
+   ``read_pcd_xyz``, bit for bit (and whether the native reader loaded).
+   ``demo_matching_torch.main`` with ``--map`` that file, ``--scan-points``
+   100,000, the demo's default pose, the B-01 parameters and ``--device
+   cuda``, once per method (VPlaneICP, NDT, ICP, PlaneICP, FastVPlaneICP),
+   twice each (the first run and a warm one, bit-equal), the launch counts
+   set to 0 just before each run and read just after: the path's kernel
+   once per iteration (PlaneICP: also the k-NN kernel once per tier in its
+   ``set_target``), no other kernel; T within 1e-3 of the JAX package's with
+   equal iterations and ``converged``. ``demo_estimate_normals_torch`` on the
+   file, k = 15: the k-NN kernel once per tier, the normals phase 6's bit
+   for bit. ``demo_visualize_voxels_torch`` on the file, voxel 1: the valid
+   voxels, the counts' mean, max and sum, ``voxel_filter``'s rows and the
+   digest of ``color_by_voxel``'s colours equal to the JAX package's. Then
+   the host's bounding box of the NumPy map (what ``build_voxel_map`` reads
+   before its copy) against the copy and the same box on the card.
+
+8. No JAX was imported (checked last, after phases 9-17; each rank of 16b
    checks its own).
 
 The line before the last is a JSON object describing each kernel: its
@@ -166,10 +189,12 @@ and output once over 3.35 TB/s and the operations over 67 TFLOP/s fp32;
 ``exact_nn`` also has ``contract_bound_ms``, its 8 separately rounded
 operations per pair at half that rate) and, where one PyTorch call computes
 the same function, that call's time; ``paths`` gives its launches on every
-path that runs it (its main path first, then phases 9-16; phase 16's
+path that runs it (its main path first, then phases 9-17; phase 16's
 paths are named after the path, the mode ``nccl1`` or ``gloo4_rank0``, and
 for the batched fused path the batch: ``batched_fused_sharded_plane_8_nccl1``;
-the map-sharded paths run no kernel and show 0); the four align
+the map-sharded paths run no kernel and show 0; every kernel lists phase
+17's demo paths, ``demo_<Method>`` and ``demo_normals``, with the first
+run's launches, 0 where a demo bypasses it); the four align
 kernels also carry ``batched``: the batched entry's launches, error, time,
 plain time, the time of B single launches and bound at phase 13's and 14's
 shapes. The last line is ``{"ok": true, "device": {...}}``.
@@ -181,6 +206,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -433,6 +459,42 @@ MAP_REF = {  # kind: (iterations, rows 0-2 of T)
         -0.369494677])),
     "ndt": (3, np.array([1, -1.2937644e-05, -1.43913057e-05, 0.00289859716, 1.29372575e-05, 1,
         -4.94533488e-05, -0.00100828474, 1.43907882e-05, 4.94531523e-05, 1, -0.376348317])),
+}
+# Phase 17: the port's demos (demos/*_torch.py) on phase 4's map through a PCD file,
+# with the demo's default pose (x 0.2, y -0.1, z 0.3, yaw 1 degree) and B-01 parameters
+DEMOS = Path(__file__).resolve().parent / "demos"
+DEMO_ARGS = ["--scan-points", str(N_SCAN), "--voxel-size", "1.0", "--max-dist", "2.0",
+             "--max-iter", "30", "--tol", "1e-3", "--k", str(K_NORMALS)]
+DEMO_KERNEL = {"VPlaneICP": "fused_plane_stats", "NDT": "fused_ndt_stats", "ICP": "point_stats",
+               "PlaneICP": "plane_point_stats", "FastVPlaneICP": "fused_plane_stats"}
+# The JAX package's results of the demos on the same data (JAX 0.9.0 on the CPU;
+# JAX_PLATFORMS=cpu python3 scripts/jax_reference_demos.py): the demos' own draws and
+# classes; PlaneICP's normals from the JAX package's CPU default (the packed-block XLA
+# path), the port's from its k-NN kernel
+DEMO_REF = {
+    "VPlaneICP": {"iterations": 8, "converged": True, "T": [
+        [0.9998509287834167, 0.017444707453250885, 4.701521902461536e-05, -0.20105129480361938],
+        [-0.017444700002670288, 0.9998509287834167, 7.992697646841407e-06, 0.1091611310839653],
+        [-4.6674256736878306e-05, -8.7424805315095e-06, 1.0, -0.3584847152233124]]},
+    "NDT": {"iterations": 5, "converged": True, "T": [
+        [0.9998478889465332, 0.017463289201259613, 2.415879862383008e-05, -0.20103812217712402],
+        [-0.017463281750679016, 0.9998478889465332, 3.956449290853925e-06, 0.1068350300192833],
+        [-2.4020595446927473e-05, -4.443503712536767e-06, 1.0, -0.3709053099155426]]},
+    "ICP": {"iterations": 30, "converged": False, "T": [
+        [0.9999392032623291, 0.011388829909265041, 0.00020906289864797145, 0.12270323932170868],
+        [-0.01138875912874937, 0.9999390840530396, -1.887973485281691e-05, -0.12080467492341995],
+        [-0.0002090264461003244, 1.63054428412579e-05, 1.0, -0.2969510853290558]]},
+    "PlaneICP": {"iterations": 8, "converged": True, "T": [
+        [0.9998555779457092, 0.017450585961341858, -5.015062924940139e-07, -0.19862744212150574],
+        [-0.017450565472245216, 0.9998555779457092, -9.602699719835073e-07, 0.10259044915437698],
+        [3.1420859158970416e-07, 8.155766408890486e-07, 1.0, -0.30019110441207886]]},
+    "FastVPlaneICP": {"iterations": 8, "converged": True, "T": [
+        [0.9998509287834167, 0.017444707453250885, 4.701521902461536e-05, -0.20105129480361938],
+        [-0.017444700002670288, 0.9998509287834167, 7.992697646841407e-06, 0.1091611310839653],
+        [-4.6674256736878306e-05, -8.7424805315095e-06, 1.0, -0.3584847152233124]]},
+    "voxels": {"n_valid": 32893, "min_points": 10, "count_mean": 20.010123734533185,
+               "count_max": 119, "count_sum": 658193, "n_filtered": 201415,
+               "irgb_sha256": "38920da05d90420c95cf2e9efa43409415d7116d132e8f7e31917dcc5f34a321"},
 }
 N_KNN = 4096  # queries of KDTree.query(k=8)
 K_KNN = 8
@@ -2397,6 +2459,157 @@ def run_parallel_gloo4(map_np, scan_np, normals, results: dict, batched: dict, s
     return out
 
 
+def run_demo(main, argv: list, tag: str) -> list:
+    """Two runs of a demo's ``main(argv)`` (the first, then a warm one), the
+    launch counts set to 0 just before each and read just after."""
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        r = main(argv)
+        r["launch_counts"] = launch_counts()
+        log(f"{tag} launches {({k: v for k, v in r['launch_counts'].items() if v})}")
+        runs.append(r)
+    return runs
+
+
+def check_launches(tag: str, counts: dict, expected: dict) -> None:
+    """The launches of a demo run: ``expected`` on its path's kernels, none
+    on any other."""
+    got = {k: v for k, v in counts.items() if v or k in expected}
+    if got != expected:
+        raise AssertionError(f"{tag} launches {got}, expected {expected}")
+
+
+def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
+    """Phase 17: the port's demos, the user's entry points, on the card from a
+    PCD file of phase 4's map; ``normals``: phase 6's on the same map."""
+    import hashlib
+    import tempfile
+
+    import torch
+
+    from point_cloud_registration_tpu_torch import native
+    from point_cloud_registration_tpu_torch.utils import read_pcd_xyz, write_pcd
+
+    sys.path.insert(0, str(DEMOS))
+    import demo_estimate_normals_torch
+    import demo_matching_torch
+    import demo_visualize_voxels_torch
+
+    tag = "[demos]"
+    t_phase = time.perf_counter()
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    tiers = 1 + (n_wide > 0)
+    out = {"paths": {}}
+    with tempfile.TemporaryDirectory(prefix="pcr_demos_") as tmp:
+        # 17.1 The PCD file, bit for bit
+        pcd = f"{tmp}/city_map.pcd"
+        write_pcd(pcd, map_np)
+        back = read_pcd_xyz(pcd)
+        native_loaded = native.load() is not None
+        log(f"{tag} PCD {map_np.shape[0]} points, binary, {Path(pcd).stat().st_size / 1e6:.1f} "
+            f"MB; native reader loaded: {native_loaded}")
+        if not (back.dtype == np.float32 and back.shape == map_np.shape
+                and np.array_equal(back.view(np.uint32), map_np.view(np.uint32))):
+            raise AssertionError(f"{tag} the PCD round trip changed the map")
+        out["pcd"] = {"points": int(back.shape[0]), "native_loaded": native_loaded}
+
+        # 17.2 Matching, each method: its kernel once per iteration, T to the JAX package's
+        for method, kernel in DEMO_KERNEL.items():
+            mtag = f"{tag} demo_matching_torch --method {method}"
+            argv = ["--map", pcd, "--method", method, *DEMO_ARGS, "--device", DEVICE,
+                    "--out", f"{tmp}/{method}.png"]
+            first, warm = run_demo(demo_matching_torch.main, argv, mtag)
+            ref = DEMO_REF[method]
+            for r in (first, warm):
+                expected = {kernel: r["iterations"]}
+                if method == "PlaneICP":  # its normals in set_target, one launch per tier
+                    expected["knn_moments"] = tiers
+                check_launches(mtag, r["launch_counts"], expected)
+            err = float(np.abs(first["T"][:3] - np.array(ref["T"])).max())
+            log(f"{mtag}: {first['iterations']} iterations (JAX: {ref['iterations']}), converged "
+                f"{first['converged']} (JAX: {ref['converged']}); max |T - T_jax| = {err:.2e}; warm "
+                f"set_target {1e3 * warm['set_target_s']:.2f} ms, align "
+                f"{1e3 * warm['align_s']:.2f} ms (first {1e3 * first['set_target_s']:.1f} + "
+                f"{1e3 * first['align_s']:.1f} ms) on {card}")
+            if not (np.isfinite(first["T"]).all() and not first["solver_failed"] and err < TOL_REF
+                    and first["iterations"] == ref["iterations"]
+                    and first["converged"] == ref["converged"]):
+                raise AssertionError(f"{mtag}: off the JAX package's result")
+            if not np.array_equal(warm["T"], first["T"]):
+                raise AssertionError(f"{mtag}: the warm run gave another T than the first")
+            out[method] = {"iterations": first["iterations"], "max_err_jax": err,
+                           "set_target_ms": 1e3 * warm["set_target_s"],
+                           "align_ms": 1e3 * warm["align_s"],
+                           "first_ms": 1e3 * (first["set_target_s"] + first["align_s"])}
+            out["paths"][f"demo_{method}"] = first["launch_counts"]
+
+        # 17.3 Normals: the k-NN kernel once per tier, phase 6's normals bit for bit
+        ntag = f"{tag} demo_estimate_normals_torch"
+        argv = ["--pcd", pcd, "--k", str(K_NORMALS), "--device", DEVICE,
+                "--out", f"{tmp}/normals.png"]
+        first, warm = run_demo(demo_estimate_normals_torch.main, argv, ntag)
+        for r in (first, warm):
+            check_launches(ntag, r["launch_counts"], {"knn_moments": tiers})
+            if not np.array_equal(r["normals"], normals):
+                raise AssertionError(f"{ntag}: the normals are not phase 6's")
+        log(f"{ntag}: {first['n_points']} normals equal to phase 6's bit for bit; warm "
+            f"estimate_normals {1e3 * warm['seconds']:.2f} ms (first {1e3 * first['seconds']:.1f}) "
+            f"on {card}")
+        out["normals"] = {"ms": 1e3 * warm["seconds"], "first_ms": 1e3 * first["seconds"]}
+        out["paths"]["demo_normals"] = first["launch_counts"]
+
+        # 17.4 Voxels: counts, voxel_filter's rows and the colours to the JAX package's
+        vtag = f"{tag} demo_visualize_voxels_torch"
+        argv = ["--pcd", pcd, "--voxel-size", "1.0", "--device", DEVICE,
+                "--out", f"{tmp}/vox.png"]
+        first, warm = run_demo(demo_visualize_voxels_torch.main, argv, vtag)
+        ref = DEMO_REF["voxels"]
+        for r in (first, warm):
+            check_launches(vtag, r["launch_counts"], {})
+            irgb = np.ascontiguousarray(r["irgb"], dtype="<u4")
+            got = {"n_valid": r["n_valid"], "min_points": r["min_points"],
+                   "count_mean": r["count_mean"], "count_max": r["count_max"],
+                   "count_sum": int(r["counts"].sum()), "n_filtered": int(r["filtered"].shape[0]),
+                   "irgb_sha256": hashlib.sha256(irgb.tobytes()).hexdigest()}
+            if got != ref:
+                raise AssertionError(f"{vtag}: {got}, JAX {ref}")
+        log(f"{vtag}: valid voxels, counts, voxel_filter rows and colours equal to the JAX "
+            f"package's; warm set_points {1e3 * warm['seconds']:.2f} ms "
+            f"(first {1e3 * first['seconds']:.1f}) on {card}")
+        out["voxels"] = {"set_points_ms": 1e3 * warm["seconds"],
+                         "first_ms": 1e3 * first["seconds"]}
+
+    # 17.5 Where a NumPy map's voxel build goes: the bounding box that
+    # build_voxel_map reads on the host before the copy, against the copy and
+    # the same box read on the card
+    from point_cloud_registration_tpu_torch.ops.hashgrid import _bbox_cells
+
+    def host_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    dev = torch.device(DEVICE)
+    box_host = [host_ms(lambda: _bbox_cells(map_np, 1.0)) for _ in range(3)]
+    copy = [host_ms(lambda: torch.from_numpy(map_np).to(dev)) for _ in range(3)]
+    map_t = torch.from_numpy(map_np).to(dev)
+    box_card = [host_ms(lambda: _bbox_cells(map_t, 1.0)) for _ in range(3)]
+    if any(not np.array_equal(a, b) for a, b in zip(_bbox_cells(map_np, 1.0),
+                                                      _bbox_cells(map_t, 1.0))):
+        raise AssertionError(f"{tag} the host and the card read another bounding box")
+    log(f"{tag} a NumPy map's bounding box on the host (build_voxel_map, before the copy) "
+        f"{', '.join(f'{x:.2f}' for x in box_host)} ms; the map's copy to the card "
+        f"{', '.join(f'{x:.2f}' for x in copy)} ms; the same box on the card "
+        f"{', '.join(f'{x:.3f}' for x in box_card)} ms, equal cells; on {card}")
+    out["bbox"] = {"host_ms": min(box_host), "copy_ms": min(copy), "card_ms": min(box_card)}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase 17 in {out['wall_s']:.1f} s")
+    return out
+
+
 def jsonable(x):
     """Phase 16's results for the summary line: arrays as lists, without
     transforms and launch tables."""
@@ -2474,6 +2687,9 @@ def main() -> None:
     # ranks on the one card
     results["nccl1"] = run_parallel_nccl1(map_np, scan_np, normals, results, batched, smi, dev)
     results["gloo4"] = run_parallel_gloo4(map_np, scan_np, normals, results, batched, smi, dev)
+    # 17. The demos, from a PCD file of the map
+    results["demos"] = run_demos(map_np, normals.cpu().numpy(), results["normals"]["n_wide"],
+                                 smi)
 
     # 8. No JAX, after every phase (each rank of 16b checked its own)
     if "jax" in sys.modules:
@@ -2524,6 +2740,9 @@ def main() -> None:
                 row[f"{key}_{mode}"] = out[key]["launches"]
             if f"map_sharded_{name}" in out:
                 row[f"map_sharded_{name}_{mode}"] = out[f"map_sharded_{name}"]["all_launches"]
+    # launches on phase 17's demo paths, 0 where a demo bypasses the kernel
+    for name, row in path_launches.items():
+        row.update({path: counts[name] for path, counts in results["demos"]["paths"].items()})
     for r in results.values():
         r.pop("T", None)
     for r in batched.values():

@@ -14,9 +14,10 @@ against one map, one batched kernel launch per Gauss-Newton iteration
 (``models._fused.fused_voxel_align_batched``,
 ``models._point_fused.fused_point_align_batched``); the reference's
 utilities ``KDTree`` / ``VoxelGrid``, ``voxel_filter``, ``color_by_voxel``,
-the Caratheodory coresets and PCD IO. Not ported yet: the multi-device
-paths. The package's module names mirror the JAX package's, so each
-counterpart is easy to find.
+the Caratheodory coresets and PCD IO; the multi-device paths
+(``parallel``). The package's module names and its subpackages' exports
+mirror the JAX package's, so each counterpart is easy to find. The
+command-line entry points are ``demos/*_torch.py``.
 """
 
 import numpy as np

@@ -14,6 +14,7 @@ from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import (
 )
 from point_cloud_registration_tpu_torch.models.icp import (
     ICP,
+    ICPTarget,
     build_icp_target,
     icp_align,
     icp_stats,
@@ -27,6 +28,7 @@ from point_cloud_registration_tpu_torch.models.ndt import (
 from point_cloud_registration_tpu_torch.models.fast_vplane_icp import FastVPlaneICP
 from point_cloud_registration_tpu_torch.models.plane_icp import (
     PlaneICP,
+    PlaneICPTarget,
     build_plane_icp_target,
     plane_icp_align,
     plane_icp_stats,

@@ -85,6 +85,13 @@ def _eigvals_c(c):
     )
 
 
+def eigvals_sym3(s: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of packed symmetric 3x3, ascending: (..., 6) -> (..., 3)."""
+    c, scale = _scaled6(s.unbind(-1))
+    lam_lo, lam_mid, lam_hi = _eigvals_c(c)
+    return torch.stack([lam_lo, lam_mid, lam_hi], dim=-1) * scale[..., None]
+
+
 def _projector_column_c(c, lam_a, lam_b):
     """Largest column of ``(A - lam_a I)(A - lam_b I)``: for distinct
     eigenvalues it is proportional to the remaining eigenvector.

@@ -174,3 +174,18 @@ def whitened_stats(
     g = torch.einsum("nmi,nm,n->i", Jt, rt, weights)
     e2 = torch.einsum("nm,nm,n->", rt, rt, weights)
     return GNStats(H=H, g=g, e2=e2, n_inliers=torch.sum(weights))
+
+
+def reduce_H_g_e2(Js: torch.Tensor, rs: torch.Tensor, weights: torch.Tensor):
+    """Weighted reduction of explicit Jacobians (reduce.py:205, the reference
+    base class's einsum path, registration.py:55-68): ``H = sum w J^T J``,
+    ``g = sum w J^T r``, ``e2 = sum w r^T r`` over (N, m, 6) ``Js`` and
+    (N, m) ``rs``, or (N, 6) and (N,) for a scalar residual."""
+    _pin_full_fp32()
+    if Js.ndim == 2:
+        Js = Js[:, None, :]
+        rs = rs[:, None]
+    H = torch.einsum("nmi,nmj,n->ij", Js, Js, weights)
+    g = torch.einsum("nmi,nm,n->i", Js, rs, weights)
+    e2 = torch.einsum("nm,nm,n->", rs, rs, weights)
+    return H, g, e2
