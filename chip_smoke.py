@@ -11,6 +11,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    with nvcc (sm_90a), one nvcc per source, all started together, into
    ``point_cloud_registration_tpu_torch/_build/``; prints the build seconds
    and ptxas' register report.
+2b. gn_step: the Gauss-Newton update kernel (``csrc/gn_step.cu``) against
+   ``gn_step_reference`` on the same seeded stats, poses and state at B = 1
+   and B = 8 (SPD systems over three decades, a near-singular one, a
+   singular one that fails, a step below tol that converges without moving
+   T), three steps each: the step and its norm bit for bit, T within
+   ``TOL_HOST``, counters, flags and histories equal; its time per launch
+   (events and the profiler) beside the plain version's, beside
+   ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` of the same systems,
+   and its bound.
+
+Every align below runs the resident Gauss-Newton loop (``core/gn.py``:
+the stats kernel and ``gn_step`` once per iteration, enqueued in chunks of
+``GN_CHUNK``, the state read once per chunk). Where the script checks
+launches, the stats kernel and ``gn_step`` must each have launched once per
+enqueued iteration (``core.gn.enqueued_iterations``), and it prints the
+stats launches that did work (the iterations) beside them. Each path is
+also run again under the host loop (``core.gn.gauss_newton_host``, the
+plain reference): T within ``TOL_HOST``, equal iterations, ``converged``
+and ``solver_failed``; it prints the syncs of one align of each loop
+(``torch.cuda.set_sync_debug_mode("warn")``, with the lines that caused
+them), at most one per chunk on the kernel paths.
 
 Then, for each solver path (VPlaneICP, NDT, ICP and, after the normals
 phase, PlaneICP) on bench.py's seed-42 city map (1.2M points) and 100k-point
@@ -18,14 +39,18 @@ scan, with the bench parameters:
 
 3. Kernel vs plain version: the path's stats kernel against its plain
    PyTorch version on the card, at the main path's shapes, at T = I and at
-   a perturbed T.
+   a perturbed T; the launch as the align binds it (``resident_stats`` at
+   pose rows on the card) bit-equal to the wrapper's, which is the same
+   kernel at B = 1.
 4. Main path: ``Solver(...).set_target(map)`` then ``align(scan)`` with every
    launch count set to 0 just before and read just after; it must converge
    near the scan's known offset, to the JAX package's result on the same
    data with the same iteration count, through the kernel (its launch count
    must equal the iteration count). Then three warm runs, bit-identical to
-   the first, and the kernel's per-iteration time beside the plain
-   version's.
+   the first, and the per-iteration time of the align's bound launch
+   beside the plain version's (and the wrapper's, which copies its pose). Then the resident loop against the host loop: the align walls
+   in turns (host, resident, resident, host), each loop's device time and
+   busy share by the profiler and its host milliseconds per iteration.
 5. The path with the plain stats: the GN loop over the plain version must
    reach the kernel's T with the same iteration count; for ICP and PlaneICP
    it also counts, per iteration, the queries that take the proxy voxel.
@@ -202,10 +227,14 @@ shapes. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -227,6 +256,7 @@ TOL_E2 = 1e-4  # |de2| / e2
 TOL_N = 2  # |dn_inliers|
 TOL_T = 1e-4  # max |dT| between the kernel's and the plain version's GN runs
 TOL_REF = 1e-3  # max |T - T_jax|, the port's parity budget
+TOL_HOST = 1e-6  # max |T - T_host|: the resident loop against the host loop on the same stats
 TOL_OFFSET = 0.1  # |t - (-offset)| of the recovered transform
 PERTURBATION = [0.05, -0.04, -0.25, 0.01, -0.008, 0.012]
 # The JAX package's results on the same seeded map and scan (JAX 0.9.0 on
@@ -500,6 +530,7 @@ N_KNN = 4096  # queries of KDTree.query(k=8)
 K_KNN = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOP_PER_S = 67e12  # H100 SXM, outside the tensor cores
+ROOT = Path(__file__).resolve().parent
 CSRC = "point_cloud_registration_tpu_torch/csrc"
 PALLAS = "point_cloud_registration_tpu/ops/pallas"
 
@@ -687,9 +718,11 @@ def all_kernels() -> list:
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
+
     return [fa.fused_plane_stats, fa.fused_ndt_stats, pa.point_stats, pa.plane_point_stats,
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
-            pa.point_stats_batched, pa.plane_point_stats_batched]
+            pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step]
 
 
 def reset_launches() -> None:
@@ -699,6 +732,132 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in all_kernels()}
+
+
+def enqueued(iterations, max_iter: int = PARAMS["max_iter"]) -> int:
+    """The iterations a resident align enqueues when its last problem stops
+    after ``iterations`` (``core.gn.enqueued_iterations``): the launches of
+    its stats kernel and of ``gn_step``."""
+    from point_cloud_registration_tpu_torch.core import gn
+
+    return gn.enqueued_iterations(int(np.asarray(iterations).max()), max_iter)
+
+
+def check_resident(tag: str, counts: dict, kernel: str | None, iterations,
+                   max_iter: int = PARAMS["max_iter"]) -> dict:
+    """The launches of one resident align: ``kernel`` (None for the plain
+    stats paths) and ``gn_step`` each once per enqueued iteration; the
+    stats launches that did work are the iterations run (the largest of a
+    batch's). Returns the three counts."""
+    worked = int(np.asarray(iterations).max())
+    want = enqueued(iterations, max_iter)
+    out = {"worked": worked, "enqueued": counts[kernel] if kernel else 0,
+           "gn_step": counts["gn_step"]}
+    log(f"{tag} resident loop: stats launches that did work {worked}, enqueued "
+        f"{out['enqueued'] if kernel else 'none (plain stats)'}, gn_step launches "
+        f"{out['gn_step']} (expected {want} each)")
+    if counts["gn_step"] != want or (kernel is not None and counts[kernel] != want):
+        raise AssertionError(f"{tag} launches {counts} for {worked} iterations: expected {want} "
+                             f"of {kernel} and of gn_step")
+    return out
+
+
+@contextlib.contextmanager
+def host_loop():
+    """Every align inside runs the host loop (``core.gn.gauss_newton_host`` /
+    ``batched_gauss_newton_host``, the resident loop's plain reference) on
+    the same stats."""
+    from point_cloud_registration_tpu_torch.core import gn
+
+    saved = gn.gauss_newton_device, gn.batched_gauss_newton_device
+    gn.gauss_newton_device = gn.gauss_newton_host
+    gn.batched_gauss_newton_device = gn.batched_gauss_newton_host
+    try:
+        yield
+    finally:
+        gn.gauss_newton_device, gn.batched_gauss_newton_device = saved
+
+
+def count_syncs(fn, sites: dict | None = None):
+    """``(fn(), syncs)``: the calls that made the host wait for the card
+    during ``fn`` (``torch.cuda.set_sync_debug_mode("warn")``); ``sites``,
+    when given, gets the count of each Python line that made one."""
+    import torch
+
+    torch.cuda.synchronize()
+    syncs = []
+    # the first switch of the mode reports a sync of its own, at its own line
+    switch, first = inspect.getsourcelines(torch.cuda.set_sync_debug_mode)
+    own = (torch.cuda.__file__, range(first, first + len(switch)))
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message) and not (filename == own[0] and lineno in own[1]):
+            # the calling lines of this repository, innermost last
+            stack = [f"{Path(f.filename).name}:{f.lineno}" for f in traceback.extract_stack()[:-1]
+                     if str(ROOT) in f.filename and "chip_smoke" not in f.filename]
+            syncs.append(" < ".join(reversed(stack[-3:])) or f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for key in syncs if sites is not None else ():
+        sites[key] = sites.get(key, 0) + 1
+    return out, len(syncs)
+
+
+def chunks(iterations, max_iter: int = PARAMS["max_iter"]) -> int:
+    """The chunks, and so the reads of the state, of a resident align whose
+    last problem stops after ``iterations``."""
+    from point_cloud_registration_tpu_torch.core import gn
+
+    return -(-enqueued(iterations, max_iter) // gn.GN_CHUNK)
+
+
+def hold_to_host(tag: str, align, T, d, max_syncs: int | None = None) -> dict:
+    """Run ``align() -> (T, diagnostics)`` again under :func:`host_loop` and
+    hold the resident loop's ``T`` and ``d`` to it: T within TOL_HOST, equal
+    iterations, ``converged`` and ``solver_failed`` (per problem for a
+    batch); with ``max_syncs``, at most that many syncs in the resident
+    align. Returns the difference, both loops' syncs and the host loop's T."""
+    sites = {}
+    (T_d, _), syncs_d = count_syncs(align, sites)
+    with host_loop():
+        (T_h, d_h), syncs_h = count_syncs(align)
+    dT = float(np.abs(np.asarray(T_h, np.float64) - np.asarray(T, np.float64)).max())
+    same = all(np.array_equal(np.asarray(getattr(d, f)), np.asarray(getattr(d_h, f)))
+               for f in ("iterations", "converged", "solver_failed"))
+    log(f"{tag} resident vs host loop: max |dT| {dT:.3e}, iterations, converged and "
+        f"solver_failed equal: {same}; syncs per align {syncs_d} at {sites} (host loop "
+        f"{syncs_h})")
+    if not (dT <= TOL_HOST and same and np.array_equal(np.asarray(T_d), np.asarray(T))):
+        raise AssertionError(f"{tag} the resident loop is off the host loop: dT {dT}, {d} vs {d_h}")
+    if max_syncs is not None and syncs_d > max_syncs:
+        raise AssertionError(f"{tag} {syncs_d} syncs in a resident align, more than {max_syncs}")
+    if syncs_h < int(np.asarray(d.iterations).max()):
+        raise AssertionError(f"{tag} the sync count does not work: {syncs_h} syncs in the host "
+                             f"loop of {int(np.asarray(d.iterations).max())} iterations")
+    return {"dT_host": dT, "syncs": syncs_d, "sync_sites": sites, "syncs_host": syncs_h,
+            "T_host": np.asarray(T_h).tolist()}
+
+
+def resident_launcher(path: SolverPath, s, src, w, T):
+    """``launch() -> (1, 29)``: the stats launch of ``path``'s align as the
+    resident loop binds it (``resident_stats``), at the pose row of ``T``
+    on the card; its launches count as the wrapper's."""
+    from point_cloud_registration_tpu_torch.core.gn import pose_rows_of
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+
+    poses = pose_rows_of(T[None]).to(src.device)
+    args = path.args(s, src, w, T)
+    if path.args is voxel_args:
+        return fa.resident_stats(BATCHED_KINDS[path.name], *args[:6], *args[8:10], poses, None)
+    return pa.resident_stats(BATCHED_KINDS[path.name], *args[:4], *args[6:9], poses, None)
 
 
 def voxel_args(s, src, w, T):
@@ -913,7 +1072,12 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
     max_abs_err = 0.0
     for label, T in (("T=I", torch.eye(4)), ("T=perturbed", T_pert)):
         args = path.args(checker, src, w, T)
-        err = compare_stats(path.kernel(*args), path.plain(*args))
+        got = path.kernel(*args)
+        # the launch the align makes, bound to pose rows on the card: the
+        # wrapper's launch, bit for bit
+        if not torch.equal(resident_launcher(path, checker, src, w, T)()[0], got):
+            raise AssertionError(f"{tag} the resident launch differs from the wrapper's at {label}")
+        err = compare_stats(got, path.plain(*args))
         log(f"{tag} kernel vs plain at {label}: rel err H {err[path.h_metric]:.3e} "
             f"({path.h_metric}), g {err['g']:.3e}, e2 {err['e2']:.3e}; "
             f"n_inliers diff {err['n']:.0f}; max abs {err['max_abs']:.3e}")
@@ -950,9 +1114,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
             f"JAX difference {ref_err}, {d.iterations} iterations "
             f"(JAX: {path.iterations_ref})"
         )
-    if launches != d.iterations:
-        raise AssertionError(f"{tag} kernel launched {launches} times for "
-                             f"{d.iterations} iterations")
+    resident = check_resident(tag, counts, path.kernel.__name__, d.iterations)
 
     map_t = torch.from_numpy(map_np).to(dev)
     scan_t = torch.from_numpy(scan_np).to(dev)
@@ -970,15 +1132,20 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
             raise AssertionError(f"{tag} a warm run gave another result than the first")
     log(f"{tag} warm (device-resident inputs), set_target s / align s: "
         + ", ".join(f"{s:.4f} / {a:.4f}" for s, a in warm))
+    loops = compare_loops(tag, lambda: (solver.align(scan_t), solver.last_diagnostics), T_k, d,
+                          chunks(d.iterations))
 
     Tc = torch.as_tensor(T_k, dtype=torch.float32)
     args = path.args(solver, src, w, Tc)
-    kernel_ms = cuda_ms(lambda: path.kernel(*args), 50)
+    launch = resident_launcher(path, solver, src, w, Tc)  # as the align launches it
+    kernel_ms = cuda_ms(launch, 50)
     plain_ms = cuda_ms(lambda: path.plain(*args), 5)
-    kernel_ms_2 = cuda_ms(lambda: path.kernel(*args), 50)
+    kernel_ms_2 = cuda_ms(launch, 50)
     plain_ms_2 = cuda_ms(lambda: path.plain(*args), 5)
-    log(f"{tag} per-iteration stats at the converged T (kernel, plain, kernel, plain): "
-        f"{kernel_ms:.4f}, {plain_ms:.4f}, {kernel_ms_2:.4f}, {plain_ms_2:.4f} ms")
+    wrapper_ms = cuda_ms(lambda: path.kernel(*args), 50)
+    log(f"{tag} per-iteration stats at the converged T (the align's bound launch, plain, "
+        f"launch, plain): {kernel_ms:.4f}, {plain_ms:.4f}, {kernel_ms_2:.4f}, {plain_ms_2:.4f} "
+        f"ms; the wrapper (its pose copied to the card, operands checked) {wrapper_ms:.4f} ms")
 
     n_inliers = float(path.kernel(*args)[28])
     b_ms, b_by = bound_ms(*path.work(solver, src, w, Tc, n_inliers))
@@ -1015,8 +1182,180 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         "plain_ms": [plain_ms, plain_ms_2], "offset_err": off_err, "dT_jax": ref_err,
         "dT_plain": dT, "launches": launches, "max_abs_err": max_abs_err,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "T": T_k,
+        "resident": resident, "gn_step_launches": counts["gn_step"], **loops,
+        "extra": {"wrapper_ms": wrapper_ms},
         **({"proxy_share": proxy_share} if packed_grid else {}),
     }
+
+
+def compare_loops(tag: str, align, T, d, max_syncs: int | None = None,
+                  n_points: int | None = None) -> dict:
+    """The resident loop against the host loop on one path, ``align() ->
+    (T, diagnostics)`` on device-resident inputs: :func:`hold_to_host`, then
+    the align walls in turns (host, resident, resident, host), each loop's
+    device time and busy share by the profiler, and the host milliseconds
+    per iteration (wall less device time, over the iterations). A batch
+    (``n_points`` a scan) also gets registrations/s."""
+    import torch
+
+    out = hold_to_host(tag, align, T, d, max_syncs)
+    walls = {"host_loop": [], "resident_loop": []}
+    for mode in ("host_loop", "resident_loop", "resident_loop", "host_loop"):
+        with host_loop() if mode == "host_loop" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            align()
+            walls[mode].append(time.perf_counter() - t0)
+    its = int(np.asarray(d.iterations).max())
+    line = []
+    for mode, wall in walls.items():
+        with host_loop() if mode == "host_loop" else contextlib.nullcontext():
+            device_ms, n_kernels, busy = device_busy(align, min(wall))
+        host_ms = (1e3 * min(wall) - device_ms) / its
+        out[mode] = {"align_walls_s": wall, "device_ms": device_ms, "kernels": n_kernels,
+                     "busy": busy, "host_ms_per_iteration": host_ms}
+        extra = ""
+        if n_points is not None:
+            B = np.asarray(d.iterations).size
+            out[mode]["regs_per_s"] = B / min(wall)
+            out[mode]["mpts_per_s"] = B * n_points / min(wall) / 1e6
+            extra = (f", {B / min(wall):.1f} registrations/s, "
+                     f"{B * n_points / min(wall) / 1e6:.2f} Mpts/s")
+        line.append(f"{mode}: align ms {', '.join(f'{1e3 * x:.3f}' for x in wall)}; device "
+                    f"{device_ms:.3f} ms in {n_kernels} kernels, busy {100 * busy:.1f} %; host "
+                    f"{host_ms:.3f} ms per iteration{extra}")
+    log(f"{tag} {its} iterations, in turns (host, resident, resident, host): " + "; ".join(line))
+    return out
+
+
+# gn_step, per problem: the 29 stats read, the pose read and written, the
+# four counters and flags read and written, final_e2 and three history
+# entries written (260 bytes); the solve (scaling 30, Hs 42, factor 91,
+# substitutions 72, rescale 6), the norm (12) and the update (exp 90, pose
+# 60): about 410 operations.
+GN_STEP_BYTES = 116 + 2 * 48 + 2 * 16 + 4 + 12
+GN_STEP_FLOPS = 410
+GN_BATCHES = (1, 8)
+GN_TOL = 1e-4
+
+
+def gn_systems(B: int, seed: int):
+    """``(packed (B, 29) stats, Ts (B, 4, 4))`` of B seeded problems: SPD H
+    over three decades of scale, g of a problem near its solution; at B = 8
+    also a near-singular H (one
+    direction 1e-4 of the others), a singular one (H = 0: a failure) and a
+    step below ``GN_TOL`` (converged at once, T kept)."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core.gn import GNStats, packed_from_stats
+
+    rng = np.random.RandomState(seed)
+    A = rng.randn(B, 12, 6) * 10.0 ** rng.randint(-1, 2, (B, 1, 6))
+    H = np.einsum("bki,bkj->bij", A, A)
+    g = rng.randn(B, 6) * 1e-3  # steps of centimetres to decimetres, as near a solution
+    if B >= 8:
+        U, _, _ = np.linalg.svd(rng.randn(6, 6))
+        H[5] = U @ np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 1e-4]) @ U.T
+        g[5] *= 1e-2
+        H[6] = 0.0
+        H[7], g[7] = np.eye(6), np.full(6, 1e-6)
+    e2, n = rng.rand(B) * 10, rng.randint(1000, 100000, B)
+    packed = torch.stack([packed_from_stats(GNStats(
+        torch.tensor(H[b], dtype=torch.float32), torch.tensor(g[b], dtype=torch.float32),
+        torch.tensor(e2[b], dtype=torch.float32), torch.tensor(float(n[b]))))
+        for b in range(B)])
+    Ts = torch.stack([pt.plus(torch.eye(4), torch.tensor(rng.randn(6) * 0.3, dtype=torch.float32))
+                      for _ in range(B)])
+    return packed, Ts
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN to NaN whatever its payload (the card's 0 / 0
+    and the CPU's differ in the sign bit)."""
+    a, b = np.asarray(a.cpu()), np.asarray(b.cpu())
+    if a.dtype.kind != "f":
+        return np.array_equal(a, b)
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))
+                and np.array_equal(a[~nan].view(np.uint32), b[~nan].view(np.uint32)))
+
+
+def run_gn_step(dev) -> dict:
+    """Phase 2b: the gn_step kernel against gn_step_reference on the same
+    seeded stats, poses and state at B = 1 and B = 8, three steps each (the
+    step and the norm bit for bit, T within TOL_HOST, the counters, flags and
+    histories equal); then its time per launch beside the plain version's and
+    ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` of the same systems."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.core.gn import (
+        new_state,
+        read_state,
+        stats_from_packed,
+        transforms_of,
+    )
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
+
+    tag = "[gn_step]"
+    out = {"launches_check": 0, "max_abs_err": 0.0, "ms": {}, "alone_ms": {}, "plain_ms": {},
+           "library_ms": {}, "bound_ms": {}}
+    for B in GN_BATCHES:
+        packed, Ts = gn_systems(B, 11 + B)
+        st_d, st_h = new_state(Ts, 4, dev), new_state(Ts, 4, "cpu")
+        dx_d, dx_h = torch.zeros((B, 6), device=dev), torch.zeros((B, 6))
+        before = gs.gn_step.launches
+        for _ in range(3):
+            gs.gn_step(packed.to(dev), st_d, GN_TOL, dx_d)
+            gs.gn_step_reference(packed, st_h, GN_TOL, dx_h)
+            if not same_bits(dx_d, dx_h):
+                raise AssertionError(f"{tag} B = {B}: the step differs from the plain version's: "
+                                     f"{dx_d.cpu()} vs {dx_h}")
+        out["launches_check"] += gs.gn_step.launches - before
+        got = read_state(st_d)
+        dT = float((transforms_of(got.poses) - transforms_of(st_h.poses)).abs().max())
+        exact = {f: same_bits(getattr(got, f), getattr(st_h, f))
+                 for f in ("it", "done", "failed", "converged", "final_e2", "e2", "dx_norm",
+                           "inliers")}
+        log(f"{tag} B = {B}, three steps: step and |dx| bit-equal to gn_step_reference; max |dT| "
+            f"{dT:.3e}; counters, flags and histories bit-equal {exact}; iterations "
+            f"{got.it.tolist()}, failed {got.failed.tolist()}, converged {got.converged.tolist()}")
+        if not (dT <= TOL_HOST and all(exact.values())):
+            raise AssertionError(f"{tag} B = {B}: the kernel disagrees with its plain version")
+        if B >= 8 and not (got.failed[6] and got.converged[7] and int(got.it[7]) == 1
+                           and torch.equal(transforms_of(got.poses)[7], Ts[7])):
+            raise AssertionError(f"{tag} the failing or the converged problem went wrong")
+        out["max_abs_err"] = max(out["max_abs_err"], dT)
+        # time per launch on a state that never converges (tol 0)
+        reps = 200
+        st = new_state(Ts, 2 * reps + 8, dev)
+        stats_d = packed.to(dev)
+        ms = cuda_ms(lambda: gs.gn_step(stats_d, st, 0.0), reps)
+        alone = device_busy(lambda: [gs.gn_step(stats_d, st, 0.0) for _ in range(reps // 4)],
+                            1.0)[0] / (reps // 4)
+        st_h = new_state(Ts, 2 * reps + 8, "cpu")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            gs.gn_step_reference(packed, st_h, 0.0)
+        plain = (time.perf_counter() - t0) * 1e3 / 20
+        sp = stats_from_packed(stats_d)
+        neg_g = (-sp.g)[..., None].contiguous()
+
+        def library():
+            L, _ = torch.linalg.cholesky_ex(sp.H)
+            return torch.cholesky_solve(neg_g, L)
+
+        lib = cuda_ms(library, reps)
+        b_ms, b_by = bound_ms(GN_STEP_BYTES * B, GN_STEP_FLOPS * B)
+        log(f"{tag} B = {B}: per launch (events, back to back) {ms:.4f} ms, the kernel alone "
+            f"(profiler) {alone:.5f} ms; gn_step_reference (host) {plain:.3f} ms; "
+            f"cholesky_ex + cholesky_solve {lib:.4f} ms; bound {b_ms:.7f} ms by {b_by}: "
+            f"the launch costs {alone / b_ms:.0f}x the work")
+        for k, v in (("ms", ms), ("alone_ms", alone), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", b_ms)):
+            out[k][B] = v
+        out["bound_by"] = b_by
+    return out
 
 
 def lattice_scene():
@@ -1366,7 +1705,7 @@ def run_rounds(map_np, scan_np, dev) -> dict:
         f"{float(np.abs(T[:3] - T_REF_PLANE_ICP).max()):.2e}; launch counts {counts}")
     if not (d.converged and np.isfinite(T).all() and off_err < TOL_OFFSET
             and counts["knn_moments"] == tiers
-            and counts["plane_point_stats"] == d.iterations == pa.plane_point_stats.launches):
+            and counts["plane_point_stats"] == enqueued(d.iterations) == counts["gn_step"]):
         raise AssertionError(f"{tag} PlaneICP(k={K_ROUNDS}) off its path or its offset")
     return {"first_call_s": first_s, "estimate_normals_ms": warm_s, "max_abs_err": err,
             "iterations": d.iterations, "offset_err": off_err}
@@ -1566,8 +1905,10 @@ def run_grid_targets(dev) -> dict:
             raise AssertionError(f"{tag} the normals did not go through the k-NN kernel")
         d = s.last_diagnostics
         err = check_T(tag, T, d, t_ref, its)
+        resident = check_resident(tag, counts, None, d.iterations)
         normals = s._target.normals if name == "plane_icp" else None
         warm = warm_runs(s, lambda x: x.set_target(target_t), scan_t, T)
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d)
         src, w = pad_points(scan_t, device=dev)
         Tc = torch.as_tensor(T, dtype=torch.float32)
         kind = "plane_pt" if name == "plane_icp" else "point"
@@ -1583,7 +1924,8 @@ def run_grid_targets(dev) -> dict:
               f"one stats call (CSR scan + reduction + copy) {stats_ms:.2f} ms")
         out[name] = {"first_call_s": first_s, "set_target_s": min(a for a, _ in warm),
                      "align_s": min(b for _, b in warm), "iterations": d.iterations,
-                     "stats_ms": stats_ms, "dT_jax": err, "launches": counts}
+                     "stats_ms": stats_ms, "dT_jax": err, "launches": counts,
+                     "resident": resident, **loops}
     # nearest_point against the exact 1-NN kernel at ICP's converged T: equal
     # wherever the window had no overflow and the match lies within a cell
     s = pt.ICP(**PARAMS, device=dev)
@@ -1647,14 +1989,17 @@ def run_hashed_map(map_np, scan_np, dev) -> dict:
             raise AssertionError(f"{tag} the map is not hashed")
         if counts["fused_plane_stats"] or counts["fused_ndt_stats"]:
             raise AssertionError(f"{tag} the fused kernel ran on a hashed map")
-        err = check_T(tag, T, s.last_diagnostics, t_ref, its)
+        d = s.last_diagnostics
+        err = check_T(tag, T, d, t_ref, its)
+        resident = check_resident(tag, counts, None, d.iterations)
         warm = warm_runs(s, lambda x: x.set_target(two_t), scan_t, T)
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d)
         align_s = min(b for _, b in warm)
         log(f"{tag} warm, set_target s / align s: "
             + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in warm)
             + f"; align per iteration {align_s / its * 1e3:.2f} ms")
         out[name] = {"set_target_s": min(a for a, _ in warm), "align_s": align_s,
-                     "iterations": its, "dT_jax": err,
+                     "iterations": its, "dT_jax": err, "resident": resident, **loops,
                      "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
     return out
 
@@ -1694,9 +2039,10 @@ def run_update_target(map_np, scan_np, dev) -> dict:
             f"{first_update_s:.3f} s; launch counts {counts}")
         err = check_T(tag, T, d, t_ref, its)
         launches = kernel.launches  # before the comparisons below launch it again
-        if launches != d.iterations:
-            raise AssertionError(f"{tag} {kernel.__name__} launched {launches} times for "
-                                 f"{d.iterations} iterations")
+        resident = check_resident(tag, counts, kernel.__name__, d.iterations)
+        scan_t = torch.from_numpy(scan_np).to(dev)
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
+                             chunks(d.iterations))
         full = cls(voxel_size=1.0, **PARAMS, device=dev)
         full.set_target(map_np)
         a, b = s.voxels, full.voxels
@@ -1727,6 +2073,7 @@ def run_update_target(map_np, scan_np, dev) -> dict:
             f"rel err H {kerr['max']:.3e}, n diff {kerr['n']:.0f}; warm update_target s "
             + ", ".join(f"{x:.4f}" for x in times))
         out[name] = {"iterations": d.iterations, "launches": launches, "dT_jax": err,
+                     "resident": resident, **loops,
                      "update_s": min(times), "mean_err": mean_err, "cov_err": cov_err}
     return out
 
@@ -1908,9 +2255,9 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
     if not (bool(d.converged.all()) and not bool(d.solver_failed.any())
             and np.isfinite(Ts.numpy()).all()):
         raise AssertionError(f"{tag} a problem did not converge: {d}")
-    if launches != max(its) or counts[path.kernel.__name__] != 0:
-        raise AssertionError(f"{tag} {launches} batched launches for {max(its)} batched "
-                             f"iterations (single launches {counts[path.kernel.__name__]})")
+    if counts[path.kernel.__name__] != 0:
+        raise AssertionError(f"{tag} single launches {counts[path.kernel.__name__]} in a batch")
+    resident = check_resident(tag, counts, batched.__name__, its)
     # Each problem against its single align and the JAX package's
     dT_single, dT_jax, bit_equal = 0.0, 0.0, True
     for b in range(B):
@@ -1956,6 +2303,8 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
             raise AssertionError(f"{tag} a warm run gave another result than the first")
     wall = min(walls)
     device_ms, n_kernels, busy = device_busy(lambda: batched_align(path, s, src, w, eye), wall)
+    loops = compare_loops(tag, lambda: batched_align(path, s, src, w, eye), Ts, d, chunks(its),
+                          n_points=n)
     args = path.args(s, src, w, Ts)
     kernel_ms = cuda_ms(lambda: batched(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 2)
@@ -1976,7 +2325,7 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
             "device_ms": device_ms, "kernels": n_kernels, "busy": busy, "ms": kernel_ms,
             "plain_ms": plain_ms, "singles_ms": singles_ms, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": max_abs_err, "rows_bit_equal": rows_equal, "dT_single": dT_single,
-            "T_bit_equal": bit_equal, "dT_jax": dT_jax}
+            "T_bit_equal": bit_equal, "dT_jax": dT_jax, "resident": resident, **loops}
 
 
 def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
@@ -2005,6 +2354,9 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     if not (np.array_equal(T_auto, vplane["T"]) and d.iterations == vplane["iterations"]
             and auto_launches == vplane["launches"]):
         raise AssertionError(f"{tag} \"auto\" is not VPlaneICP bit for bit")
+    scan_t = torch.from_numpy(scan_np).to(dev)
+    auto = hold_to_host(f"{tag} auto", lambda: (fast.align(scan_t), fast.last_diagnostics),
+                        T_auto, d, chunks(d.iterations))
 
     # "always": record phase 1, and the rows of every fused launch
     fast = pt.FastVPlaneICP(voxel_size=1.0, **PARAMS, coreset="always",
@@ -2020,34 +2372,44 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
 
     fast._phase1 = record
     rows_per_launch = []
-    plane_stats = _fused._STATS["plane"]
+    resident_stats = _fused.resident_stats
 
-    def counted(cells, origin, dims, cell, src, *rest):
-        rows_per_launch.append(src.shape[0])
-        return plane_stats(cells, origin, dims, cell, src, *rest)
+    def counted(kind, cells, origin, dims, cell, src, *rest):
+        launch = resident_stats(kind, cells, origin, dims, cell, src, *rest)
+
+        def counted_launch():
+            rows_per_launch.append(src.shape[0])
+            return launch()
+
+        return counted_launch
 
     reset_launches()
-    _fused._STATS["plane"] = counted
+    _fused.resident_stats = counted
     try:
         t0 = time.perf_counter()
         T = fast.align(scan_np)
         first_s = time.perf_counter() - t0
     finally:
-        _fused._STATS["plane"] = plane_stats
+        _fused.resident_stats = resident_stats
     d, d1 = fast.last_diagnostics, phase1["diag"]
     launches = fa.fused_plane_stats.launches
     it2 = d.iterations - d1.iterations
-    phase2_rows = rows_per_launch[d1.iterations:]
+    # each phase enqueues whole chunks of its own budget
+    left = PARAMS["max_iter"] - d1.iterations
+    enqueued_1, enqueued_2 = enqueued(d1.iterations), enqueued(it2, left)
+    phase2_rows = rows_per_launch[enqueued_1:]
     dT_jax = float(np.abs(T[:3].reshape(-1) - FAST_REF_T).max())
     dT_plain = float(np.abs(T - vplane["T"]).max())
     log(f"{tag} always, switch {FAST_SWITCH}: first call {first_s:.3f} s; phase 1 {d1.iterations} "
         f"iterations (JAX {FAST_REF_PHASE1}), phase 2 {it2} (in all {d.iterations}, JAX "
         f"{FAST_REF_ITERATIONS}), converged {d.converged}; fused launches {launches} "
+        f"({enqueued_1} + {enqueued_2} enqueued, {d.iterations} that did work) "
         f"(phase 2 on rows {sorted(set(phase2_rows))}); max |T - T_jax| {dT_jax:.3e}, "
         f"max |T - T_vplane| {dT_plain:.3e}")
     log(f"{tag} T =\n{np.array2string(T, precision=7)}")
     if not (d1.iterations == FAST_REF_PHASE1 and it2 >= 1 and not d.solver_failed
-            and launches == d.iterations and len(phase2_rows) == it2
+            and launches == enqueued_1 + enqueued_2 == launch_counts()["gn_step"]
+            and len(phase2_rows) == enqueued_2
             and set(phase2_rows) == {fast.N_target} and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
         raise AssertionError(f"{tag} \"always\" is off: {d}")
 
@@ -2068,6 +2430,8 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         walls.append(time.perf_counter() - t0)
         if not np.array_equal(T_w, T):
             raise AssertionError(f"{tag} a warm run gave another result than the first")
+    always = hold_to_host(f"{tag} always", lambda: (fast.align(scan_t), fast.last_diagnostics),
+                          T, d)
     log(f"{tag} {len(live)} live points; lift (host float64) {lift_s:.3f} s = "
         f"{1e6 * lift_s / len(live):.3f} us a live point; one full-cloud iteration (VPlaneICP's "
         f"warm align / iterations) {1e3 * iter_s:.3f} ms = {1e9 * iter_s / len(live):.2f} ns a "
@@ -2078,7 +2442,9 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
             "dT_plain": dT_plain, "live": int(len(live)), "lift_s": lift_s,
             "lift_us_per_point": 1e6 * lift_s / len(live), "iteration_s": iter_s,
             "iteration_ns_per_point": 1e9 * iter_s / len(live), "breakeven": lift_s / iter_s,
-            "always_align_s": min(walls)}
+            "always_align_s": min(walls), "auto_loops": auto, "always_loops": always,
+            "gn_step_auto": enqueued(vplane["iterations"]),
+            "gn_step_always": enqueued_1 + enqueued_2}
 
 
 def sharded_targets(map_src, normals, dev) -> dict:
@@ -2230,8 +2596,9 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
     ``batch_mesh``)."""
     nb, nd = batch_mesh
     for name in SHARDED_KINDS:
+        # align_sharded runs the host loop: held to phase 4's host loop
         r, ref = out[f"sharded_{name}"], results[name]
-        dT = float(np.abs(r["T"].astype(np.float64) - ref["T"]).max())
+        dT = float(np.abs(r["T"].astype(np.float64) - np.array(ref["T_host"])).max())
         its_jax, rows_jax = SHARDED_REF[name]
         dT_jax = float(np.abs(r["T"][:3].reshape(-1) - rows_jax).max())
         its = int(r["iterations"])
@@ -2247,18 +2614,21 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
                   for b in fused_batches]
         for key, b, tol_b, mine in cases:
             r, ref = out[key], batched[name]
-            dT = float(np.abs(r["T"] - ref["Ts"][:b]).max())
+            # the fused paths run the resident loop, align_batched_sharded the host loop
+            fused = key.startswith("batched_fused")
+            dT = float(np.abs(r["T"] - (ref["Ts"] if fused else np.array(ref["T_host"]))[:b]).max())
             its = r["iterations"].tolist()
             jax_ref = BATCHED_REF[BATCHED_KINDS[name]][:b]
             dT_jax = max(float(np.abs(T[:3].reshape(-1) - rows_jax).max())
                          for T, (_, rows_jax) in zip(r["T"], jax_ref))
             single = r["launch_counts"][KERNELS_OF[name][0]]
+            want = enqueued(its[:mine]) if fused else max(its[:mine])
             log(f"{tag} {key}: iterations {its}, {r['launches']} batched launches on rank 0 "
                 f"({mine} problems), max |T - T_phase13/14| {dT:.3e}, max |T - T_jax| "
                 f"{dT_jax:.3e}")
             if not (dT <= tol_b and its == ref["iterations"][:b] == [i for i, _ in jax_ref]
                     and dT_jax < TOL_REF and bool(r["converged"].all())
-                    and r["launches"] == max(its[:mine]) and single == 0):
+                    and r["launches"] == want and single == 0):
                 raise AssertionError(f"{tag} {key} is off phases 13-14: {r}")
 
 
@@ -2522,7 +2892,7 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
             first, warm = run_demo(demo_matching_torch.main, argv, mtag)
             ref = DEMO_REF[method]
             for r in (first, warm):
-                expected = {kernel: r["iterations"]}
+                expected = {kernel: enqueued(r["iterations"]), "gn_step": enqueued(r["iterations"])}
                 if method == "PlaneICP":  # its normals in set_target, one launch per tier
                     expected["knn_moments"] = tiers
                 check_launches(mtag, r["launch_counts"], expected)
@@ -2538,7 +2908,17 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
                 raise AssertionError(f"{mtag}: off the JAX package's result")
             if not np.array_equal(warm["T"], first["T"]):
                 raise AssertionError(f"{mtag}: the warm run gave another T than the first")
+            with host_loop():
+                host = demo_matching_torch.main(argv)
+            dT_host = float(np.abs(np.asarray(host["T"]) - np.asarray(first["T"])).max())
+            log(f"{mtag}: the host loop's align {1e3 * host['align_s']:.2f} ms; max |T - T_host| "
+                f"{dT_host:.3e}, iterations {host['iterations']}")
+            if not (dT_host <= TOL_HOST and host["iterations"] == first["iterations"]
+                    and host["converged"] == first["converged"]
+                    and host["solver_failed"] == first["solver_failed"]):
+                raise AssertionError(f"{mtag}: the resident loop is off the host loop")
             out[method] = {"iterations": first["iterations"], "max_err_jax": err,
+                           "dT_host": dT_host, "host_align_ms": 1e3 * host["align_s"],
                            "set_target_ms": 1e3 * warm["set_target_s"],
                            "align_ms": 1e3 * warm["align_s"],
                            "first_ms": 1e3 * (first["set_target_s"] + first["align_s"])}
@@ -2635,9 +3015,10 @@ def main() -> None:
     smi = nvidia_smi_line()
     log(smi)
 
-    # 2. Build
+    # 2. Build, 2b. the gn_step kernel against its plain version
     build_s = build_kernels()
     log(f"build: {build_s:.2f} s")
+    gn_step = run_gn_step(dev)
 
     rng = np.random.RandomState(SEED)
     map_np = make_city_map(rng, N_MAP)
@@ -2703,6 +3084,19 @@ def main() -> None:
                  f"{PALLAS}/knn_normals.py:293", results["normals"]))
     rows.append(("exact_nn", en.exact_nn, f"{CSRC}/exact_nn.cu", f"{PALLAS}/exact_nn.py:77",
                  results["exact_nn"]))
+    # gn_step replaces XLA code, no Pallas kernel: the loop body of the JAX
+    # gauss_newton; its numbers at the main path's B = 1, the batch's at B = 8
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
+
+    rows.append(("gn_step", gs.gn_step, f"{CSRC}/gn_step.cu",
+                 "point_cloud_registration_tpu/core/gn.py:78", {
+                     "launches": results["vplane_icp"]["gn_step_launches"],
+                     "max_abs_err": gn_step["max_abs_err"], "kernel_ms": [gn_step["ms"][1]],
+                     "plain_ms": [gn_step["plain_ms"][1]], "bound_ms": gn_step["bound_ms"][1],
+                     "bound_by": gn_step["bound_by"], "library_ms": gn_step["library_ms"][1],
+                     "extra": {"alone_ms": gn_step["alone_ms"][1], "batched": {
+                         "B": 8, **{k: gn_step[k][8] for k in (
+                             "ms", "alone_ms", "plain_ms", "library_ms", "bound_ms")}}}}))
     # launches on each path that runs the kernel, the main path's first
     grid = results["grid"]
     path_launches = {
@@ -2725,6 +3119,17 @@ def main() -> None:
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
+    }
+    path_launches["gn_step"] = {
+        **{name: results[name]["gn_step_launches"] for name in paths},
+        **{f"{name}_grid": grid[name]["launches"]["gn_step"] for name in ("icp", "plane_icp")},
+        **{f"hashed_{name}": results["hashed"][name]["resident"]["gn_step"]
+           for name in ("vplane_icp", "ndt")},
+        **{f"update_target_{name}": results["update"][name]["resident"]["gn_step"]
+           for name in ("vplane_icp", "ndt")},
+        **{f"batched_{name}": batched[name]["resident"]["gn_step"] for name in batched},
+        "fast_vplane_icp_auto": results["fast"]["gn_step_auto"],
+        "fast_vplane_icp_always": results["fast"]["gn_step_always"],
     }
     # launches of the kernels on phase 16's paths: the single entry's on
     # align_sharded, the batched entry's on the batched paths, none on map-sharded
@@ -2758,6 +3163,7 @@ def main() -> None:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "paths": path_launches[kernel.__name__],
         **({"contract_bound_ms": r["contract_bound_ms"]} if "contract_bound_ms" in r else {}),
+        **r.get("extra", {}),
         # the batched entry of the kernel at the batched main path's shapes
         **({"batched": {k: batched[name][k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "singles_ms", "bound_ms", "bound_by")}}

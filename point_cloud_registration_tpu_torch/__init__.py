@@ -6,7 +6,8 @@ kernel, kinds "plane" and "ndt"; the hashed build for boxes over the dense
 budget, with plain stats; ``update_target``), ICP and PlaneICP (the packed
 point grid with its proxy voxel map and the point stats kernel, kinds
 "point" and "plane_pt", from 50k target points; the CSR grid with plain
-stats below that), each with the host Gauss-Newton loop, k-NN PCA normals
+stats below that), each with the Gauss-Newton loop on the card (the stats
+kernel and the ``gn_step`` kernel per iteration, ``core.gn``), k-NN PCA normals
 (the k-NN moments kernel) and the exact 1-NN kernel (the exact escapes of
 ``KDTree``); FastVPlaneICP (the fused plane kernel, the float64 coreset
 lift, the coreset phase); the batched multi-scan aligns of all four kinds

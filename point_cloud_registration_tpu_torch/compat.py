@@ -56,7 +56,7 @@ class NeighborIndex:
     """
 
     def __init__(self, points, cell_size: float | None = None, cell_cap: int = 32,
-                 radius_k: int = 8, exact_threshold: int = 20_000, device=None):
+                 radius_k: int = 8, exact_threshold: int = 20_000, *, device=None):
         dev = resolve_device(points, device)
         self.points = torch.as_tensor(points).to(device=dev, dtype=torch.float32).contiguous()
         if cell_size is None:
@@ -119,7 +119,7 @@ class VoxelGrid:
     """
 
     def __init__(self, voxel_size: float, min_points: int = 10,
-                 query_max_dist: float | None = None, device=None):
+                 query_max_dist: float | None = None, *, device=None):
         self.voxel_size = voxel_size
         self.min_points = min_points
         # Radius of query()'s window search; beyond it the exact brute-force

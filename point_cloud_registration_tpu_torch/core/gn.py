@@ -1,12 +1,20 @@
-"""Host-driven Gauss-Newton loop for SE(3) registration (counterpart of
+"""Gauss-Newton loop for SE(3) registration (counterpart of
 ``point_cloud_registration_tpu/core/gn.py``).
 
-The JAX package compiles the loop into one ``lax.while_loop``. Here the loop
-runs on the host: each iteration calls the solver's stats function, which
-runs on the data's device and hands its handful of stat values to the host
-in one transfer (the one sync of the iteration); the loop then solves,
-checks and updates in float32 on the host. The new transform goes to the
-next launch by value.
+The JAX package compiles the loop into one ``lax.while_loop`` on the device.
+Here :func:`gauss_newton_device` and :func:`batched_gauss_newton_device`
+keep it on the data's device: each problem's pose, counters, flags and
+histories stay in a ``GNState`` there from the first launch to the last;
+every iteration is the solver's stats launch, which reads the pose and the
+done flag from the state, then one ``gn_step`` launch (solve, test, update,
+histories). Iterations are enqueued in chunks of ``GN_CHUNK``; the host reads
+the state once per chunk, one copy, and stops when every problem is done.
+On CPU tensors the same loop runs the plain ``gn_step_reference``.
+
+:func:`gauss_newton` and :func:`batched_gauss_newton` are the host loops
+(one copy of the stats to the host per iteration, the solve and the update
+on the host): the plain reference of the resident loop, and the loop of the
+multi-device paths, whose all-reduce runs on the host.
 
 Iteration semantics match the reference exactly (registration.py:89-111):
 
@@ -28,6 +36,11 @@ import numpy as np
 import torch
 
 from point_cloud_registration_tpu_torch.core.se3 import plus
+
+# Iterations enqueued between two reads of the resident state. Measured on
+# an H100 (PERF.md, scripts/align_walls.py --chunks): a larger chunk saves reads
+# and enqueues more launches past convergence, which do nothing.
+GN_CHUNK = 4
 
 
 class GNStats(NamedTuple):
@@ -54,6 +67,40 @@ class GNDiagnostics(NamedTuple):
     dx_norm_history: torch.Tensor  # (max_iter,) f32
     inlier_history: torch.Tensor  # (max_iter,) i32
     final_e2: float
+
+
+def packed_from_stats(stats: GNStats) -> torch.Tensor:
+    """GNStats -> the (29,) layout of the stats kernels' output:
+    ``[H upper triangle, row-major (21) | g (6) | e2 | n_inliers]``."""
+    triu = torch.triu_indices(6, 6, device=stats.H.device)  # made there: no copy, no wait
+    return torch.cat([
+        stats.H[triu[0], triu[1]],
+        stats.g.reshape(6),
+        stats.e2.reshape(1),
+        stats.n_inliers.reshape(1),
+    ])
+
+
+def stats_from_packed(packed: torch.Tensor) -> GNStats:
+    """The (..., 29) kernel output -> GNStats (H symmetric) with the same
+    leading dims, on its device: (29,) gives one problem's, (B, 29) B
+    problems' stats."""
+    triu = torch.triu_indices(6, 6, device=packed.device)
+    H = torch.zeros(packed.shape[:-1] + (6, 6), dtype=packed.dtype, device=packed.device)
+    H[..., triu[0], triu[1]] = packed[..., :21]
+    H[..., triu[1], triu[0]] = packed[..., :21]
+    return GNStats(H=H, g=packed[..., 21:27], e2=packed[..., 27], n_inliers=packed[..., 28])
+
+
+def step_norm(dx: torch.Tensor) -> torch.Tensor:
+    """``||dx||`` over the last axis, (..., 6) -> (...): the sum of squares
+    in order, then the square root, each operation rounded once in the
+    input's dtype. The ``gn_step`` kernel forms the same number bit for
+    bit; the gate ``||dx|| < tol`` decides the iteration count."""
+    acc = dx[..., 0] * dx[..., 0]
+    for k in range(1, dx.shape[-1]):
+        acc = acc + dx[..., k] * dx[..., k]
+    return torch.sqrt(acc)
 
 
 def solve_6x6_batched(H, g) -> np.ndarray:
@@ -120,7 +167,7 @@ def gauss_newton(
     max_iter: int,
     tol: float,
 ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """Run the GN loop and return ``(T (4, 4) f32 CPU tensor, diagnostics)``.
+    """The host loop: returns ``(T (4, 4) f32 CPU tensor, diagnostics)``.
 
     ``stats_fn(T) -> GNStats`` encapsulates everything solver-specific
     (correspondence + linearization + reduction). It receives T as a
@@ -137,7 +184,7 @@ def gauss_newton(
     while it < max_iter and not done:
         stats = stats_fn(T)
         dx = solve_6x6(stats.H, stats.g)
-        dx_norm = torch.linalg.norm(dx)
+        dx_norm = step_norm(dx)
         bad = not bool(torch.isfinite(dx_norm))
         converged_now = bool(dx_norm < tol)
         done = converged_now or bad
@@ -161,3 +208,269 @@ def gauss_newton(
         final_e2=final_e2,
     )
     return T, diag
+
+
+def batched_gauss_newton(stats_all: Callable[[torch.Tensor], GNStats], init_Ts,
+                         max_iter: int, tol: float) -> tuple[torch.Tensor, GNDiagnostics]:
+    """The host loop of B problems at once (``batched_gauss_newton`` of the
+    JAX package, models/_fused.py:288-355).
+
+    ``stats_all(Ts)`` takes the (B, 4, 4) float32 CPU transforms and returns
+    GNStats with leading dim B on the host, from one transfer. Per
+    iteration: every problem's stats, the batched solve, then for each
+    problem the check and the update, with each problem's semantics of
+    :func:`gauss_newton`: T frozen on its breaking step and once it is
+    done; its iteration count advancing while it is active; done when it
+    converges, fails or reaches ``max_iter``; its flags, histories (written
+    at ``clip(it, 0, max_iter - 1)``) and ``final_e2`` changed only while it
+    is active. The loop ends when every problem is done. A problem's solve,
+    step norm and update are those of its single loop, bit for bit.
+
+    Returns ``(Ts (B, 4, 4) f32 CPU tensor, GNDiagnostics)``: the same
+    fields as a single align's, each with a leading dim B as CPU tensors:
+    ``iterations`` (B,) int32, ``converged`` and ``solver_failed`` (B,)
+    bool, the histories (B, max_iter), ``final_e2`` (B,) float32.
+    """
+    T = torch.as_tensor(init_Ts).to("cpu", torch.float32).clone()
+    B = T.shape[0]
+    rows = torch.arange(B)
+    it = torch.zeros(B, dtype=torch.int32)
+    done = torch.full((B,), max_iter <= 0)
+    failed = torch.zeros(B, dtype=torch.bool)
+    converged = torch.zeros(B, dtype=torch.bool)
+    e2_hist = torch.zeros((B, max_iter), dtype=torch.float32)
+    dxn_hist = torch.zeros((B, max_iter), dtype=torch.float32)
+    inl_hist = torch.zeros((B, max_iter), dtype=torch.int32)
+    final_e2 = torch.zeros(B, dtype=torch.float32)
+    while not bool(done.all()):
+        active = ~done
+        stats = stats_all(T)
+        dx = torch.from_numpy(solve_6x6_batched(stats.H, stats.g))
+        dx_norm = step_norm(dx)
+        bad = ~torch.isfinite(dx_norm)
+        conv_now = dx_norm < tol
+        done_now = conv_now | bad
+        # the transform is NOT updated on the breaking step, nor once done
+        for b in torch.nonzero(~(done | done_now)).flatten().tolist():
+            T[b] = plus(T[b], dx[b])
+        e2 = stats.e2.to(torch.float32)
+        at = it.clamp(0, max_iter - 1).long()
+        for hist, v in ((e2_hist, e2), (dxn_hist, dx_norm),
+                        (inl_hist, stats.n_inliers.to(torch.int32))):
+            hist[rows[active], at[active]] = v[active]
+        it = it + active.to(torch.int32)
+        failed |= active & bad
+        converged |= active & conv_now
+        final_e2 = torch.where(active, e2, final_e2)
+        done = done | (active & done_now) | (it >= max_iter)
+    diag = GNDiagnostics(
+        iterations=it,
+        converged=converged,
+        solver_failed=failed,
+        e2_history=e2_hist,
+        dx_norm_history=dxn_hist,
+        inlier_history=inl_hist,
+        final_e2=final_e2,
+    )
+    return T, diag
+
+
+class GNState(NamedTuple):
+    """The resident state of B problems; every field is a view of ``words``,
+    one int32 buffer, so that one copy brings all of it to the host:
+
+        poses (B, 12) f32 [R row-major | t] | it | done | failed | converged
+        (B,) i32 | final_e2 (B,) f32 | e2 (B, M) f32 | dx_norm (B, M) f32 |
+        inliers (B, M) i32
+
+    with ``M = max_iter``. ``poses`` is the layout the stats kernels read."""
+
+    words: torch.Tensor  # (17 B + 3 B M,) int32
+    poses: torch.Tensor  # (B, 12) f32
+    it: torch.Tensor  # (B,) i32: iterations run
+    done: torch.Tensor  # (B,) i32: 0 while the problem iterates
+    failed: torch.Tensor  # (B,) i32
+    converged: torch.Tensor  # (B,) i32
+    final_e2: torch.Tensor  # (B,) f32
+    e2: torch.Tensor  # (B, M) f32
+    dx_norm: torch.Tensor  # (B, M) f32
+    inliers: torch.Tensor  # (B, M) i32
+
+
+def _fields(words: torch.Tensor, B: int, M: int) -> GNState:
+    f32 = torch.float32
+    ends = [12 * B, 13 * B, 14 * B, 15 * B, 16 * B, 17 * B, 17 * B + B * M, 17 * B + 2 * B * M,
+            17 * B + 3 * B * M]
+    a = [0] + ends
+    return GNState(
+        words=words,
+        poses=words[a[0]:a[1]].view(f32).view(B, 12),
+        it=words[a[1]:a[2]],
+        done=words[a[2]:a[3]],
+        failed=words[a[3]:a[4]],
+        converged=words[a[4]:a[5]],
+        final_e2=words[a[5]:a[6]].view(f32),
+        e2=words[a[6]:a[7]].view(f32).view(B, M),
+        dx_norm=words[a[7]:a[8]].view(f32).view(B, M),
+        inliers=words[a[8]:a[9]].view(B, M),
+    )
+
+
+def pose_rows_of(Ts) -> torch.Tensor:
+    """(B, 4, 4) transforms -> (B, 12) float32 pose rows [R row-major | t],
+    on the transforms' device."""
+    Ts = torch.as_tensor(Ts, dtype=torch.float32)
+    B = Ts.shape[0]
+    return torch.cat([Ts[:, :3, :3].reshape(B, 9), Ts[:, :3, 3]], dim=1)
+
+
+def transforms_of(poses: torch.Tensor) -> torch.Tensor:
+    """(B, 12) pose rows -> (B, 4, 4) transforms (last row [0, 0, 0, 1]), on
+    their device, with no copy from the host."""
+    B = poses.shape[0]
+    T = torch.zeros((B, 4, 4), dtype=poses.dtype, device=poses.device)
+    T[:, :3, :3] = poses[:, :9].reshape(B, 3, 3)
+    T[:, :3, 3] = poses[:, 9:12]
+    T[:, 3, 3] = 1.0
+    return T
+
+
+def new_state(init_Ts, max_iter: int, device) -> GNState:
+    """The state of B problems at ``init_Ts`` (B, 4, 4), before their first
+    iteration, on ``device``: zero counters, flags and histories, ``done``
+    set when ``max_iter <= 0``. The buffer is filled on the host and goes to
+    a card in one copy from pinned memory, which does not wait for the card."""
+    device = torch.device(device)
+    Ts = torch.as_tensor(init_Ts).to("cpu", torch.float32)
+    B, M = Ts.shape[0], max(int(max_iter), 0)
+    words = torch.zeros(17 * B + 3 * B * M, dtype=torch.int32,
+                        pin_memory=device.type == "cuda")
+    host = _fields(words, B, M)
+    host.poses.copy_(pose_rows_of(Ts))
+    host.done.fill_(int(max_iter <= 0))
+    if device.type == "cpu":
+        return host
+    return _fields(words.to(device, non_blocking=True), B, M)
+
+
+def read_state(state: GNState) -> GNState:
+    """The state on the host: one copy (a CPU state is returned as it is)."""
+    B, M = state.e2.shape
+    return _fields(state.words.to("cpu"), B, M)
+
+
+# A resident stats function: called once per align with the state's pose rows
+# (B, 12) [R row-major | t] and done flags (B,) int32 (or None), both on the
+# data's device, it returns ``launch() -> (B, 29)`` packed stats there (a
+# single problem's may be (29,)), which the loop calls once per iteration:
+# each call reads the poses and the flags as they are then, where they lie;
+# a kernel skips a problem whose flag is set.
+ResidentStats = Callable[[torch.Tensor, "torch.Tensor | None"], Callable[[], torch.Tensor]]
+
+
+def plain_launch(stats: Callable[[], torch.Tensor], done: "torch.Tensor | None"):
+    """A resident launcher over plain torch stats, which wait for the card
+    anyway: it reads ``done`` first (one more wait) and returns zeros, which
+    ``gn_step`` ignores, once every problem is done, so that the iterations
+    enqueued past the end of an align cost no stats."""
+    def launch() -> torch.Tensor:
+        if done is not None and bool(done.all()):
+            return torch.zeros(done.shape[0], 29, dtype=torch.float32, device=done.device)
+        return stats()
+
+    return launch
+
+
+def enqueued_iterations(iterations: int, max_iter: int) -> int:
+    """Iterations a resident loop enqueues for an align whose last problem
+    stops after ``iterations``: whole chunks, at most ``max_iter``. Each one
+    launches the stats kernel and ``gn_step`` once; those past the last
+    problem's stop do nothing."""
+    if max_iter <= 0:
+        return 0
+    return min(max_iter, -(-max(int(iterations), 1) // GN_CHUNK) * GN_CHUNK)
+
+
+def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, device):
+    """The resident loop of B problems -> their final state, on the host."""
+    # The step's wrapper stands on this module (the state, the solve), so it
+    # is imported when a loop runs.
+    from point_cloud_registration_tpu_torch.ops.kernels.gn_step import gn_stepper
+
+    if max_iter <= 0:
+        return new_state(init_Ts, max_iter, "cpu")
+    state = new_state(init_Ts, max_iter, device)
+    stats, step = stats_fn(state.poses, state.done), gn_stepper(state, tol)
+    enqueued = 0
+    while True:
+        n = min(GN_CHUNK, max_iter - enqueued)
+        for _ in range(n):
+            step(stats())
+        enqueued += n
+        host = read_state(state)  # the one read of the chunk
+        if enqueued >= max_iter or bool(host.done.all()):
+            return host
+
+
+def gauss_newton_device(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
+                        device) -> tuple[torch.Tensor, GNDiagnostics]:
+    """The resident loop of one problem on ``device``: the semantics of
+    :func:`gauss_newton`, whose result it returns in the same form, with
+    ``stats_fn(poses (1, 12), done (1,))`` in place of ``stats_fn(T)``.
+    ``stats_fn`` and ``gn_step`` are bound once; the host reads the state
+    once per chunk of ``GN_CHUNK`` iterations and copies nothing else; ``T``
+    and the diagnostics come from the last read."""
+    s = _run_resident(stats_fn, torch.as_tensor(init_T).reshape(1, 4, 4), max_iter, tol,
+                      device)
+    diag = GNDiagnostics(
+        iterations=int(s.it[0]),
+        converged=bool(s.converged[0]),
+        solver_failed=bool(s.failed[0]),
+        e2_history=s.e2[0].clone(),
+        dx_norm_history=s.dx_norm[0].clone(),
+        inlier_history=s.inliers[0].clone(),
+        final_e2=float(s.final_e2[0]),
+    )
+    return transforms_of(s.poses)[0], diag
+
+
+def batched_gauss_newton_device(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
+                                device) -> tuple[torch.Tensor, GNDiagnostics]:
+    """The resident loop of B problems on ``device``: the semantics and the
+    result of :func:`batched_gauss_newton`, with ``stats_fn(poses (B, 12),
+    done (B,))`` in place of ``stats_all(Ts)``; a problem that is done is
+    skipped by the stats kernels and by ``gn_step``."""
+    s = _run_resident(stats_fn, init_Ts, max_iter, tol, device)
+    diag = GNDiagnostics(
+        iterations=s.it.clone(),
+        converged=s.converged.to(torch.bool),
+        solver_failed=s.failed.to(torch.bool),
+        e2_history=s.e2.clone(),
+        dx_norm_history=s.dx_norm.clone(),
+        inlier_history=s.inliers.clone(),
+        final_e2=s.final_e2.clone(),
+    )
+    return transforms_of(s.poses), diag
+
+
+def gauss_newton_host(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
+                      device) -> tuple[torch.Tensor, GNDiagnostics]:
+    """:func:`gauss_newton` over a resident stats function: each iteration
+    copies the pose to ``device`` and the stats back. The plain reference of
+    :func:`gauss_newton_device` on the same path."""
+    def stats(T):
+        packed = stats_fn(pose_rows_of(T[None]).to(device), None)()
+        return stats_from_packed(packed.reshape(-1).cpu())
+
+    return gauss_newton(stats, init_T, max_iter, tol)
+
+
+def batched_gauss_newton_host(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
+                              device) -> tuple[torch.Tensor, GNDiagnostics]:
+    """:func:`batched_gauss_newton` over a resident stats function: the
+    plain reference of :func:`batched_gauss_newton_device`."""
+    def stats(Ts):
+        packed = stats_fn(pose_rows_of(Ts).to(device), None)()
+        return stats_from_packed(packed.reshape(Ts.shape[0], -1).cpu())
+
+    return batched_gauss_newton(stats, init_Ts, max_iter, tol)

@@ -133,8 +133,29 @@ def makeRt(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def plus(T: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     """SE(3) boxplus: ``T ⊞ dx = T @ makeT(expSO3(dx[3:]), dx[:3])``
-    (math_tools.py:101-108)."""
-    return T @ makeT(expSO3(dx[..., 3:]), dx[..., :3])
+    (math_tools.py:101-108), batched over leading axes.
+
+    Written as elementwise operations in a fixed order, with ``sin`` and
+    ``cos`` taken in float64 and rounded once, so that the ``gn_step``
+    kernel (``csrc/gn_step.cu``) forms the same bits on the card: the
+    Rodrigues matrix of :func:`expSO3` (its ``theta**2 <= 1e-5`` branch
+    too) with ``W @ W`` and ``T @ M`` summed over k = 0, 1, 2(, 3) in turn.
+    """
+    w = dx[..., 3:]
+    theta2 = w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1] + w[..., 2] * w[..., 2]
+    near_zero = theta2 <= _SO3_EPS
+    theta2_safe = torch.where(near_zero, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    k1 = (torch.sin(theta.double()).to(theta.dtype) / theta)[..., None, None]
+    k2 = ((1.0 - torch.cos(theta.double()).to(theta.dtype)) / theta2_safe)[..., None, None]
+    W = skew(w)
+    WW = (W[..., :, 0:1] * W[..., 0:1, :] + W[..., :, 1:2] * W[..., 1:2, :]
+          + W[..., :, 2:3] * W[..., 2:3, :])
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    E = torch.where(near_zero[..., None, None], eye + W, (eye + k1 * W) + k2 * WW)
+    M = makeT(E, dx[..., :3])
+    return (T[..., :, 0:1] * M[..., 0:1, :] + T[..., :, 1:2] * M[..., 1:2, :]
+            + T[..., :, 2:3] * M[..., 2:3, :] + T[..., :, 3:4] * M[..., 3:4, :])
 
 
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

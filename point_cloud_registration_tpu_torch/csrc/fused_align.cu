@@ -17,8 +17,8 @@
 //
 // Per scan point p (one thread per point, grid-stride loop; a point of weight
 // 0 adds nothing and is skipped):
-//   q = R p + t, formed in registers (R and t are passed by value, or read
-//   from the poses array by a batched launch);
+//   q = R p + t, formed in registers (R and t read from the problem's row of
+//   the poses array on the device);
 //   c = floor(q * inv_cell) - origin;
 //   the nearest valid centroid in the cells [c - r, c + r]^3 clipped to the
 //   grid, by d2 = sum (q - mu)^2 with a strict "<" in probe order (x fastest,
@@ -59,15 +59,16 @@
 // sorting it in each align cost 0.067 ms of device time, more than the
 // launches saved.
 //
-// Batched entries (pcr_fused_*_stats_batched): B problems, each a scan of n
-// points with its own pose, against one map in one launch, the counterpart of
-// the TPU kernel's per_tile mode, where each tile of the concatenated scans
-// carries its problem's rotation (fused_align.py:550-660). The grid is
+// One launch takes B >= 1 problems, each a scan of n points with its own
+// pose, against one map, the counterpart of the TPU kernel's per_tile mode,
+// where each tile of the concatenated scans carries its problem's rotation
+// (fused_align.py:550-660); a single problem is B = 1. The grid is
 // (n_blocks, B): blockIdx.y is the problem, whose blocks read its rows of the
 // (B, n, 3) scan and (B, n) weights and its pose from a (B, 12) device array,
 // and write its rows of the (B, n_blocks, 29) partials. A problem's blocks
-// split its scan as a single launch of n points does, so its partials are
-// those of its single launch.
+// split its scan as a launch of that problem alone does, so its partials do
+// not depend on B. A resident Gauss-Newton loop (core/gn.py) passes its done
+// flags: the blocks of a finished problem exit before they write anything.
 //
 // Reduction: warp shuffles, then shared memory, one row of partials per
 // block; the wrapper sums the rows. No atomics: for a fixed launch shape the
@@ -144,20 +145,21 @@ __device__ __forceinline__ int nearest_valid_row(
   return best_row;
 }
 
-template <int kKind, bool kBatched>
+template <int kKind>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) fused_stats_kernel(
     const int2* __restrict__ occ, const float4* __restrict__ centers,
     const float4* __restrict__ feats, int nx, int ny, int nz, int ox, int oy,
     int oz, float inv_cell, int radius, const float* __restrict__ src,
-    const float* __restrict__ w, int n, Pose T, const float* __restrict__ poses,
-    float max_dist, int use_huber, float huber_delta,
+    const float* __restrict__ w, int n, const float* __restrict__ poses,
+    const int* __restrict__ done, float max_dist, int use_huber, float huber_delta,
     float* __restrict__ partials) {
-  if constexpr (kBatched) {  // problem blockIdx.y: its scan, weights and pose
-    const size_t b = blockIdx.y;
-    src += 3 * n * b;
-    w += n * b;
-    T = pcr::load_pose(poses + 12 * b);
-  }
+  // problem blockIdx.y: its scan, weights and pose
+  const size_t b = blockIdx.y;
+  // a problem whose resident loop is done: its blocks write nothing
+  if (done != nullptr && done[b]) return;
+  src += 3 * n * b;
+  w += n * b;
+  const Pose T = pcr::load_pose(poses + 12 * b);
   float acc[kStats];
 #pragma unroll
   for (int k = 0; k < kStats; ++k) acc[k] = 0.f;
@@ -195,20 +197,19 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) fused_stats_kernel(
   pcr::block_reduce_store(acc, partials);
 }
 
-// One launch of B problems (B = 1 and poses null for the single entries, whose
-// pose T comes by value).
-template <int kKind, bool kBatched>
+// One launch of B problems.
+template <int kKind>
 int launch(const int* occ, const float* centers, const float* feats, int nx,
            int ny, int nz, int ox, int oy, int oz, float inv_cell, int radius,
-           const float* src, const float* w, int n, int B, Pose T,
-           const float* poses, float max_dist, int use_huber,
-           float huber_delta, float* partials, int n_blocks, void* stream) {
-  fused_stats_kernel<kKind, kBatched>
+           const float* src, const float* w, int n, int B, const float* poses,
+           const int* done, float max_dist, int use_huber, float huber_delta,
+           float* partials, int n_blocks, void* stream) {
+  fused_stats_kernel<kKind>
       <<<dim3(n_blocks, B), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
           reinterpret_cast<const int2*>(occ),
           reinterpret_cast<const float4*>(centers),
           reinterpret_cast<const float4*>(feats), nx, ny, nz, ox, oy, oz,
-          inv_cell, radius, src, w, n, T, poses, max_dist, use_huber,
+          inv_cell, radius, src, w, n, poses, done, max_dist, use_huber,
           huber_delta, partials);
   return static_cast<int>(cudaGetLastError());
 }
@@ -217,74 +218,39 @@ int launch(const int* occ, const float* centers, const float* feats, int nx,
 
 extern "C" {
 
-// Threads per block; the wrapper sizes the partials as (n_blocks, 29).
+// Threads per block; the wrapper sizes the partials as (B, n_blocks, 29).
 int pcr_fused_block_size() { return kBlock; }
 
 // Each launches its kernel on `stream` and returns cudaGetLastError().
 // occ (W, 2) i32, centers (V + 1, 4) and feats (V + 1, 4 or 8) f32 of the
-// map's cell index; src (n, 3), w (n,); partials (n_blocks, 29) f32, one row
-// of sums per block.
+// map's cell index; src (B, n, 3), w (B, n), poses (B, 12) f32 on the device
+// ([R row-major | t] per problem, 1 <= B <= 65,535); done (B,) i32 on the
+// device, or null: the blocks of a problem whose flag is set exit at once and
+// write none of its partials (a resident Gauss-Newton loop's finished
+// problems); partials (B, n_blocks, 29) f32, one row of sums per block, the
+// rows of problem b from b * n_blocks on.
 int pcr_fused_plane_stats(const int* occ, const float* centers,
                           const float* feats, int nx, int ny, int nz, int ox,
                           int oy, int oz, float inv_cell, int radius,
-                          const float* src, const float* w, int n, float r00,
-                          float r01, float r02, float r10, float r11, float r12,
-                          float r20, float r21, float r22, float t0, float t1,
-                          float t2, float max_dist, int use_huber,
-                          float huber_delta, float* partials, int n_blocks,
-                          void* stream) {
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  return launch<kPlane, false>(occ, centers, feats, nx, ny, nz, ox, oy, oz,
-                               inv_cell, radius, src, w, n, 1, T, nullptr,
-                               max_dist, use_huber, huber_delta, partials,
-                               n_blocks, stream);
+                          const float* src, const float* w, int n, int B,
+                          const float* poses, const int* done, float max_dist,
+                          int use_huber, float huber_delta, float* partials,
+                          int n_blocks, void* stream) {
+  return launch<kPlane>(occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell,
+                        radius, src, w, n, B, poses, done, max_dist, use_huber,
+                        huber_delta, partials, n_blocks, stream);
 }
 
 int pcr_fused_ndt_stats(const int* occ, const float* centers,
                         const float* feats, int nx, int ny, int nz, int ox,
                         int oy, int oz, float inv_cell, int radius,
-                        const float* src, const float* w, int n, float r00,
-                        float r01, float r02, float r10, float r11, float r12,
-                        float r20, float r21, float r22, float t0, float t1,
-                        float t2, float max_dist, int use_huber,
-                        float huber_delta, float* partials, int n_blocks,
-                        void* stream) {
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  return launch<kNdt, false>(occ, centers, feats, nx, ny, nz, ox, oy, oz,
-                             inv_cell, radius, src, w, n, 1, T, nullptr,
-                             max_dist, use_huber, huber_delta, partials,
-                             n_blocks, stream);
-}
-
-// The batched entries: src (B, n, 3), w (B, n), poses (B, 12) f32 on the
-// device ([R row-major | t] per problem, 1 <= B <= 65,535); partials
-// (B, n_blocks, 29), the rows of problem b from b * n_blocks on.
-int pcr_fused_plane_stats_batched(const int* occ, const float* centers,
-                                  const float* feats, int nx, int ny, int nz,
-                                  int ox, int oy, int oz, float inv_cell,
-                                  int radius, const float* src, const float* w,
-                                  int n, int B, const float* poses,
-                                  float max_dist, int use_huber,
-                                  float huber_delta, float* partials,
-                                  int n_blocks, void* stream) {
-  return launch<kPlane, true>(occ, centers, feats, nx, ny, nz, ox, oy, oz,
-                              inv_cell, radius, src, w, n, B, Pose{}, poses,
-                              max_dist, use_huber, huber_delta, partials,
-                              n_blocks, stream);
-}
-
-int pcr_fused_ndt_stats_batched(const int* occ, const float* centers,
-                                const float* feats, int nx, int ny, int nz,
-                                int ox, int oy, int oz, float inv_cell,
-                                int radius, const float* src, const float* w,
-                                int n, int B, const float* poses,
-                                float max_dist, int use_huber,
-                                float huber_delta, float* partials,
-                                int n_blocks, void* stream) {
-  return launch<kNdt, true>(occ, centers, feats, nx, ny, nz, ox, oy, oz,
-                            inv_cell, radius, src, w, n, B, Pose{}, poses,
-                            max_dist, use_huber, huber_delta, partials,
-                            n_blocks, stream);
+                        const float* src, const float* w, int n, int B,
+                        const float* poses, const int* done, float max_dist,
+                        int use_huber, float huber_delta, float* partials,
+                        int n_blocks, void* stream) {
+  return launch<kNdt>(occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell,
+                      radius, src, w, n, B, poses, done, max_dist, use_huber,
+                      huber_delta, partials, n_blocks, stream);
 }
 
 }  // extern "C"

@@ -16,13 +16,13 @@ constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr int kStats = 29;
 
-// Rotation and translation of one iteration, passed to a kernel by value.
+// Rotation and translation of one problem at one iteration (load_pose).
 struct Pose {
   float r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2;
 };
 
-// The pose of one problem of a batched launch: its row of the (B, 12) device
-// array [R row-major | t]. Every thread of the problem's blocks reads the same
+// The pose of one problem of a launch: its row of the (B, 12) device array
+// [R row-major | t]. Every thread of the problem's blocks reads the same
 // 48 bytes.
 __device__ __forceinline__ Pose load_pose(const float* __restrict__ row) {
   return Pose{__ldg(row),     __ldg(row + 1), __ldg(row + 2),  __ldg(row + 3),
@@ -113,9 +113,8 @@ __device__ __forceinline__ void accumulate_whitened(
 
 // Sums the per-thread accumulators of a block of kBlockWarps warps (warp
 // shuffles, then shared memory) into row blockIdx.y * gridDim.x + blockIdx.x
-// of `partials` (B, n_blocks, 29): a batched launch runs problem blockIdx.y
-// on its row of gridDim.x blocks, a single one (gridDim.y = 1) writes row
-// blockIdx.x. No atomics: for a fixed launch shape the sums repeat bit for
+// of `partials` (B, n_blocks, 29): a launch runs problem blockIdx.y on its
+// row of gridDim.x blocks. No atomics: for a fixed launch shape the sums repeat bit for
 // bit from run to run.
 template <int kBlockWarps = kWarps>
 __device__ __forceinline__ void block_reduce_store(const float* acc,

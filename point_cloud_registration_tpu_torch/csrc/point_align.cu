@@ -9,8 +9,8 @@
 // models/_point_corr.py match_points). One pass per query does all of
 // match_points' work, so no query is left unresolved:
 //
-//   q = R p + t, formed in registers (R and t are passed by value, or read
-//     from the poses array by a batched launch);
+//   q = R p + t, formed in registers (R and t read from the problem's row
+//     of the poses array on the device);
 //   tier 1 (ops/pointgrid.py nearest_point_packed): the fine cell
 //     f = floor(q / cell_fine) - origin_fine (a true division, as in
 //     hashgrid.cell_coords), the first block lo = floor((f - 1) / 2), and the
@@ -77,15 +77,16 @@
 //     no round, so the padding behind a scan costs nothing.
 // No atomics; the order of the sums depends on the launch shape only.
 //
-// Batched entries (pcr_*_stats_batched): B problems, each a scan of n points
-// with its own pose, against one target in one launch, the counterpart of the
-// TPU kernel's per_tile mode (point_align.py:594-660). The grid is
+// One launch takes B >= 1 problems, each a scan of n points with its own
+// pose, against one target, the counterpart of the TPU kernel's per_tile mode
+// (point_align.py:594-660); a single problem is B = 1. The grid is
 // (n_blocks, B): blockIdx.y is the problem, whose blocks read its rows of the
 // (B, n, 3) scan and (B, n) weights and its pose from a (B, 12) device array
 // and write its rows of the (B, n_blocks, 29) partials. A group's eight
 // queries all lie in one problem: the whole blocks stride over that problem's
 // n queries, and a lane past its end is dead, so no tail reads the next
-// problem's points. A problem's partials are those of its single launch.
+// problem's points. A problem's partials do not depend on B; a problem whose
+// done flag is set writes none.
 
 #include <climits>
 #include <cstdint>
@@ -223,17 +224,19 @@ __device__ __forceinline__ int group_nearest_proxy(bool active, int gl,
   return x0 + best_p % wx + tb.nbx * (y0 + t % wy + tb.nby * (z0 + t / wy));
 }
 
-template <int kKind, bool kBatched>
+template <int kKind>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) point_stats_kernel(
     Tables tb, const float* __restrict__ src, const float* __restrict__ w, int n,
-    Pose T, const float* __restrict__ poses, float max_dist, int use_huber,
+    const float* __restrict__ poses, const int* __restrict__ done,
+    float max_dist, int use_huber,
     float huber_delta, float* __restrict__ partials) {
-  if constexpr (kBatched) {  // problem blockIdx.y: its scan, weights and pose
-    const size_t b = blockIdx.y;
-    src += 3 * n * b;
-    w += n * b;
-    T = pcr::load_pose(poses + 12 * b);
-  }
+  // problem blockIdx.y: its scan, weights and pose
+  const size_t b = blockIdx.y;
+  // a problem whose resident loop is done: its blocks write nothing
+  if (done != nullptr && done[b]) return;
+  src += 3 * n * b;
+  w += n * b;
+  const Pose T = pcr::load_pose(poses + 12 * b);
   constexpr int kWidth = kKind == kPoint ? 3 : 6;  // floats per packed slot
   const float kInf = __int_as_float(0x7f800000);
   const int lane = threadIdx.x & 31;
@@ -348,14 +351,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) point_stats_kernel(
   pcr::block_reduce_store<kThreads / 32>(acc, partials);
 }
 
-// One launch of B problems (B = 1 and poses null for the single entries, whose
-// pose T comes by value).
-template <int kKind, bool kBatched>
+// One launch of B problems.
+template <int kKind>
 int launch(const float* pts, const int* row_count, const int* block_row, int cap,
            int nbx, int nby, int nbz, int ofx, int ofy, int ofz, float cell_fine,
            const float* proxy, int pox, int poy, int poz, float proxy_cell,
            int proxy_radius, const float* src, const float* w, int n, int B,
-           Pose T, const float* poses, float max_dist, int use_huber,
+           const float* poses, const int* done, float max_dist, int use_huber,
            float huber_delta, float* partials, int n_blocks, void* stream) {
   constexpr int kWidth = kKind == kPoint ? 3 : 6;
   const bool aligned = (static_cast<long long>(cap) * kWidth * 4) % 16 == 0 &&
@@ -363,9 +365,9 @@ int launch(const float* pts, const int* row_count, const int* block_row, int cap
   const Tables tb{pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy, ofz,
                   cell_fine, reinterpret_cast<const float4*>(proxy), pox, poy, poz,
                   proxy_cell, proxy_radius, aligned};
-  point_stats_kernel<kKind, kBatched>
+  point_stats_kernel<kKind>
       <<<dim3(n_blocks, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          tb, src, w, n, T, poses, max_dist, use_huber, huber_delta, partials);
+          tb, src, w, n, poses, done, max_dist, use_huber, huber_delta, partials);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,25 +375,27 @@ int launch(const float* pts, const int* row_count, const int* block_row, int cap
 
 extern "C" {
 
-// Threads per block; the wrapper sizes the partials as (n_blocks, 29).
+// Threads per block; the wrapper sizes the partials as (B, n_blocks, 29).
 int pcr_point_block_size() { return kThreads; }
 
 // Each launches its kernel on `stream` and returns cudaGetLastError().
+// src (B, n, 3), w (B, n), poses (B, 12) f32 on the device ([R row-major | t]
+// per problem, 1 <= B <= 65,535); done (B,) i32 on the device, or null: the
+// blocks of a problem whose flag is set exit at once and write none of its
+// partials (a resident Gauss-Newton loop's finished problems); partials
+// (B, n_blocks, 29), the rows of problem b from b * n_blocks on.
 int pcr_point_stats(const float* pts, const int* row_count, const int* block_row,
                     int cap, int nbx, int nby, int nbz, int ofx, int ofy,
                     int ofz, float cell_fine, const float* proxy, int pox,
                     int poy, int poz, float proxy_cell, int proxy_radius,
-                    const float* src, const float* w, int n, float r00,
-                    float r01, float r02, float r10, float r11, float r12,
-                    float r20, float r21, float r22, float t0, float t1,
-                    float t2, float max_dist, int use_huber, float huber_delta,
-                    float* partials, int n_blocks, void* stream) {
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  return launch<kPoint, false>(pts, row_count, block_row, cap, nbx, nby, nbz,
-                               ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
-                               proxy_cell, proxy_radius, src, w, n, 1, T,
-                               nullptr, max_dist, use_huber, huber_delta,
-                               partials, n_blocks, stream);
+                    const float* src, const float* w, int n, int B,
+                    const float* poses, const int* done, float max_dist,
+                    int use_huber, float huber_delta, float* partials,
+                    int n_blocks, void* stream) {
+  return launch<kPoint>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx, ofy,
+                        ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
+                        proxy_radius, src, w, n, B, poses, done, max_dist,
+                        use_huber, huber_delta, partials, n_blocks, stream);
 }
 
 int pcr_plane_point_stats(const float* pts, const int* row_count,
@@ -399,53 +403,14 @@ int pcr_plane_point_stats(const float* pts, const int* row_count,
                           int nbz, int ofx, int ofy, int ofz, float cell_fine,
                           const float* proxy, int pox, int poy, int poz,
                           float proxy_cell, int proxy_radius, const float* src,
-                          const float* w, int n, float r00, float r01,
-                          float r02, float r10, float r11, float r12, float r20,
-                          float r21, float r22, float t0, float t1, float t2,
-                          float max_dist, int use_huber, float huber_delta,
-                          float* partials, int n_blocks, void* stream) {
-  const Pose T{r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2};
-  return launch<kPlanePt, false>(pts, row_count, block_row, cap, nbx, nby, nbz,
-                                 ofx, ofy, ofz, cell_fine, proxy, pox, poy,
-                                 poz, proxy_cell, proxy_radius, src, w, n, 1,
-                                 T, nullptr, max_dist, use_huber, huber_delta,
-                                 partials, n_blocks, stream);
-}
-
-// The batched entries: src (B, n, 3), w (B, n), poses (B, 12) f32 on the
-// device ([R row-major | t] per problem, 1 <= B <= 65,535); partials
-// (B, n_blocks, 29), the rows of problem b from b * n_blocks on.
-int pcr_point_stats_batched(const float* pts, const int* row_count,
-                            const int* block_row, int cap, int nbx, int nby,
-                            int nbz, int ofx, int ofy, int ofz, float cell_fine,
-                            const float* proxy, int pox, int poy, int poz,
-                            float proxy_cell, int proxy_radius,
-                            const float* src, const float* w, int n, int B,
-                            const float* poses, float max_dist, int use_huber,
-                            float huber_delta, float* partials, int n_blocks,
-                            void* stream) {
-  return launch<kPoint, true>(pts, row_count, block_row, cap, nbx, nby, nbz,
-                              ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
-                              proxy_cell, proxy_radius, src, w, n, B, Pose{},
-                              poses, max_dist, use_huber, huber_delta,
-                              partials, n_blocks, stream);
-}
-
-int pcr_plane_point_stats_batched(const float* pts, const int* row_count,
-                                  const int* block_row, int cap, int nbx,
-                                  int nby, int nbz, int ofx, int ofy, int ofz,
-                                  float cell_fine, const float* proxy, int pox,
-                                  int poy, int poz, float proxy_cell,
-                                  int proxy_radius, const float* src,
-                                  const float* w, int n, int B,
-                                  const float* poses, float max_dist,
-                                  int use_huber, float huber_delta,
-                                  float* partials, int n_blocks, void* stream) {
-  return launch<kPlanePt, true>(pts, row_count, block_row, cap, nbx, nby, nbz,
-                                ofx, ofy, ofz, cell_fine, proxy, pox, poy, poz,
-                                proxy_cell, proxy_radius, src, w, n, B, Pose{},
-                                poses, max_dist, use_huber, huber_delta,
-                                partials, n_blocks, stream);
+                          const float* w, int n, int B, const float* poses,
+                          const int* done, float max_dist, int use_huber,
+                          float huber_delta, float* partials, int n_blocks,
+                          void* stream) {
+  return launch<kPlanePt>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx,
+                          ofy, ofz, cell_fine, proxy, pox, poy, poz, proxy_cell,
+                          proxy_radius, src, w, n, B, poses, done, max_dist,
+                          use_huber, huber_delta, partials, n_blocks, stream);
 }
 
 }  // extern "C"

@@ -16,23 +16,28 @@ The target's layout picks the stats, as in the JAX package:
   (icp.py:48-56, plane_icp.py:60-85), which the JAX package also runs
   without a Pallas kernel (``point_fused_spec`` needs a packed target).
 
-Either way one copy of the 29 stat values reaches the host per iteration.
+Either way the align runs the resident Gauss-Newton loop
+(``core.gn.gauss_newton_device``): the stats read the pose from the loop's
+state on the data's device and ``gn_step`` updates it there.
 
 :func:`fused_point_align_batched` aligns B scans against one packed target
-with one launch of the batched kernel per Gauss-Newton iteration, driven by
-``models/_fused.batched_gauss_newton``.
+with one launch of the batched kernel per Gauss-Newton iteration, in the
+resident loop of all B problems (``core.gn.batched_gauss_newton_device``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
-
 import torch
 
+from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, gauss_newton
+from point_cloud_registration_tpu_torch.core.gn import (
+    GNDiagnostics,
+    GNStats,
+    ResidentStats,
+    transforms_of,
+)
 from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
-from point_cloud_registration_tpu_torch.models._fused import batched_gauss_newton
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
     match_points,
@@ -44,15 +49,13 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
 )
 from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
     plane_point_stats,
-    plane_point_stats_batched,
     point_stats,
-    point_stats_batched,
+    resident_stats,
 )
 from point_cloud_registration_tpu_torch.ops.reduce import plane_stats
 from point_cloud_registration_tpu_torch.ops.reduce import point_stats as reduce_point_stats
 
 _STATS_FN = {"point": point_stats, "plane_pt": plane_point_stats}
-_BATCHED_STATS_FN = {"point": point_stats_batched, "plane_pt": plane_point_stats_batched}
 
 
 def grid_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
@@ -60,7 +63,8 @@ def grid_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
                             cfg: ICPConfig | PlaneICPConfig,
                             normals: torch.Tensor | None = None) -> torch.Tensor:
     """Grid correspondence + the point (``normals`` None) or point-to-plane
-    linearization at ``T`` (host float32 (4, 4)), as ``icp_stats`` and
+    linearization at ``T`` (float32 (4, 4), on the host or the data's
+    device), as ``icp_stats`` and
     ``plane_icp_stats`` of the JAX package: a raw match takes
     ``normals[point_idx]``. -> the (29,) packed stats on the data's device
     (``ops/kernels/fused_align.packed_from_stats``)."""
@@ -116,16 +120,34 @@ def fused_point_stats(target: PointCorrTarget, source: torch.Tensor,
         fused_point_stats_packed(target, source, src_weight, T, cfg, kind, normals).cpu())
 
 
+def fused_point_stats_resident(target: PointCorrTarget, source: torch.Tensor,
+                               src_weight: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
+                               kind: str = "point",
+                               normals: torch.Tensor | None = None) -> ResidentStats:
+    """The stats of one scan as a resident loop binds them (``core.gn.
+    ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
+    data's device, a launch per iteration of the kernel of ``kind``, which
+    reads the pose and the flag on the card, on a packed target; on a grid
+    target :func:`grid_point_stats_packed` at the pose's transform (plain
+    torch ops, skipped once the flag is set: ``core.gn.plain_launch``)."""
+    if target.packed is None:
+        nrm = normals if kind == "plane_pt" else None
+        return lambda poses, done: gn.plain_launch(lambda: grid_point_stats_packed(
+            target, source, src_weight, transforms_of(poses)[0], cfg, nrm), done)
+    radius = proxy_radius(cfg.corr, cfg.max_dist)
+    return lambda poses, done: resident_stats(kind, target.packed, target.proxy, source,
+                                              src_weight, cfg.max_dist, radius,
+                                              cfg.huber_delta, poses, done)
+
+
 def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, init_T, cfg: ICPConfig | PlaneICPConfig,
                       kind: str = "point", normals: torch.Tensor | None = None,
                       ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` over :func:`fused_point_stats`: returns ``(T, GNDiagnostics)``."""
-
-    def stats_fn(T):
-        return fused_point_stats(target, source, src_weight, T, cfg, kind, normals)
-
-    return gauss_newton(stats_fn, init_T, cfg.max_iter, cfg.tol)
+    """``align`` over :func:`fused_point_stats_resident` in the resident
+    loop on the scan's device: returns ``(T, GNDiagnostics)`` on the host."""
+    stats_fn = fused_point_stats_resident(target, source, src_weight, cfg, kind, normals)
+    return gn.gauss_newton_device(stats_fn, init_T, cfg.max_iter, cfg.tol, source.device)
 
 
 def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | None, sources,
@@ -140,21 +162,22 @@ def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | N
     whose packed slots carry the normals; ``normals``, the JAX function's
     operand for its fallback tiers, is not read: the kernel resolves every
     query itself. Returns ``(Ts (B, 4, 4), GNDiagnostics with leading dim
-    B)``, as :func:`models._fused.batched_gauss_newton`. A grid target (no
-    packed grid) raises ``ValueError``, as the JAX function needs a packed
-    spec.
+    B)`` from the resident loop, as ``core.gn.batched_gauss_newton_device``.
+    A grid target (no packed grid) raises ``ValueError``, as the JAX
+    function needs a packed spec.
     """
     stats_all = fused_point_stats_packed_batched(target, sources, src_weights, cfg, kind)
-    return batched_gauss_newton(lambda Ts: stats_from_packed(stats_all(Ts).cpu()), init_Ts,
-                                cfg.max_iter, cfg.tol)
+    return gn.batched_gauss_newton_device(stats_all, init_Ts, cfg.max_iter, cfg.tol,
+                                          target.packed.pts_packed.device)
 
 
 def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weights,
                                      cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
-                                     ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The stats of B scans against one packed target as a function of
-    their poses: ``Ts`` (B, 4, 4) host float32 -> (B, 29) packed stats on
-    the target's device, one launch of the batched point kernel per call.
+                                     ) -> ResidentStats:
+    """The stats of B scans against one packed target as a resident loop
+    binds them (``core.gn.ResidentStats``): at ``(poses (B, 12), done (B,)
+    or None)`` on the target's device, ``launch() -> (B, 29)`` there, one
+    launch of the batched point kernel per call.
     ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to the target's
     device once. A grid target (no packed grid) raises ``ValueError``, as
     the JAX function needs a packed spec."""
@@ -164,12 +187,7 @@ def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weigh
     dev = target.packed.pts_packed.device
     src = torch.as_tensor(sources, dtype=torch.float32).to(dev).contiguous()
     w = torch.as_tensor(src_weights, dtype=torch.float32).to(dev).contiguous()
-    stats_fn = _BATCHED_STATS_FN[kind]
     radius = proxy_radius(cfg.corr, cfg.max_dist)
-
-    def stats_all(Ts):
-        R, t = makeRt(Ts)
-        return stats_fn(target.packed, target.proxy, src, w, R, t, cfg.max_dist, radius,
-                        cfg.huber_delta)
-
-    return stats_all
+    return lambda poses, done=None: resident_stats(kind, target.packed, target.proxy, src, w,
+                                                   cfg.max_dist, radius, cfg.huber_delta,
+                                                   poses, done)

@@ -28,7 +28,7 @@ class AlignResult(NamedTuple):
     diagnostics: GNDiagnostics
 
 
-def pad_points(points, bucket: int = 8192, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+def pad_points(points, bucket: int = 8192, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Pad (N, 3) to the next multiple of ``bucket`` with a 0/1 weight mask.
 
     Scans of similar size then share one launch shape, so the kernel's
@@ -52,7 +52,7 @@ class Registration:
     ``_stats_fn(target, source, src_weight, T) -> GNStats``.
     """
 
-    def __init__(self, max_iter: int = 30, tol: float = 1e-3, device=None):
+    def __init__(self, max_iter: int = 30, tol: float = 1e-3, *, device=None):
         self.max_iter = max_iter
         self.tol = tol
         self.device = resolve_device(None, device)

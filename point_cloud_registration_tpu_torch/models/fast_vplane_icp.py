@@ -9,8 +9,9 @@ H, g and e^2 exactly at the switch transform), and the remaining iterations
 on the coreset.
 
 * Phase 1 is the plain solver's align (``models/_fused.fused_voxel_align``:
-  the fused plane kernel on a dense map) with the switch threshold as its
-  tolerance.
+  the fused plane kernel on a dense map, in the resident Gauss-Newton loop)
+  with the switch threshold as its tolerance; the switch reads its step-norm
+  history from the state the loop returns.
 * The lift runs on the host in float64 (exactness needs it,
   ``models/coreset.py``), from the per-point (J, r, w) of
   :func:`vplane_linearize` at phase 1's transform.
@@ -30,10 +31,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, gauss_newton
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics
 from point_cloud_registration_tpu_torch.core.se3 import makeRt, skew_time_vector, transform_points
-from point_cloud_registration_tpu_torch.models._fused import fused_voxel_align, fused_voxel_stats
+from point_cloud_registration_tpu_torch.models._fused import (
+    fused_voxel_align,
+    fused_voxel_stats_resident,
+)
 from point_cloud_registration_tpu_torch.models.base import Registration, pad_points
 from point_cloud_registration_tpu_torch.models.coreset import create_gn_set, fast_caratheodory
 from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import build_vplane_target
@@ -73,16 +78,14 @@ def _phase2_align(vm: VoxelMap, src_sub: torch.Tensor, w_sub: torch.Tensor, init
     package's ``_phase2_align``, fast_vplane_icp.py:109-168).
 
     Its stats are the plane stats of the coreset weighted by ``w_sub``
-    (``fused_voxel_stats``): on a dense map one launch of the fused plane
-    kernel, which folds in the match and the ``dist < max_dist`` gate as the
-    JAX loop's ``w_sub * (w_lin > 0)`` does; on a hashed map the plain stats.
-    The histories have length ``iters_left``.
+    (``fused_voxel_stats_resident``): on a dense map one launch of the fused
+    plane kernel, which folds in the match and the ``dist < max_dist`` gate
+    as the JAX loop's ``w_sub * (w_lin > 0)`` does; on a hashed map the
+    plain stats. The loop is the resident one, on the coreset's device. The
+    histories have length ``iters_left``.
     """
-
-    def stats_fn(T):
-        return fused_voxel_stats(vm, src_sub, w_sub, T, cfg, "plane")
-
-    return gauss_newton(stats_fn, init_T, iters_left, cfg.tol)
+    stats_fn = fused_voxel_stats_resident(vm, src_sub, w_sub, cfg, "plane")
+    return gn.gauss_newton_device(stats_fn, init_T, iters_left, cfg.tol, src_sub.device)
 
 
 class FastVPlaneICP(Registration):
@@ -109,6 +112,7 @@ class FastVPlaneICP(Registration):
         coreset_switch: float = 1e-2,
         coreset_clusters: int = 64,
         coreset: str = "auto",
+        *,
         device=None,
     ):
         super().__init__(max_iter=max_iter, tol=tol, device=device)

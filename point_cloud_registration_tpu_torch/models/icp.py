@@ -29,7 +29,7 @@ __all__ = ["ICP", "ICPTarget", "build_icp_target", "icp_align", "icp_stats"]
 ICPTarget = PointCorrTarget
 
 
-def build_icp_target(points, cfg: ICPConfig, device=None) -> ICPTarget:
+def build_icp_target(points, cfg: ICPConfig, *, device=None) -> ICPTarget:
     """Index the target cloud (``ICP.set_target``, icp.py:17-22)."""
     return build_point_corr(points, cfg.corr, cfg.max_dist, device=device)
 
@@ -56,7 +56,7 @@ class ICP(Registration):
     """
 
     def __init__(self, max_iter: int = 30, max_dist: float = 2, tol: float = 1e-3,
-                 huber_delta: float | None = None, device=None):
+                 huber_delta: float | None = None, *, device=None):
         super().__init__(max_iter=max_iter, tol=tol, device=device)
         self.max_dist = max_dist
         self.cfg = ICPConfig(

@@ -29,7 +29,7 @@ from point_cloud_registration_tpu_torch.ops.voxelize import (
 __all__ = ["NDT", "build_ndt_target", "ndt_align", "ndt_solver_stats"]
 
 
-def build_ndt_target(points, cfg: NDTConfig, device=None) -> VoxelMap:
+def build_ndt_target(points, cfg: NDTConfig, *, device=None) -> VoxelMap:
     """Voxel map with inverse covariances and the NDT table
     (``NDT.set_target``, ndt.py:18-22)."""
     return build_voxel_map(points, cfg.voxel_size, min_points=cfg.min_points,
@@ -59,6 +59,7 @@ class NDT(Registration):
         max_dist: float = 2,
         tol: float = 1e-3,
         huber_delta: float | None = None,
+        *,
         device=None,
     ):
         super().__init__(max_iter=max_iter, tol=tol, device=device)

@@ -45,7 +45,7 @@ class PlaneICPTarget(NamedTuple):
     normals: torch.Tensor  # (N, 3) f32
 
 
-def build_plane_icp_target(points, cfg: PlaneICPConfig, normals=None,
+def build_plane_icp_target(points, cfg: PlaneICPConfig, *, normals=None,
                            device=None) -> PlaneICPTarget:
     """Index the target and (unless ``normals`` is given) estimate its
     normals (``PlaneICP.set_target``, plane_icp.py:19-28). The proxy tier
@@ -84,7 +84,7 @@ class PlaneICP(Registration):
     """
 
     def __init__(self, max_iter: int = 30, max_dist: float = 2, tol: float = 1e-3,
-                 k: int = 15, huber_delta: float | None = None, device=None):
+                 k: int = 15, huber_delta: float | None = None, *, device=None):
         super().__init__(max_iter=max_iter, tol=tol, device=device)
         self.max_dist = max_dist
         self.k = k

@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
+from point_cloud_registration_tpu_torch.core.gn import GNStats
 from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_align,
-    fused_voxel_stats as vplane_stats,
+    fused_voxel_stats,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
 from point_cloud_registration_tpu_torch.ops.voxelize import (
@@ -27,11 +28,19 @@ from point_cloud_registration_tpu_torch.ops.voxelize import (
 __all__ = ["VPlaneICP", "build_vplane_target", "vplane_align", "vplane_stats"]
 
 
-def build_vplane_target(points, cfg: VPlaneICPConfig, device=None) -> VoxelMap:
+def build_vplane_target(points, cfg: VPlaneICPConfig, *, device=None) -> VoxelMap:
     """Voxel map with Gaussian stats, normals and the kernel's cell table
     (``VPlaneICP.set_target``, voxelized_plane_icp.py:18-21)."""
     return build_voxel_map(points, cfg.voxel_size, min_points=cfg.min_points,
                            device=device)
+
+
+def vplane_stats(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor, T,
+                 cfg: VPlaneICPConfig) -> GNStats:
+    """One point-to-plane linearization at ``T`` on the host
+    (voxelized_plane_icp.py:64): ``models._fused.fused_voxel_stats`` of kind
+    ``"plane"``."""
+    return fused_voxel_stats(vmap_, source, src_weight, T, cfg)
 
 
 def vplane_align(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
@@ -50,6 +59,7 @@ class VPlaneICP(Registration):
         max_dist: float = 2,
         tol: float = 1e-3,
         huber_delta: float | None = None,
+        *,
         device=None,
     ):
         super().__init__(max_iter=max_iter, tol=tol, device=device)

@@ -25,6 +25,14 @@ also call directly. There is no fallback between the two.
 own pose, against one map in one launch (the TPU kernel's ``per_tile``
 mode): (B, 29), row b equal to the single wrapper's stats of problem b.
 
+Every launch, single or batched, is one launch path: the kernel reads each
+problem's pose from (B, 12) pose rows on the card (B = 1 for a single
+problem; the wrappers copy their host pose there first). A resident
+Gauss-Newton loop (``core/gn.py``) binds :func:`resident_stats` once per
+align: its state's pose rows and done flags stay on the card, where the
+kernel reads them; the blocks of a finished problem exit at once. Nothing is
+copied from or to the host.
+
 The TPU kernel's band layout, region DMA, bf16x3 one-hot gathers and
 straggler fallback exist for the TPU's memory system and have no
 counterpart: a CUDA thread walks its window's bits and reads the centroids
@@ -39,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-from point_cloud_registration_tpu_torch.core.gn import GNStats
+from point_cloud_registration_tpu_torch.core.gn import packed_from_stats, stats_from_packed
 from point_cloud_registration_tpu_torch.core.se3 import makeT, transform_points
 from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.knn import (
@@ -58,7 +66,6 @@ STATS_WIDTH = 29
 # Most blocks of one launch: each block writes one row of partials, so the
 # launch shape (and with it the summation order) depends on the scan size only.
 MAX_BLOCKS = 1024
-_TRIU = torch.triu_indices(6, 6)
 _FEAT_WIDTHS = {"plane": FEAT_WIDTHS[3], "ndt": FEAT_WIDTHS[6]}
 
 __all__ = [
@@ -74,28 +81,6 @@ def inv_cell_f32(cell_size: float) -> np.float32:
     """The float32 ``1 / cell`` the kernel's cell rule multiplies by
     (fused_align.py:429)."""
     return np.float32(1.0 / float(np.float32(cell_size)))
-
-
-def packed_from_stats(stats: GNStats) -> torch.Tensor:
-    """GNStats -> the (29,) layout of the kernel's output."""
-    triu = _TRIU.to(stats.H.device)
-    return torch.cat([
-        stats.H[triu[0], triu[1]],
-        stats.g.reshape(6),
-        stats.e2.reshape(1),
-        stats.n_inliers.reshape(1),
-    ])
-
-
-def stats_from_packed(packed: torch.Tensor) -> GNStats:
-    """The (..., 29) kernel output -> GNStats (H symmetric) with the same
-    leading dims, on its device: (29,) gives one problem's, (B, 29) B
-    problems' stats."""
-    triu = _TRIU.to(packed.device)
-    H = torch.zeros(packed.shape[:-1] + (6, 6), dtype=packed.dtype, device=packed.device)
-    H[..., triu[0], triu[1]] = packed[..., :21]
-    H[..., triu[1], triu[0]] = packed[..., :21]
-    return GNStats(H=H, g=packed[..., 21:27], e2=packed[..., 27], n_inliers=packed[..., 28])
 
 
 def _check_geometry(cells: CellIndex, dims, kind):
@@ -215,20 +200,18 @@ def fused_ndt_stats_batched_reference(cells, origin_cell, dims, cell_size, src, 
 
 
 _C_SYMBOLS = {"plane": "pcr_fused_plane_stats", "ndt": "pcr_fused_ndt_stats"}
-# Most problems of one batched launch: they run along the grid's y dimension.
+# Most problems of one launch: they run along the grid's y dimension.
 MAX_PROBLEMS = 65535
 
 
-def bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
+def bind(lib: ctypes.CDLL, kind: str):
     """``(fn, threads per block)`` of the ``kind`` entry point of a build of
-    ``csrc/fused_align.cu`` (its batched twin with ``batched``), with its
-    argument types set."""
-    fn = getattr(lib, _C_SYMBOLS[kind] + ("_batched" if batched else ""))
+    ``csrc/fused_align.cu``, with its argument types set."""
+    fn = getattr(lib, _C_SYMBOLS[kind])
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
         [c_ptr] * 3 + [c_int] * 6 + [c_float, c_int]  # occ, centers, feats, geometry
-        + ([c_ptr, c_ptr, c_int, c_int, c_ptr]  # src, w, n per problem, B, poses
-           if batched else [c_ptr, c_ptr, c_int] + [c_float] * 12)  # src, w, n, R, t
+        + [c_ptr, c_ptr, c_int, c_int, c_ptr, c_ptr]  # src, w, n per problem, B, poses, done
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int]  # partials, n_blocks
         + [c_ptr]  # stream
@@ -241,8 +224,8 @@ def bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
 
 
 @functools.cache
-def _kernel_fn(kind: str, batched: bool = False):
-    return bind(load_library("fused_align"), kind, batched)
+def _kernel_fn(kind: str):
+    return bind(load_library("fused_align"), kind)
 
 
 def check_operands(src: torch.Tensor, w: torch.Tensor, **tensors) -> None:
@@ -260,21 +243,19 @@ def check_operands(src: torch.Tensor, w: torch.Tensor, **tensors) -> None:
         raise ValueError(f"src {tuple(src.shape)} and w {tuple(w.shape)} do not match")
 
 
-def rt_args(R, t) -> list[float]:
-    """``R`` (row-major) and ``t`` as 12 host floats, passed by value."""
-    r = torch.as_tensor(R, dtype=torch.float32).reshape(9).tolist()
-    tv = torch.as_tensor(t, dtype=torch.float32).reshape(3).tolist()
-    return [float(v) for v in r + tv]
-
-
 def pose_rows(R, t, device) -> torch.Tensor:
     """(B, 12) float32 on ``device``: each problem's ``R`` (row-major) and
-    ``t``, the poses a batched kernel reads. The copy is ordered on the
-    current stream, before the launch that reads it."""
+    ``t``, the poses a kernel reads. Host rows go to a card from pinned
+    memory, a copy ordered on the current stream before the launch that
+    reads it, which does not wait for the card."""
     R = torch.as_tensor(R, dtype=torch.float32)
     t = torch.as_tensor(t, dtype=torch.float32)
     B = R.shape[0]
-    return torch.cat([R.reshape(B, 9), t.reshape(B, 3)], dim=1).to(device).contiguous()
+    rows = torch.cat([R.reshape(B, 9), t.reshape(B, 3)], dim=1)
+    device = torch.device(device)
+    if rows.device.type == "cpu" and device.type == "cuda":
+        return rows.pin_memory().to(device, non_blocking=True)
+    return rows.to(device).contiguous()
 
 
 def check_batched(src: torch.Tensor, w: torch.Tensor, R, t) -> None:
@@ -288,44 +269,83 @@ def check_batched(src: torch.Tensor, w: torch.Tensor, R, t) -> None:
                          f"{tuple(torch.as_tensor(R).shape)} and t {tuple(torch.as_tensor(t).shape)} "
                          "are not (B, n, 3), (B, n), (B, 3, 3) and (B, 3)")
     if not 1 <= B <= MAX_PROBLEMS:
-        raise ValueError(f"{B} problems: a batched launch takes 1 to {MAX_PROBLEMS}")
+        raise ValueError(f"{B} problems: a launch takes 1 to {MAX_PROBLEMS}")
+
+
+def check_poses(poses: torch.Tensor, done, B: int, device) -> None:
+    """Raise unless ``poses`` is a contiguous float32 (B, 12) tensor on
+    ``device`` and ``done`` None or a contiguous int32 (B,) tensor there."""
+    if (poses.device != device or poses.dtype != torch.float32
+            or tuple(poses.shape) != (B, 12) or not poses.is_contiguous()):
+        raise ValueError(f"poses must be a contiguous float32 ({B}, 12) tensor on {device}, "
+                         f"got {poses.dtype} {tuple(poses.shape)} on {poses.device}")
+    if done is not None and (done.device != device or done.dtype != torch.int32
+                             or tuple(done.shape) != (B,) or not done.is_contiguous()):
+        raise ValueError(f"done must be a contiguous int32 ({B},) tensor on {device}")
+
+
+def rt_of_poses(poses: torch.Tensor, batched: bool):
+    """``(R, t)`` of (B, 12) pose rows: (B, 3, 3) and (B, 3), or the first
+    problem's (3, 3) and (3,) unless ``batched``; views, on their device."""
+    B = poses.shape[0]
+    R, t = poses[:, :9].reshape(B, 3, 3), poses[:, 9:12]
+    return (R, t) if batched else (R[0], t[0])
 
 
 def sum_partials(partials: torch.Tensor) -> torch.Tensor:
     """(B, n_blocks, 29) block partials -> (B, 29): each problem's rows summed
-    as the single-problem wrapper sums its (n_blocks, 29), so a problem's
-    stats are those of its single launch, bit for bit."""
+    in one fixed order, so a problem's stats do not depend on B."""
+    if partials.shape[0] == 1:
+        return partials[0].sum(dim=0)[None]
     return torch.stack([p.sum(dim=0) for p in partials])
 
 
-def launch_stats(kind, bound, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
-                 huber_delta, partials=None) -> torch.Tensor:
-    """Launch the kernel ``bound`` (:func:`bind`) on checked operands; returns
-    the (n_blocks, 29) per-block partial sums. ``partials``, when given, is
-    the float32 buffer the blocks write, at least ``n_blocks * 29`` long.
-    A batched ``bound`` takes ``src`` (B, n, 3), ``w`` (B, n) and the (B, 12)
-    ``pose_rows`` as ``R`` (``t`` unused) and returns (B, n_blocks, 29)."""
+def launch_args(bound, cells, origin_cell, dims, cell_size, src, w, poses, done, max_dist,
+                huber_delta, partials=None) -> tuple:
+    """``(fn, args, partials)``: the C function of ``bound`` (:func:`bind`)
+    and its arguments for these checked operands (``src`` (B, n, 3), ``w``
+    (B, n), ``poses`` (B, 12) and ``done`` (B,) or None on the card), on the
+    current stream, and the (B, n_blocks, 29) partials buffer they name
+    (``partials``, when given: a float32 buffer at least that long)."""
     fn, block = bound
-    batched = src.dim() == 3
-    n = src.shape[-2]
+    n = src.shape[1]
     n_blocks = min(-(-n // block), MAX_BLOCKS)
     if partials is None:
-        partials = torch.empty(src.shape[:-2] + (n_blocks, STATS_WIDTH), dtype=torch.float32,
+        partials = torch.empty((src.shape[0], n_blocks, STATS_WIDTH), dtype=torch.float32,
                                device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    rc = fn(
+    args = (
         cells.occ.data_ptr(), cells.centers.data_ptr(), cells.feats.data_ptr(),
         *(int(d) for d in dims), *(int(o) for o in origin_cell),
         float(inv_cell_f32(cell_size)), window_radius(max_dist, cell_size),
-        src.data_ptr(), w.data_ptr(), n,
-        *([src.shape[0], R.data_ptr()] if batched else rt_args(R, t)),
+        src.data_ptr(), w.data_ptr(), n, src.shape[0], poses.data_ptr(),
+        done.data_ptr() if done is not None else None,
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
-        partials.data_ptr(), n_blocks, stream,
+        partials.data_ptr(), n_blocks, torch.cuda.current_stream(src.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"fused {kind} stats kernel launch failed: CUDA error {rc}")
-    return partials
+    return fn, args, partials
+
+
+def bound_launch(fn, args, partials: torch.Tensor, counter, what: str, operands: tuple):
+    """``launch() -> (B, 29)``: one launch of ``fn(*args)``, every argument
+    bound beforehand, adding one to ``counter.launches``, then each
+    problem's (n_blocks, 29) partials summed as :func:`sum_partials` sums
+    them, into one (B, 29) buffer that every call refills. The launcher
+    holds ``operands``, the tensors whose pointers ``args`` carries."""
+    out = torch.empty((partials.shape[0], STATS_WIDTH), dtype=torch.float32,
+                      device=partials.device)
+
+    def launch() -> torch.Tensor:
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+        counter.launches += 1
+        for b in range(out.shape[0]):
+            torch.sum(partials[b], dim=0, out=out[b])
+        return out
+
+    launch.operands = operands
+    return launch
 
 
 def check_launch(kind, cells: CellIndex, dims, src: torch.Tensor, w: torch.Tensor) -> None:
@@ -338,34 +358,83 @@ def check_launch(kind, cells: CellIndex, dims, src: torch.Tensor, w: torch.Tenso
         raise ValueError("occ, centers and feats must start at multiples of 8, 16 and 16 bytes")
 
 
-def _launch(kind, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
-            huber_delta) -> torch.Tensor:
-    check_launch(kind, cells, dims, src, w)
-    if src.shape[0] == 0:
-        return torch.zeros(STATS_WIDTH, dtype=torch.float32, device=src.device)
-    partials = launch_stats(kind, _kernel_fn(kind), cells, origin_cell, dims, cell_size, src,
-                            w, R, t, max_dist, huber_delta)
-    return partials.sum(dim=0)
-
-
-def _launch_batched(kind, counter, cells, origin_cell, dims, cell_size, src, w, R, t,
-                    max_dist, huber_delta) -> torch.Tensor:
+def resident_launch(kind, counter, cells, origin_cell, dims, cell_size, src, w, poses, done,
+                    max_dist, huber_delta):
+    """``launch() -> (B, 29)`` on the card: the kernel of ``kind`` on
+    ``src`` (B, n, 3) and ``w`` (B, n) at the pose rows ``poses`` (B, 12)
+    on the card, skipping the problems whose ``done`` flag is set (None:
+    none), with every operand checked and every argument bound once."""
     require_cuda(src)
-    check_batched(src, w, R, t)
+    check_batched(src, w, *rt_of_poses(poses, True))
+    check_poses(poses, done, src.shape[0], src.device)
     check_launch(kind, cells, dims, src.reshape(-1, 3), w.reshape(-1))
     if src.shape[1] == 0:
-        return torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
-    poses = pose_rows(R, t, src.device)
-    partials = launch_stats(kind, _kernel_fn(kind, True), cells, origin_cell, dims, cell_size,
-                            src, w, poses, None, max_dist, huber_delta)
-    counter.launches += 1
-    return sum_partials(partials)
+        zeros = torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
+        return lambda: zeros
+    fn, args, partials = launch_args(_kernel_fn(kind), cells, origin_cell, dims, cell_size, src,
+                                     w, poses, done, max_dist, huber_delta)
+    return bound_launch(fn, args, partials, counter, f"fused {kind} stats",
+                        (cells, src, w, poses, done))
 
 
 def require_cuda(src: torch.Tensor) -> None:
     """Raise for a device that is neither the CPU nor a CUDA card."""
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
+
+
+def one_problem(src: torch.Tensor, w: torch.Tensor, R, t) -> tuple:
+    """``(src, w, R, t)`` of one problem as a batch of one: (1, N, 3), (1, N),
+    (1, 3, 3) and (1, 3)."""
+    R = torch.as_tensor(R, dtype=torch.float32).reshape(1, 3, 3)
+    t = torch.as_tensor(t, dtype=torch.float32).reshape(1, 3)
+    return src[None], w[None], R, t
+
+
+def _stats(kind, counter, reference, batched, cells, origin_cell, dims, cell_size, src, w, R, t,
+           max_dist, huber_delta) -> torch.Tensor:
+    if src.device.type == "cpu":
+        return reference(cells, origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta)
+    require_cuda(src)
+    if not batched:
+        check_operands(src, w)
+        src, w, R, t = one_problem(src, w, R, t)
+    check_batched(src, w, R, t)  # the poses go to the card, then one launch
+    out = resident_launch(kind, counter, cells, origin_cell, dims, cell_size, src, w,
+                          pose_rows(R, t, src.device), None, max_dist, huber_delta)()
+    return out if batched else out[0]
+
+
+def resident_stats(kind: str, cells: CellIndex, origin_cell, dims, cell_size: float,
+                   src: torch.Tensor, w: torch.Tensor, max_dist: float,
+                   huber_delta: float | None, poses: torch.Tensor, done: torch.Tensor | None):
+    """The stats of a resident Gauss-Newton loop, bound once per align:
+    ``launch() -> (B, 29)`` (or (29,) for one problem on the CPU) at the
+    current pose rows ``poses`` (B, 12) of the loop's state.
+
+    ``src`` (n, 3) is one problem (its launches count as the single
+    wrapper's), (B, n, 3) a batch (its launches count as the batched
+    wrapper's). CUDA tensors: each call is one launch of the kernel, the
+    launch the wrappers make, with every argument bound beforehand, reading
+    the poses and ``done`` where they lie; CPU tensors: the plain version at
+    the poses as they are when it is called."""
+    batched = src.dim() == 3
+    if kind not in _C_SYMBOLS:
+        raise ValueError(f"unknown kind {kind!r}")
+    if src.device.type == "cpu":
+        reference = {("plane", False): fused_plane_stats_reference,
+                     ("ndt", False): fused_ndt_stats_reference,
+                     ("plane", True): fused_plane_stats_batched_reference,
+                     ("ndt", True): fused_ndt_stats_batched_reference}[kind, batched]
+        R, t = rt_of_poses(poses, batched)  # views: they follow the state
+        return lambda: reference(cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
+                                 huber_delta)
+    counter = {("plane", False): fused_plane_stats, ("ndt", False): fused_ndt_stats,
+               ("plane", True): fused_plane_stats_batched,
+               ("ndt", True): fused_ndt_stats_batched}[kind, batched]
+    return resident_launch(kind, counter, cells, origin_cell, dims, cell_size,
+                           src if batched else src[None], w if batched else w[None], poses, done,
+                           max_dist, huber_delta)
 
 
 def fused_plane_stats(
@@ -385,19 +454,14 @@ def fused_plane_stats(
 
     ``cells`` is the cell index (4-wide features) of a map with ``dims`` cells
     from ``origin_cell``; ``src`` (N, 3) and ``w`` (N,) are the untransformed
-    scan and its weights; ``R`` (3, 3) and ``t`` (3,) are host values.
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``fused_plane_stats.launches``.
+    scan and its weights; ``R`` (3, 3) and ``t`` (3,) the pose, copied to the
+    card as one pose row (a resident Gauss-Newton loop binds the same launch
+    to its state's pose rows instead: :func:`resident_stats`). CPU tensors
+    take the plain version; CUDA tensors launch the kernel at B = 1 and add
+    one to ``fused_plane_stats.launches``.
     """
-    if src.device.type == "cpu":
-        return fused_plane_stats_reference(
-            cells, origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta
-        )
-    require_cuda(src)
-    out = _launch("plane", cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
-                  huber_delta)
-    fused_plane_stats.launches += 1
-    return out
+    return _stats("plane", fused_plane_stats, fused_plane_stats_reference, False, cells,
+                  origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta)
 
 
 def fused_ndt_stats(
@@ -415,15 +479,8 @@ def fused_ndt_stats(
     """One NDT (whitened Mahalanobis) linearization -> (29,) float32 stats,
     as :func:`fused_plane_stats` but with the 8-wide NDT features. CUDA tensors
     launch the kernel and add one to ``fused_ndt_stats.launches``."""
-    if src.device.type == "cpu":
-        return fused_ndt_stats_reference(
-            cells, origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta
-        )
-    require_cuda(src)
-    out = _launch("ndt", cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
-                  huber_delta)
-    fused_ndt_stats.launches += 1
-    return out
+    return _stats("ndt", fused_ndt_stats, fused_ndt_stats_reference, False, cells, origin_cell,
+                  dims, cell_size, src, w, R, t, max_dist, huber_delta)
 
 
 def fused_plane_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: float,
@@ -433,16 +490,14 @@ def fused_plane_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: fl
     -> (B, 29) float32 stats on the device of ``src``.
 
     ``src`` (B, n, 3) and ``w`` (B, n) hold each problem's scan and weights,
-    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values). Row b equals the
-    single wrapper's stats of problem b. CPU tensors take the plain version;
-    CUDA tensors launch the kernel once, with the problems along the grid's y
-    dimension, and add one to ``fused_plane_stats_batched.launches``.
+    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values, copied to the
+    card as pose rows). Row b equals the single wrapper's stats of problem
+    b. CPU tensors take the plain version; CUDA tensors launch the kernel
+    once, with the problems along the grid's y dimension, and add one to
+    ``fused_plane_stats_batched.launches``.
     """
-    if src.device.type == "cpu":
-        return fused_plane_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w,
-                                                   R, t, max_dist, huber_delta)
-    return _launch_batched("plane", fused_plane_stats_batched, cells, origin_cell, dims,
-                           cell_size, src, w, R, t, max_dist, huber_delta)
+    return _stats("plane", fused_plane_stats_batched, fused_plane_stats_batched_reference, True,
+                  cells, origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta)
 
 
 def fused_ndt_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: float,
@@ -451,11 +506,8 @@ def fused_ndt_stats_batched(cells: CellIndex, origin_cell, dims, cell_size: floa
     """:func:`fused_ndt_stats` of B problems in one launch -> (B, 29), as
     :func:`fused_plane_stats_batched`. CUDA tensors add one to
     ``fused_ndt_stats_batched.launches``."""
-    if src.device.type == "cpu":
-        return fused_ndt_stats_batched_reference(cells, origin_cell, dims, cell_size, src, w,
-                                                 R, t, max_dist, huber_delta)
-    return _launch_batched("ndt", fused_ndt_stats_batched, cells, origin_cell, dims,
-                           cell_size, src, w, R, t, max_dist, huber_delta)
+    return _stats("ndt", fused_ndt_stats_batched, fused_ndt_stats_batched_reference, True, cells,
+                  origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta)
 
 
 fused_plane_stats.launches = 0

@@ -27,7 +27,9 @@ by ``ops.reduce.point_stats`` or ``plane_stats``), which the tests and
 ``point_stats_batched`` and ``plane_point_stats_batched`` compute the same
 stats for B scans, each with its own pose, against one target in one launch
 (the TPU kernel's ``per_tile`` mode): (B, 29), row b equal to the single
-wrapper's stats of problem b.
+wrapper's stats of problem b. Single and batched wrappers and the resident
+loop's :func:`resident_stats` make one launch path, as in ``fused_align``:
+the kernel reads the poses from (B, 12) pose rows on the card.
 """
 
 from __future__ import annotations
@@ -43,14 +45,16 @@ from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     MAX_BLOCKS,
     STATS_WIDTH,
+    bound_launch,
     check_batched,
     check_operands,
+    check_poses,
+    one_problem,
     packed_from_stats,
     per_problem,
     pose_rows,
     require_cuda,
-    rt_args,
-    sum_partials,
+    rt_of_poses,
 )
 from point_cloud_registration_tpu_torch.ops.pointgrid import (
     PackedPointGrid,
@@ -129,16 +133,14 @@ _C_SYMBOLS = {"point": "pcr_point_stats", "plane_pt": "pcr_plane_point_stats"}
 _WIDTHS = {"point": 3, "plane_pt": 6}
 
 
-def _bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
-    """``(C function, threads per block)`` of ``kind`` (its batched twin with
-    ``batched``) in a built library."""
-    fn = getattr(lib, _C_SYMBOLS[kind] + ("_batched" if batched else ""))
+def _bind(lib: ctypes.CDLL, kind: str):
+    """``(C function, threads per block)`` of ``kind`` in a built library."""
+    fn = getattr(lib, _C_SYMBOLS[kind])
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
         [c_ptr, c_ptr, c_ptr] + [c_int] * 7 + [c_float]  # packed grid
         + [c_ptr] + [c_int] * 3 + [c_float, c_int]  # proxy map
-        + ([c_ptr, c_ptr, c_int, c_int, c_ptr]  # src, w, n per problem, B, poses
-           if batched else [c_ptr, c_ptr, c_int] + [c_float] * 12)  # src, w, n, R, t
+        + [c_ptr, c_ptr, c_int, c_int, c_ptr, c_ptr]  # src, w, n per problem, B, poses, done
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int, c_ptr]  # partials, n_blocks, stream
     )
@@ -150,8 +152,8 @@ def _bind(lib: ctypes.CDLL, kind: str, batched: bool = False):
 
 
 @functools.cache
-def _kernel_fn(kind: str, batched: bool = False):
-    return _bind(load_library("point_align"), kind, batched)
+def _kernel_fn(kind: str):
+    return _bind(load_library("point_align"), kind)
 
 
 def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
@@ -176,61 +178,91 @@ def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
         raise ValueError(f"proxy dims {proxy.dims} are not the block grid {pg.nb_dims}")
 
 
-def launch_partials(kind, bound, pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                    huber_delta) -> torch.Tensor:
-    """Launch the kernel ``bound`` (:func:`_bind`) on checked operands and
-    return its (n_blocks, 29) per-block partial sums. A batched ``bound``
-    takes ``src`` (B, n, 3), ``w`` (B, n) and the (B, 12) ``pose_rows`` as
-    ``R`` (``t`` unused) and returns (B, n_blocks, 29)."""
+def partials_args(bound, pg, proxy, src, w, poses, done, max_dist, proxy_radius,
+                  huber_delta) -> tuple:
+    """``(fn, args, partials)``: the C function of ``bound`` (:func:`_bind`)
+    and its arguments for these checked operands (``src`` (B, n, 3), ``w``
+    (B, n), ``poses`` (B, 12) and ``done`` (B,) or None on the card), on the
+    current stream, and the (B, n_blocks, 29) partials buffer they name."""
     fn, block = bound
-    batched = src.dim() == 3
-    n = src.shape[-2]
+    n = src.shape[1]
     n_blocks = min(-(-n // block), MAX_BLOCKS)
-    partials = torch.empty(src.shape[:-2] + (n_blocks, STATS_WIDTH), dtype=torch.float32,
+    partials = torch.empty((src.shape[0], n_blocks, STATS_WIDTH), dtype=torch.float32,
                            device=src.device)
-    rc = fn(
+    args = (
         pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
         pg.cap, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
         float(pg.cell_fine),
         proxy.table.data_ptr(), *(int(o) for o in proxy.origin_cell),
         float(proxy.cell_size), int(proxy_radius),
-        src.data_ptr(), w.data_ptr(), n,
-        *([src.shape[0], R.data_ptr()] if batched else rt_args(R, t)),
+        src.data_ptr(), w.data_ptr(), n, src.shape[0], poses.data_ptr(),
+        done.data_ptr() if done is not None else None,
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
         partials.data_ptr(), n_blocks,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"{kind} stats kernel launch failed: CUDA error {rc}")
-    return partials
+    return fn, args, partials
 
 
-def _launch(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta) -> torch.Tensor:
+def resident_launch(kind, counter, pg, proxy, src, w, poses, done, max_dist, proxy_radius,
+                    huber_delta):
+    """``launch() -> (B, 29)`` on the card: the kernel of ``kind`` on ``src``
+    (B, n, 3) and ``w`` (B, n) at the pose rows ``poses`` (B, 12) on the
+    card, skipping the problems whose ``done`` flag is set (None: none),
+    with every operand checked and every argument bound once."""
     require_cuda(src)
-    check_operands(src, w)
-    _check_tables(kind, pg, proxy, src)
-    if src.shape[0] == 0:
-        return torch.zeros(STATS_WIDTH, dtype=torch.float32, device=src.device)
-    partials = launch_partials(kind, _kernel_fn(kind), pg, proxy, src, w, R, t, max_dist,
-                               proxy_radius, huber_delta)
-    counter.launches += 1
-    return partials.sum(dim=0)
-
-
-def _launch_batched(kind, counter, pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                    huber_delta) -> torch.Tensor:
-    require_cuda(src)
-    check_batched(src, w, R, t)
+    check_batched(src, w, *rt_of_poses(poses, True))
+    check_poses(poses, done, src.shape[0], src.device)
     check_operands(src.reshape(-1, 3), w.reshape(-1))
     _check_tables(kind, pg, proxy, src)
     if src.shape[1] == 0:
-        return torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
-    poses = pose_rows(R, t, src.device)
-    partials = launch_partials(kind, _kernel_fn(kind, True), pg, proxy, src, w, poses, None,
-                               max_dist, proxy_radius, huber_delta)
-    counter.launches += 1
-    return sum_partials(partials)
+        zeros = torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
+        return lambda: zeros
+    fn, args, partials = partials_args(_kernel_fn(kind), pg, proxy, src, w, poses, done,
+                                       max_dist, proxy_radius, huber_delta)
+    return bound_launch(fn, args, partials, counter, f"{kind} stats",
+                        (pg, proxy, src, w, poses, done))
+
+
+def _stats(kind, counter, reference, batched, pg, proxy, src, w, R, t, max_dist, proxy_radius,
+           huber_delta) -> torch.Tensor:
+    if src.device.type == "cpu":
+        return reference(pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta)
+    require_cuda(src)
+    if not batched:
+        check_operands(src, w)
+        src, w, R, t = one_problem(src, w, R, t)
+    check_batched(src, w, R, t)  # the poses go to the card, then one launch
+    out = resident_launch(kind, counter, pg, proxy, src, w, pose_rows(R, t, src.device), None,
+                          max_dist, proxy_radius, huber_delta)()
+    return out if batched else out[0]
+
+
+def resident_stats(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
+                   w: torch.Tensor, max_dist: float, proxy_radius: int,
+                   huber_delta: float | None, poses: torch.Tensor, done: torch.Tensor | None):
+    """The stats of a resident Gauss-Newton loop, bound once per align, as
+    ``fused_align.resident_stats``: ``launch() -> (B, 29)`` (or (29,) for
+    one problem on the CPU) at the current pose rows ``poses`` (B, 12);
+    ``src`` (n, 3) counts as the single wrapper's launches, (B, n, 3) as the
+    batched wrapper's."""
+    batched = src.dim() == 3
+    if kind not in _C_SYMBOLS:
+        raise ValueError(f"unknown kind {kind!r}")
+    if src.device.type == "cpu":
+        reference = {("point", False): point_stats_reference,
+                     ("plane_pt", False): plane_point_stats_reference,
+                     ("point", True): point_stats_batched_reference,
+                     ("plane_pt", True): plane_point_stats_batched_reference}[kind, batched]
+        R, t = rt_of_poses(poses, batched)  # views: they follow the state
+        return lambda: reference(pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta)
+    counter = {("point", False): point_stats, ("plane_pt", False): plane_point_stats,
+               ("point", True): point_stats_batched,
+               ("plane_pt", True): plane_point_stats_batched}[kind, batched]
+    return resident_launch(kind, counter, pg, proxy, src if batched else src[None],
+                           w if batched else w[None], poses, done, max_dist, proxy_radius,
+                           huber_delta)
 
 
 def point_stats(
@@ -250,14 +282,14 @@ def point_stats(
     ``pg`` and ``proxy`` are the target's packed grid and proxy map;
     ``proxy_radius`` the proxy window in proxy cells; ``src`` (N, 3) and
     ``w`` (N,) the untransformed scan and its weights; ``R`` (3, 3) and
-    ``t`` (3,) host values. CPU tensors take the plain version; CUDA tensors
-    launch the kernel and add one to ``point_stats.launches``.
+    ``t`` (3,) the pose, copied to the card as one pose row (a resident
+    loop binds the same launch to its state's pose rows instead:
+    :func:`resident_stats`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel at B = 1 and add one to
+    ``point_stats.launches``.
     """
-    if src.device.type == "cpu":
-        return point_stats_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                                     huber_delta)
-    return _launch("point", point_stats, pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                   huber_delta)
+    return _stats("point", point_stats, point_stats_reference, False, pg, proxy, src, w, R, t,
+                  max_dist, proxy_radius, huber_delta)
 
 
 def plane_point_stats(
@@ -275,11 +307,8 @@ def plane_point_stats(
     float32 stats, as :func:`point_stats` but on a packed grid of slot width
     6 (xyz + normal) and a proxy map with normals. CUDA tensors launch the
     kernel and add one to ``plane_point_stats.launches``."""
-    if src.device.type == "cpu":
-        return plane_point_stats_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                                           huber_delta)
-    return _launch("plane_pt", plane_point_stats, pg, proxy, src, w, R, t, max_dist,
-                   proxy_radius, huber_delta)
+    return _stats("plane_pt", plane_point_stats, plane_point_stats_reference, False, pg, proxy,
+                  src, w, R, t, max_dist, proxy_radius, huber_delta)
 
 
 def point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
@@ -289,16 +318,13 @@ def point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
     -> (B, 29) float32 stats on the device of ``src``.
 
     ``src`` (B, n, 3) and ``w`` (B, n) hold each problem's scan and weights,
-    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values). Row b equals the
-    single wrapper's stats of problem b. CPU tensors take the plain version;
-    CUDA tensors launch the kernel once, with the problems along the grid's y
-    dimension, and add one to ``point_stats_batched.launches``.
+    ``R`` (B, 3, 3) and ``t`` (B, 3) its pose (host values, copied to the
+    card as pose rows). Row b equals the single wrapper's stats of problem b. CPU tensors take the plain
+    version; CUDA tensors launch the kernel once, with the problems along the
+    grid's y dimension, and add one to ``point_stats_batched.launches``.
     """
-    if src.device.type == "cpu":
-        return point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist, proxy_radius,
-                                             huber_delta)
-    return _launch_batched("point", point_stats_batched, pg, proxy, src, w, R, t, max_dist,
-                           proxy_radius, huber_delta)
+    return _stats("point", point_stats_batched, point_stats_batched_reference, True, pg, proxy,
+                  src, w, R, t, max_dist, proxy_radius, huber_delta)
 
 
 def plane_point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
@@ -307,11 +333,8 @@ def plane_point_stats_batched(pg: PackedPointGrid, proxy: ProxyMap, src: torch.T
     """:func:`plane_point_stats` of B problems in one launch -> (B, 29), as
     :func:`point_stats_batched`. CUDA tensors add one to
     ``plane_point_stats_batched.launches``."""
-    if src.device.type == "cpu":
-        return plane_point_stats_batched_reference(pg, proxy, src, w, R, t, max_dist,
-                                                   proxy_radius, huber_delta)
-    return _launch_batched("plane_pt", plane_point_stats_batched, pg, proxy, src, w, R, t,
-                           max_dist, proxy_radius, huber_delta)
+    return _stats("plane_pt", plane_point_stats_batched, plane_point_stats_batched_reference,
+                  True, pg, proxy, src, w, R, t, max_dist, proxy_radius, huber_delta)
 
 
 point_stats.launches = 0

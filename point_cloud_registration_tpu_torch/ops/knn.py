@@ -204,7 +204,7 @@ def nearest_valid_cell(
 
 
 def brute_force_nn(query: torch.Tensor, ref: torch.Tensor, ref_valid: torch.Tensor | None = None,
-                   tile: int = 4096, chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+                   tile: int = 4096, *, chunk: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact 1-NN by tiled exhaustive search (knn.py:535, the validation
     oracle): ``(dist (Nq,) f32, idx (Nq,) i32)``, the first index on ties,
     ``inf`` and -1 when no reference is valid. References go in tiles of
@@ -369,14 +369,17 @@ def nearest_point(grid: Grid, buckets: Buckets, points: torch.Tensor, query: tor
 
 
 def knn_points(grid: Grid, buckets: Buckets, points: torch.Tensor, query: torch.Tensor,
-               offsets, cap: int, k: int, with_overflow: bool = False):
+               offsets, cap: int, k: int, chunk: int = 16384, with_overflow: bool = False):
     """k-NN over raw points: ``(dist (N, k), idx (N, k) int32)`` ascending
     (knn.py:472), ``inf`` and -1 past the candidates found. Ties keep the
     probe order (offset, then bucket position), as ``lax.top_k`` keeps the
     lower position: two stable sorts, by distance and then by query.
+    Queries go in chunks of at most ``chunk`` (fewer where the candidates
+    would take more memory); the result does not depend on it.
     ``with_overflow`` as in :func:`nearest_point`."""
     n, dev = query.shape[0], query.device
-    slot, over, chunk = _scan_chunks(grid, buckets, query, offsets, cap)
+    slot, over, step = _scan_chunks(grid, buckets, query, offsets, cap)
+    chunk = max(1, min(step, int(chunk)))
     dist = torch.full((n, k), float("inf"), dtype=torch.float32, device=dev)
     idx = torch.full((n, k), -1, dtype=torch.int32, device=dev)
     for a in range(0, n, chunk):

@@ -55,16 +55,16 @@ def _sampled_knn(queries: torch.Tensor, points: torch.Tensor, k: int,
     return torch.sqrt(best_d2)
 
 
-def sample_knn_radius(points: torch.Tensor, k: int, n_sample: int = 256,
+def sample_knn_radius(points: torch.Tensor, k: int, n_sample: int = 256, seed: int = 0, *,
                       rng: np.random.RandomState | None = None) -> float:
     """Median k-th-NN distance of a random sample (host float); it sizes the
-    k-NN grid's cells. ``rng`` (default ``np.random.RandomState(0)``) makes
-    the draws of normals.py:38-56, so both packages pick the same sample:
+    k-NN grid's cells. ``rng`` (default ``np.random.RandomState(seed)``)
+    makes the draws of normals.py:38-56, so both packages pick the same sample:
     ``n_sample`` queries and, above 2**18 points, a reference subsample of
     2**17 points with k scaled down in proportion. The median of an even
     count is the mean of the two middle values."""
     if rng is None:
-        rng = np.random.RandomState(0)
+        rng = np.random.RandomState(seed)
     n = points.shape[0]
     m_sub = 1 << 17
     big = n > 2 * m_sub

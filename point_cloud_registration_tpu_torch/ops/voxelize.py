@@ -148,8 +148,9 @@ def build_voxel_map(
     *,
     min_points: int = 10,
     with_icov: bool = False,
-    rich: str = "normals",
+    with_normals: bool = True,
     capacity: int | None = None,
+    rich: str | None = None,
     device: torch.device | str | None = None,
 ) -> VoxelMap:
     """Build the voxel map of ``points`` (N, 3) (reference ``set_points``)
@@ -163,8 +164,14 @@ def build_voxel_map(
     (voxelize.py:316-346): ``build_grid`` with ``capacity`` slots (default:
     N or the box's cells, rounded up to a power of two). ``rich`` picks the
     dense map's query rows' features, as in the JAX package: ``"normals"``
-    for VPlaneICP, ``"sqrt_icov"`` (which needs ``with_icov``) for NDT.
+    for VPlaneICP, ``"sqrt_icov"`` (which needs ``with_icov``) for NDT;
+    None, the JAX default, builds the ``"normals"`` rows (the JAX package
+    then builds a centroid-only table, which its fused kernel does not
+    read). ``with_normals=False`` (without ``with_icov``) gives a dense map's
+    covariances and normals as zeros, the JAX package's centroid-only map;
+    a hashed map has them either way, as in the JAX package.
     """
+    rich = "normals" if rich is None else rich
     if rich not in RICH_KINDS:
         raise ValueError(f"unknown rich kind {rich!r}; expected one of {RICH_KINDS}")
     if rich == "sqrt_icov" and not with_icov:
@@ -186,6 +193,7 @@ def build_voxel_map(
         dims,
         min_points=min_points,
         with_icov=with_icov,
+        with_normals=with_normals or with_icov,
         rich=rich,
     )
 
@@ -286,7 +294,7 @@ def _finish(means, covs, counts_f, min_points, with_icov):
 
 
 def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
-                           min_points, with_icov, rich):
+                           min_points, with_icov, rich, with_normals=True):
     """Stats, normals and query layout of the dense-direct map
     (``_build_voxel_map_dense`` of the JAX package, voxelize.py:437-570)."""
     d_total = int(np.prod(dims))
@@ -295,6 +303,8 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
     slot = torch.arange(d_total, dtype=torch.int64, device=points.device)
     means = mean_local + _key_corners(slot, origin_cell, dims, cell_size)
     counts, valid, normals, icovs = _finish(means, covs, counts_f, min_points, with_icov)
+    if not with_normals:  # the centroid-only map: no second moments
+        covs, normals = torch.zeros_like(covs), torch.zeros_like(normals)
     feats = sqrt_icov_u6(icovs) if rich == "sqrt_icov" else normals
     return VoxelMap(
         origin_cell=tuple(origin_cell),
@@ -336,10 +346,13 @@ def _finish_voxel_map(points, grid: Grid, inverse, *, min_points, with_icov) -> 
     )
 
 
-def query_nearest_voxel(vm: VoxelMap, query: torch.Tensor, *, voxel_size: float,
-                        max_dist: float) -> NNResult:
+def query_nearest_voxel(vmap_: VoxelMap, query: torch.Tensor, *, voxel_size: float,
+                        max_dist: float, fixed_tiers: bool = False,
+                        full_window: bool = False) -> NNResult:
     """Nearest valid voxel of each query -> ``(dist, slot)`` (voxelize.py:596),
-    ``inf`` and -1 where the window holds none.
+    ``inf`` and -1 where the window holds none. ``fixed_tiers`` and
+    ``full_window`` choose the JAX package's TPU search tiers; the search
+    here is exact either way, so they change nothing.
 
     A hashed map probes the cells of ``search_offsets(max_dist, voxel_size)``
     in their order (``knn.nearest_voxel``); a dense map the cube of
@@ -347,6 +360,7 @@ def query_nearest_voxel(vm: VoxelMap, query: torch.Tensor, *, voxel_size: float,
     and z slowest, as its kernels do. The first minimum wins in both; both
     windows hold every valid centroid closer than ``max_dist``.
     """
+    vm = vmap_
     if vm.hashed:
         return nearest_voxel(vm.grid, vm.means, vm.valid, query,
                              search_offsets(max_dist, voxel_size))

@@ -5,8 +5,9 @@
   over the mesh's ``data`` axis. Every solver's per-iteration stats (H, g,
   e2, n) are sums over the points, so one SUM all-reduce of each rank's 29
   values gives the single-device normal equations; every rank then runs the
-  same host Gauss-Newton loop (``core/gn.py``) on the same bits and holds
-  the same T. A rank's stats come from the stats kernel of its kind on its
+  same host Gauss-Newton loop (``core/gn.py::gauss_newton``: the all-reduce
+  runs through the host each iteration) on the same bits and holds the
+  same T. A rank's stats come from the stats kernel of its kind on its
   shard: Q2-1 (``fused_align.cu``, plane / ndt) on a dense voxel map, Q2-2
   (``point_align.cu``, point / plane_pt) on a packed target; a hashed map
   or a grid target takes the plain stats, as on one device.
@@ -16,8 +17,9 @@
   results gathered over ``batch`` at the end.
 * **the fused batched streams** (:func:`align_batched_fused_sharded`):
   problems over the ranks, each rank running the batched align of
-  ``models/_fused.py`` / ``_point_fused.py`` on its own problems; no
-  collective in the loop, one gather at the end.
+  ``models/_fused.py`` / ``_point_fused.py`` on its own problems in the
+  resident loop on its card; no collective in the loop, one gather at the
+  end.
 
 The arguments are the global arrays, as in JAX; each rank takes its part.
 The target map is replicated: every rank builds or holds it on its compute
@@ -32,9 +34,13 @@ from typing import Callable
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, gauss_newton
-from point_cloud_registration_tpu_torch.models._fused import (
+from point_cloud_registration_tpu_torch.core.gn import (
+    GNDiagnostics,
     batched_gauss_newton,
+    gauss_newton,
+    pose_rows_of,
+)
+from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_align_batched,
     fused_voxel_stats_packed,
     fused_voxel_stats_packed_batched,
@@ -139,11 +145,13 @@ def _batched_stats(kind: str, target, sources: torch.Tensor, src_weights: torch.
     launch where the target has a cell index or a packed grid, the plain
     per-problem stats otherwise."""
     if kind in _VOXEL_KINDS and not target.hashed:
-        return fused_voxel_stats_packed_batched(target, sources, src_weights, cfg,
-                                                _VOXEL_KINDS[kind])
+        at_poses = fused_voxel_stats_packed_batched(target, sources, src_weights, cfg,
+                                                    _VOXEL_KINDS[kind])
+        return lambda Ts: at_poses(pose_rows_of(Ts).to(sources.device))()
     if kind in _POINT_KINDS and getattr(target, "corr", target).packed is not None:
-        return fused_point_stats_packed_batched(getattr(target, "corr", target), sources,
-                                                src_weights, cfg, _POINT_KINDS[kind])
+        at_poses = fused_point_stats_packed_batched(getattr(target, "corr", target), sources,
+                                                    src_weights, cfg, _POINT_KINDS[kind])
+        return lambda Ts: at_poses(pose_rows_of(Ts).to(sources.device))()
     stats = STATS_FNS[kind]
     return lambda Ts: torch.stack([stats(target, sources[b], src_weights[b], Ts[b], cfg)
                                    for b in range(Ts.shape[0])])
@@ -158,7 +166,7 @@ def align_batched_sharded(kind: str, target, sources, src_weights, init_Ts, cfg,
     B must divide by the batch size and N by the data size. Per iteration,
     the stats of this rank's problems on its points (one batched launch of
     the kind's kernel, ``models/_fused.py`` / ``_point_fused.py``) and one
-    SUM all-reduce over ``data``; ``models._fused.batched_gauss_newton``
+    SUM all-reduce over ``data``; ``core.gn.batched_gauss_newton``
     runs the loop. Returns every problem's result on every rank: T
     (B, 4, 4) and diagnostics with leading dim B, gathered over ``batch``.
     """
@@ -186,8 +194,9 @@ def align_batched_fused_sharded(target, normals, sources, src_weights, init_Ts, 
     ``normals`` ignored) and ``models._point_fused.fused_point_align_batched``
     (``"point"`` / ``"plane_pt"``: ``target`` a packed
     ``PointCorrTarget``, ``normals`` its normal field or None). Each rank
-    runs the whole batched align, one launch per iteration, on its own
-    problems: no collective in the loop, one gather at the end.
+    runs the whole batched align, one launch per iteration in the resident
+    loop, on its own problems: no collective in the loop, one gather at the
+    end.
 
     ``sources`` (B, n, 3) / ``src_weights`` (B, n) / ``init_Ts`` (B, 4, 4).
     When B divides the whole mesh (batch x data), problems go over every

@@ -34,7 +34,7 @@ class PhaseTimer:
     clock on the CPU.
     """
 
-    def __init__(self, device=None) -> None:
+    def __init__(self, *, device=None) -> None:
         self.device = resolve_device(None, device)
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)

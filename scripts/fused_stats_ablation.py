@@ -16,20 +16,19 @@ offset (the last):
   counter, in place of the wrapper's ``torch.sum`` (:data:`FINISH`);
 * builds with another number of resident blocks per SM (the register
   budget);
-* the older source named on the command line (the commit before this
-  kernel's redesign, with its ``gn_accumulate.cuh`` beside it): the dense
-  per-cell table, one 16-byte probe per cell of the window, on the caller's
-  order and by cell;
+* the older source named on the command line (the kernel before its
+  redesign for the H100, with its ``gn_accumulate.cuh`` beside it): the
+  dense per-cell table, one 16-byte probe per cell of the window, R and t
+  passed by value, on the caller's order and by cell;
 * the first eighth, quarter and half of the ordered scan (a kernel bound by
   latency keeps its time, one bound by a rate is faster in proportion).
 
 Then the device time and the host time of whole aligns, with the scan in
 the caller's order (``align``) and ordered by cell first (the sort inside
 the timed call), and of ``scan_order`` alone; and, for the in-kernel sum,
-the host time of one wrapper call (200 calls queued without a wait) and the
-wall time of whole aligns, the shipped build and that build in turn. Every
-build's sums are held to the shipped build's. Prints the card's name and
-power limit first.
+the host time of one launch (200 calls queued without a wait), the shipped
+build and that build in turn. Every build's sums are held to the shipped
+build's. Prints the card's name and power limit first.
 """
 
 import ctypes
@@ -193,7 +192,9 @@ def older_launcher(lib, kind):
         rc = fn(table.data_ptr(), *vm.dims, *vm.origin_cell,
                 float(fa.inv_cell_f32(vm.cell_size)), window_radius(max_dist, vm.cell_size),
                 src.data_ptr(), w.data_ptr(), n,
-                *fa.rt_args(R, t), float(max_dist), 0, 0.0, partials.data_ptr(), n_blocks,
+                *torch.as_tensor(R, dtype=torch.float32).reshape(9).tolist(),
+                *torch.as_tensor(t, dtype=torch.float32).reshape(3).tolist(),
+                float(max_dist), 0, 0.0, partials.data_ptr(), n_blocks,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"older {kind} kernel: CUDA error {rc}")
@@ -215,25 +216,37 @@ def dense_table(vm, kind: str) -> torch.Tensor:
     return table
 
 
-def in_kernel_sum_launcher(lib):
-    """A stand-in for ``fused_align._launch`` that runs the in-kernel-sum
-    build: the wrapper's checks, then one launch into a buffer kept per
-    launch shape (its counter starts at 0 and each launch leaves it so)."""
-    bound = {kind: fa.bind(lib, kind) for kind in fa._C_SYMBOLS}
-    buffers = {}
+def launcher(kind, bound, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
+             huber_delta, partials=None):
+    """``launch() -> partials``: one launch of the build ``bound`` of
+    ``kind`` on one problem, ``src`` (N, 3) at ``R``, ``t``, whose pose row
+    goes to the card once; the partials are (1, n_blocks, 29), or
+    ``partials`` when given."""
+    fa.check_launch(kind, cells, dims, src, w)
+    poses = fa.pose_rows(torch.as_tensor(R)[None], torch.as_tensor(t)[None], src.device)
+    fn, args, partials = fa.launch_args(bound, cells, origin_cell, dims, cell_size, src[None],
+                                        w[None], poses, None, max_dist, huber_delta, partials)
 
-    def launch(kind, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist, huber_delta):
-        fa.check_launch(kind, cells, dims, src, w)
-        n_blocks = min(-(-src.shape[0] // bound[kind][1]), fa.MAX_BLOCKS)
-        buf = buffers.get((src.device, n_blocks))
-        if buf is None:
-            buf = buffers[(src.device, n_blocks)] = torch.zeros(
-                (n_blocks + 2) * STATS, dtype=torch.float32, device=src.device)
-        fa.launch_stats(kind, bound[kind], cells, origin_cell, dims, cell_size, src, w, R, t,
-                        max_dist, huber_delta, partials=buf)
-        return buf[n_blocks * STATS:(n_blocks + 1) * STATS]
+    def launch():
+        if fn(*args) != 0:
+            raise RuntimeError("fused stats kernel launch failed")
+        return partials
 
+    launch.operands = (poses, src, w)  # the tensors whose pointers args carries
     return launch
+
+
+def in_kernel_sum_launcher(lib, kind, cells, origin_cell, dims, cell_size, src, w, R, t,
+                           max_dist, huber_delta):
+    """``launch() -> (29,)``: the in-kernel-sum build on one problem, into a
+    buffer of its own (its counter starts at 0 and each launch leaves it
+    so)."""
+    bound = fa.bind(lib, kind)
+    n_blocks = min(-(-src.shape[0] // bound[1]), fa.MAX_BLOCKS)
+    buf = torch.zeros((n_blocks + 2) * STATS, dtype=torch.float32, device=src.device)
+    go = launcher(kind, bound, cells, origin_cell, dims, cell_size, src, w, R, t, max_dist,
+                  huber_delta, partials=buf)
+    return lambda: go()[n_blocks * STATS:(n_blocks + 1) * STATS]
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -269,7 +282,6 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip())
     with tempfile.TemporaryDirectory() as out_dir:
         libs = build_variants(sys.argv[1:], out_dir)
-        in_kernel = in_kernel_sum_launcher(libs[IN_KERNEL_SUM])
         rng = np.random.RandomState(42)
         map_np = make_city_map(rng, 1_200_000)
         scan_np = make_scan(rng, map_np, 100_000)
@@ -291,7 +303,9 @@ def main() -> None:
                 for order_name, (s_src, s_w) in scans.items():
                     args = (vm.cells, vm.origin_cell, vm.dims, vm.cell_size, s_src, s_w,
                             torch.eye(3), t, solver.cfg.max_dist, None)
-                    shipped = lambda: fa._launch(kind, *args)  # noqa: E731
+                    go_shipped = launcher(kind, fa._kernel_fn(kind), *args)
+                    shipped = lambda: go_shipped()[0].sum(dim=0)  # noqa: E731
+                    in_kernel = in_kernel_sum_launcher(libs[IN_KERNEL_SUM], kind, *args)
                     want = shipped()
                     print(f"   [{order_name}] shipped build: {device_ms(shipped):.4f}, again "
                           f"{device_ms(shipped):.4f}; whole call "
@@ -302,11 +316,10 @@ def main() -> None:
                             call = lambda: go(dense, vm, s_src, s_w, torch.eye(3), t,  # noqa: E731
                                               solver.cfg.max_dist)
                         elif name == IN_KERNEL_SUM:
-                            call = lambda: in_kernel(kind, *args)  # noqa: E731
+                            call = in_kernel
                         else:
-                            bound = fa.bind(lib, kind)
-                            call = lambda: fa.launch_stats(  # noqa: E731
-                                kind, bound, *args).sum(dim=0)
+                            go_v = launcher(kind, fa.bind(lib, kind), *args)
+                            call = lambda: go_v()[0].sum(dim=0)  # noqa: E731
                         got = call()
                         err = float((got - want).abs().max() / want.abs().max())
                         if not err < 1e-4:
@@ -315,9 +328,8 @@ def main() -> None:
                         print(f"   [{order_name}] {name}: {device_ms(call):.4f}; whole call "
                               f"{device_ms(call, match=None):.4f}", flush=True)
                     if order_name == "caller's order":
-                        hosts = [host_us(fn) for fn in (shipped, lambda: in_kernel(kind, *args),
-                                                        shipped, lambda: in_kernel(kind, *args))]
-                        print(f"   [{order_name}] host us per wrapper call (shipped, in-kernel "
+                        hosts = [host_us(fn) for fn in (shipped, in_kernel, shipped, in_kernel)]
+                        print(f"   [{order_name}] host us per launch (shipped, in-kernel "
                               f"sum, shipped, in-kernel sum): "
                               + ", ".join(f"{h:.2f}" for h in hosts), flush=True)
                 s_src, s_w = scans["by cell"]
@@ -326,7 +338,7 @@ def main() -> None:
                     sub = (vm.cells, vm.origin_cell, vm.dims, vm.cell_size,
                            s_src[:m].contiguous(), s_w[:m].contiguous(), torch.eye(3), t,
                            solver.cfg.max_dist, None)
-                    parts[m] = device_ms(lambda: fa.launch_stats(kind, fa._kernel_fn(kind), *sub))
+                    parts[m] = device_ms(launcher(kind, fa._kernel_fn(kind), *sub))
                 print("   shipped build, by cell, on the first " + ", ".join(
                     f"{m} queries: {ms:.4f}" for m, ms in parts.items()), flush=True)
 
@@ -354,27 +366,6 @@ def main() -> None:
             gather_ms = device_ms(lambda: (src[order], w[order]), match=None)
             print(f"== {kind}: scan_order alone {sort_ms:.4f} ms of device time, the two "
                   f"gathers {gather_ms:.4f} ms", flush=True)
-
-            # whole aligns, the partials summed by torch.sum and in the kernel
-            shipped_launch = fa._launch
-            T_ship, d_ship = unordered()
-            for name in ("shipped", IN_KERNEL_SUM, "shipped", IN_KERNEL_SUM):
-                fa._launch = shipped_launch if name == "shipped" else in_kernel
-                try:
-                    T, d = unordered()
-                    walls = align_walls(unordered)
-                    dev_ms = device_ms(unordered, reps=5, match=None)
-                finally:
-                    fa._launch = shipped_launch
-                if d.iterations != d_ship.iterations or not torch.allclose(T, T_ship, atol=1e-6):
-                    raise AssertionError(f"{name}: another align than the shipped build's")
-                walls.sort()
-                print(f"== {kind} align, {name}: {d.iterations} iterations, wall ms min "
-                      f"{walls[0]:.3f}, median {walls[len(walls) // 2]:.3f}, max "
-                      f"{walls[-1]:.3f} (per iteration, median "
-                      f"{walls[len(walls) // 2] / d.iterations:.3f}); device {dev_ms:.4f} ms "
-                      f"per align", flush=True)
-
 
 if __name__ == "__main__":
     main()

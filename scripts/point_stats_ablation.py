@@ -17,9 +17,9 @@ offset (the last):
   budget; another block size; and parts cut out, whose sums are wrong and
   of which only the time is read: rows cut to 4 points, no 29-term update). A substitution whose pattern is
   no longer in the source stops the script;
-* every further source named on the command line (an older commit's copy of
-  the file, with ``gn_accumulate.cuh`` beside it), which must have the same C
-  interface.
+* every further source named on the command line (another copy of the
+  file, with ``gn_accumulate.cuh`` beside it), which must have the same C
+  interface: each problem's pose read from (B, 12) pose rows on the card.
 
 Every build's sums are held to the shipped build's. Prints the card's name
 and power limit first.
@@ -132,11 +132,18 @@ def main() -> None:
         tg = getattr(solver._target, "corr", solver._target)
         radius = proxy_radius(solver.cfg.corr, solver.cfg.max_dist)
         for label, t in poses.items():
-            args = (tg.packed, tg.proxy, src, w, torch.eye(3), t, solver.cfg.max_dist, radius,
-                    solver.cfg.huber_delta)
+            poses_d = pa.pose_rows(torch.eye(3)[None], t[None], src.device)
 
-            def run(bound):
-                return pa.launch_partials(kind, bound, *args)
+            def run(bound, m=src.shape[0]):
+                """(n_blocks, 29) partials of the first ``m`` queries, one launch of
+                the build ``bound`` at this pose."""
+                s, ws = src[None, :m].contiguous(), w[None, :m].contiguous()
+                fn, args, partials = pa.partials_args(bound, tg.packed, tg.proxy, s, ws,
+                                                      poses_d, None, solver.cfg.max_dist,
+                                                      radius, solver.cfg.huber_delta)
+                if fn(*args) != 0:
+                    raise RuntimeError(f"{kind} stats kernel launch failed")
+                return partials[0]
 
             shipped = pa._kernel_fn(kind)
             want = run(shipped).sum(dim=0)
@@ -156,9 +163,8 @@ def main() -> None:
                 print(f"   {name}: {ms:.4f}")
             # fewer queries: a kernel bound by latency keeps its time, one bound by
             # a rate (issue, L1, L2) is faster in proportion
-            parts = {m: kernel_ms(lambda: pa.launch_partials(
-                kind, shipped, tg.packed, tg.proxy, src[:m].contiguous(), w[:m].contiguous(),
-                *args[4:])) for m in (src.shape[0] // 8, src.shape[0] // 4, src.shape[0] // 2)}
+            parts = {m: kernel_ms(lambda: run(shipped, m))
+                     for m in (src.shape[0] // 8, src.shape[0] // 4, src.shape[0] // 2)}
             print("   shipped build on the first " + ", ".join(
                 f"{m} queries: {ms:.4f}" for m, ms in parts.items()))
 

@@ -1,5 +1,5 @@
 """Port parity of the batched multi-scan streams: the batched ``solve_6x6``,
-``models/_fused.batched_gauss_newton``, ``fused_voxel_align_batched``
+``core/gn.batched_gauss_newton``, ``fused_voxel_align_batched``
 (kinds plane and ndt) and ``fused_point_align_batched`` (kinds point and
 plane_pt) of point_cloud_registration_tpu_torch, against the JAX package and
 against the port's own single-problem aligns, on ``oracles.make_scene``.
@@ -42,10 +42,14 @@ from point_cloud_registration_tpu_torch.core.config import (
     PlaneICPConfig,
     VPlaneICPConfig,
 )
-from point_cloud_registration_tpu_torch.core.gn import GNStats, solve_6x6, solve_6x6_batched
+from point_cloud_registration_tpu_torch.core.gn import (
+    GNStats,
+    batched_gauss_newton,
+    solve_6x6,
+    solve_6x6_batched,
+)
 from point_cloud_registration_tpu_torch.core.se3 import makeRt
 from point_cloud_registration_tpu_torch.models._fused import (
-    batched_gauss_newton,
     fused_voxel_align,
     fused_voxel_align_batched,
 )
