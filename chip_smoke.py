@@ -31,7 +31,8 @@ also run again under the host loop (``core.gn.gauss_newton_host``, the
 plain reference): T within ``TOL_HOST``, equal iterations, ``converged``
 and ``solver_failed``; it prints the syncs of one align of each loop
 (``torch.cuda.set_sync_debug_mode("warn")``, with the lines that caused
-them), at most one per chunk on the kernel paths.
+them), at most one per chunk on the kernel paths (all of them since the
+grid stats kernels of phases 9 and 10).
 
 Then, for each solver path (VPlaneICP, NDT, ICP and, after the normals
 phase, PlaneICP) on bench.py's seed-42 city map (1.2M points) and 100k-point
@@ -100,14 +101,30 @@ package's result on the same seeded data (``T_REF_*`` and the
 
 9. Small targets: ``ICP()`` and ``PlaneICP()`` with default configurations
    on a 40,000-point LiDAR target (``bench.make_lidar_map``) and a
-   10,000-point scan of it: the ``"grid"`` method (CSR bucket scan, plain
-   stats), no packed-grid kernel launch; PlaneICP's normals through the k-NN
-   kernel. Then ``nearest_point`` against the exact 1-NN kernel at ICP's
-   converged T, wherever the window had no overflow and the match lies
-   within a cell; warm times and the time of one stats call.
+   10,000-point scan of it: the ``"grid"`` method, its CSR bucket scan and
+   linearization in the grid stats kernel (``csrc/grid_align.cu``, kinds
+   "point" and "plane_pt"), no packed-grid kernel launch; PlaneICP's normals
+   through the k-NN kernel. The grid kernel and ``gn_step`` once per
+   enqueued iteration, at most one sync per chunk. The host loop over the
+   kernel's plain version reaches the align's T within ``TOL_GRID_PLAIN``
+   with equal iterations and flags; at that loop's initial, a middle and
+   the converged pose the kernel's stats hold to the plain version's within
+   the bounds of phase 3, every query's winner and squared distance equal
+   the plain query's (``knn.nearest_point``) and the launch the align binds
+   is the wrapper's, bit for bit. The kernel against its plain version on
+   the lattice scene of phase 5 in 1 m buckets (caps 64 and 5), with the
+   dense key table and with the binary search. Then ``nearest_point``
+   against the exact 1-NN kernel at ICP's converged T, wherever the window
+   had no overflow and the match lies within a cell; warm times, the
+   kernel's time (events and alone) beside the plain version's and its
+   bound, and the time of one stats call.
 10. Over-budget map: the city tile plus the same tile 3 km away (2.4M
    points, about 2.15e8 cells): ``VPlaneICP`` and ``NDT`` on the hashed map,
-   by the plain stats (no fused launch); build and align times, peak memory.
+   through the hashed stats kernel (``grid_align.cu``, kinds "plane" and
+   "ndt", NDT in the icov form; no fused launch), checked as in phase 9
+   (``knn.nearest_voxel`` for the winners), and on phase 5's voxel lattice
+   as a hashed map with occupied cells that are not valid; build and align
+   times, peak memory.
 11. ``update_target``: the map split in two by a seeded permutation;
    ``set_target(half 1)``, ``update_target(half 2)``, ``align(scan)``: the
    fused kernel once per iteration on the rebuilt cell index, and held to its
@@ -222,7 +239,11 @@ the map-sharded paths run no kernel and show 0; every kernel lists phase
 run's launches, 0 where a demo bypasses it); the four align
 kernels also carry ``batched``: the batched entry's launches, error, time,
 plain time, the time of B single launches and bound at phase 13's and 14's
-shapes. The last line is ``{"ok": true, "device": {...}}``.
+shapes. The grid stats kernels of phases 9 and 10 (``grid_point_stats``,
+``grid_plane_point_stats``, ``hashed_plane_stats``, ``hashed_ndt_stats``)
+stand for XLA code of the JAX package (``replaces`` names the query,
+``ops/knn.py``), as ``gn_step`` does; each has ``alone_ms``, its time by the
+profiler. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -719,10 +740,13 @@ def all_kernels() -> list:
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
     from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 
     return [fa.fused_plane_stats, fa.fused_ndt_stats, pa.point_stats, pa.plane_point_stats,
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
-            pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step]
+            pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
+            ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
+            ga.hashed_ndt_stats]
 
 
 def reset_launches() -> None:
@@ -1861,10 +1885,343 @@ def warm_runs(solver, set_target, scan_t, T_first, reps: int = 3) -> list:
     return runs
 
 
+# The grid stats kernels of phases 9 and 10 (csrc/grid_align.cu): the kinds'
+# wrappers by name, their plain versions, the H metric of compare_stats and
+# the operations of one inlier's linearization.
+GRID_KINDS = {
+    "point": ("grid_point_stats", "entry", FLOPS_M3_POINT),
+    "plane_pt": ("grid_plane_point_stats", "entry", FLOPS_PLANE_ROW),
+    "plane": ("hashed_plane_stats", "max", FLOPS_PLANE_ROW),
+    "ndt": ("hashed_ndt_stats", "entry", FLOPS_M3_POINT),
+}
+TOL_GRID_PLAIN = 1e-5  # max |T - T_plain|: the kernel's align against the plain versions' host loop
+GRID_SOURCE = f"{CSRC}/grid_align.cu"
+# the XLA code each kernel stands for (no Pallas kernel): the query it runs
+GRID_REPLACES = {"point": "point_cloud_registration_tpu/ops/knn.py:410",
+                 "plane_pt": "point_cloud_registration_tpu/ops/knn.py:410",
+                 "plane": "point_cloud_registration_tpu/ops/knn.py:78",
+                 "ndt": "point_cloud_registration_tpu/ops/knn.py:78"}
+
+
+def grid_fns(kind: str) -> tuple:
+    """``(wrapper, plain version)`` of the grid stats kernel of ``kind``."""
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    plain = (ga.grid_point_stats_reference if kind in ("point", "plane_pt")
+             else ga.hashed_voxel_stats_reference)
+    return getattr(ga, GRID_KINDS[kind][0]), plain
+
+
+def grid_operands(kind: str, s) -> tuple:
+    """``(grid, table, offsets)``: what solver ``s``'s align binds for the
+    grid stats kernel of ``kind``."""
+    from point_cloud_registration_tpu_torch.models import _fused, _point_fused
+
+    if kind in ("plane", "ndt"):
+        return _fused.hashed_operands(s._target, s.cfg, kind)
+    normals = s._target.normals if kind == "plane_pt" else None
+    return _point_fused.grid_operands(getattr(s._target, "corr", s._target), s.cfg, normals)
+
+
+def kernel_alone_ms(fn, reps: int, name: str) -> float:
+    """Device milliseconds per call of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn``, by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if name in e.key and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"the profiler saw no kernel named {name}")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+
+
+def check_grid_launch(label: str, kind: str, grid, table, src, w, T, offsets, max_dist,
+                      huber_delta=None, metric: str | None = None) -> float:
+    """The grid stats kernel of ``kind`` at ``T`` against its plain version on
+    the same tensors: every query's winner and squared distance equal to the
+    plain query's (``knn.nearest_point`` / ``nearest_voxel``), and the stats
+    within ``compare_stats``' bounds (``metric``: the H metric) or, without
+    a metric, within 1e-5 of the largest entry with equal counts (the lattice
+    cases). Returns the largest absolute error."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    wrapper, plain = grid_fns(kind)
+    n, dev = src.shape[0], src.device
+    idx, d2 = torch.empty(n, dtype=torch.int32, device=dev), torch.empty(n, device=dev)
+    args = (grid, table, src, w, T[:3, :3], T[:3, 3], offsets, max_dist, huber_delta)
+    k, p = wrapper(*args, matches=(idx, d2)), plain(*args)
+    idx_p, d2_p = ga.plain_matches(grid, table, src, T[:3, :3], T[:3, 3], offsets)
+    if not (torch.equal(idx, idx_p) and torch.equal(d2, d2_p)):
+        bad = int(((idx != idx_p) | (d2 != d2_p)).sum())
+        raise AssertionError(f"{label}: {bad} of {n} winners differ from the plain query's")
+    err = float((k - p).abs().max())
+    if metric is None:
+        ok = (err <= 1e-5 * max(1.0, float(p.abs().max()))
+              and abs(float(k[28] - p[28])) <= 1e-5 * max(1.0, float(p[28])))
+    else:
+        e = compare_stats(k, p)
+        log(f"{label}: winners equal to the plain query's ({int((idx >= 0).sum())} of {n} "
+            f"found); rel err H {e[metric]:.3e} ({metric}), g {e['g']:.3e}, e2 {e['e2']:.3e}; "
+            f"n_inliers diff {e['n']:.0f}; max abs {e['max_abs']:.3e}")
+        ok = e[metric] < TOL_H and e["g"] < TOL_G and e["e2"] < TOL_E2 and e["n"] <= TOL_N
+    if not ok:
+        raise AssertionError(f"{label}: kernel {k.tolist()} against plain {p.tolist()}")
+    return err
+
+
+def grid_work(kind: str, grid, table, src, w, T, offsets, max_dist, idx, d2) -> tuple:
+    """``(bytes, operations)`` the stats of ``kind`` need on these inputs:
+    the weighted scan points, all weights, the offsets and the 29 sums once;
+    on a grid target the dense table's entries the windows probe, the start
+    and count of every slot found and the bucket points scanned (an index
+    and a point each), the normals of the winners; on a hashed map the key,
+    flag and centroid of every slot found and the features of the winners.
+    Operations: the transform and the cell (18 a query), a key (2) and, on a
+    hashed map, the binary search (2 per step) per probe of an in-box cell,
+    a distance (``FLOPS_DIST``) per candidate, a linearization per inlier."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.core.se3 import transform_points
+    from point_cloud_registration_tpu_torch.ops.hashgrid import (
+        coords_to_key,
+        lookup_slots,
+        query_cells,
+    )
+
+    dev = src.device
+    live = w != 0
+    q = transform_points(T.to(dev), src)[live]
+    off = torch.as_tensor(np.asarray(offsets), dtype=torch.int64, device=dev)
+    probed, found = [], []
+    in_box = candidates = 0.0
+    for a in range(0, q.shape[0], 1 << 14):
+        key = coords_to_key(query_cells(q[a:a + (1 << 14)], grid.cell_size)[:, None, :]
+                            + off[None], grid.origin_cell, grid.dims)
+        slot = lookup_slots(grid, key)
+        in_box += float((key >= 0).sum())
+        probed.append(torch.unique(key[key >= 0]))
+        found.append(torch.unique(slot[slot >= 0]))
+        if table.valid is None:
+            candidates += float(table.buckets.counts[slot.clamp(min=0).long()]
+                                .clamp(max=table.cap)[slot >= 0].sum())
+        else:
+            candidates += float(table.valid[slot.clamp(min=0).long()][slot >= 0].sum())
+    probed = torch.unique(torch.cat(probed)).numel()
+    found = torch.unique(torch.cat(found)).long()
+    n_live = int(live.sum())
+    inlier = live & (idx >= 0) & (torch.sqrt(d2) < max_dist)
+    winners = torch.unique(idx[inlier]).numel()
+    n_bytes = 12 * n_live + 4 * w.shape[0] + 12 * off.shape[0] + 29 * 4
+    flops = 18.0 * n_live + candidates * FLOPS_DIST + float(inlier.sum()) * GRID_KINDS[kind][2]
+    if table.valid is None:
+        scanned = int(table.buckets.counts[found].clamp(max=table.cap).sum())
+        n_bytes += (4 * probed if grid.dense is not None else 4 * found.numel())
+        n_bytes += 8 * found.numel() + 16 * scanned + (12 * winners if kind == "plane_pt" else 0)
+        flops += 2 * in_box
+    else:
+        n_bytes += 17 * found.numel() + table.feats.shape[1] * 4 * winners
+        steps = 1 if grid.dense is not None else int(np.ceil(np.log2(grid.n_cells + 1)))
+        flops += in_box * (2 + 2 * steps)
+    log(f"[{kind} kernel] work at the converged pose: {n_live} weighted queries, {in_box:.0f} "
+        f"in-box probes ({probed} distinct cells, {found.numel()} slots found), "
+        f"{candidates:.0f} candidates, {int(inlier.sum())} inliers ({winners} distinct winners): "
+        f"{n_bytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP")
+    return n_bytes, flops
+
+
+def hold_grid_kernel(tag: str, kind: str, s, src, w, T_k, d) -> dict:
+    """Phases 9-10: the grid stats kernel of ``kind`` on solver ``s``'s
+    align operands. The host loop over the plain version reaches the
+    align's T within ``TOL_GRID_PLAIN`` with equal iterations and flags; at
+    the initial, a middle and the converged pose of that loop the kernel
+    holds to its plain version (:func:`check_grid_launch`) and the launch
+    the align binds (``resident_stats`` at a pose row on the card) is the
+    wrapper's, bit for bit. Then the bound launch's time by events and alone
+    (profiler), the plain version's, and the bound at the converged pose."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core.gn import pose_rows_of, stats_from_packed
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    wrapper, plain = grid_fns(kind)
+    grid, table, offsets = grid_operands(kind, s)
+    cfg, dev = s.cfg, src.device
+    visited = []
+
+    def plain_stats(T):
+        visited.append(T.clone())
+        return stats_from_packed(plain(grid, table, src, w, T[:3, :3], T[:3, 3], offsets,
+                                       cfg.max_dist, cfg.huber_delta).cpu())
+
+    T_p, d_p = pt.gauss_newton(plain_stats, torch.eye(4), cfg.max_iter, cfg.tol)
+    dT = float(np.abs(T_p.numpy().astype(np.float64) - T_k).max())
+    same = (d_p.iterations, d_p.converged, d_p.solver_failed) == (
+        d.iterations, d.converged, d.solver_failed)
+    log(f"{tag} host loop over the plain version: {d_p.iterations} iterations, max |dT| vs the "
+        f"kernel's align {dT:.3e}; iterations and flags equal {same}")
+    if not (dT <= TOL_GRID_PLAIN and same):
+        raise AssertionError(f"{tag} the plain versions' host loop is off the kernel's align")
+    poses = {"initial": visited[0], "middle": visited[len(visited) // 2],
+             "converged": torch.as_tensor(T_k, dtype=torch.float32)}
+    worst = 0.0
+    for name, T in poses.items():
+        worst = max(worst, check_grid_launch(f"{tag} kernel vs plain at the {name} pose", kind,
+                                             grid, table, src, w, T, offsets, cfg.max_dist,
+                                             cfg.huber_delta, GRID_KINDS[kind][1]))
+        bound = ga.resident_stats(kind, grid, table, src, w, offsets, cfg.max_dist,
+                                  cfg.huber_delta, pose_rows_of(T[None]).to(dev), None)()
+        bound = bound.reshape(-1)  # (1, 29) from the card's launch
+        if not torch.equal(bound, wrapper(grid, table, src, w, T[:3, :3], T[:3, 3], offsets,
+                                          cfg.max_dist, cfg.huber_delta)):
+            raise AssertionError(f"{tag} the align's bound launch differs from the wrapper's")
+    Tc = poses["converged"]
+    n = src.shape[0]
+    idx, d2 = torch.empty(n, dtype=torch.int32, device=dev), torch.empty(n, device=dev)
+    wrapper(grid, table, src, w, Tc[:3, :3], Tc[:3, 3], offsets, cfg.max_dist, cfg.huber_delta,
+            matches=(idx, d2))
+    launch = ga.resident_stats(kind, grid, table, src, w, offsets, cfg.max_dist, cfg.huber_delta,
+                               pose_rows_of(Tc[None]).to(dev), None)
+    plain_call = lambda: plain(grid, table, src, w, Tc[:3, :3], Tc[:3, 3], offsets,  # noqa: E731
+                               cfg.max_dist, cfg.huber_delta)
+    kernel_ms = [cuda_ms(launch, 20), None]
+    plain_ms = [cuda_ms(plain_call, 5), None]
+    kernel_ms[1], plain_ms[1] = cuda_ms(launch, 20), cuda_ms(plain_call, 5)
+    alone = kernel_alone_ms(launch, 10, "grid_stats_kernel")
+    b_ms, b_by = bound_ms(*grid_work(kind, grid, table, src, w, Tc, offsets, cfg.max_dist, idx,
+                                     d2))
+    log(f"{tag} per-iteration stats at the converged T (the align's bound launch, plain, launch, "
+        f"plain): {kernel_ms[0]:.4f}, {plain_ms[0]:.4f}, {kernel_ms[1]:.4f}, {plain_ms[1]:.4f} ms; "
+        f"the kernel alone (profiler) {alone:.4f} ms; bound {b_ms:.6f} ms by {b_by}")
+    return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "alone_ms": alone, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst, "dT_plain": dT, "library_ms": None}
+
+
+def grid_lattice_cases(kind: str, dev) -> float:
+    """The grid stats kernel of ``kind`` against its plain version on lattice
+    layouts whose ties are exact, each with the dense key table and without
+    it (the binary search): for the grid kinds phase 5's lattice scene
+    (ties of two cells and in one cell, queries outside the grid, a scan above
+    the top layer, 3,000 random queries) in 1 m buckets at caps 64 and 5 (a
+    bucket of 8 over the cap), at two poses; for the hashed kinds phase 5's
+    voxel lattice (ties of two rows and of two bitmap words, an empty window,
+    the grid's faces, one query per launch; 1,000 queries with zero weights)
+    as a hashed map whose slots also hold occupied cells that are not valid,
+    at radius 2 and 1. Returns the largest absolute error."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.hashgrid import (
+        DENSE_CELL_BUDGET,
+        INVALID_KEY,
+        Grid,
+        build_grid,
+        search_offsets,
+    )
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    worst = 0.0
+    if kind in ("point", "plane_pt"):
+        pts, normals, scans = lattice_scene()
+        pts_t = torch.from_numpy(pts).to(dev)
+        nrm = torch.from_numpy(normals).to(dev) if kind == "plane_pt" else None
+        offsets = search_offsets(2.0, 1.0)
+        for budget in (DENSE_CELL_BUDGET, 1):
+            grid, _, buckets = build_grid(pts_t, 1.0, with_buckets=True, dense_budget=budget)
+            for cap in (64, 5):
+                table = ga.point_table(pts_t, buckets, cap, nrm)
+                for name, scan in scans.items():
+                    src = torch.from_numpy(scan).to(dev)
+                    w = torch.ones(len(scan), device=dev)
+                    for T in (torch.tensor(np.float32([[1, 0, 0, 0.5], [0, 1, 0, 0.25],
+                                                       [0, 0, 1, -0.5], [0, 0, 0, 1]])),
+                              torch.eye(4)):
+                        worst = max(worst, check_grid_launch(
+                            f"[{kind} lattice] {name}, cap {cap}, dense table "
+                            f"{grid.dense is not None}", kind, grid, table, src, w, T, offsets,
+                            2.0))
+        log(f"[{kind} kernel] vs plain on the lattice scene ({', '.join(scans)}; caps 64 and 5; "
+            f"dense table and binary search; two poses): winners equal, max abs err {worst:.3e}")
+        return worst
+    cells, dims, valid, ties = voxel_lattice(kind, dev)
+    n_valid = int(valid.sum())
+    rng = np.random.RandomState(SEED + 2)
+    occupied = valid | (rng.rand(valid.size) < 0.1)  # a tenth more slots, not valid
+    keys = np.flatnonzero(occupied)
+    cap = 1 << int(np.ceil(np.log2(len(keys) + 1)))
+    xyz = np.stack([keys % dims[0], (keys // dims[0]) % dims[1], keys // (dims[0] * dims[1])], 1)
+    means = (xyz + 0.5).astype(np.float32)
+    rows = np.cumsum(valid) - 1  # a valid cell's row of the cell index
+    width = 3 if kind == "plane" else 6
+    feats = np.zeros((len(keys), width), np.float32)
+    f = cells.feats[:n_valid, :width].cpu().numpy()
+    feats[valid[keys]] = f[rows[keys[valid[keys]]]]
+    if kind == "ndt":  # U -> icov = U^T U, packed [xx, yy, zz, xy, xz, yz]
+        u = feats
+        U = np.zeros((len(keys), 3, 3), np.float32)
+        U[:, 0], U[:, 1, 1:], U[:, 2, 2] = u[:, 0:3], u[:, 3:5], u[:, 5]
+        S = np.einsum("nki,nkj->nij", U, U)
+        feats = S[:, [0, 1, 2, 0, 0, 1], [0, 1, 2, 1, 2, 2]].astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa: E731
+    padded = np.full(cap, INVALID_KEY, np.int32)
+    padded[:len(keys)] = keys
+    slot_pad = lambda a: np.concatenate([a, np.zeros((cap - len(keys),) + a.shape[1:], a.dtype)])  # noqa: E731
+    table = ga.voxel_table(t(slot_pad(means)), t(slot_pad(valid[keys]), torch.bool),
+                           t(slot_pad(feats)))
+    dense = np.full(1 << int(np.ceil(np.log2(valid.size))), -1, np.int32)
+    dense[keys] = np.arange(len(keys))
+    hi = np.float32(dims)
+    singles = {
+        "tie": ties,
+        "empty window": np.float32([[23.5, 4.5, 3.5]]),
+        "faces": np.vstack([rng.rand(40, 3) * (hi + 6) - 3,
+                            np.float32([[0.0, 4.2, 3.1], [36.99, 4.2, 3.1], [10.1, 0.0, 6.99],
+                                        [10.1, 8.99, 0.0], [-2.5, 4.5, 3.5], [39.4, 8.0, 6.0],
+                                        [1e12, 0.0, 0.0], [5.0, -3e9, 2.0]])]),
+    }
+    many = t((rng.rand(1000, 3) * (hi + 2) - 1).astype(np.float32))
+    w_many = t((rng.rand(1000) > 0.33).astype(np.float32) * rng.rand(1000).astype(np.float32))
+    eye = torch.eye(4)
+    for with_dense in (False, True):
+        grid = Grid(origin_cell=(0, 0, 0), cell_size=1.0, dims=tuple(dims), keys=t(padded,
+                    torch.int32), n_cells=len(keys), dense=t(dense, torch.int32) if with_dense
+                    else None)
+        for max_dist in (2.0, 1.0):
+            offsets = search_offsets(max_dist, 1.0)
+            for name, qs in singles.items():
+                for qn in qs:
+                    worst = max(worst, check_grid_launch(
+                        f"[{kind} lattice] {name} {qn.tolist()} at max_dist {max_dist}", kind,
+                        grid, table, t(qn[None]), torch.ones(1, device=dev), eye, offsets,
+                        max_dist))
+            worst = max(worst, check_grid_launch(
+                f"[{kind} lattice] 1000 queries, {int((w_many == 0).sum())} of weight 0", kind,
+                grid, table, many, w_many, eye, offsets, max_dist))
+            # each tie goes to the cell probed first, the query's own (offset
+            # (0, 0, 0)); the dense probe of phase 5 takes the lower key
+            idx, _ = ga.plain_matches(grid, table, t(ties), eye[:3, :3], eye[:3, 3], offsets)
+            won = keys[idx.cpu().numpy()]
+            if not np.array_equal(won, [32, 64, 42, 177]):
+                raise AssertionError(f"[{kind} lattice] the tie winners are the keys {won}")
+    log(f"[{kind} kernel] vs plain on the voxel lattice as a hashed map ({len(keys)} slots, "
+        f"{n_valid} valid; ties of two rows and of two words of a row, an empty window, the "
+        f"grid's faces, one query per launch; 1,000 queries with zero weights; radius 2 and 1; "
+        f"binary search and dense table): winners equal, max abs err {worst:.3e}")
+    return worst
+
+
 def run_grid_targets(dev) -> dict:
     """Phase 9: ICP and PlaneICP with default configurations on a target below
-    ``auto_threshold``, which takes the ``"grid"`` method and the plain stats
-    (no packed-grid kernel); PlaneICP's normals through the k-NN kernel."""
+    ``auto_threshold``, which takes the ``"grid"`` method and the grid stats
+    kernel (no packed-grid kernel); PlaneICP's normals through the k-NN
+    kernel."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -1881,9 +2238,11 @@ def run_grid_targets(dev) -> dict:
     scan = make_scan(rng, target, N_SMALL_SCAN)
     target_t, scan_t = torch.from_numpy(target).to(dev), torch.from_numpy(scan).to(dev)
     out = {}
-    for name, cls, t_ref, its in (("icp", pt.ICP, T_REF_ICP_GRID, 5),
-                                  ("plane_icp", pt.PlaneICP, T_REF_PLANE_ICP_GRID, 3)):
+    for name, cls, t_ref, its, kind in (("icp", pt.ICP, T_REF_ICP_GRID, 5, "point"),
+                                        ("plane_icp", pt.PlaneICP, T_REF_PLANE_ICP_GRID, 3,
+                                         "plane_pt")):
         tag = f"[{name} grid]"
+        kernel = GRID_KINDS[kind][0]
         reset_launches()
         t0 = time.perf_counter()
         s = cls(**PARAMS, device=dev)
@@ -1905,13 +2264,14 @@ def run_grid_targets(dev) -> dict:
             raise AssertionError(f"{tag} the normals did not go through the k-NN kernel")
         d = s.last_diagnostics
         err = check_T(tag, T, d, t_ref, its)
-        resident = check_resident(tag, counts, None, d.iterations)
+        resident = check_resident(tag, counts, kernel, d.iterations)
         normals = s._target.normals if name == "plane_icp" else None
         warm = warm_runs(s, lambda x: x.set_target(target_t), scan_t, T)
-        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d)
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
+                             chunks(d.iterations))
         src, w = pad_points(scan_t, device=dev)
+        held = hold_grid_kernel(tag, kind, s, src, w, T, d)
         Tc = torch.as_tensor(T, dtype=torch.float32)
-        kind = "plane_pt" if name == "plane_icp" else "point"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -1921,11 +2281,14 @@ def run_grid_targets(dev) -> dict:
         log(f"{tag} warm (device-resident inputs{estimated}), set_target s / align s: "
             + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in warm)
             + f"; align per iteration {min(b for _, b in warm) / d.iterations * 1e3:.2f} ms; "
-              f"one stats call (CSR scan + reduction + copy) {stats_ms:.2f} ms")
+              f"one stats call (the wrapper's launch + the copy to the host) {stats_ms:.3f} ms")
         out[name] = {"first_call_s": first_s, "set_target_s": min(a for a, _ in warm),
                      "align_s": min(b for _, b in warm), "iterations": d.iterations,
                      "stats_ms": stats_ms, "dT_jax": err, "launches": counts,
-                     "resident": resident, **loops}
+                     "resident": resident, "kernel": held, **loops}
+    # the grid stats kernels on lattice targets, with and without the dense key table
+    out["lattice_max_abs_err"] = {kind: grid_lattice_cases(kind, dev)
+                                  for kind in ("point", "plane_pt")}
     # nearest_point against the exact 1-NN kernel at ICP's converged T: equal
     # wherever the window had no overflow and the match lies within a cell
     s = pt.ICP(**PARAMS, device=dev)
@@ -1954,18 +2317,20 @@ def run_grid_targets(dev) -> dict:
 
 def run_hashed_map(map_np, scan_np, dev) -> dict:
     """Phase 10: VPlaneICP and NDT on a map over the dense budget (two
-    districts: the city tile and the same tile 3 km away): hashed, aligned by
-    the plain stats (no fused launch), as in the JAX package."""
+    districts: the city tile and the same tile 3 km away): hashed, aligned
+    through the hashed stats kernel (no fused launch)."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.models.base import pad_points
     from point_cloud_registration_tpu_torch.ops.hashgrid import DENSE_CELL_BUDGET
 
     two = np.vstack([map_np, map_np + TILE_SHIFT])
     two_t, scan_t = torch.from_numpy(two).to(dev), torch.from_numpy(scan_np).to(dev)
     out = {}
-    for name, cls, t_ref, its in (("vplane_icp", pt.VPlaneICP, T_REF_VPLANE_HASHED, 4),
-                                  ("ndt", pt.NDT, T_REF_NDT_HASHED, 3)):
+    for name, cls, t_ref, its, kind in (("vplane_icp", pt.VPlaneICP, T_REF_VPLANE_HASHED, 4,
+                                         "plane"),
+                                        ("ndt", pt.NDT, T_REF_NDT_HASHED, 3, "ndt")):
         tag = f"[{name} hashed]"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1991,16 +2356,21 @@ def run_hashed_map(map_np, scan_np, dev) -> dict:
             raise AssertionError(f"{tag} the fused kernel ran on a hashed map")
         d = s.last_diagnostics
         err = check_T(tag, T, d, t_ref, its)
-        resident = check_resident(tag, counts, None, d.iterations)
+        resident = check_resident(tag, counts, GRID_KINDS[kind][0], d.iterations)
         warm = warm_runs(s, lambda x: x.set_target(two_t), scan_t, T)
-        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d)
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
+                             chunks(d.iterations))
+        src, w = pad_points(scan_t, device=dev)
+        held = hold_grid_kernel(tag, kind, s, src, w, T, d)
         align_s = min(b for _, b in warm)
         log(f"{tag} warm, set_target s / align s: "
             + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in warm)
             + f"; align per iteration {align_s / its * 1e3:.2f} ms")
         out[name] = {"set_target_s": min(a for a, _ in warm), "align_s": align_s,
-                     "iterations": its, "dT_jax": err, "resident": resident, **loops,
+                     "iterations": its, "dT_jax": err, "launches": counts,
+                     "resident": resident, "kernel": held, **loops,
                      "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    out["lattice_max_abs_err"] = {kind: grid_lattice_cases(kind, dev) for kind in ("plane", "ndt")}
     return out
 
 
@@ -3097,8 +3467,26 @@ def main() -> None:
                      "extra": {"alone_ms": gn_step["alone_ms"][1], "batched": {
                          "B": 8, **{k: gn_step[k][8] for k in (
                              "ms", "alone_ms", "plain_ms", "library_ms", "bound_ms")}}}}))
-    # launches on each path that runs the kernel, the main path's first
+    # the grid stats kernels (csrc/grid_align.cu), the port's own kernels for
+    # XLA code of the JAX package: their numbers on phases 9 and 10
     grid = results["grid"]
+    grid_paths = {"point": ("icp_grid", grid["icp"]),
+                  "plane_pt": ("plane_icp_grid", grid["plane_icp"]),
+                  "plane": ("hashed_vplane_icp", results["hashed"]["vplane_icp"]),
+                  "ndt": ("hashed_ndt", results["hashed"]["ndt"])}
+    for kind, (path_name, res) in grid_paths.items():
+        held = res["kernel"]
+        lattice = (grid if kind in ("point", "plane_pt") else results["hashed"])[
+            "lattice_max_abs_err"][kind]
+        rows.append((path_name, grid_fns(kind)[0], GRID_SOURCE,
+                     GRID_REPLACES[kind], {
+                         "launches": res["resident"]["enqueued"],
+                         "max_abs_err": max(held["max_abs_err"], lattice),
+                         "kernel_ms": held["kernel_ms"], "plain_ms": held["plain_ms"],
+                         "bound_ms": held["bound_ms"], "bound_by": held["bound_by"],
+                         "library_ms": held["library_ms"],
+                         "extra": {"alone_ms": held["alone_ms"]}}))
+    # launches on each path that runs the kernel, the main path's first
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
                               "update_target": results["update"]["vplane_icp"]["launches"],
@@ -3119,6 +3507,8 @@ def main() -> None:
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
+        **{GRID_KINDS[kind][0]: {path_name: res["launches"][GRID_KINDS[kind][0]]}
+           for kind, (path_name, res) in grid_paths.items()},
     }
     path_launches["gn_step"] = {
         **{name: results[name]["gn_step_launches"] for name in paths},

@@ -3,10 +3,10 @@
 Imports ``torch`` and never ``jax``. Ported: VPlaneICP and NDT (the dense
 voxel-map build with the fused correspondence + linearization + reduction
 kernel, kinds "plane" and "ndt"; the hashed build for boxes over the dense
-budget, with plain stats; ``update_target``), ICP and PlaneICP (the packed
-point grid with its proxy voxel map and the point stats kernel, kinds
-"point" and "plane_pt", from 50k target points; the CSR grid with plain
-stats below that), each with the Gauss-Newton loop on the card (the stats
+budget, with the hashed stats kernel; ``update_target``), ICP and PlaneICP
+(the packed point grid with its proxy voxel map and the point stats kernel,
+kinds "point" and "plane_pt", from 50k target points; the CSR grid with the
+grid stats kernel below that), each with the Gauss-Newton loop on the card (the stats
 kernel and the ``gn_step`` kernel per iteration, ``core.gn``), k-NN PCA normals
 (the k-NN moments kernel) and the exact 1-NN kernel (the exact escapes of
 ``KDTree``); FastVPlaneICP (the fused plane kernel, the float64 coreset

@@ -368,19 +368,6 @@ def read_state(state: GNState) -> GNState:
 ResidentStats = Callable[[torch.Tensor, "torch.Tensor | None"], Callable[[], torch.Tensor]]
 
 
-def plain_launch(stats: Callable[[], torch.Tensor], done: "torch.Tensor | None"):
-    """A resident launcher over plain torch stats, which wait for the card
-    anyway: it reads ``done`` first (one more wait) and returns zeros, which
-    ``gn_step`` ignores, once every problem is done, so that the iterations
-    enqueued past the end of an align cost no stats."""
-    def launch() -> torch.Tensor:
-        if done is not None and bool(done.all()):
-            return torch.zeros(done.shape[0], 29, dtype=torch.float32, device=done.device)
-        return stats()
-
-    return launch
-
-
 def enqueued_iterations(iterations: int, max_iter: int) -> int:
     """Iterations a resident loop enqueues for an align whose last problem
     stops after ``iterations``: whole chunks, at most ``max_iter``. Each one

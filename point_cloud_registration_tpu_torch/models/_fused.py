@@ -9,15 +9,17 @@ The map's layout picks the stats, as in the JAX package:
   straggler fallback tiers (_fused.py:136-163) serve its region clamp; the
   CUDA kernel reads every window from global memory, so no query is ever
   left unresolved and none of them is needed;
-* a hashed map (over the dense budget): ``query_nearest_voxel`` and the
-  plain reductions of ``ops/reduce.py`` (voxelized_plane_icp.py:64,
-  ndt.py:64), which the JAX package also runs without a Pallas kernel
+* a hashed map (over the dense budget): each iteration is one launch of
+  ``ops/kernels/grid_align.hashed_plane_stats`` or ``hashed_ndt_stats``,
+  ``query_nearest_voxel``'s binary searches and the reductions of
+  ``ops/reduce.py`` (voxelized_plane_icp.py:64, ndt.py:64; NDT in the
+  Mahalanobis form) in one kernel; the JAX package leaves them to XLA
   (``voxel_fused_spec`` returns None without dense blocks).
 
 Either way the align runs the resident Gauss-Newton loop
-(``core.gn.gauss_newton_device``): the stats read the pose from the loop's
-state on the data's device and ``gn_step`` updates it there; the host reads
-the state once per chunk of iterations.
+(``core.gn.gauss_newton_device``): the kernel reads the pose and the done
+flag from the loop's state on the card and ``gn_step`` updates it there;
+the host reads the state once per chunk of iterations.
 
 :func:`fused_voxel_align_batched` aligns B scans against one dense map with
 one launch of the batched kernel per Gauss-Newton iteration, in the
@@ -32,57 +34,46 @@ import torch
 
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import NDTConfig, VPlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import (
-    GNDiagnostics,
-    GNStats,
-    ResidentStats,
-    transforms_of,
-)
-from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
+from point_cloud_registration_tpu_torch.core.se3 import makeRt
+from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
+from point_cloud_registration_tpu_torch.ops.kernels import grid_align
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     fused_ndt_stats,
     fused_plane_stats,
-    packed_from_stats,
     resident_stats,
     stats_from_packed,
 )
-from point_cloud_registration_tpu_torch.ops.reduce import ndt_stats, plane_stats
-from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap, query_nearest_voxel
+from point_cloud_registration_tpu_torch.ops.voxelize import VoxelMap
 
 _STATS = {"plane": fused_plane_stats, "ndt": fused_ndt_stats}
+_HASHED_STATS = {"plane": grid_align.hashed_plane_stats, "ndt": grid_align.hashed_ndt_stats}
+
+
+def hashed_operands(vm: VoxelMap, cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane") -> tuple:
+    """``(grid, table, offsets)`` of a hashed map for the hashed stats
+    kernels (``ops/kernels/grid_align``): the slots' centroids, valid flags
+    and normals (``"plane"``) or inverse covariances (``"ndt"``), and the
+    window of ``query_nearest_voxel`` (``search_offsets`` of the voxel)."""
+    feats = vm.normals if kind == "plane" else vm.icovs
+    return (vm.grid, grid_align.voxel_table(vm.means, vm.valid, feats),
+            search_offsets(cfg.max_dist, cfg.voxel_size))
 
 
 def hashed_voxel_stats_packed(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
                               T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
                               kind: str = "plane") -> torch.Tensor:
-    """The plain stats of a hashed map at ``T`` (float32 (4, 4), on the host
-    or the data's device):
-    the nearest valid voxel in the ``search_offsets`` window, gated on
-    ``dist < max_dist``; point-to-plane, or NDT's Mahalanobis form with the
-    cell's inverse covariance. -> the (29,) packed stats on the data's
-    device (``ops/kernels/fused_align.packed_from_stats``)."""
-    Td = T.to(source.device)
-    R, _ = makeRt(Td)
-    src_trans = transform_points(Td, source)
-    nn = query_nearest_voxel(vm, src_trans, voxel_size=cfg.voxel_size, max_dist=cfg.max_dist)
-    w = src_weight * (nn.dist < cfg.max_dist) * (nn.idx >= 0)
-    safe = nn.idx.clamp(0, vm.means.shape[0] - 1).to(torch.int64)
-    if kind == "plane":
-        stats = plane_stats(source, src_trans, vm.means[safe], vm.normals[safe], w, R,
-                            huber_delta=cfg.huber_delta)
-    else:
-        stats = ndt_stats(source, src_trans, vm.means[safe], vm.icovs[safe], w, R,
-                          huber_delta=cfg.huber_delta)
-    return packed_from_stats(stats)
-
-
-def hashed_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-                       T: torch.Tensor, cfg: VPlaneICPConfig | NDTConfig,
-                       kind: str = "plane") -> GNStats:
-    """:func:`hashed_voxel_stats_packed` -> GNStats on the host, with one
-    device sync."""
-    return stats_from_packed(
-        hashed_voxel_stats_packed(vm, source, src_weight, T, cfg, kind).cpu())
+    """The stats of a hashed map at ``T`` (float32 (4, 4), on the host or
+    the data's device): the nearest valid voxel in the ``search_offsets``
+    window, gated on ``dist < max_dist``; point-to-plane, or NDT's
+    Mahalanobis form with the cell's inverse covariance. One launch of the
+    hashed stats kernel of the kind on CUDA tensors, its plain version on CPU
+    ones. -> the (29,) packed stats on the data's device
+    (``ops/kernels/fused_align.packed_from_stats``)."""
+    grid, table, offsets = hashed_operands(vm, cfg, kind)
+    R, t = makeRt(T)
+    return _HASHED_STATS[kind](grid, table, source, src_weight, R, t, offsets, cfg.max_dist,
+                               cfg.huber_delta)
 
 
 def fused_voxel_stats_packed(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
@@ -114,13 +105,14 @@ def fused_voxel_stats_resident(vm: VoxelMap, source: torch.Tensor, src_weight: t
                                kind: str = "plane") -> ResidentStats:
     """The stats of one scan as a resident loop binds them (``core.gn.
     ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
-    data's device, a launch per iteration of the fused kernel, which reads
-    the pose and the flag on the card, on a dense map; on a hashed map
-    :func:`hashed_voxel_stats_packed` at the pose's transform (plain torch
-    ops, skipped once the flag is set: ``core.gn.plain_launch``)."""
+    data's device, a launch per iteration of a kernel that reads the pose
+    and the flag on the card: the fused kernel (``fused_align``) on a dense
+    map, the hashed stats kernel (``grid_align``) on a hashed one."""
     if vm.hashed:
-        return lambda poses, done: gn.plain_launch(lambda: hashed_voxel_stats_packed(
-            vm, source, src_weight, transforms_of(poses)[0], cfg, kind), done)
+        grid, table, offsets = hashed_operands(vm, cfg, kind)
+        return lambda poses, done: grid_align.resident_stats(
+            kind, grid, table, source, src_weight, offsets, cfg.max_dist, cfg.huber_delta,
+            poses, done)
     return lambda poses, done: resident_stats(kind, vm.cells, vm.origin_cell, vm.dims,
                                               vm.cell_size, source, src_weight, cfg.max_dist,
                                               cfg.huber_delta, poses, done)

@@ -11,14 +11,16 @@ The target's layout picks the stats, as in the JAX package:
   voxel), so the TPU align's Morton layout, tile key lists, dense fused rows
   and fallback tiers (_point_fused.py:38-66, :110-167), which serve its VMEM
   tiles, have no counterpart;
-* a grid target (small targets, ``"grid"`` correspondence): the CSR scan of
-  ``match_points`` and the plain reductions of ``ops/reduce.py``
-  (icp.py:48-56, plane_icp.py:60-85), which the JAX package also runs
-  without a Pallas kernel (``point_fused_spec`` needs a packed target).
+* a grid target (small targets, ``"grid"`` correspondence): each iteration
+  is one launch of ``ops/kernels/grid_align.grid_point_stats`` or
+  ``grid_plane_point_stats``, the CSR bucket scan of ``match_points`` and
+  the reductions of ``ops/reduce.py`` (icp.py:48-56, plane_icp.py:60-85) in
+  one kernel; the JAX package leaves them to XLA (``point_fused_spec``
+  needs a packed target).
 
 Either way the align runs the resident Gauss-Newton loop
-(``core.gn.gauss_newton_device``): the stats read the pose from the loop's
-state on the data's device and ``gn_step`` updates it there.
+(``core.gn.gauss_newton_device``): the kernel reads the pose and the done
+flag from the loop's state on the card and ``gn_step`` updates it there.
 
 :func:`fused_point_align_batched` aligns B scans against one packed target
 with one launch of the batched kernel per Gauss-Newton iteration, in the
@@ -31,31 +33,35 @@ import torch
 
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import (
-    GNDiagnostics,
-    GNStats,
-    ResidentStats,
-    transforms_of,
-)
-from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
+from point_cloud_registration_tpu_torch.core.se3 import makeRt
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
-    match_points,
+    grid_cell_of,
     proxy_radius,
 )
-from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
-    packed_from_stats,
-    stats_from_packed,
-)
+from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
+from point_cloud_registration_tpu_torch.ops.kernels import grid_align
+from point_cloud_registration_tpu_torch.ops.kernels.fused_align import stats_from_packed
 from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
     plane_point_stats,
     point_stats,
     resident_stats,
 )
-from point_cloud_registration_tpu_torch.ops.reduce import plane_stats
-from point_cloud_registration_tpu_torch.ops.reduce import point_stats as reduce_point_stats
 
 _STATS_FN = {"point": point_stats, "plane_pt": plane_point_stats}
+_GRID_STATS = {"point": grid_align.grid_point_stats,
+               "plane_pt": grid_align.grid_plane_point_stats}
+
+
+def grid_operands(target: PointCorrTarget, cfg: ICPConfig | PlaneICPConfig,
+                  normals: torch.Tensor | None = None) -> tuple:
+    """``(grid, table, offsets)`` of a grid target for the grid stats kernels
+    (``ops/kernels/grid_align``): the CSR buckets scanned up to
+    ``cell_cap``, ``normals`` (PlaneICP's) in the table, and the window of
+    ``match_points`` (``search_offsets`` of the bucket cell)."""
+    table = grid_align.point_table(target.points, target.buckets, cfg.corr.cell_cap, normals)
+    return target.grid, table, search_offsets(cfg.max_dist, grid_cell_of(cfg.corr, cfg.max_dist))
 
 
 def grid_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
@@ -64,32 +70,16 @@ def grid_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
                             normals: torch.Tensor | None = None) -> torch.Tensor:
     """Grid correspondence + the point (``normals`` None) or point-to-plane
     linearization at ``T`` (float32 (4, 4), on the host or the data's
-    device), as ``icp_stats`` and
-    ``plane_icp_stats`` of the JAX package: a raw match takes
-    ``normals[point_idx]``. -> the (29,) packed stats on the data's device
+    device), as ``icp_stats`` and ``plane_icp_stats`` of the JAX package: a
+    raw match takes ``normals[point_idx]``. One launch of the grid stats
+    kernel of the kind on CUDA tensors, its plain version on CPU ones. ->
+    the (29,) packed stats on the data's device
     (``ops/kernels/fused_align.packed_from_stats``)."""
-    Td = T.to(source.device)
-    R, _ = makeRt(Td)
-    src_trans = transform_points(Td, source)
-    m = match_points(target, src_trans, cfg.corr, cfg.max_dist)
-    w = src_weight * m.weight
-    if normals is None:
-        stats = reduce_point_stats(source, src_trans, m.target, w, R,
-                                   huber_delta=cfg.huber_delta)
-    else:
-        safe = m.point_idx.clamp(0, normals.shape[0] - 1)
-        stats = plane_stats(source, src_trans, m.target, normals[safe], w, R,
-                            huber_delta=cfg.huber_delta)
-    return packed_from_stats(stats)
-
-
-def grid_point_stats(target: PointCorrTarget, source: torch.Tensor, src_weight: torch.Tensor,
-                     T: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
-                     normals: torch.Tensor | None = None) -> GNStats:
-    """:func:`grid_point_stats_packed` -> GNStats on the host, with one
-    device sync."""
-    return stats_from_packed(
-        grid_point_stats_packed(target, source, src_weight, T, cfg, normals).cpu())
+    grid, table, offsets = grid_operands(target, cfg, normals)
+    R, t = makeRt(T)
+    kind = "point" if normals is None else "plane_pt"
+    return _GRID_STATS[kind](grid, table, source, src_weight, R, t, offsets, cfg.max_dist,
+                             cfg.huber_delta)
 
 
 def fused_point_stats_packed(target: PointCorrTarget, source: torch.Tensor,
@@ -127,13 +117,15 @@ def fused_point_stats_resident(target: PointCorrTarget, source: torch.Tensor,
     """The stats of one scan as a resident loop binds them (``core.gn.
     ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
     data's device, a launch per iteration of the kernel of ``kind``, which
-    reads the pose and the flag on the card, on a packed target; on a grid
-    target :func:`grid_point_stats_packed` at the pose's transform (plain
-    torch ops, skipped once the flag is set: ``core.gn.plain_launch``)."""
+    reads the pose and the flag on the card: the packed-grid kernel
+    (``point_align``) on a packed target, the grid stats kernel
+    (``grid_align``) on a grid target."""
     if target.packed is None:
-        nrm = normals if kind == "plane_pt" else None
-        return lambda poses, done: gn.plain_launch(lambda: grid_point_stats_packed(
-            target, source, src_weight, transforms_of(poses)[0], cfg, nrm), done)
+        grid, table, offsets = grid_operands(target, cfg,
+                                             normals if kind == "plane_pt" else None)
+        return lambda poses, done: grid_align.resident_stats(
+            kind, grid, table, source, src_weight, offsets, cfg.max_dist, cfg.huber_delta,
+            poses, done)
     radius = proxy_radius(cfg.corr, cfg.max_dist)
     return lambda poses, done: resident_stats(kind, target.packed, target.proxy, source,
                                               src_weight, cfg.max_dist, radius,

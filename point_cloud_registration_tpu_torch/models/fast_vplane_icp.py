@@ -80,8 +80,8 @@ def _phase2_align(vm: VoxelMap, src_sub: torch.Tensor, w_sub: torch.Tensor, init
     Its stats are the plane stats of the coreset weighted by ``w_sub``
     (``fused_voxel_stats_resident``): on a dense map one launch of the fused
     plane kernel, which folds in the match and the ``dist < max_dist`` gate
-    as the JAX loop's ``w_sub * (w_lin > 0)`` does; on a hashed map the
-    plain stats. The loop is the resident one, on the coreset's device. The
+    as the JAX loop's ``w_sub * (w_lin > 0)`` does; on a hashed map one
+    launch of the hashed plane kernel. The loop is the resident one, on the coreset's device. The
     histories have length ``iters_left``.
     """
     stats_fn = fused_voxel_stats_resident(vm, src_sub, w_sub, cfg, "plane")

@@ -4,8 +4,8 @@ Objective ``sum_i || T p_i - q_i ||^2`` with gated nearest-neighbour
 correspondences, the reference solver at icp.py:12-57. A target of 50k
 points and more is indexed by the packed point grid with its proxy voxel
 map, and each Gauss-Newton iteration is one launch of the point stats
-kernel; a smaller one by the CSR grid, with the plain stats
-(``models/_point_corr.py``, ``models/_point_fused.py``).
+kernel; a smaller one by the CSR grid, with one launch of the grid point
+stats kernel (``models/_point_corr.py``, ``models/_point_fused.py``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ nearest voxel Gaussian, the reference solver at ndt.py:12-57 (plain GN on
 the Mahalanobis cost, not Magnusson's exponential-likelihood NDT). On a
 dense map (also after ``update_target``) the stats kernel takes the whitened
 form: ``U (T p - mu)`` with ``U^T U = icov`` read from the winner's row of
-the cell index; a hashed map (a box over the dense budget) takes the plain
-icov form, as the JAX package's CPU path does.
+the cell index; on a hashed map (a box over the dense budget) the hashed
+stats kernel takes the icov form, as the JAX package's hashed path does.
 """
 
 from __future__ import annotations

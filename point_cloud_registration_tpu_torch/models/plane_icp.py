@@ -8,8 +8,8 @@ matched point's normal. On a packed target (50k points and more) the normal
 rides in the packed rows beside the point, queries beyond the packed tier's
 exactness radius take the proxy voxel's centroid and plane, and each
 Gauss-Newton iteration is one launch of the "plane_pt" stats kernel; a
-smaller target takes the grid method and the plain stats
-(``models/_point_fused.py``). Either way ``set_target`` estimates the
+smaller target takes the grid method and one launch of the grid "plane_pt"
+stats kernel (``models/_point_fused.py``). Either way ``set_target`` estimates the
 normals through the k-NN moments kernel (``ops/normals.py``) unless they are
 given (plane_icp.py:19-28), so that alignment is timed apart from normal
 estimation.

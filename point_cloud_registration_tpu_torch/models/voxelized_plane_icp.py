@@ -4,8 +4,8 @@
 Correspondences are the nearest *voxel Gaussian* (mean + normal) of a voxel
 map, the reference solver at voxelized_plane_icp.py:12-64. The nearest voxel
 is found in a window of cells that provably covers ``max_dist``: inside the
-fused stats kernel on a dense map (also after ``update_target``), by plain
-torch ops on a hashed one (a box over the dense budget).
+fused stats kernel on a dense map (also after ``update_target``), inside
+the hashed stats kernel on a hashed one (a box over the dense budget).
 """
 
 from __future__ import annotations

@@ -1,0 +1,431 @@
+"""Hashed-grid correspondence + linearization + reduction: the stats of one
+Gauss-Newton iteration of ICP and PlaneICP on a small target (the ``"grid"``
+method: raw points in CSR buckets) and of VPlaneICP and NDT on a hashed
+voxel map (a box over the dense budget).
+
+These are the port's own kernels for XLA code of the JAX package, which has
+no Pallas kernel for either layout: ``ops/knn.py::nearest_point`` (:410) or
+``nearest_voxel`` (:78) chained with ``ops/reduce.py``'s ``point_stats``,
+``plane_stats`` or ``ndt_stats`` as ``icp_stats``, ``plane_icp_stats``,
+``vplane_stats`` and ``ndt_solver_stats`` chain them. For each scan point
+``q = R p + t``: the first minimum of the squared distance over the cells
+of ``hashgrid.search_offsets`` in their order (a bucket's first ``cap``
+points, or a slot's centroid where it is valid), gated on
+``sqrt(d2) < max_dist``, linearized point-to-point, point-to-plane with the
+matched point's or voxel's normal, or in NDT's Mahalanobis (icov) form, and
+reduced to the 29 stat values of ``fused_align``.
+
+The kernel reads the grid and a :class:`GridTable`: :func:`point_table`
+(a small target's points, optional normals, CSR buckets and ``cap``) or
+:func:`voxel_table` (a hashed map's centroids, valid flags and normals or
+packed inverse covariances). The wrappers :func:`grid_point_stats`,
+:func:`grid_plane_point_stats`, :func:`hashed_plane_stats` and
+:func:`hashed_ndt_stats` launch the hand-written kernels of
+``csrc/grid_align.cu`` for CUDA tensors and add one to their ``launches``;
+CPU tensors take the plain PyTorch versions,
+:func:`grid_point_stats_reference` and :func:`hashed_voxel_stats_reference`
+(``knn.nearest_point`` / ``nearest_voxel`` and ``ops/reduce.py``), which the
+tests and ``chip_smoke.py`` also call directly. There is no fallback between
+the two. A resident Gauss-Newton loop binds :func:`resident_stats` once per
+align: the pose row and the done flag stay on the card, where the kernel
+reads them.
+
+``matches``, a pair of (n,) int32 and float32 tensors, receives each query's
+winner (a point index or a slot, -1 for none) and its squared distance
+(``inf`` for none), weighted or not: the checks hold them to the plain
+queries.
+
+There is no batched entry: a batched align on a grid target or a hashed map
+raises ``ValueError``, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from point_cloud_registration_tpu_torch.core.gn import packed_from_stats
+from point_cloud_registration_tpu_torch.core.se3 import makeT, transform_points
+from point_cloud_registration_tpu_torch.ops import reduce
+from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid
+from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
+from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
+    STATS_WIDTH,
+    bound_launch,
+    check_operands,
+    check_poses,
+    pose_rows,
+    require_cuda,
+    rt_of_poses,
+)
+from point_cloud_registration_tpu_torch.ops.knn import _sq_dist, nearest_point, nearest_voxel
+
+__all__ = [
+    "GridTable", "grid_plane_point_stats", "grid_point_stats", "grid_point_stats_reference",
+    "hashed_ndt_stats", "hashed_plane_stats", "hashed_voxel_stats_reference", "point_table",
+    "resident_stats", "voxel_table",
+]
+
+# Most blocks of one launch (64 threads each): one wave of the card at the
+# kernel's occupancy; past it the blocks stride over the scan.
+MAX_BLOCKS = 2048
+_C_SYMBOLS = {"point": "pcr_grid_point_stats", "plane_pt": "pcr_grid_plane_point_stats",
+              "plane": "pcr_hashed_plane_stats", "ndt": "pcr_hashed_ndt_stats"}
+_FEAT_WIDTHS = {"point": None, "plane_pt": 3, "plane": 3, "ndt": 6}
+
+
+class GridTable(NamedTuple):
+    """What a grid stats kernel reads at a slot of the grid: a small target's
+    raw points in CSR buckets (``buckets`` and ``cap`` set, ``valid`` None)
+    or a hashed voxel map's slots (``valid`` set, ``buckets`` None)."""
+
+    points: torch.Tensor  # (N, 3) target points, or (C, 3) voxel centroids
+    feats: torch.Tensor | None  # (N, 3) or (C, 3) normals, (C, 6) packed icov, or None
+    valid: torch.Tensor | None  # (C,) bool, a hashed map's
+    buckets: Buckets | None  # a small target's CSR buckets
+    cap: int  # points scanned per bucket (0 for a hashed map)
+
+
+def point_table(points: torch.Tensor, buckets: Buckets, cap: int,
+                normals: torch.Tensor | None = None) -> GridTable:
+    """The table of a grid target: ``points`` (N, 3) bucketed by the grid,
+    at most ``cap`` of a bucket scanned, ``normals`` (N, 3) for PlaneICP."""
+    return GridTable(points=points, feats=normals, valid=None, buckets=buckets, cap=int(cap))
+
+
+def voxel_table(means: torch.Tensor, valid: torch.Tensor, feats: torch.Tensor) -> GridTable:
+    """The table of a hashed voxel map: per slot its centroid ``means``
+    (C, 3), ``valid`` (C,) flag and ``feats``, normals (C, 3) for VPlaneICP
+    or packed inverse covariances (C, 6) ``[xx, yy, zz, xy, xz, yz]`` for
+    NDT."""
+    return GridTable(points=means, feats=feats, valid=valid, buckets=None, cap=0)
+
+
+def table_kind(table: GridTable) -> str:
+    """The kind a table serves: ``"point"`` or ``"plane_pt"`` (buckets,
+    without or with normals), ``"plane"`` or ``"ndt"`` (valid flags, with
+    normals or inverse covariances)."""
+    if table.valid is None:
+        return "point" if table.feats is None else "plane_pt"
+    return "plane" if table.feats.shape[-1] == 3 else "ndt"
+
+
+def _transformed(src: torch.Tensor, R, t) -> tuple:
+    dev = src.device
+    R = torch.as_tensor(R, dtype=torch.float32).to(dev)
+    t = torch.as_tensor(t, dtype=torch.float32).to(dev)
+    return transform_points(makeT(R, t), src), R
+
+
+def grid_point_stats_reference(grid: Grid, table: GridTable, src: torch.Tensor,
+                               w: torch.Tensor, R, t, offsets, max_dist: float,
+                               huber_delta: float | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the grid kinds, on the device of ``src``:
+    ``knn.nearest_point`` at ``q = R src + t``, the gate ``dist < max_dist``
+    on a found match, then ``reduce.point_stats`` (a table without normals)
+    or ``reduce.plane_stats`` with the matched point's normal. Returns the
+    (29,) stats."""
+    q, R = _transformed(src, R, t)
+    nn = nearest_point(grid, table.buckets, table.points, q, offsets, cap=table.cap)
+    idx = nn.idx.to(torch.int64)
+    found = ((nn.dist < max_dist) & (idx >= 0)).to(torch.float32)
+    wq = w * found
+    safe = idx.clamp(0, table.points.shape[0] - 1)
+    if table.feats is None:
+        stats = reduce.point_stats(src, q, table.points[safe], wq, R, huber_delta=huber_delta)
+    else:
+        safe_n = idx.clamp(0, table.feats.shape[0] - 1)
+        stats = reduce.plane_stats(src, q, table.points[safe], table.feats[safe_n], wq, R,
+                                   huber_delta=huber_delta)
+    return packed_from_stats(stats)
+
+
+def hashed_voxel_stats_reference(grid: Grid, table: GridTable, src: torch.Tensor,
+                                 w: torch.Tensor, R, t, offsets, max_dist: float,
+                                 huber_delta: float | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the hashed kinds, on the device of ``src``:
+    ``knn.nearest_voxel`` at ``q = R src + t``, the gate ``dist < max_dist``
+    on a found slot, then ``reduce.plane_stats`` with the slot's normal or
+    ``reduce.ndt_stats`` with its inverse covariance (the Mahalanobis form).
+    Returns the (29,) stats."""
+    q, R = _transformed(src, R, t)
+    nn = nearest_voxel(grid, table.points, table.valid, q, offsets)
+    wq = w * (nn.dist < max_dist) * (nn.idx >= 0)
+    safe = nn.idx.clamp(0, table.points.shape[0] - 1).to(torch.int64)
+    stats_fn = reduce.plane_stats if table.feats.shape[-1] == 3 else reduce.ndt_stats
+    stats = stats_fn(src, q, table.points[safe], table.feats[safe], wq, R,
+                     huber_delta=huber_delta)
+    return packed_from_stats(stats)
+
+
+def _reference(kind: str):
+    return grid_point_stats_reference if kind in ("point", "plane_pt") \
+        else hashed_voxel_stats_reference
+
+
+def plain_matches(grid: Grid, table: GridTable, src: torch.Tensor, R, t, offsets) -> tuple:
+    """``(idx (n,) int32, d2 (n,) float32)``: each query's winner by the plain
+    query (-1 and ``inf`` for none), with the squared distance the search
+    formed (``knn._sq_dist``)."""
+    q, _ = _transformed(src, R, t)
+    if table.valid is None:
+        nn = nearest_point(grid, table.buckets, table.points, q, offsets, cap=table.cap)
+    else:
+        nn = nearest_voxel(grid, table.points, table.valid, q, offsets)
+    safe = nn.idx.clamp(0, table.points.shape[0] - 1).to(torch.int64)
+    d2 = _sq_dist(q, table.points[safe])
+    return nn.idx, torch.where(nn.idx >= 0, d2, torch.full_like(d2, float("inf")))
+
+
+def _bind(lib: ctypes.CDLL, kind: str):
+    """``(C function, threads per block)`` of ``kind`` in a built library."""
+    fn = getattr(lib, _C_SYMBOLS[kind])
+    c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fn.argtypes = (
+        [c_ptr] * 6 + [c_int]  # pts, feats, valid, perm, starts, counts, cap
+        + [c_ptr, c_int, c_ptr] + [c_int] * 6 + [c_float]  # keys, n_cells, dense, box, cell
+        + [c_ptr, c_int]  # offsets, K
+        + [c_ptr, c_ptr, c_int, c_ptr, c_ptr]  # src, w, n, pose, done
+        + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
+        + [c_ptr, c_int, c_ptr, c_ptr, c_ptr]  # partials, n_blocks, matches, stream
+    )
+    fn.restype = c_int
+    block = lib.pcr_grid_block_size
+    block.argtypes = []
+    block.restype = c_int
+    return fn, int(block())
+
+
+@functools.cache
+def _kernel_fn(kind: str):
+    return _bind(load_library("grid_align"), kind)
+
+
+def _need(name: str, x, dtype, shape, device) -> None:
+    if (not isinstance(x, torch.Tensor) or x.device != device or x.dtype != dtype
+            or tuple(x.shape) != tuple(shape)):
+        got = (f"{x.dtype} {tuple(x.shape)} on {x.device}" if isinstance(x, torch.Tensor)
+               else type(x).__name__)
+        raise ValueError(f"{name} must be a {dtype} tensor of shape {tuple(shape)} on {device}, "
+                         f"got {got}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_table(kind: str, grid: Grid, table: GridTable, device) -> None:
+    """Raise unless the kernel of ``kind`` can read ``grid`` and ``table`` on
+    ``device``."""
+    if kind not in _C_SYMBOLS:
+        raise ValueError(f"unknown kind {kind!r}")
+    if table_kind(table) != kind:
+        raise ValueError(f"a table of kind {table_kind(table)!r} given to the {kind!r} kernel")
+    C = grid.keys.shape[0]
+    _need("grid.keys", grid.keys, torch.int32, (C,), device)
+    if not 0 <= grid.n_cells <= C:
+        raise ValueError(f"n_cells {grid.n_cells} is not within the {C} keys")
+    cells = int(np.prod([float(d) for d in grid.dims]))
+    if min(grid.dims) < 1 or cells >= np.iinfo(np.int32).max:
+        raise ValueError(f"dims {grid.dims} do not give an int32 keyspace")
+    if grid.dense is not None:
+        if grid.dense.dim() != 1 or grid.dense.shape[0] < cells:
+            raise ValueError(f"the dense table ({tuple(grid.dense.shape)}) is smaller than the "
+                             f"{cells} cells of the box")
+        _need("grid.dense", grid.dense, torch.int32, grid.dense.shape, device)
+    n = table.points.shape[0]
+    _need("points", table.points, torch.float32, (n, 3), device)
+    if table.feats is not None:
+        _need("feats", table.feats, torch.float32, (n, _FEAT_WIDTHS[kind]), device)
+    if table.valid is None:
+        b = table.buckets
+        _need("buckets.perm", b.perm, torch.int32, (n,), device)
+        _need("buckets.starts", b.starts, torch.int32, (C,), device)
+        _need("buckets.counts", b.counts, torch.int32, (C,), device)
+        if table.cap < 0:
+            raise ValueError(f"cap {table.cap} is negative")
+    else:
+        _need("valid", table.valid, torch.bool, (C,), device)
+        if n != C:
+            raise ValueError(f"{n} centroids for the grid's {C} slots")
+
+
+def offsets_on(offsets, device) -> torch.Tensor:
+    """The (K, 3) window offsets as a contiguous int32 tensor on ``device``;
+    host offsets go to a card from pinned memory, a copy that does not wait
+    for the card."""
+    off = torch.as_tensor(np.asarray(offsets) if not isinstance(offsets, torch.Tensor)
+                          else offsets).to(torch.int32)
+    if off.dim() != 2 or off.shape[1] != 3:
+        raise ValueError(f"offsets must be (K, 3), got {tuple(off.shape)}")
+    device = torch.device(device)
+    if off.device.type == "cpu" and device.type == "cuda":
+        return off.contiguous().pin_memory().to(device, non_blocking=True)
+    return off.to(device).contiguous()
+
+
+def _check_matches(matches, n: int, device) -> None:
+    if matches is not None:
+        idx, d2 = matches
+        _need("matches[0]", idx, torch.int32, (n,), device)
+        _need("matches[1]", d2, torch.float32, (n,), device)
+
+
+def _launch_args(bound, grid: Grid, table: GridTable, src, w, offsets, poses, done,
+                 max_dist, huber_delta, matches) -> tuple:
+    """``(fn, args, partials)``: the C function of ``bound`` and its
+    arguments for these checked operands on the card, on the current
+    stream, and the (1, n_blocks, 29) partials buffer they name."""
+    fn, block = bound
+    n = src.shape[0]
+    n_blocks = min(-(-n // block), MAX_BLOCKS)
+    partials = torch.empty((1, n_blocks, STATS_WIDTH), dtype=torch.float32, device=src.device)
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    b = table.buckets
+    args = (
+        ptr(table.points), ptr(table.feats), ptr(table.valid),
+        ptr(b.perm if b else None), ptr(b.starts if b else None), ptr(b.counts if b else None),
+        table.cap,
+        grid.keys.data_ptr(), int(grid.n_cells), ptr(grid.dense),
+        *(int(o) for o in grid.origin_cell), *(int(d) for d in grid.dims),
+        float(np.float32(grid.cell_size)),
+        offsets.data_ptr(), offsets.shape[0],
+        src.data_ptr(), w.data_ptr(), n, poses.data_ptr(), ptr(done),
+        float(max_dist), int(huber_delta is not None),
+        float(huber_delta) if huber_delta is not None else 0.0,
+        partials.data_ptr(), n_blocks,
+        ptr(matches[0]) if matches is not None else None,
+        ptr(matches[1]) if matches is not None else None,
+        torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    return fn, args, partials
+
+
+def _counter(kind: str):
+    return {"point": grid_point_stats, "plane_pt": grid_plane_point_stats,
+            "plane": hashed_plane_stats, "ndt": hashed_ndt_stats}[kind]
+
+
+def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
+                    w: torch.Tensor, offsets, poses: torch.Tensor, done, max_dist: float,
+                    huber_delta: float | None, matches=None):
+    """``launch() -> (1, 29)`` on the card: the kernel of ``kind`` on ``src``
+    (n, 3) and ``w`` (n,) at the pose row ``poses`` (1, 12) on the card,
+    writing zeros once ``done`` (1,) is set (None: never), with every
+    operand checked, the offsets on the card and every argument bound once.
+    Each call adds one to the kind's wrapper's ``launches``."""
+    require_cuda(src)
+    check_operands(src, w)
+    check_poses(poses, done, 1, src.device)
+    check_table(kind, grid, table, src.device)
+    _check_matches(matches, src.shape[0], src.device)
+    if src.shape[0] == 0:
+        zeros = torch.zeros((1, STATS_WIDTH), dtype=torch.float32, device=src.device)
+        return lambda: zeros
+    offsets = offsets_on(offsets, src.device)
+    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, offsets, poses,
+                                      done, max_dist, huber_delta, matches)
+    return bound_launch(fn, args, partials, _counter(kind), f"grid {kind} stats",
+                        (grid, table, src, w, offsets, poses, done, matches))
+
+
+def resident_stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
+                   w: torch.Tensor, offsets, max_dist: float, huber_delta: float | None,
+                   poses: torch.Tensor, done: torch.Tensor | None):
+    """The stats of a resident Gauss-Newton loop, bound once per align, as
+    ``fused_align.resident_stats``: ``launch() -> (1, 29)`` at the current
+    pose row ``poses`` (1, 12) of the loop's state. CUDA tensors: each call
+    is one launch of the kernel, which reads the pose and ``done`` on the
+    card and writes zeros once ``done`` is set. CPU tensors: the plain
+    version at the pose as it is when called, (29,), or zeros once ``done``
+    is set, so that the iterations a loop enqueues past its stop compute no
+    stats there either."""
+    if src.device.type != "cpu":
+        return resident_launch(kind, grid, table, src, w, offsets, poses, done, max_dist,
+                               huber_delta)
+    check_operands(src, w)
+    check_table(kind, grid, table, src.device)
+    offsets = offsets_on(offsets, src.device)
+    R, t = rt_of_poses(poses, False)  # views: they follow the state
+
+    def launch() -> torch.Tensor:
+        if done is not None and bool(done.all()):
+            return torch.zeros(STATS_WIDTH, dtype=torch.float32)
+        # looked up at each call, as a launch looks up its kernel
+        return _reference(kind)(grid, table, src, w, R, t, offsets, max_dist, huber_delta)
+
+    return launch
+
+
+def _stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R, t,
+           offsets, max_dist: float, huber_delta: float | None, matches) -> torch.Tensor:
+    if src.device.type == "cpu":
+        check_operands(src, w)
+        check_table(kind, grid, table, src.device)
+        _check_matches(matches, src.shape[0], src.device)
+        offsets = offsets_on(offsets, src.device)
+        if matches is not None:
+            idx, d2 = plain_matches(grid, table, src, R, t, offsets)
+            matches[0].copy_(idx)
+            matches[1].copy_(d2)
+        return _reference(kind)(grid, table, src, w, R, t, offsets, max_dist, huber_delta)
+    require_cuda(src)
+    R = torch.as_tensor(R, dtype=torch.float32).reshape(1, 3, 3)
+    t = torch.as_tensor(t, dtype=torch.float32).reshape(1, 3)
+    return resident_launch(kind, grid, table, src, w, offsets, pose_rows(R, t, src.device), None,
+                           max_dist, huber_delta, matches)()[0]
+
+
+def grid_point_stats(grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R, t,
+                     offsets, max_dist: float, huber_delta: float | None = None, *,
+                     matches=None) -> torch.Tensor:
+    """One point-to-point linearization on a grid target -> (29,) float32
+    stats on the device of ``src``.
+
+    ``grid`` and ``table`` (:func:`point_table` without normals) are the
+    target's; ``src`` (n, 3) and ``w`` (n,) the untransformed scan and its
+    weights; ``R`` (3, 3) and ``t`` (3,) the pose, copied to the card as one
+    pose row (a resident loop binds the same launch to its state's pose row
+    instead: :func:`resident_stats`); ``offsets`` (K, 3) the window, in
+    ``hashgrid.search_offsets``' order. CPU tensors take the plain version;
+    CUDA tensors launch the kernel and add one to
+    ``grid_point_stats.launches``."""
+    return _stats("point", grid, table, src, w, R, t, offsets, max_dist, huber_delta, matches)
+
+
+def grid_plane_point_stats(grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R,
+                           t, offsets, max_dist: float, huber_delta: float | None = None, *,
+                           matches=None) -> torch.Tensor:
+    """One point-to-plane linearization on a grid target whose table
+    carries the points' normals (:func:`point_table` with ``normals``), as
+    :func:`grid_point_stats`. CUDA tensors add one to
+    ``grid_plane_point_stats.launches``."""
+    return _stats("plane_pt", grid, table, src, w, R, t, offsets, max_dist, huber_delta,
+                  matches)
+
+
+def hashed_plane_stats(grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R, t,
+                       offsets, max_dist: float, huber_delta: float | None = None, *,
+                       matches=None) -> torch.Tensor:
+    """One point-to-plane linearization on a hashed voxel map
+    (:func:`voxel_table` with normals), as :func:`grid_point_stats`. CUDA
+    tensors add one to ``hashed_plane_stats.launches``."""
+    return _stats("plane", grid, table, src, w, R, t, offsets, max_dist, huber_delta, matches)
+
+
+def hashed_ndt_stats(grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R, t,
+                     offsets, max_dist: float, huber_delta: float | None = None, *,
+                     matches=None) -> torch.Tensor:
+    """One NDT (Mahalanobis, icov) linearization on a hashed voxel map
+    (:func:`voxel_table` with packed inverse covariances), as
+    :func:`grid_point_stats`. CUDA tensors add one to
+    ``hashed_ndt_stats.launches``."""
+    return _stats("ndt", grid, table, src, w, R, t, offsets, max_dist, huber_delta, matches)
+
+
+grid_point_stats.launches = 0
+grid_plane_point_stats.launches = 0
+hashed_plane_stats.launches = 0
+hashed_ndt_stats.launches = 0

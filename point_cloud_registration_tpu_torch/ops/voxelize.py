@@ -19,8 +19,9 @@ The reference ``VoxelGrid.set_points`` pipeline (voxel.py:104-169) becomes:
 * for a dense map, the query layout the align kernel reads
   (``ops.knn.cell_index``: an occupancy bitmap with ranks and the valid
   cells' rows, with normals for VPlaneICP, ``U`` for NDT). A hashed map has
-  none: its queries are plain torch ops (:func:`query_nearest_voxel`), as in
-  the JAX package, whose fused kernel needs the dense blocks.
+  none: the JAX package's fused kernel needs the dense blocks. Its queries
+  are plain torch ops (:func:`query_nearest_voxel`); the align's run inside
+  the hashed stats kernel (``ops/kernels/grid_align``).
 
 The per-cell sums are exact integer sums of the moments in fixed point
 (``_segment_sum_fixed``), so their order does not matter: a build gives the

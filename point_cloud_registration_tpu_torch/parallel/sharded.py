@@ -9,8 +9,8 @@
   runs through the host each iteration) on the same bits and holds the
   same T. A rank's stats come from the stats kernel of its kind on its
   shard: Q2-1 (``fused_align.cu``, plane / ndt) on a dense voxel map, Q2-2
-  (``point_align.cu``, point / plane_pt) on a packed target; a hashed map
-  or a grid target takes the plain stats, as on one device.
+  (``point_align.cu``, point / plane_pt) on a packed target, and
+  ``grid_align.cu`` on a hashed map or a grid target, as on one device.
 * **batch parallel** (:func:`align_batched_sharded`): problems over
   ``batch``, each problem's points over ``data``; one batched launch per
   iteration for a rank's problems, an all-reduce over ``data``, and the

@@ -14,12 +14,18 @@ tol 1e-3), and B = 8 scans of 16,384 points (``make_scan(RandomState(100 +
 b), map, 16384)``). For VPlaneICP, NDT, ICP and PlaneICP (normals of its
 own, estimated in ``set_target``) the warm ``align`` from device-resident
 input, and for the batched VPlaneICP and ICP streams the warm batched
-align: the walls of ``--reps`` runs (host clock; each align ends in its copy
-to the host), the device time and busy share of one more by
-``torch.profiler``, and the host milliseconds per iteration (the shortest
-wall less the device time, over the iterations). Prints one line per path
-and the card's name and power limit; with ``--out-dir`` it also appends the
-numbers to ``DIR/align_walls_<tag>.json``.
+align. Then the paths of ``chip_smoke.py`` phases 9 and 10: ICP and
+PlaneICP with default configurations on bench.py's 40,000-point LiDAR
+target and a 10,000-point scan of it (the ``"grid"`` method), VPlaneICP
+and NDT on the city map twice, the copy 3 km away (2.4M points, a hashed
+map), with the 100k scan. For each path: the walls of ``--reps`` runs (host
+clock; each align ends in its copy to the host), the device time and busy
+share of one more by ``torch.profiler``, the host milliseconds per
+iteration (the shortest wall less the device time, over the iterations)
+and the syncs of one more (``torch.cuda.set_sync_debug_mode("warn")``).
+Prints one line per path and the card's name and power limit; with
+``--out-dir`` it also appends the numbers to
+``DIR/align_walls_<tag>.json``.
 
 With ``--chunks``, a tree whose resident loop has ``core.gn.GN_CHUNK``
 instead times every path's warm align at each of the listed chunk lengths,
@@ -30,14 +36,18 @@ round to round; it prints the min and median wall of each length.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 
 SEED, N_MAP, N_SCAN, N_BATCHES, N_BATCH = 42, 1_200_000, 100_000, 8, 16384
+N_SMALL, N_SMALL_SCAN = 40_000, 10_000  # chip_smoke.py phase 9
+TILE_SHIFT = np.float32([3000.0, 3000.0, 0.0])  # chip_smoke.py phase 10
 PARAMS = dict(max_iter=30, max_dist=2.0, tol=1e-3)
 
 
@@ -53,6 +63,26 @@ def device_ms(fn) -> tuple[float, int]:
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     return sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+
+
+def syncs(fn) -> int:
+    """The times one call of ``fn`` makes the host wait for the card
+    (``torch.cuda.set_sync_debug_mode("warn")``); the first switch of the
+    mode reports a sync of its own, at its own lines, which is left out."""
+    import torch
+
+    torch.cuda.synchronize()
+    lines, first = inspect.getsourcelines(torch.cuda.set_sync_debug_mode)
+    own = range(first, first + len(lines))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message)
+               and not (w.filename == torch.cuda.__file__ and w.lineno in own) for w in caught)
 
 
 def sweep_chunks(paths: dict, chunks: list, args) -> dict:
@@ -90,7 +120,7 @@ def main() -> None:
     import torch
 
     import point_cloud_registration_tpu_torch as pt
-    from bench import make_city_map, make_scan
+    from bench import make_city_map, make_lidar_map, make_scan
     from point_cloud_registration_tpu_torch.models._fused import fused_voxel_align_batched
     from point_cloud_registration_tpu_torch.models._point_fused import fused_point_align_batched
 
@@ -137,6 +167,21 @@ def main() -> None:
     paths["batched_icp"] = lambda: batched(lambda: fused_point_align_batched(
         icp._target, None, src_b, w_b, eye_b, icp.cfg, "point"))
 
+    # phase 9's small target (the grid method) and phase 10's hashed map
+    rng_small = np.random.RandomState(SEED)
+    small = make_lidar_map(rng_small, N_SMALL)
+    small_t = torch.from_numpy(small).to(dev)
+    small_scan_t = torch.from_numpy(make_scan(rng_small, small, N_SMALL_SCAN)).to(dev)
+    two_t = torch.from_numpy(np.vstack([map_np, map_np + TILE_SHIFT])).to(dev)
+    for name, s, target, scan in (
+            ("icp_grid", pt.ICP(**PARAMS, device=dev), small_t, small_scan_t),
+            ("plane_icp_grid", pt.PlaneICP(**PARAMS, device=dev), small_t, small_scan_t),
+            ("vplane_icp_hashed", pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=dev), two_t,
+             scan_t),
+            ("ndt_hashed", pt.NDT(voxel_size=1.0, **PARAMS, device=dev), two_t, scan_t)):
+        s.set_target(target)
+        paths[name] = (lambda s=s, scan=scan: (s.align(scan), s.last_diagnostics.iterations))
+
     out = {"tag": args.tag, "card": smi, "torch": torch.__version__, "paths": {}}
     print(f"[{args.tag}] {torch.cuda.get_device_name(0)}; {smi}", flush=True)
     if args.chunks is not None:
@@ -152,14 +197,15 @@ def main() -> None:
             walls.append(1e3 * (time.perf_counter() - t0))
         dev_ms, kernels = device_ms(run)
         row = {"walls_ms": walls, "iterations": its, "device_ms": dev_ms, "kernels": kernels,
-               "busy": dev_ms / min(walls), "host_ms_per_iteration": (min(walls) - dev_ms) / its}
+               "busy": dev_ms / min(walls), "host_ms_per_iteration": (min(walls) - dev_ms) / its,
+               "syncs": syncs(run)}
         if name.startswith("batched"):
             row["regs_per_s"] = N_BATCHES / (min(walls) / 1e3)
         out["paths"][name] = row
         print(f"[{args.tag}] {name}: {its} iterations; align ms min {min(walls):.3f}, median "
               f"{float(np.median(walls)):.3f} (all {', '.join(f'{x:.3f}' for x in walls)}); "
               f"device {dev_ms:.3f} ms in {kernels} kernels, busy {100 * row['busy']:.1f} %; "
-              f"host {row['host_ms_per_iteration']:.3f} ms per iteration"
+              f"host {row['host_ms_per_iteration']:.3f} ms per iteration; {row['syncs']} syncs"
               + (f"; {row['regs_per_s']:.1f} registrations/s" if "regs_per_s" in row else ""),
               flush=True)
     if args.out_dir is not None:

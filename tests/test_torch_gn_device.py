@@ -337,19 +337,21 @@ def test_packed_targets_match_the_host_loop(monkeypatch, scene, name):
 
 
 def test_plain_stats_stop_with_the_problem(monkeypatch, scene):
-    """On a grid target (plain stats) the iterations enqueued after the
-    problem stopped compute no stats: the stats run once per iteration."""
-    from point_cloud_registration_tpu_torch.models import _point_fused
+    """On a grid target the grid stats launcher (``grid_align.resident_stats``,
+    its plain version on the CPU, as the kernel on the card) computes no
+    stats for the iterations enqueued after the problem stopped: the stats
+    run once per iteration."""
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align
 
     pts, scan = scene
     calls = []
-    inner = _point_fused.grid_point_stats_packed
+    inner = grid_align.grid_point_stats_reference
 
     def counted(*args):
         calls.append(1)
         return inner(*args)
 
-    monkeypatch.setattr(_point_fused, "grid_point_stats_packed", counted)
+    monkeypatch.setattr(grid_align, "grid_point_stats_reference", counted)
     monkeypatch.setattr(gn, "GN_CHUNK", 30)
     s = pt.ICP(device="cpu")
     s.set_target(pts)

@@ -27,7 +27,12 @@ import pytest
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import NDTConfig, VPlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import gauss_newton
+from point_cloud_registration_tpu_torch.core.gn import (
+    gauss_newton,
+    packed_from_stats,
+    stats_from_packed,
+)
+from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
 from point_cloud_registration_tpu_torch.models import (
     build_ndt_target,
     build_vplane_target,
@@ -35,7 +40,8 @@ from point_cloud_registration_tpu_torch.models import (
     pad_points,
     vplane_align,
 )
-from point_cloud_registration_tpu_torch.models._fused import hashed_voxel_stats
+from point_cloud_registration_tpu_torch.ops.reduce import ndt_stats, plane_stats
+from point_cloud_registration_tpu_torch.ops.voxelize import query_nearest_voxel
 from point_cloud_registration_tpu_torch.parallel import (
     align_map_sharded,
     make_map_mesh,
@@ -157,12 +163,28 @@ def scene_scan():
     return problem()
 
 
+def plain_voxel_stats(vm, src, w, T, cfg, kind):
+    """The plain stats of a voxel map at ``T``: ``query_nearest_voxel`` +
+    ``plane_stats`` / ``ndt_stats``, in the kernels' packed layout."""
+    R, _ = makeRt(T)
+    q = transform_points(T, src)
+    nn = query_nearest_voxel(vm, q, voxel_size=cfg.voxel_size, max_dist=cfg.max_dist)
+    wq = w * (nn.dist < cfg.max_dist) * (nn.idx >= 0)
+    safe = nn.idx.clamp(0, vm.means.shape[0] - 1).to(torch.int64)
+    if kind == "vplane_icp":
+        stats = plane_stats(src, q, vm.means[safe], vm.normals[safe], wq, R,
+                            huber_delta=cfg.huber_delta)
+    else:
+        stats = ndt_stats(src, q, vm.means[safe], vm.icovs[safe], wq, R,
+                          huber_delta=cfg.huber_delta)
+    return stats_from_packed(packed_from_stats(stats))
+
+
 def plain_whole_map_align(scene, src, w, cfg, kind):
     """GN over the plain stats on the whole map in one process:
     ``query_nearest_voxel`` + ``plane_stats`` / ``ndt_stats``."""
     vm = SINGLE[kind][0](scene, cfg, device="cpu")
-    return gauss_newton(lambda T: hashed_voxel_stats(vm, src, w, T, cfg,
-                                                     "plane" if kind == "vplane_icp" else "ndt"),
+    return gauss_newton(lambda T: plain_voxel_stats(vm, src, w, T, cfg, kind),
                         torch.eye(4), cfg.max_iter, cfg.tol)
 
 
