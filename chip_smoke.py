@@ -1903,6 +1903,41 @@ GRID_REPLACES = {"point": "point_cloud_registration_tpu/ops/knn.py:410",
                  "ndt": "point_cloud_registration_tpu/ops/knn.py:78"}
 
 
+def grid_ptxas() -> dict:
+    """Registers, stack frame and spill bytes of each kind's kernel in the
+    build of ``csrc/grid_align.cu``, from ptxas's report in ``nvcc.log``:
+    ``{kind: {"registers": r, "stack": s, "spill_stores": a, "spill_loads": b}}``."""
+    import re
+
+    from point_cloud_registration_tpu_torch.ops.kernels import _build
+
+    text = (_build.library_path("grid_align").parent / "nvcc.log").read_text()
+    out, kind = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w*grid_stats_kernel\w*)'", line)
+        if m:
+            kind = {"ILi0": "point", "ILi1": "plane_pt", "ILi2": "plane", "ILi3": "ndt"}[
+                re.search(r"ILi\d", m.group(1)).group(0)]
+            out[kind] = {}
+            continue
+        if kind is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[kind].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[kind]["registers"] = int(m.group(1))
+    if set(out) != set(GRID_KINDS) or any("registers" not in v for v in out.values()):
+        raise AssertionError(f"no ptxas report of the four grid kinds in nvcc.log: {out}")
+    log("[grid kernel] ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, {v.get('spill_stores', 0)} / {v.get('spill_loads', 0)} "
+        f"bytes spilled (stores / loads), {v.get('stack', 0)} bytes stack" for k, v in out.items()))
+    return out
+
+
 def grid_fns(kind: str) -> tuple:
     """``(wrapper, plain version)`` of the grid stats kernel of ``kind``."""
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
@@ -1923,22 +1958,25 @@ def grid_operands(kind: str, s) -> tuple:
     return _point_fused.grid_operands(getattr(s._target, "corr", s._target), s.cfg, normals)
 
 
-def kernel_alone_ms(fn, reps: int, name: str) -> float:
+def kernel_alone_ms(fn, reps: int, name: str, tries: int = 3) -> float:
     """Device milliseconds per call of the kernels whose name holds ``name``
-    over ``reps`` calls of ``fn``, by ``torch.profiler``."""
+    over ``reps`` calls of ``fn``, by ``torch.profiler``; a trace that holds
+    no such kernel (the profiler drops one now and then) is taken again, up
+    to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if name in e.key and e.self_device_time_total > 0]
-    if not rows:
-        raise AssertionError(f"the profiler saw no kernel named {name}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if name in e.key and e.self_device_time_total > 0]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    raise AssertionError(f"the profiler saw no kernel named {name} in {tries} traces")
 
 
 def check_grid_launch(label: str, kind: str, grid, table, src, w, T, offsets, max_dist,
@@ -2115,7 +2153,8 @@ def grid_lattice_cases(kind: str, dev) -> float:
     voxel lattice (ties of two rows and of two bitmap words, an empty window,
     the grid's faces, one query per launch; 1,000 queries with zero weights)
     as a hashed map whose slots also hold occupied cells that are not valid,
-    at radius 2 and 1. Returns the largest absolute error."""
+    at radius 2 and 1. Then :func:`quarter_lattice_cases`. Returns the
+    largest absolute error."""
     import torch
 
     from point_cloud_registration_tpu_torch.ops.hashgrid import (
@@ -2149,7 +2188,7 @@ def grid_lattice_cases(kind: str, dev) -> float:
                             2.0))
         log(f"[{kind} kernel] vs plain on the lattice scene ({', '.join(scans)}; caps 64 and 5; "
             f"dense table and binary search; two poses): winners equal, max abs err {worst:.3e}")
-        return worst
+        return max(worst, quarter_lattice_cases(kind, dev))
     cells, dims, valid, ties = voxel_lattice(kind, dev)
     n_valid = int(valid.sum())
     rng = np.random.RandomState(SEED + 2)
@@ -2214,6 +2253,95 @@ def grid_lattice_cases(kind: str, dev) -> float:
         f"{n_valid} valid; ties of two rows and of two words of a row, an empty window, the "
         f"grid's faces, one query per launch; 1,000 queries with zero weights; radius 2 and 1; "
         f"binary search and dense table): winners equal, max abs err {worst:.3e}")
+    return max(worst, quarter_lattice_cases(kind, dev))
+
+
+def quarter_lattice_cases(kind: str, dev) -> float:
+    """The lattices of tests/test_torch_grid_align.py at a size where the
+    kernel's searches use a sampled key index (more occupied cells than the
+    source's ``kSampleMax``): exact distances everywhere, so that ties fall
+    in two lanes of a group and in two rows of the window, rows clipped at
+    the box's faces, rows of empty cells (a slab without points), buckets
+    over the cap (a site eight times) and searches ending at either end of
+    the keys and of the sampled intervals. Grid kinds: points on a half-metre lattice
+    (+1/4) in 30 x 30 x 6 m, caps 6 and 64; hashed kinds: the cells of the
+    same box, half occupied, 70 % of those valid, centroids a quarter off
+    the centre. 4,000 quarter-lattice queries from a cell beyond the box to
+    one beyond, a third of weight 0; at T = I and a shift by quarters; with
+    the dense key table and without it. Returns the largest absolute
+    error."""
+    import re
+
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.hashgrid import (
+        DENSE_CELL_BUDGET,
+        build_grid,
+        search_offsets,
+    )
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    rng = np.random.RandomState(SEED + 3)
+    box = np.float32([30.0, 30.0, 6.0])
+    q = np.floor(rng.uniform(-1.0, box + 1.0, (4000, 3)) * 4) / 4
+    src = torch.from_numpy(q.astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.rand(4000) > 1 / 3).astype(np.float32)).to(dev)
+    poses = (torch.eye(4), torch.tensor(np.float32([[1, 0, 0, 0.25], [0, 1, 0, -0.5],
+                                                    [0, 0, 1, 0.25], [0, 0, 0, 1]])))
+    offsets = search_offsets(2.0, 1.0)
+    worst, sizes = 0.0, []
+    if kind in ("point", "plane_pt"):
+        sites = np.stack(np.meshgrid(*(np.arange(int(2 * b)) for b in box), indexing="ij"),
+                         -1).reshape(-1, 3) * 0.5 + 0.25
+        keep = (rng.rand(len(sites)) < 0.4) & ((sites[:, 1] < 8) | (sites[:, 1] > 9))
+        pts = np.vstack([sites[keep], sites[keep][::9], np.repeat(sites[keep][5:6], 8, 0)])
+        pts_t = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        nrm = torch.nn.functional.normalize(torch.from_numpy(rng.randn(len(pts), 3).astype(
+            np.float32)), dim=1).to(dev) if kind == "plane_pt" else None
+        for budget in (DENSE_CELL_BUDGET, 1):
+            grid, _, buckets = build_grid(pts_t, 1.0, with_buckets=True, dense_budget=budget)
+            sizes.append(grid.n_cells)
+            for cap in (6, 64):
+                table = ga.point_table(pts_t, buckets, cap, nrm)
+                for T in poses:
+                    worst = max(worst, check_grid_launch(
+                        f"[{kind} quarter lattice] cap {cap}, dense table "
+                        f"{grid.dense is not None}", kind, grid, table, src, w, T, offsets, 2.0))
+    else:
+        cells = np.stack(np.meshgrid(*(np.arange(int(b)) for b in box), indexing="ij"),
+                         -1).reshape(-1, 3)
+        cells = cells[rng.rand(len(cells)) < 0.5]
+        means = (cells + 0.5 + rng.randint(-1, 2, cells.shape) * 0.25).astype(np.float32)
+        valid = rng.rand(len(cells)) < 0.7
+        if kind == "plane":
+            feats = rng.randn(len(cells), 3)
+            feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+        else:  # a packed SPD inverse covariance [xx, yy, zz, xy, xz, yz]
+            A = rng.randn(len(cells), 3, 3) * 0.5
+            S = np.einsum("nij,nkj->nik", A, A) + np.eye(3)
+            feats = S[:, [0, 1, 2, 0, 0, 1], [0, 1, 2, 1, 2, 2]]
+        for budget in (DENSE_CELL_BUDGET, 1):
+            grid, inverse, _ = build_grid(torch.from_numpy((cells + 0.5).astype(np.float32))
+                                          .to(dev), 1.0, dense_budget=budget)
+            sizes.append(grid.n_cells)
+            C, inv = grid.keys.shape[0], inverse.long()
+            slot = lambda a, dt=torch.float32: torch.zeros(  # noqa: E731
+                (C,) + a.shape[1:], dtype=dt, device=dev).index_copy_(
+                    0, inv, torch.from_numpy(np.asarray(a)).to(dev, dt))
+            table = ga.voxel_table(slot(means), slot(valid, torch.bool),
+                                   slot(feats.astype(np.float32)))
+            for T in poses:
+                worst = max(worst, check_grid_launch(
+                    f"[{kind} quarter lattice] dense table {grid.dense is not None}", kind, grid,
+                    table, src, w, T, offsets, 2.0))
+    source = (Path(__file__).resolve().parent / GRID_SOURCE).read_text()
+    sample_max = int(re.search(r"constexpr int kSampleMax = (\d+);", source).group(1))
+    if min(sizes) <= sample_max:
+        raise AssertionError(f"[{kind} quarter lattice] {sizes} cells: no sampled interval")
+    log(f"[{kind} kernel] vs plain on the quarter lattice ({sizes[0]} occupied cells; 4,000 "
+        f"queries, a third of weight 0; two poses; dense table and search"
+        f"{'; caps 6 and 64' if kind in ('point', 'plane_pt') else ''}): winners equal, max abs "
+        f"err {worst:.3e}")
     return worst
 
 
@@ -2289,6 +2417,7 @@ def run_grid_targets(dev) -> dict:
     # the grid stats kernels on lattice targets, with and without the dense key table
     out["lattice_max_abs_err"] = {kind: grid_lattice_cases(kind, dev)
                                   for kind in ("point", "plane_pt")}
+    out["ptxas"] = grid_ptxas()
     # nearest_point against the exact 1-NN kernel at ICP's converged T: equal
     # wherever the window had no overflow and the match lies within a cell
     s = pt.ICP(**PARAMS, device=dev)
@@ -3485,7 +3614,7 @@ def main() -> None:
                          "kernel_ms": held["kernel_ms"], "plain_ms": held["plain_ms"],
                          "bound_ms": held["bound_ms"], "bound_by": held["bound_by"],
                          "library_ms": held["library_ms"],
-                         "extra": {"alone_ms": held["alone_ms"]}}))
+                         "extra": {"alone_ms": held["alone_ms"], "ptxas": grid["ptxas"][kind]}}))
     # launches on each path that runs the kernel, the main path's first
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],

@@ -10,21 +10,19 @@
 // ops/reduce.py's point_stats / plane_stats / ndt_stats (:41, :85, :113) as
 // models/icp.py::icp_stats, plane_icp.py::plane_icp_stats,
 // voxelized_plane_icp.py::vplane_stats and ndt.py::ndt_solver_stats chain
-// them. One thread per query does all of it:
+// them. For each query, what the plain query computes:
 //
 //   q = R p + t, ((x r0 + y r1) + z r2) + t as core/se3.py::transform_points;
 //   the query's cell floor(q / cell_size), a true division, clamped to
 //     +-1e9 before the integer conversion (ops/hashgrid.py::query_cells);
-//   for each offset of hashgrid.search_offsets, in its order: the cell's
-//     linear key in the grid's box (int64, -1 outside; coords_to_key), its
-//     slot by the dense key table (one read) or, without one, by a
-//     lower-bound binary search over the n_cells sorted keys, a hit only
-//     when the key is equal (lookup_slots);
+//   the cells of hashgrid.search_offsets' window inside the grid's box
+//     (linear key rx + nx (ry + ny rz), coords_to_key), each occupied one's
+//     slot (lookup_slots);
 //   grid kinds: the slot's first min(count, cap) points of the bucket, in
 //     bucket order; hashed kinds: the slot's centroid where it is valid;
-//   d2 = ((dx dx + dy dy) + dz dz), the first minimum in probe order by a
-//     strict "<" from +inf (a NaN distance never wins), as knn._sq_dist and
-//     the plain query's first minimum;
+//   d2 = ((dx dx + dy dy) + dz dz), the first minimum in probe order (the
+//     offsets' order, then the bucket position) by a strict "<" from +inf (a
+//     NaN distance never wins), as knn._sq_dist and the plain query;
 //   w = w_in where sqrt(d2) < max_dist and a candidate was found (the square
 //     root first, as the plain gate), times Huber's weight when enabled;
 //   point:    r = q - x, J = [I | -R skew(p)] (gn_accumulate.cuh's m = 3
@@ -41,30 +39,62 @@
 // every query is the plain query's, bit for bit. The linearization and the
 // sums are the other stats kernels' and round as they do.
 //
+// What bounds it. Not bytes nor operations (the target, its keys and the
+// scan sit in L2; the distances are a few MFLOP) but the latency of the
+// dependent reads of the window: dense entry, then bucket start and count,
+// then the bucket's points, per cell; or, without a dense table, a binary
+// search over the sorted keys per cell. The design spreads and shortens
+// those chains:
+//
+//   * The launcher orders the scan by the cell of each point, once per align
+//     (ops/kernels/grid_align.py::scan_order): a rigid pose keeps neighbours
+//     together, so the queries of a block look in overlapping windows at
+//     every pose and find them in L1 (unordered, the kernel takes about twice
+//     as long). Query i is the caller's point order[i]: the kernel reads it
+//     there and writes its match there.
+//   * A group of kGridLanes (8) or kHashedLanes (2) lanes takes one query. On
+//     a grid with a dense key table lane l probes the offsets k = l, l + L,
+//     ... (one table read each); without one (a hashed map, or a grid target
+//     over the dense budget) it takes the window's rows r = l, l + L, ...:
+//     the cells of a row (fixed dy and dz) have consecutive keys, so one
+//     lower-bound search finds the row's first occupied cell and a forward
+//     walk over the sorted keys the rest, 25 searches instead of 125 at
+//     radius 2. Each search starts in the block's sampled index in shared
+//     memory (every 2^s-th key, at most kSampleMax) and ends in the 2^s keys
+//     it leaves. A hit's probe rank comes from the window's rank table (rows
+//     and ranks are built on the host from the offsets, once per bind). The
+//     10k queries of a small target's scan fill 80k lanes; the 100k of a
+//     hashed map's need few lanes each, and more cost more than they hide.
+//   * A lane keeps its first minimum on (d2, probe rank, bucket position),
+//     which is order-free, so lanes may visit cells in any order; the group
+//     merges by xor shuffles on the same key. The result is the plain first
+//     minimum exactly.
+//   * A grid target's bucket points come from a bucket-ordered float4 copy
+//     [x, y, z, point index bits] (hashgrid.bucket_rows, built with the
+//     target): one 16-byte load per candidate, no read of perm.
+//   * The lanes take the linearization in turn (one lane a query, the group's
+//     round number picks it), so the next query's searches overlap it.
+//   * Registers: the pose lives in shared memory, so that no kind spills
+//     within the budget of kMinBlocks blocks an SM (without that hint ptxas
+//     keeps the grid kinds at 74 registers, and they run 20 % longer).
+// Blocks of kThreads threads stride over the scan by groups; each block
+// writes one row of the (n_blocks, 29) partials, which the wrapper sums. No
+// atomics: for a fixed launch shape the sums repeat bit for bit.
+//
 // When the caller passes match_idx and match_d2 (the checks do, the align
 // passes null), every query, weighted or not, writes its winner (a point
-// index or a slot, -1 for none) and its squared distance (+inf for none).
-//
-// What bounds it. ICP's grid path (a 40k-point target, 10k queries, 125
-// offsets, cap 64): each query walks its 125 cells one after the other, a
-// chain of dependent reads (dense table -> start and count -> perm -> point)
-// per cell, the target (0.5 MB) staying in L2: latency, not bytes. The
-// hashed map (2.4M points, 100k queries): 125 binary searches of about 17
-// dependent reads each per query. Both are far from the card's byte and
-// operation rates. The design is the simple one: one query per thread, the
-// offsets read through the read-only cache, blocks of 64 threads so that even
-// 10k queries spread over every SM. Staging a window's buckets in shared
-// memory and grouping the queries by cell is later work.
+// index or a slot, -1 for none) and its squared distance (+inf for none) at
+// its caller's position.
 //
 // One problem per launch (a batched align on a grid target or a hashed map
 // raises, as in the JAX package): the pose is a (1, 12) row on the device,
 // [R row-major | t], and done a (1,) flag on the device, or null. A launch
 // whose flag is set (a resident Gauss-Newton loop's finished problem) writes
-// zeros and reads nothing else. Each block writes one row of the
-// (n_blocks, 29) partials; the wrapper sums them. No atomics: for a fixed
-// launch shape the sums repeat bit for bit.
+// zeros and reads nothing else.
 
+#include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "gn_accumulate.cuh"
 
@@ -73,19 +103,31 @@ namespace {
 using pcr::kStats;
 using pcr::Pose;
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 256;      // threads per block
+constexpr int kGridLanes = 8;      // lanes per query, grid kinds
+constexpr int kHashedLanes = 2;    // lanes per query, hashed kinds
+constexpr int kMinBlocks = 2;      // blocks an SM must hold: at most 128 registers
+constexpr int kSampleMax = 512;    // keys of a block's sampled index (2 KB)
 enum Kind { kPoint = 0, kPlanePt = 1, kPlane = 2, kNdt = 3 };
 
-// The hashed grid (ops/hashgrid.py Grid) and the search window.
+__host__ __device__ constexpr int lanes_of(int kind) {
+  return kind == kPoint || kind == kPlanePt ? kGridLanes : kHashedLanes;
+}
+
+// The hashed grid and the search window.
 struct Index {
   const int* keys;   // (C,) sorted linear keys, padded
   int n_cells;       // occupied cells: the first n_cells keys
   const int* dense;  // (D,) key -> slot, -1 if empty; null over the budget
   long long ox, oy, oz;
-  long long nx, ny, nz;
+  int nx, ny, nz;  // each below 2^29 (the wrapper checks)
   float cell;
-  const int* offsets;  // (K, 3), hashgrid.search_offsets' order
+  const int* offsets;  // (K, 3), hashgrid.search_offsets' order (dense table)
   int n_offsets;
+  const int4* rows;    // (R,) [dy, dz, dx_lo, dx_hi] of the window's rows (search)
+  int n_rows;
+  const int* ranks;    // (R, row_width): probe rank of (dx_lo + i, dy, dz)
+  int row_width;
 };
 
 // What a kind reads at a slot: a grid target's points in CSR buckets, or a
@@ -96,45 +138,117 @@ struct Table {
   const float* pts;
   const float* feats;
   const unsigned char* valid;
-  const int* perm;
+  const float4* bucket_rows;  // (N,) [x, y, z, point index bits] in bucket order
   const int* starts;
   const int* counts;
   int cap;
 };
+
+// A candidate's probe order: on a grid target (probe rank << 32 | bucket
+// position), on a hashed map (one candidate a slot) the probe rank.
+template <int kKind>
+using Order = std::conditional_t<kKind == kPoint || kKind == kPlanePt, long long, int>;
+
+// A lane's or a group's first minimum: its squared distance, its probe order
+// (the type's largest value for none) and its winner.
+template <typename O>
+struct Best {
+  float d2;
+  O order;
+  int idx;
+};
+
+__device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
+
+template <typename O>
+__device__ __forceinline__ Best<O> none() {
+  if constexpr (sizeof(O) == 8) {
+    return Best<O>{inf(), LLONG_MAX, -1};
+  } else {
+    return Best<O>{inf(), INT_MAX, -1};
+  }
+}
+
+// Keeps the candidate if it comes first on (d2, order); a candidate at +inf
+// or NaN never wins, as under the plain query's strict "<" from +inf.
+template <typename O>
+__device__ __forceinline__ void consider(Best<O>& b, float d2, O order, int idx) {
+  if (d2 < b.d2 || (d2 == b.d2 && d2 < inf() && order < b.order)) b = Best<O>{d2, order, idx};
+}
+
+// The first minimum of the group's kL lanes (those of `mask`); every lane
+// gets it. (d2, order) names a candidate uniquely, so the pairwise minimum
+// is the same on both lanes of a pair.
+template <int kL, typename O>
+__device__ __forceinline__ void group_merge(Best<O>& b, unsigned mask) {
+#pragma unroll
+  for (int off = kL / 2; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(mask, b.d2, off, kL);
+    const O oo = __shfl_xor_sync(mask, b.order, off, kL);
+    const int oi = __shfl_xor_sync(mask, b.idx, off, kL);
+    if (od < b.d2 || (od == b.d2 && oo < b.order)) b = Best<O>{od, oo, oi};
+  }
+}
 
 __device__ __forceinline__ long long cell_of(float v, float cell) {
   const float f = floorf(__fdiv_rn(v, cell));
   return static_cast<long long>(fminf(fmaxf(f, -1e9f), 1e9f));
 }
 
-// Linear key of an absolute cell in the grid's box, -1 outside.
-__device__ __forceinline__ int cell_key(const Index& ix, long long cx, long long cy,
-                                        long long cz) {
-  const long long rx = cx - ix.ox, ry = cy - ix.oy, rz = cz - ix.oz;
-  if (rx < 0 || rx >= ix.nx || ry < 0 || ry >= ix.ny || rz < 0 || rz >= ix.nz) return -1;
-  return static_cast<int>(rx + ix.nx * (ry + ix.ny * rz));
+// The query's cell in the box's coordinates (cell - origin), clamped to
+// +-2^30. The box's dims are below 2^29 and the offsets below 2^20 (the
+// wrapper checks), so with a window's offset added a clamped cell lies
+// outside the box exactly when the true one does, and no sum overflows.
+__device__ __forceinline__ int box_cell(float v, float cell, long long origin) {
+  const long long c = cell_of(v, cell) - origin;
+  return static_cast<int>(min(max(c, -(1LL << 30)), 1LL << 30));
 }
 
-// Slot of a key, -1 for an empty cell or a key of -1.
-__device__ __forceinline__ int lookup_slot(const Index& ix, int key) {
-  if (key < 0) return -1;
-  if (ix.dense != nullptr) return __ldg(&ix.dense[key]);
-  int lo = 0, hi = ix.n_cells;
+// Linear key of a cell in the box's coordinates, -1 outside the box.
+__device__ __forceinline__ int cell_key(const Index& ix, int rx, int ry, int rz) {
+  if (rx < 0 || rx >= ix.nx || ry < 0 || ry >= ix.ny || rz < 0 || rz >= ix.nz) return -1;
+  return rx + ix.nx * (ry + ix.ny * rz);
+}
+
+// The sampled index's stride: the least s with ceil(n_cells / 2^s) <= kSampleMax.
+__device__ __forceinline__ int sample_shift(int n_cells) {
+  int s = 0;
+  while (((static_cast<long long>(n_cells) + (1LL << s) - 1) >> s) > kSampleMax) ++s;
+  return s;
+}
+
+// First position in keys[0, n_cells) whose key is >= key (n_cells if none):
+// a binary search over the block's samples (sample[i] = keys[i << shift]),
+// then over the at most 2^shift - 1 keys between two samples.
+__device__ __forceinline__ int lower_bound(const Index& ix, const int* sample, int n_sample,
+                                           int shift, int key) {
+  int lo = 0, hi = n_sample;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (__ldg(&ix.keys[mid]) < key) {
+    if (sample[mid] < key) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  return lo < ix.n_cells && __ldg(&ix.keys[lo]) == key ? lo : -1;
+  // keys[(lo - 1) << shift] < key <= keys[lo << shift], where they exist
+  int a = lo == 0 ? 0 : static_cast<int>((static_cast<long long>(lo - 1) << shift) + 1);
+  int b = static_cast<int>(min(static_cast<long long>(lo) << shift,
+                               static_cast<long long>(ix.n_cells)));
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (__ldg(&ix.keys[mid]) < key) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  return a;
 }
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         const float* __restrict__ c) {
-  const float dx = __fsub_rn(qx, __ldg(c)), dy = __fsub_rn(qy, __ldg(c + 1)),
-              dz = __fsub_rn(qz, __ldg(c + 2));
+__device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float x, float y,
+                                         float z) {
+  const float dx = __fsub_rn(qx, x), dy = __fsub_rn(qy, y), dz = __fsub_rn(qz, z);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
@@ -166,51 +280,94 @@ __device__ __forceinline__ void accumulate_icov(float* acc, float w, const float
     const float mah = sqrtf(fmaxf(e, 0.f));
     if (mah > huber_delta) w *= huber_delta / mah;
   }
-  // H = [[S, S K], [K^T S, K^T S K]], g = [S d ; K^T S d]
-  float H[6][6], g[6];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    g[i] = Sd[i];
-    g[3 + i] = K[0][i] * Sd[0] + K[1][i] * Sd[1] + K[2][i] * Sd[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      H[i][j] = S[i][j];
-      H[i][3 + j] = SK[i][j];
-      H[3 + i][3 + j] = K[0][i] * SK[0][j] + K[1][i] * SK[1][j] + K[2][i] * SK[2][j];
-    }
-  }
+  // H = [[S, S K], [K^T S, K^T S K]], g = [S d ; K^T S d], each entry added
+  // to its sum as it is formed (upper triangle, row-major)
   int k = 0;
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = i; j < 6; ++j) acc[k++] += w * H[i][j];
+    for (int j = i; j < 3; ++j) acc[k++] += w * S[i][j];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) acc[21 + i] += w * g[i];
+    for (int j = 0; j < 3; ++j) acc[k++] += w * SK[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 3; ++j)
+      acc[k++] += w * (K[0][i] * SK[0][j] + K[1][i] * SK[1][j] + K[2][i] * SK[2][j]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acc[21 + i] += w * Sd[i];
+    acc[24 + i] += w * (K[0][i] * Sd[0] + K[1][i] * Sd[1] + K[2][i] * Sd[2]);
+  }
   acc[27] += w * e;
   acc[28] += w;
 }
 
+// The candidates of an occupied slot, probed at rank `rank`: a bucket's
+// first min(count, cap) points in bucket order, or a valid slot's centroid.
 template <int kKind>
-__global__ void __launch_bounds__(kThreads) grid_stats_kernel(
-    Index ix, Table tb, const float* __restrict__ src, const float* __restrict__ w, int n,
-    const float* __restrict__ pose, const int* __restrict__ done, float max_dist,
-    int use_huber, float huber_delta, float* __restrict__ partials,
-    int* __restrict__ match_idx, float* __restrict__ match_d2) {
-  constexpr bool kBuckets = kKind == kPoint || kKind == kPlanePt;
+__device__ __forceinline__ void visit(const Table& tb, Best<Order<kKind>>& b, float qx,
+                                      float qy, float qz, int slot, int rank) {
+  if constexpr (kKind == kPoint || kKind == kPlanePt) {
+    const long long order = static_cast<long long>(rank) << 32;
+    const int start = __ldg(&tb.starts[slot]);
+    const int cnt = min(__ldg(&tb.counts[slot]), tb.cap);
+    for (int j = 0; j < cnt; ++j) {
+      const float4 c = __ldg(&tb.bucket_rows[start + j]);
+      consider(b, sq_dist(qx, qy, qz, c.x, c.y, c.z), order | j, __float_as_int(c.w));
+    }
+  } else if (__ldg(&tb.valid[slot])) {
+    const float* c = tb.pts + 3 * static_cast<size_t>(slot);
+    consider(b, sq_dist(qx, qy, qz, __ldg(c), __ldg(c + 1), __ldg(c + 2)), rank, slot);
+  }
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) grid_stats_kernel(
+    Index ix, Table tb, const float* __restrict__ src, const float* __restrict__ w,
+    const long long* __restrict__ order, int n, const float* __restrict__ pose,
+    const int* __restrict__ done, float max_dist, int use_huber, float huber_delta,
+    float* __restrict__ partials, int* __restrict__ match_idx, float* __restrict__ match_d2) {
+  constexpr int kL = lanes_of(kKind);
+  constexpr int kGroups = kThreads / kL;
+  static_assert(kL >= 1 && kL <= 32 && (kL & (kL - 1)) == 0, "lanes: a power of two <= 32");
+  __shared__ int sample[kSampleMax];
   if (done != nullptr && __ldg(done) != 0) {  // the align is done: zeros
     if (threadIdx.x < kStats) partials[blockIdx.x * kStats + threadIdx.x] = 0.f;
     return;
   }
-  const Pose T = pcr::load_pose(pose);
-  const float kInf = __int_as_float(0x7f800000);
+  // The pose, in shared memory: read where it is used, it holds no registers
+  // through the search. Without a dense table, the block's sampled index of
+  // the sorted keys.
+  __shared__ Pose pose_s;
+  if (threadIdx.x == 0) pose_s = pcr::load_pose(pose);
+  const bool search = ix.dense == nullptr;
+  const int shift = search ? sample_shift(ix.n_cells) : 0;
+  const int n_sample =
+      search ? static_cast<int>((static_cast<long long>(ix.n_cells) + (1LL << shift) - 1) >> shift)
+             : 0;
+  for (int s = threadIdx.x; s < n_sample; s += kThreads)
+    sample[s] = __ldg(&ix.keys[static_cast<long long>(s) << shift]);
+  __syncthreads();
+
+  const Pose& T = pose_s;
+  const int lane = threadIdx.x & (kL - 1);
+  const unsigned mask =
+      kL == 32 ? 0xffffffffu : ((1u << (kL & 31)) - 1u) << ((threadIdx.x & 31) & ~(kL - 1));
   float acc[kStats];
 #pragma unroll
   for (int k = 0; k < kStats; ++k) acc[k] = 0.f;
 
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
-    const float wi = w[i];
+  // A group's loop and every branch out of it are the same for its kL lanes.
+  int round = 0;
+  for (int i = blockIdx.x * kGroups + static_cast<int>(threadIdx.x) / kL; i < n;
+       i += gridDim.x * kGroups, ++round) {
+    const long long at = __ldg(&order[i]);  // the caller's point
+    const float wi = __ldg(&w[at]);
     if (wi == 0.f && match_idx == nullptr) continue;  // adds nothing
-    const float px = src[3 * i], py = src[3 * i + 1], pz = src[3 * i + 2];
+    const float px = __ldg(&src[3 * at]), py = __ldg(&src[3 * at + 1]),
+                pz = __ldg(&src[3 * at + 2]);
     const float qx = __fadd_rn(
         __fadd_rn(__fadd_rn(__fmul_rn(px, T.r00), __fmul_rn(py, T.r01)), __fmul_rn(pz, T.r02)),
         T.t0);
@@ -220,52 +377,55 @@ __global__ void __launch_bounds__(kThreads) grid_stats_kernel(
     const float qz = __fadd_rn(
         __fadd_rn(__fadd_rn(__fmul_rn(px, T.r20), __fmul_rn(py, T.r21)), __fmul_rn(pz, T.r22)),
         T.t2);
-    const long long cx = cell_of(qx, ix.cell), cy = cell_of(qy, ix.cell),
-                    cz = cell_of(qz, ix.cell);
+    const int cx = box_cell(qx, ix.cell, ix.ox), cy = box_cell(qy, ix.cell, ix.oy),
+              cz = box_cell(qz, ix.cell, ix.oz);
 
-    float best = kInf;
-    int best_idx = -1;  // a point index (grid kinds) or a slot (hashed kinds)
-    for (int k = 0; k < ix.n_offsets; ++k) {
-      const int* o = ix.offsets + 3 * k;
-      const int slot =
-          lookup_slot(ix, cell_key(ix, cx + __ldg(o), cy + __ldg(o + 1), cz + __ldg(o + 2)));
-      if (slot < 0) continue;
-      if constexpr (kBuckets) {
-        const int start = __ldg(&tb.starts[slot]);
-        const int cnt = min(__ldg(&tb.counts[slot]), tb.cap);
-        for (int j = 0; j < cnt; ++j) {
-          const int p = __ldg(&tb.perm[start + j]);
-          const float d2 = sq_dist(qx, qy, qz, tb.pts + 3 * static_cast<size_t>(p));
-          if (d2 < best) {
-            best = d2;
-            best_idx = p;
-          }
-        }
-      } else {
-        if (!__ldg(&tb.valid[slot])) continue;
-        const float d2 = sq_dist(qx, qy, qz, tb.pts + 3 * static_cast<size_t>(slot));
-        if (d2 < best) {
-          best = d2;
-          best_idx = slot;
+    Best<Order<kKind>> b = none<Order<kKind>>();  // idx: a point index or a slot
+    if (!search) {  // lane l: offsets l, l + kL, ... through the dense table
+      for (int k = lane; k < ix.n_offsets; k += kL) {
+        const int* o = ix.offsets + 3 * k;
+        const int key = cell_key(ix, cx + __ldg(o), cy + __ldg(o + 1), cz + __ldg(o + 2));
+        if (key < 0) continue;
+        const int slot = __ldg(&ix.dense[key]);
+        if (slot >= 0) visit<kKind>(tb, b, qx, qy, qz, slot, k);
+      }
+    } else {  // lane l: rows l, l + kL, ...: one search each, then a walk
+      for (int r = lane; r < ix.n_rows; r += kL) {
+        const int4 row = __ldg(&ix.rows[r]);
+        const int ry = cy + row.x, rz = cz + row.y;
+        if (ry < 0 || ry >= ix.ny || rz < 0 || rz >= ix.nz) continue;
+        const int first = cx + row.z;  // the row's first cell, unclipped
+        const int x0 = max(first, 0), x1 = min(cx + row.w, ix.nx - 1);
+        if (x0 > x1) continue;  // the row lies outside the box
+        const int base = ix.nx * (ry + ix.ny * rz);
+        const int last = base + x1;
+        const int* rank_row = ix.ranks + static_cast<size_t>(r) * ix.row_width;
+        for (int pos = lower_bound(ix, sample, n_sample, shift, base + x0); pos < ix.n_cells;
+             ++pos) {
+          const int key = __ldg(&ix.keys[pos]);
+          if (key > last) break;
+          visit<kKind>(tb, b, qx, qy, qz, pos, __ldg(&rank_row[key - base - first]));
         }
       }
     }
+    group_merge<kL>(b, mask);
+    if (lane != (round & (kL - 1))) continue;  // one lane a query, in turn
     if (match_idx != nullptr) {
-      match_idx[i] = best_idx;
-      match_d2[i] = best;
+      match_idx[at] = b.idx;
+      match_d2[at] = b.d2;
     }
-    if (wi == 0.f || best_idx < 0 || !(__fsqrt_rn(best) < max_dist)) continue;
+    if (wi == 0.f || b.idx < 0 || !(__fsqrt_rn(b.d2) < max_dist)) continue;
 
-    const float* x = tb.pts + 3 * static_cast<size_t>(best_idx);
+    const float* x = tb.pts + 3 * static_cast<size_t>(b.idx);
     const float dx = qx - __ldg(x), dy = qy - __ldg(x + 1), dz = qz - __ldg(x + 2);
     if constexpr (kKind == kPoint) {
       const float u[6] = {1.f, 0.f, 0.f, 1.f, 0.f, 1.f};
       pcr::accumulate_whitened(acc, wi, u, T, px, py, pz, dx, dy, dz, use_huber, huber_delta);
     } else if constexpr (kKind == kNdt) {
-      accumulate_icov(acc, wi, tb.feats + 6 * static_cast<size_t>(best_idx), T, px, py, pz, dx,
+      accumulate_icov(acc, wi, tb.feats + 6 * static_cast<size_t>(b.idx), T, px, py, pz, dx,
                       dy, dz, use_huber, huber_delta);
     } else {
-      const float* nrm = tb.feats + 3 * static_cast<size_t>(best_idx);
+      const float* nrm = tb.feats + 3 * static_cast<size_t>(b.idx);
       pcr::accumulate_plane(acc, wi, T, px, py, pz, __ldg(nrm), __ldg(nrm + 1), __ldg(nrm + 2),
                             dx, dy, dz, use_huber, huber_delta);
     }
@@ -274,18 +434,21 @@ __global__ void __launch_bounds__(kThreads) grid_stats_kernel(
 }
 
 template <int kKind>
-int launch(const float* pts, const float* feats, const unsigned char* valid, const int* perm,
-           const int* starts, const int* counts, int cap, const int* keys, int n_cells,
-           const int* dense, int ox, int oy, int oz, int nx, int ny, int nz, float cell,
-           const int* offsets, int n_offsets, const float* src, const float* w, int n,
-           const float* pose, const int* done, float max_dist, int use_huber,
-           float huber_delta, float* partials, int n_blocks, int* match_idx, float* match_d2,
-           void* stream) {
-  const Index ix{keys, n_cells, dense, ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets};
-  const Table tb{pts, feats, valid, perm, starts, counts, cap};
+int launch(const float* pts, const float* feats, const unsigned char* valid,
+           const float* bucket_rows, const int* starts, const int* counts, int cap,
+           const int* keys, int n_cells, const int* dense, int ox, int oy, int oz, int nx,
+           int ny, int nz, float cell, const int* offsets, int n_offsets, const int* rows,
+           int n_rows, const int* ranks, int row_width, const float* src, const float* w,
+           const long long* order, int n, const float* pose, const int* done, float max_dist,
+           int use_huber, float huber_delta, float* partials, int n_blocks, int* match_idx,
+           float* match_d2, void* stream) {
+  const Index ix{keys, n_cells, dense, ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets,
+                 reinterpret_cast<const int4*>(rows), n_rows, ranks, row_width};
+  const Table tb{pts, feats, valid, reinterpret_cast<const float4*>(bucket_rows), starts, counts,
+                 cap};
   grid_stats_kernel<kKind><<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ix, tb, src, w, n, pose, done, max_dist, use_huber, huber_delta, partials, match_idx,
-      match_d2);
+      ix, tb, src, w, order, n, pose, done, max_dist, use_huber, huber_delta, partials,
+      match_idx, match_d2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -293,31 +456,38 @@ int launch(const float* pts, const float* feats, const unsigned char* valid, con
 
 extern "C" {
 
-// Threads per block; the wrapper sizes the partials as (n_blocks, 29).
-int pcr_grid_block_size() { return kThreads; }
+// Queries one block serves at a time (kThreads / lanes per query) for kind
+// 0 point, 1 plane_pt, 2 plane, 3 ndt; the wrapper sizes the partials as
+// (n_blocks, 29).
+int pcr_grid_queries_per_block(int kind) { return kThreads / lanes_of(kind); }
 
 // Each launches its kind's kernel on `stream` and returns cudaGetLastError().
 // One signature for the four kinds. pts (N, 3) target points (grid kinds) or
 // (C, 3) voxel centroids (hashed kinds), f32; feats (N, 3) normals
 // (plane_pt), (C, 3) normals (plane), (C, 6) packed icov (ndt) or null
-// (point); valid (C,) bool (hashed kinds; else null); perm (N,), starts and
-// counts (C,) i32 and cap (grid kinds; else null and 0); keys (C,) i32
-// sorted, n_cells, dense (D,) i32 or null, the origin cell and dims of the
-// grid's box and its cell size; offsets (K, 3) i32; src (n, 3), w (n,), pose
-// (1, 12) f32 and done (1,) i32 or null on the device; partials
-// (n_blocks, 29) f32; match_idx (n,) i32 and match_d2 (n,) f32, or null.
+// (point); valid (C,) bool (hashed kinds; else null); bucket_rows (N, 4)
+// f32 (16-byte aligned), starts and counts (C,) i32 and cap (grid kinds;
+// else null and 0); keys (C,) i32 sorted, n_cells, dense (D,) i32 or null,
+// the origin cell and dims of the grid's box and its cell size; offsets
+// (K, 3) i32 (read with a dense table); rows (R, 4) i32 (16-byte aligned)
+// and ranks (R, row_width) i32 (read without one); src (n, 3), w (n,),
+// order (n,) i64 (the points in the order of the queries), pose (1, 12) f32
+// and done (1,) i32 or null on the device; partials (n_blocks, 29) f32;
+// match_idx (n,) i32 and match_d2 (n,) f32, or null.
 #define PCR_GRID_ENTRY(name, kind)                                                            \
   int name(const float* pts, const float* feats, const unsigned char* valid,                 \
-           const int* perm, const int* starts, const int* counts, int cap, const int* keys,  \
-           int n_cells, const int* dense, int ox, int oy, int oz, int nx, int ny, int nz,    \
-           float cell, const int* offsets, int n_offsets, const float* src, const float* w,  \
-           int n, const float* pose, const int* done, float max_dist, int use_huber,         \
-           float huber_delta, float* partials, int n_blocks, int* match_idx,                 \
-           float* match_d2, void* stream) {                                                  \
-    return launch<kind>(pts, feats, valid, perm, starts, counts, cap, keys, n_cells, dense,  \
-                        ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets, src, w, n, pose,   \
-                        done, max_dist, use_huber, huber_delta, partials, n_blocks,          \
-                        match_idx, match_d2, stream);                                        \
+           const float* bucket_rows, const int* starts, const int* counts, int cap,          \
+           const int* keys, int n_cells, const int* dense, int ox, int oy, int oz,           \
+           int nx, int ny, int nz, float cell, const int* offsets, int n_offsets,            \
+           const int* rows, int n_rows, const int* ranks, int row_width, const float* src,   \
+           const float* w, const long long* order, int n, const float* pose,                 \
+           const int* done, float max_dist, int use_huber, float huber_delta, float* partials, \
+           int n_blocks, int* match_idx, float* match_d2, void* stream) {                    \
+    return launch<kind>(pts, feats, valid, bucket_rows, starts, counts, cap, keys,           \
+                        n_cells, dense, ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets,    \
+                        rows, n_rows, ranks, row_width, src, w, order, n, pose, done,        \
+                        max_dist, use_huber, huber_delta, partials, n_blocks, match_idx,     \
+                        match_d2, stream);                                                   \
   }
 
 PCR_GRID_ENTRY(pcr_grid_point_stats, kPoint)

@@ -24,6 +24,7 @@ from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.ops.hashgrid import (
     Buckets,
     Grid,
+    bucket_rows,
     build_grid,
     search_offsets,
 )
@@ -48,6 +49,7 @@ class PointCorrTarget(NamedTuple):
     proxy: ProxyMap | None  # coarse voxel map for unresolved queries
     grid: Grid | None = None
     buckets: Buckets | None = None
+    rows: torch.Tensor | None = None  # (N, 4) the grid method's hashgrid.bucket_rows
 
 
 def cell_fine_of(corr: CorrespondenceConfig, max_dist: float) -> float:
@@ -81,7 +83,7 @@ def build_point_corr(points, corr: CorrespondenceConfig, max_dist: float, *,
     if method == "grid":
         grid, _, buckets = build_grid(points, grid_cell_of(corr, max_dist), with_buckets=True)
         return PointCorrTarget(points=points, packed=None, proxy=None, grid=grid,
-                               buckets=buckets)
+                               buckets=buckets, rows=bucket_rows(points, buckets))
     pg, proxy = build_packed_grid_and_proxy(
         points, cell_fine_of(corr, max_dist), cap=corr.packed_cap,
         min_points=proxy_min_points, with_normals=proxy_normals, feats=feats,

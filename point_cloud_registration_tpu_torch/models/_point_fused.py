@@ -58,9 +58,11 @@ def grid_operands(target: PointCorrTarget, cfg: ICPConfig | PlaneICPConfig,
                   normals: torch.Tensor | None = None) -> tuple:
     """``(grid, table, offsets)`` of a grid target for the grid stats kernels
     (``ops/kernels/grid_align``): the CSR buckets scanned up to
-    ``cell_cap``, ``normals`` (PlaneICP's) in the table, and the window of
+    ``cell_cap``, the points in bucket order that the target keeps,
+    ``normals`` (PlaneICP's) in the table, and the window of
     ``match_points`` (``search_offsets`` of the bucket cell)."""
-    table = grid_align.point_table(target.points, target.buckets, cfg.corr.cell_cap, normals)
+    table = grid_align.point_table(target.points, target.buckets, cfg.corr.cell_cap, normals,
+                                   target.rows)
     return target.grid, table, search_offsets(cfg.max_dist, grid_cell_of(cfg.corr, cfg.max_dist))
 
 

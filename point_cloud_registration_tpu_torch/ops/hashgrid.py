@@ -192,6 +192,16 @@ def build_grid(
     return grid, inverse, buckets
 
 
+def bucket_rows(points: torch.Tensor, buckets: Buckets) -> torch.Tensor:
+    """(N, 4) float32: the points in bucket order, row ``starts[s] + j``
+    holding point ``perm[starts[s] + j]`` as ``[x, y, z, index]``, the index
+    as the bits of an int32. The grid stats kernel (``ops/kernels/
+    grid_align``) reads a bucket's candidate, its coordinates and its index,
+    with one 16-byte load and no read of ``perm``."""
+    xyz = points[buckets.perm.to(torch.int64)]
+    return torch.cat([xyz, buckets.perm.view(torch.float32)[:, None]], dim=1).contiguous()
+
+
 def search_offsets(max_dist: float, cell_size: float) -> np.ndarray:
     """(K, 3) int32 neighbour-cell offsets that exactly cover a
     ``dist < max_dist`` gated nearest-neighbour query (hashgrid.py:218-238).

@@ -16,9 +16,13 @@ matched point's or voxel's normal, or in NDT's Mahalanobis (icov) form, and
 reduced to the 29 stat values of ``fused_align``.
 
 The kernel reads the grid and a :class:`GridTable`: :func:`point_table`
-(a small target's points, optional normals, CSR buckets and ``cap``) or
-:func:`voxel_table` (a hashed map's centroids, valid flags and normals or
-packed inverse covariances). The wrappers :func:`grid_point_stats`,
+(a small target's points, optional normals, CSR buckets, their points in
+bucket order (``hashgrid.bucket_rows``) and ``cap``) or :func:`voxel_table`
+(a hashed map's centroids, valid flags and normals or packed inverse
+covariances). The launcher orders the scan by cell (:func:`scan_order`)
+once per bind and, for a grid without a dense key table, hands the kernel
+the window as rows of consecutive keys with their probe ranks
+(:func:`window_rows`). The wrappers :func:`grid_point_stats`,
 :func:`grid_plane_point_stats`, :func:`hashed_plane_stats` and
 :func:`hashed_ndt_stats` launch the hand-written kernels of
 ``csrc/grid_align.cu`` for CUDA tensors and add one to their ``launches``;
@@ -51,7 +55,7 @@ import torch
 from point_cloud_registration_tpu_torch.core.gn import packed_from_stats
 from point_cloud_registration_tpu_torch.core.se3 import makeT, transform_points
 from point_cloud_registration_tpu_torch.ops import reduce
-from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid
+from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid, bucket_rows
 from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     STATS_WIDTH,
@@ -67,14 +71,21 @@ from point_cloud_registration_tpu_torch.ops.knn import _sq_dist, nearest_point, 
 __all__ = [
     "GridTable", "grid_plane_point_stats", "grid_point_stats", "grid_point_stats_reference",
     "hashed_ndt_stats", "hashed_plane_stats", "hashed_voxel_stats_reference", "point_table",
-    "resident_stats", "voxel_table",
+    "resident_stats", "scan_order", "voxel_table", "window_rows",
 ]
 
-# Most blocks of one launch (64 threads each): one wave of the card at the
-# kernel's occupancy; past it the blocks stride over the scan.
-MAX_BLOCKS = 2048
+# Most blocks of one launch (256 threads each); past it the blocks stride over
+# the scan. A small target's 10k queries take 313 blocks, a hashed map's 100k
+# 782 (8 and 2 lanes a query).
+MAX_BLOCKS = 1024
 _C_SYMBOLS = {"point": "pcr_grid_point_stats", "plane_pt": "pcr_grid_plane_point_stats",
               "plane": "pcr_hashed_plane_stats", "ndt": "pcr_hashed_ndt_stats"}
+_KIND_IDS = {"point": 0, "plane_pt": 1, "plane": 2, "ndt": 3}
+# scan_order's key: x + 2^17 y + 2^34 z of a point's cell, in float64
+_ORDER_BITS = 17
+# The kernel forms cells in the box's coordinates as int32, clamped to +-2^30:
+# exact while every dim and every offset stays below these.
+_MAX_DIM, _MAX_OFFSET = 1 << 29, 1 << 20
 _FEAT_WIDTHS = {"point": None, "plane_pt": 3, "plane": 3, "ndt": 6}
 
 
@@ -88,13 +99,20 @@ class GridTable(NamedTuple):
     valid: torch.Tensor | None  # (C,) bool, a hashed map's
     buckets: Buckets | None  # a small target's CSR buckets
     cap: int  # points scanned per bucket (0 for a hashed map)
+    rows: torch.Tensor | None = None  # (N, 4) hashgrid.bucket_rows of a grid target
 
 
 def point_table(points: torch.Tensor, buckets: Buckets, cap: int,
-                normals: torch.Tensor | None = None) -> GridTable:
+                normals: torch.Tensor | None = None,
+                rows: torch.Tensor | None = None) -> GridTable:
     """The table of a grid target: ``points`` (N, 3) bucketed by the grid,
-    at most ``cap`` of a bucket scanned, ``normals`` (N, 3) for PlaneICP."""
-    return GridTable(points=points, feats=normals, valid=None, buckets=buckets, cap=int(cap))
+    at most ``cap`` of a bucket scanned, ``normals`` (N, 3) for PlaneICP;
+    ``rows``, the points in bucket order (``hashgrid.bucket_rows``, kept
+    with the target), built here when not given."""
+    if rows is None:
+        rows = bucket_rows(points, buckets)
+    return GridTable(points=points, feats=normals, valid=None, buckets=buckets, cap=int(cap),
+                     rows=rows)
 
 
 def voxel_table(means: torch.Tensor, valid: torch.Tensor, feats: torch.Tensor) -> GridTable:
@@ -181,23 +199,70 @@ def plain_matches(grid: Grid, table: GridTable, src: torch.Tensor, R, t, offsets
     return nn.idx, torch.where(nn.idx >= 0, d2, torch.full_like(d2, float("inf")))
 
 
+def window_rows(offsets) -> tuple[np.ndarray, np.ndarray]:
+    """``(rows (R, 4), ranks (R, W))`` int32: the window ``offsets`` (K, 3)
+    as runs of consecutive dx at a fixed (dy, dz), in the keys' order (z,
+    then y, then x). The cells of a run have consecutive linear keys, so the
+    kernel finds a run's occupied cells by one lower-bound search and a walk
+    over the sorted keys. ``rows[r] = [dy, dz, dx_lo, dx_hi]``;
+    ``ranks[r, i]`` is the probe rank of ``(dx_lo + i, dy, dz)``, its
+    position in ``offsets`` (the first, if repeated), and -1 past the run.
+    ``search_offsets`` windows give one run per (dy, dz): 25 at radius 2."""
+    first = {}
+    for k, o in enumerate(map(tuple, np.asarray(offsets).reshape(-1, 3).tolist())):
+        first.setdefault(o, k)  # a repeated offset keeps its first rank
+    runs = []  # [dy, dz, dx_lo, dx_hi, ranks]
+    for dx, dy, dz in sorted(first, key=lambda o: (o[2], o[1], o[0])):  # key order
+        if runs and runs[-1][:2] == [dy, dz] and runs[-1][3] == dx - 1:
+            runs[-1][3] = dx
+            runs[-1][4].append(first[(dx, dy, dz)])
+        else:
+            runs.append([dy, dz, dx, dx, [first[(dx, dy, dz)]]])
+    rows = np.array([r[:4] for r in runs], np.int32).reshape(-1, 4)
+    ranks = np.full((len(runs), max((len(r[4]) for r in runs), default=1)), -1, np.int32)
+    for i, r in enumerate(runs):
+        ranks[i, :len(r[4])] = r[4]
+    return rows, ranks
+
+
+@functools.lru_cache(maxsize=8)
+def _order_weights(device: torch.device) -> torch.Tensor:
+    return torch.pow(2.0, torch.arange(0, 3 * _ORDER_BITS, _ORDER_BITS, dtype=torch.float64,
+                                       device=device))
+
+
+def scan_order(src: torch.Tensor, w: torch.Tensor, cell_size: float) -> torch.Tensor:
+    """(n,) int64 on the device of ``src``: the scan's points ordered by
+    their own cell ``c = floor(p / cell_size)``, by the float64 key
+    ``cx + 2^17 cy + 2^34 cz`` (exactly z, then y, then x while every
+    coordinate stays within +-2^16 cells), the points of weight 0 after the
+    others (key +inf) and those with a NaN coordinate last, equal keys in
+    input order (a stable sort). A rigid pose keeps neighbours together, so
+    queries next to each other in this order look in overlapping windows at
+    every pose. A handful of launches, no host sync."""
+    key = torch.div(src, float(cell_size), rounding_mode="floor").double() @ _order_weights(
+        src.device)
+    key.masked_fill_(w == 0, float("inf"))
+    return torch.sort(key, stable=True).indices
+
+
 def _bind(lib: ctypes.CDLL, kind: str):
-    """``(C function, threads per block)`` of ``kind`` in a built library."""
+    """``(C function, queries per block)`` of ``kind`` in a built library."""
     fn = getattr(lib, _C_SYMBOLS[kind])
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     fn.argtypes = (
-        [c_ptr] * 6 + [c_int]  # pts, feats, valid, perm, starts, counts, cap
+        [c_ptr] * 6 + [c_int]  # pts, feats, valid, bucket rows, starts, counts, cap
         + [c_ptr, c_int, c_ptr] + [c_int] * 6 + [c_float]  # keys, n_cells, dense, box, cell
-        + [c_ptr, c_int]  # offsets, K
-        + [c_ptr, c_ptr, c_int, c_ptr, c_ptr]  # src, w, n, pose, done
+        + [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]  # offsets, K, rows, R, ranks, W
+        + [c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_ptr]  # src, w, order, n, pose, done
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int, c_ptr, c_ptr, c_ptr]  # partials, n_blocks, matches, stream
     )
     fn.restype = c_int
-    block = lib.pcr_grid_block_size
-    block.argtypes = []
-    block.restype = c_int
-    return fn, int(block())
+    per_block = lib.pcr_grid_queries_per_block
+    per_block.argtypes = [c_int]
+    per_block.restype = c_int
+    return fn, int(per_block(_KIND_IDS[kind]))
 
 
 @functools.cache
@@ -228,8 +293,9 @@ def check_table(kind: str, grid: Grid, table: GridTable, device) -> None:
     if not 0 <= grid.n_cells <= C:
         raise ValueError(f"n_cells {grid.n_cells} is not within the {C} keys")
     cells = int(np.prod([float(d) for d in grid.dims]))
-    if min(grid.dims) < 1 or cells >= np.iinfo(np.int32).max:
-        raise ValueError(f"dims {grid.dims} do not give an int32 keyspace")
+    if min(grid.dims) < 1 or cells >= np.iinfo(np.int32).max or max(grid.dims) >= _MAX_DIM:
+        raise ValueError(f"dims {grid.dims} do not give an int32 keyspace with every dim "
+                         f"below {_MAX_DIM}")
     if grid.dense is not None:
         if grid.dense.dim() != 1 or grid.dense.shape[0] < cells:
             raise ValueError(f"the dense table ({tuple(grid.dense.shape)}) is smaller than the "
@@ -244,6 +310,9 @@ def check_table(kind: str, grid: Grid, table: GridTable, device) -> None:
         _need("buckets.perm", b.perm, torch.int32, (n,), device)
         _need("buckets.starts", b.starts, torch.int32, (C,), device)
         _need("buckets.counts", b.counts, torch.int32, (C,), device)
+        _need("rows", table.rows, torch.float32, (n, 4), device)
+        if table.rows.data_ptr() % 16:
+            raise ValueError("rows must start at a multiple of 16 bytes")
         if table.cap < 0:
             raise ValueError(f"cap {table.cap} is negative")
     else:
@@ -273,26 +342,31 @@ def _check_matches(matches, n: int, device) -> None:
         _need("matches[1]", d2, torch.float32, (n,), device)
 
 
-def _launch_args(bound, grid: Grid, table: GridTable, src, w, offsets, poses, done,
-                 max_dist, huber_delta, matches) -> tuple:
+def _launch_args(bound, grid: Grid, table: GridTable, src, w, order, offsets, window,
+                 poses, done, max_dist, huber_delta, matches) -> tuple:
     """``(fn, args, partials)``: the C function of ``bound`` and its
     arguments for these checked operands on the card, on the current
-    stream, and the (1, n_blocks, 29) partials buffer they name."""
-    fn, block = bound
+    stream, and the (1, n_blocks, 29) partials buffer they name. ``window``:
+    the (R, 4) rows and (R, W) ranks of :func:`window_rows` in one int32
+    tensor on the card, or None with a dense key table."""
+    fn, per_block = bound
     n = src.shape[0]
-    n_blocks = min(-(-n // block), MAX_BLOCKS)
+    n_blocks = min(-(-n // per_block), MAX_BLOCKS)
     partials = torch.empty((1, n_blocks, STATS_WIDTH), dtype=torch.float32, device=src.device)
     ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
     b = table.buckets
+    n_rows, width = window[1] if window is not None else (0, 0)
+    rows = window[0] if window is not None else None
     args = (
         ptr(table.points), ptr(table.feats), ptr(table.valid),
-        ptr(b.perm if b else None), ptr(b.starts if b else None), ptr(b.counts if b else None),
+        ptr(table.rows), ptr(b.starts if b else None), ptr(b.counts if b else None),
         table.cap,
         grid.keys.data_ptr(), int(grid.n_cells), ptr(grid.dense),
         *(int(o) for o in grid.origin_cell), *(int(d) for d in grid.dims),
         float(np.float32(grid.cell_size)),
         offsets.data_ptr(), offsets.shape[0],
-        src.data_ptr(), w.data_ptr(), n, poses.data_ptr(), ptr(done),
+        ptr(rows), n_rows, rows.data_ptr() + 16 * n_rows if rows is not None else None, width,
+        src.data_ptr(), w.data_ptr(), order.data_ptr(), n, poses.data_ptr(), ptr(done),
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
         partials.data_ptr(), n_blocks,
@@ -308,14 +382,34 @@ def _counter(kind: str):
             "plane": hashed_plane_stats, "ndt": hashed_ndt_stats}[kind]
 
 
+@functools.lru_cache(maxsize=32)
+def _window_on(offsets_bytes: bytes, device: torch.device, rows: bool) -> tuple:
+    """``(offsets (K, 3), window)`` on ``device``, kept for later binds: the
+    offsets and, with ``rows``, ``(tensor, (R, W))``, :func:`window_rows`
+    of them as one int32 tensor, the rows then the ranks (else None)."""
+    off = np.frombuffer(offsets_bytes, np.int32).reshape(-1, 3)
+    if off.size and np.abs(off.astype(np.int64)).max() >= _MAX_OFFSET:
+        raise ValueError(f"offsets must stay below {_MAX_OFFSET} cells")
+    window = None
+    if rows:
+        r, ranks = window_rows(off)
+        flat = torch.from_numpy(np.concatenate([r.ravel(), ranks.ravel()]))
+        window = (flat.pin_memory().to(device, non_blocking=True), ranks.shape)
+    return offsets_on(off.copy(), device), window
+
+
 def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
                     w: torch.Tensor, offsets, poses: torch.Tensor, done, max_dist: float,
                     huber_delta: float | None, matches=None):
     """``launch() -> (1, 29)`` on the card: the kernel of ``kind`` on ``src``
     (n, 3) and ``w`` (n,) at the pose row ``poses`` (1, 12) on the card,
     writing zeros once ``done`` (1,) is set (None: never), with every
-    operand checked, the offsets on the card and every argument bound once.
-    Each call adds one to the kind's wrapper's ``launches``."""
+    operand checked and every argument bound once: the scan's order by cell
+    (:func:`scan_order`, on the card; the kernel reads each query's point
+    through it and writes its match at the caller's position), the offsets
+    on the card and, without a dense key table, the window's rows and ranks
+    (both kept per device for later binds). Each call adds one to the
+    kind's wrapper's ``launches``."""
     require_cuda(src)
     check_operands(src, w)
     check_poses(poses, done, 1, src.device)
@@ -324,11 +418,16 @@ def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
     if src.shape[0] == 0:
         zeros = torch.zeros((1, STATS_WIDTH), dtype=torch.float32, device=src.device)
         return lambda: zeros
-    offsets = offsets_on(offsets, src.device)
-    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, offsets, poses,
-                                      done, max_dist, huber_delta, matches)
+    host = offsets.cpu().numpy() if isinstance(offsets, torch.Tensor) else np.asarray(offsets)
+    if host.ndim != 2 or host.shape[1] != 3:
+        raise ValueError(f"offsets must be (K, 3), got {host.shape}")
+    offsets, window = _window_on(np.ascontiguousarray(host, np.int32).tobytes(), src.device,
+                                 grid.dense is None)
+    order = scan_order(src, w, grid.cell_size)
+    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, order, offsets,
+                                      window, poses, done, max_dist, huber_delta, matches)
     return bound_launch(fn, args, partials, _counter(kind), f"grid {kind} stats",
-                        (grid, table, src, w, offsets, poses, done, matches))
+                        (grid, table, src, w, order, offsets, window, poses, done, matches))
 
 
 def resident_stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,

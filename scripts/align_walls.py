@@ -23,7 +23,11 @@ clock; each align ends in its copy to the host), the device time and busy
 share of one more by ``torch.profiler``, the host milliseconds per
 iteration (the shortest wall less the device time, over the iterations)
 and the syncs of one more (``torch.cuda.set_sync_debug_mode("warn")``).
-Prints one line per path and the card's name and power limit; with
+For the four paths of phases 9 and 10 also the grid stats kernel
+(``ops/kernels/grid_align``) at the align's converged pose: the time to
+bind its launch (``grid_align.resident_stats``) and its time alone, by
+the profiler (kernels named ``grid_stats_kernel``), over ``--reps`` * 3
+launches. Prints one line per path and the card's name and power limit; with
 ``--out-dir`` it also appends the numbers to
 ``DIR/align_walls_<tag>.json``.
 
@@ -83,6 +87,47 @@ def syncs(fn) -> int:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message)
                and not (w.filename == torch.cuda.__file__ and w.lineno in own) for w in caught)
+
+
+def grid_kernel_ms(s, kind: str, scan_t, reps: int) -> dict:
+    """The grid stats kernel of ``kind`` on solver ``s``'s align operands
+    at its converged pose: ``{"bind_ms", "alone_ms"}``, the bind by the host
+    clock around a synchronize, the launches alone by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from point_cloud_registration_tpu_torch.core.gn import pose_rows_of
+    from point_cloud_registration_tpu_torch.models import _fused, _point_fused
+    from point_cloud_registration_tpu_torch.models.base import pad_points
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+
+    if kind in ("plane", "ndt"):
+        grid, table, offsets = _fused.hashed_operands(s._target, s.cfg, kind)
+    else:
+        normals = s._target.normals if kind == "plane_pt" else None
+        grid, table, offsets = _point_fused.grid_operands(getattr(s._target, "corr", s._target),
+                                                          s.cfg, normals)
+    src, w = pad_points(scan_t, device=scan_t.device)
+    T = torch.as_tensor(s.align(scan_t), dtype=torch.float32)
+    poses = pose_rows_of(T[None]).to(scan_t.device)
+    bind = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launch = ga.resident_stats(kind, grid, table, src, w, offsets, s.cfg.max_dist,
+                                   s.cfg.huber_delta, poses, None)
+        torch.cuda.synchronize()
+        bind.append(1e3 * (time.perf_counter() - t0))
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if "grid_stats_kernel" in e.key and e.self_device_time_total > 0]
+    return {"bind_ms": min(bind), "alone_ms": sum(e.self_device_time_total for e in rows) / 1e3
+            / reps}
 
 
 def sweep_chunks(paths: dict, chunks: list, args) -> dict:
@@ -173,14 +218,17 @@ def main() -> None:
     small_t = torch.from_numpy(small).to(dev)
     small_scan_t = torch.from_numpy(make_scan(rng_small, small, N_SMALL_SCAN)).to(dev)
     two_t = torch.from_numpy(np.vstack([map_np, map_np + TILE_SHIFT])).to(dev)
-    for name, s, target, scan in (
-            ("icp_grid", pt.ICP(**PARAMS, device=dev), small_t, small_scan_t),
-            ("plane_icp_grid", pt.PlaneICP(**PARAMS, device=dev), small_t, small_scan_t),
+    grid_solvers = {}
+    for name, s, target, scan, kind in (
+            ("icp_grid", pt.ICP(**PARAMS, device=dev), small_t, small_scan_t, "point"),
+            ("plane_icp_grid", pt.PlaneICP(**PARAMS, device=dev), small_t, small_scan_t,
+             "plane_pt"),
             ("vplane_icp_hashed", pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=dev), two_t,
-             scan_t),
-            ("ndt_hashed", pt.NDT(voxel_size=1.0, **PARAMS, device=dev), two_t, scan_t)):
+             scan_t, "plane"),
+            ("ndt_hashed", pt.NDT(voxel_size=1.0, **PARAMS, device=dev), two_t, scan_t, "ndt")):
         s.set_target(target)
         paths[name] = (lambda s=s, scan=scan: (s.align(scan), s.last_diagnostics.iterations))
+        grid_solvers[name] = (s, kind, scan)
 
     out = {"tag": args.tag, "card": smi, "torch": torch.__version__, "paths": {}}
     print(f"[{args.tag}] {torch.cuda.get_device_name(0)}; {smi}", flush=True)
@@ -201,12 +249,17 @@ def main() -> None:
                "syncs": syncs(run)}
         if name.startswith("batched"):
             row["regs_per_s"] = N_BATCHES / (min(walls) / 1e3)
+        if name in grid_solvers:
+            s, kind, scan = grid_solvers[name]
+            row["grid_kernel"] = grid_kernel_ms(s, kind, scan, 3 * args.reps)
         out["paths"][name] = row
         print(f"[{args.tag}] {name}: {its} iterations; align ms min {min(walls):.3f}, median "
               f"{float(np.median(walls)):.3f} (all {', '.join(f'{x:.3f}' for x in walls)}); "
               f"device {dev_ms:.3f} ms in {kernels} kernels, busy {100 * row['busy']:.1f} %; "
               f"host {row['host_ms_per_iteration']:.3f} ms per iteration; {row['syncs']} syncs"
-              + (f"; {row['regs_per_s']:.1f} registrations/s" if "regs_per_s" in row else ""),
+              + (f"; {row['regs_per_s']:.1f} registrations/s" if "regs_per_s" in row else "")
+              + (f"; grid stats kernel: bind {row['grid_kernel']['bind_ms']:.3f} ms, alone "
+                 f"{row['grid_kernel']['alone_ms']:.4f} ms" if "grid_kernel" in row else ""),
               flush=True)
     if args.out_dir is not None:
         path = Path(args.out_dir) / f"align_walls_{args.tag}.json"

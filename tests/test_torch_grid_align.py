@@ -4,7 +4,7 @@ the CPU, where no kernel runs: a NumPy model of the kernels' per-query loop,
 their plain versions (``ops/kernels/grid_align.py``) and the wrappers,
 against the JAX package on seeded NumPy inputs.
 
-* The model walks each query's window as the kernel does: the float32
+* The model walks each query's window as the plain query does: the float32
   transform and cell division one rounding at a time, the offsets in
   ``search_offsets`` order, each slot by the dense key table or by a
   lower-bound binary search over the sorted keys, a bucket's first ``cap``
@@ -13,6 +13,18 @@ against the JAX package on seeded NumPy inputs.
   for index (and the port's plain queries'), on inputs with a tie in one
   cell, a tie across two offsets, a bucket over ``cap``, a query outside
   the box, a NaN query, on a dense and a hashed grid.
+* A second model follows the kernel's decomposition: the scan in
+  ``scan_order``, a group of lanes per query (offsets ``k = lane mod L``
+  through the dense table, or the window's rows of ``window_rows``, each
+  by one lower-bound search from a sampled key index and a walk over the
+  sorted keys), the candidates from ``hashgrid.bucket_rows``, each lane's
+  first minimum on (d2, probe rank, bucket position) and the xor merge of
+  the lanes, the matches written back in the caller's order. At the
+  kernel's lane counts and sample size, and at others, it gives the JAX
+  queries' winners on seeded scenes and on lattices whose ties fall in two
+  lanes and in two rows, with rows clipped at the box's faces, empty rows,
+  buckets over ``cap`` and searches ending at either end of the keys and
+  of a sampled interval; the test asserts that each of these occurred.
 * The model's per-query linearizations, gated on ``sqrt(d2) < max_dist``
   and summed in float64, are within 1e-3 (relative to each block's largest
   entry) of JAX's ``icp_stats``, ``plane_icp_stats``, ``vplane_stats`` and
@@ -21,6 +33,8 @@ against the JAX package on seeded NumPy inputs.
   kernels, bit for bit, count no launch, and raise on operands the kernel
   cannot read. The resident launcher returns zeros once the loop is done.
 """
+
+import re
 
 import numpy as np
 import jax
@@ -50,6 +64,7 @@ from point_cloud_registration_tpu_torch.models._point_corr import build_point_co
 from point_cloud_registration_tpu_torch.ops import hashgrid as tgrid
 from point_cloud_registration_tpu_torch.ops import knn as tknn
 from point_cloud_registration_tpu_torch.ops import reduce
+from point_cloud_registration_tpu_torch.ops.kernels import _build
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 from point_cloud_registration_tpu_torch.ops.voxelize import build_voxel_map, query_nearest_voxel
 from point_cloud_registration_tpu_torch.utils.convert import buckets_from_numpy, grid_from_numpy
@@ -193,6 +208,149 @@ def _port_grid(g, dev="cpu"):
     return grid_from_numpy(_np(g.origin_cell), float(g.cell_size), _np(g.dims), _np(g.keys),
                            int(g.n_cells), None if g.dense is None else _np(g.dense),
                            device=dev)
+
+
+# --- the model of the kernel's decomposition ---------------------------------
+
+
+def _kernel_constant(name):
+    """A constant of ``csrc/grid_align.cu``: the model follows the kernel."""
+    text = (_build.CSRC_DIR / "grid_align.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+GRID_LANES, HASHED_LANES = _kernel_constant("kGridLanes"), _kernel_constant("kHashedLanes")
+SAMPLE_MAX = _kernel_constant("kSampleMax")
+NONE = (np.float32(np.inf), (np.iinfo(np.int64).max,), -1)  # (d2, order, winner)
+
+
+def _sample_shift(n_cells, sample_max):
+    s = 0
+    while -(-n_cells >> s) > sample_max:
+        s += 1
+    return s
+
+
+def _sampled_lower_bound(keys, n_cells, key, sample_max, events):
+    """The kernel's ``lower_bound``: a binary search over the samples
+    ``keys[i << s]``, then over the keys between two of them."""
+    s = _sample_shift(n_cells, sample_max)
+    sample = keys[np.arange(-(-n_cells >> s)) << s]
+    lo, hi = 0, len(sample)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if sample[mid] < key else (lo, mid)
+    a, b = (0 if lo == 0 else ((lo - 1) << s) + 1), min(lo << s, n_cells)
+    first, last = a, b
+    while a < b:
+        mid = (a + b) // 2
+        a, b = (mid + 1, b) if keys[mid] < key else (a, mid)
+    if s > 0 and a < n_cells and first < last and a in (first, last):
+        events["interval_end"] += 1
+    return a
+
+
+def _consider(best, d2, order, idx):
+    if d2 < best[0] or (d2 == best[0] and d2 < np.inf and order < best[1]):
+        return (d2, order, idx)
+    return best
+
+
+def model_lane_matches(src, w, T, grid, offsets, candidates, lanes, sample_max=SAMPLE_MAX,
+                       events=None):
+    """The kernel's matches of ``src`` at ``T``, each query written at its
+    caller's position: ``candidates(slot) -> [(index, xyz)]`` in bucket
+    order, read from the table the kernel reads. ``events`` counts what the
+    lattices must reach: ties merged across lanes and rows, clipped and
+    empty rows, over-cap buckets (counted by ``candidates``), searches
+    ending at the keys' ends and at a sampled interval's."""
+    events = {} if events is None else events
+    for name in ("lane_tie", "row_tie", "clipped_row", "empty_row", "key_first", "key_last",
+                 "interval_end"):
+        events.setdefault(name, 0)
+    origin = np.asarray(grid["origin"], np.int64)
+    dims = np.asarray(grid["dims"], np.int64)
+    keys, n_cells, dense = grid["keys"], grid["n_cells"], grid["dense"]
+    rows, ranks = ga.window_rows(offsets)
+    order = ga.scan_order(torch.from_numpy(src), torch.from_numpy(w), grid["cell"]).numpy()
+    q = _transform(src, T)
+    c = _cells(q, grid["cell"])
+    idx = np.full(len(src), -2, np.int64)
+    best_d2 = np.full(len(src), np.nan, np.float32)
+    for i in order:  # the kernel's query order; each result lands at i
+        lane_best, lane_rows = [NONE] * lanes, [None] * lanes
+
+        def visit(lane, slot, rank, row):
+            for j, (p, x) in enumerate(candidates(slot)):
+                with np.errstate(invalid="ignore"):
+                    d2 = _sq(q[i], x)
+                old = lane_best[lane]
+                if d2 == old[0] and d2 < np.inf and lane_rows[lane] != row and dense is None:
+                    events["row_tie"] += 1
+                new = _consider(old, d2, (rank, j), p)
+                if new is not old:
+                    lane_best[lane], lane_rows[lane] = new, row
+
+        for lane in range(lanes):
+            if dense is not None:
+                for k in range(lane, len(offsets), lanes):
+                    rel = c[i] + offsets[k] - origin
+                    if np.all((rel >= 0) & (rel < dims)):
+                        slot = int(dense[rel[0] + dims[0] * (rel[1] + dims[1] * rel[2])])
+                        if slot >= 0:
+                            visit(lane, slot, k, k)
+                continue
+            for r in range(lane, len(rows), lanes):
+                dy, dz, lo, hi = (int(v) for v in rows[r])
+                ry, rz = c[i][1] + dy - origin[1], c[i][2] + dz - origin[2]
+                if not (0 <= ry < dims[1] and 0 <= rz < dims[2]):
+                    continue
+                first = c[i][0] + lo - origin[0]
+                x0, x1 = max(first, 0), min(c[i][0] + hi - origin[0], dims[0] - 1)
+                if x0 > x1:
+                    continue
+                events["clipped_row"] += int(x0 > first or x1 < c[i][0] + hi - origin[0])
+                base = dims[0] * (ry + dims[1] * rz)
+                pos = _sampled_lower_bound(keys, n_cells, base + x0, sample_max, events)
+                hits = 0
+                while pos < n_cells and keys[pos] <= base + x1:
+                    events["key_first"] += int(pos == 0)
+                    events["key_last"] += int(pos == n_cells - 1)
+                    visit(lane, pos, int(ranks[r, keys[pos] - base - first]), r)
+                    pos, hits = pos + 1, hits + 1
+                events["empty_row"] += int(hits == 0)
+        # the xor merge: every lane ends with the group's first minimum
+        group = list(zip(lane_best, lane_rows))
+        off = lanes // 2
+        while off:
+            merged = []
+            for lane in range(lanes):
+                (a, ra), (b, rb) = group[lane], group[lane ^ off]
+                take = b[0] < a[0] or (b[0] == a[0] and b[1] < a[1])
+                if lane < lane ^ off and a[0] == b[0] and a[0] < np.inf:
+                    events["lane_tie"] += 1
+                    events["row_tie"] += int(ra != rb and dense is None)
+                merged.append((b, rb) if take else (a, ra))
+            group, off = merged, off // 2
+        assert all(g[0][:2] == group[0][0][:2] for g in group)
+        best_d2[i], _, idx[i] = group[0][0]
+    assert (idx >= -1).all()  # every query written once
+    return idx, best_d2
+
+
+def rows_candidates(rows_t, starts, counts, cap, events=None):
+    """A grid target's candidates as the kernel reads them: from
+    ``hashgrid.bucket_rows``, the index in the fourth float's bits."""
+    rows = rows_t.numpy()
+    index = rows[:, 3].view(np.int32)
+
+    def cands(slot):
+        n = int(counts[slot])
+        if events is not None and n > cap:
+            events["over_cap"] = events.get("over_cap", 0) + 1
+        a = int(starts[slot])
+        return [(int(index[a + j]), rows[a + j, :3]) for j in range(min(n, cap))]
+    return cands
 
 
 # --- the model's linearizations, in float64 ----------------------------------
@@ -386,6 +544,241 @@ def test_port_matches_equal_the_model(point_case, voxel_case, layout):
                           T[:3, :3], T[:3, 3], voffsets, MAX_DIST, matches=got)
     np.testing.assert_array_equal(got[0].numpy(), vidx)
     np.testing.assert_array_equal(got[1].numpy(), vd2)
+
+
+# --- the kernel's decomposition against the JAX queries ------------------------
+
+
+LANE_COUNTS = sorted({16, GRID_LANES, HASHED_LANES})
+
+
+def _port_rows(pts, jb):
+    buckets = buckets_from_numpy(_np(jb.perm), _np(jb.starts), _np(jb.counts), device="cpu")
+    return tgrid.bucket_rows(torch.from_numpy(pts), buckets)
+
+
+def test_bucket_rows_are_the_points_in_bucket_order(point_case):
+    """``hashgrid.bucket_rows``: row ``starts[s] + j`` is point
+    ``perm[starts[s] + j]``, its index in the fourth float's bits; the
+    table a grid target keeps and ``point_table`` builds are the same."""
+    pts, _, _, _, grids = point_case
+    jg, jb, _ = grids["dense"]
+    rows = _port_rows(pts, jb)
+    perm = _np(jb.perm)
+    assert rows.dtype == torch.float32 and rows.shape == (len(pts), 4) and rows.is_contiguous()
+    np.testing.assert_array_equal(rows[:, :3].numpy(), pts[perm])
+    np.testing.assert_array_equal(rows[:, 3].numpy().view(np.int32), perm)
+    target = build_point_corr(pts, ICPConfig().corr, MAX_DIST, device="cpu")
+    assert target.packed is None
+    table = ga.point_table(target.points, target.buckets, CAP)
+    assert torch.equal(target.rows, table.rows)
+    np.testing.assert_array_equal(target.rows[:, :3].numpy(),
+                                  pts[target.buckets.perm.long().numpy()])
+
+
+@pytest.mark.parametrize("offsets", [
+    jgrid.search_offsets(2.0, 1.0), jgrid.search_offsets(1.0, 1.0),
+    jgrid.search_offsets(2.0, 0.5), jgrid.search_offsets(0.3, 1.0),
+    np.int32([[0, 0, 0], [2, 0, 0], [-1, 0, 0], [1, 1, 0], [0, 0, 0], [3, 0, 0], [0, -1, 2]]),
+], ids=["r2", "r1", "r4", "small", "gaps and a repeat"])
+def test_window_rows_cover_the_offsets_with_their_ranks(offsets):
+    """Each offset lies in exactly one run of consecutive dx at its (dy, dz),
+    with its first position in ``offsets`` as its rank; the runs follow the
+    keys' order; ``search_offsets`` windows give one run per (dy, dz)."""
+    rows, ranks = ga.window_rows(offsets)
+    cells = {}
+    for r, (dy, dz, lo, hi) in enumerate(rows.tolist()):
+        assert lo <= hi and (ranks[r, hi - lo + 1:] == -1).all()
+        for i, dx in enumerate(range(lo, hi + 1)):
+            assert (dx, dy, dz) not in cells
+            cells[(dx, dy, dz)] = int(ranks[r, i])
+    want = {}
+    for k, o in enumerate(map(tuple, np.asarray(offsets).tolist())):
+        want.setdefault(o, k)
+    assert cells == want
+    keyed = [(dz, dy, lo) for dy, dz, lo, _ in rows.tolist()]
+    assert keyed == sorted(keyed)
+    if len(offsets) > 8:  # a search_offsets window
+        assert len(rows) == len({(o[1], o[2]) for o in np.asarray(offsets).tolist()})
+
+
+def test_scan_order_groups_the_scan_by_cell():
+    """A permutation: the weighted points with finite coordinates by their
+    cell (z, then y, then x), equal cells in input order; then the points of
+    weight 0 and one far off the map (key +inf); the weighted NaN points
+    last."""
+    rng = np.random.RandomState(11)
+    src = (rng.rand(500, 3) * 6 - 3).astype(np.float32)
+    src[::50] = np.nan
+    src[7] = [1e12, -1e12, 3e38]
+    w = (rng.rand(500) > 0.25).astype(np.float32)
+    w[7] = 1.0
+    order = ga.scan_order(torch.from_numpy(src), torch.from_numpy(w), 1.0).numpy()
+    assert sorted(order.tolist()) == list(range(500))
+    nan = np.isnan(src).any(1) & (w != 0)
+    head = (w != 0) & ~np.isnan(src).any(1)
+    head[7] = False
+    n_head, n_nan = int(head.sum()), int(nan.sum())
+    assert head[order[:n_head]].all() and nan[order[-n_nan:]].all()
+    assert set(order[n_head:-n_nan].tolist()) == set(np.flatnonzero(~head & ~nan).tolist())
+    cells = np.floor(src[order[:n_head]])
+    key = [(c[2], c[1], c[0]) for c in cells.tolist()]
+    assert key == sorted(key)
+    same = (np.array(key[1:]) == np.array(key[:-1])).all(1)
+    assert (order[1:n_head][same] > order[:n_head - 1][same]).all()
+
+
+def _lane_cases(layout, samples):
+    """(lanes, sample size) pairs: the sample size matters only to the
+    searches, without a dense key table."""
+    return [(lanes, sm) for lanes in LANE_COUNTS
+            for sm in (samples if layout == "hashed" else samples[:1])]
+
+
+SEEDED_CASES = [(layout, lanes, sm) for layout in ("dense", "hashed")
+                for lanes, sm in _lane_cases(layout, (SAMPLE_MAX, 5))]
+
+
+@pytest.mark.parametrize("layout,lanes,sample_max", SEEDED_CASES)
+def test_lane_model_point_matches_equal_jax(point_case, layout, lanes, sample_max):
+    """The kernel's decomposition on the seeded target (a tie in one cell, a
+    tie across offsets, a bucket over ``cap``, outside and NaN queries):
+    winners and squared distances equal to the plain model's, winners equal
+    to the JAX ``nearest_point``'s, each at the caller's position."""
+    pts, _, q, offsets, grids = point_case
+    jg, jb, model = grids[layout]
+    cands = rows_candidates(_port_rows(pts, jb), _np(jb.starts), _np(jb.counts), CAP)
+    w = np.random.RandomState(12).rand(len(q)).astype(np.float32)
+    w[::3] = 0.0  # matches are written for every query, weighted or not
+    for name, T in POSES.items():
+        idx, d2 = model_lane_matches(q, w, T, _grid_dict(jg), offsets, cands, lanes, sample_max)
+        np.testing.assert_array_equal(idx, model[name][0])
+        np.testing.assert_array_equal(d2, model[name][1])
+        res = jknn.nearest_point(jg, jb, jnp.asarray(pts), jnp.asarray(_transform(q, T)),
+                                 offsets, CAP)
+        np.testing.assert_array_equal(idx, _np(res.idx))
+
+
+@pytest.mark.parametrize("layout,lanes,sample_max", SEEDED_CASES)
+def test_lane_model_voxel_matches_equal_jax(voxel_case, layout, lanes, sample_max):
+    """The same on the seeded voxel map (ties on a border and around an
+    empty cell) against the JAX ``nearest_voxel``."""
+    q, offsets, grids = voxel_case
+    jg, means, valid, model = grids[layout]
+    w = np.ones(len(q), np.float32)
+    for name, T in POSES.items():
+        idx, d2 = model_lane_matches(q, w, T, _grid_dict(jg), offsets,
+                                     voxel_candidates(means, valid), lanes, sample_max)
+        np.testing.assert_array_equal(idx, model[name][0])
+        np.testing.assert_array_equal(d2, model[name][1])
+        res = jknn.nearest_voxel(jg, jnp.asarray(means), jnp.asarray(valid),
+                                 jnp.asarray(_transform(q, T)), offsets)
+        np.testing.assert_array_equal(idx, _np(res.idx))
+
+
+LATTICE_POSES = {"I": np.eye(4, dtype=np.float32),
+                 "shift": np.float32([[1, 0, 0, 0.25], [0, 1, 0, -0.5], [0, 0, 1, 0.25],
+                                      [0, 0, 0, 1]])}
+LATTICE_CAP = 6
+
+
+def _lattice_queries(rng, lo, hi, n):
+    """Queries on a quarter lattice from a cell beyond the box's low faces to
+    one beyond its high faces, with the box's corners: exact distances."""
+    q = np.floor(rng.uniform(lo - 1.0, hi + 1.0, (n, 3)) * 4) / 4
+    return np.vstack([q, [lo, lo + 0.25, hi]]).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def point_lattice():
+    """Points on a half-metre lattice (+1/4) in 6 x 6 x 3 m, 40 % of the
+    sites but none with 2 <= y < 3 (rows of empty cells), some twice (a tie
+    in one bucket), one site eight times (over ``LATTICE_CAP``), and 128
+    quarter-lattice queries: ties everywhere."""
+    rng = np.random.RandomState(13)
+    sites = np.stack(np.meshgrid(np.arange(12), np.arange(12), np.arange(6), indexing="ij"),
+                     -1).reshape(-1, 3) * 0.5 + 0.25
+    pts = sites[(rng.rand(len(sites)) < 0.4) & ((sites[:, 1] < 2) | (sites[:, 1] > 3))]
+    pts = np.vstack([pts, pts[::9], np.repeat(pts[5:6], 8, 0)]).astype(np.float32)
+    return pts, _lattice_queries(rng, 0.0, 6.0, 128)
+
+
+@pytest.fixture(scope="module")
+def voxel_lattice():
+    """Cells of a 7 x 7 x 4 box, half occupied, 70 % of those valid, their
+    centroids a quarter off the centre on a lattice, and 128 quarter-lattice
+    queries."""
+    rng = np.random.RandomState(14)
+    cells = np.stack(np.meshgrid(np.arange(7), np.arange(7), np.arange(4), indexing="ij"),
+                     -1).reshape(-1, 3)
+    cells = cells[rng.rand(len(cells)) < 0.5]
+    means = (cells + 0.5 + rng.randint(-1, 2, cells.shape) * 0.25).astype(np.float32)
+    valid = rng.rand(len(cells)) < 0.7
+    return (cells + 0.5).astype(np.float32), means, valid, _lattice_queries(rng, 0.0, 7.0, 128)
+
+
+def _assert_events(events, names):
+    missing = [n for n in names if events.get(n, 0) == 0]
+    assert not missing, f"the lattice reached no {missing}: {events}"
+
+
+@pytest.mark.parametrize("layout", ["dense", "hashed"])
+def test_lane_model_on_the_point_lattice(point_lattice, layout):
+    """Every lane count and sample size: winners equal to the JAX
+    ``nearest_point``'s and d2 to the plain model's, with ties across
+    lanes and rows, clipped and empty rows, over-cap buckets and searches
+    ending at the keys' ends and at sampled intervals' ends."""
+    pts, q = point_lattice
+    offsets = jgrid.search_offsets(MAX_DIST, CELL)
+    budget = jgrid.DENSE_CELL_BUDGET if layout == "dense" else 1
+    jg, _, jb = jgrid.build_grid(pts, CELL, with_buckets=True, dense_budget=budget)
+    g = _grid_dict(jg)
+    perm, starts, counts = _np(jb.perm), _np(jb.starts), _np(jb.counts)
+    events = {}
+    cands = rows_candidates(_port_rows(pts, jb), starts, counts, LATTICE_CAP, events)
+    w = np.ones(len(q), np.float32)
+    for name, T in LATTICE_POSES.items():
+        plain = model_matches(_transform(q, T), g, offsets,
+                              bucket_candidates(pts, perm, starts, counts, LATTICE_CAP))
+        res = jknn.nearest_point(jg, jb, jnp.asarray(pts), jnp.asarray(_transform(q, T)),
+                                 offsets, LATTICE_CAP)
+        np.testing.assert_array_equal(plain[0], _np(res.idx))
+        for lanes, sample_max in _lane_cases(layout, (SAMPLE_MAX, 16, 3)):
+            idx, d2 = model_lane_matches(q, w, T, g, offsets, cands, lanes, sample_max, events)
+            np.testing.assert_array_equal(idx, plain[0])
+            np.testing.assert_array_equal(d2, plain[1])
+    _assert_events(events, ["lane_tie", "over_cap"])
+    if layout == "hashed":
+        _assert_events(events, ["row_tie", "clipped_row", "empty_row", "key_first", "key_last",
+                                "interval_end"])
+
+
+@pytest.mark.parametrize("layout", ["dense", "hashed"])
+def test_lane_model_on_the_voxel_lattice(voxel_lattice, layout):
+    """The same on the voxel lattice against the JAX ``nearest_voxel``."""
+    centres, means, valid, q = voxel_lattice
+    offsets = jgrid.search_offsets(MAX_DIST, CELL)
+    budget = jgrid.DENSE_CELL_BUDGET if layout == "dense" else 1
+    jg, jinv, _ = jgrid.build_grid(centres, CELL, dense_budget=budget)
+    C = jg.keys.shape[0]
+    slot_means, slot_valid = np.zeros((C, 3), np.float32), np.zeros(C, bool)
+    slot_means[_np(jinv)], slot_valid[_np(jinv)] = means, valid
+    g, cands = _grid_dict(jg), voxel_candidates(slot_means, slot_valid)
+    events = {}
+    w = np.ones(len(q), np.float32)
+    for name, T in LATTICE_POSES.items():
+        plain = model_matches(_transform(q, T), g, offsets, cands)
+        res = jknn.nearest_voxel(jg, jnp.asarray(slot_means), jnp.asarray(slot_valid),
+                                 jnp.asarray(_transform(q, T)), offsets)
+        np.testing.assert_array_equal(plain[0], _np(res.idx))
+        for lanes, sample_max in _lane_cases(layout, (SAMPLE_MAX, 16, 3)):
+            idx, d2 = model_lane_matches(q, w, T, g, offsets, cands, lanes, sample_max, events)
+            np.testing.assert_array_equal(idx, plain[0])
+            np.testing.assert_array_equal(d2, plain[1])
+    _assert_events(events, ["lane_tie"])
+    if layout == "hashed":
+        _assert_events(events, ["row_tie", "clipped_row", "empty_row", "key_first", "key_last",
+                                "interval_end"])
 
 
 # --- the model's linearizations against JAX's stats ---------------------------

@@ -49,8 +49,9 @@ TOL_STATS = 1e-4
 # The layout types and mesh helpers that differ by design, with the port's
 # signature: the cell index in place of dense_blocks, slab maps, a torch
 # device type in place of a JAX device list, the kernel's kind in
-# place of a Pallas spec; ICPTarget's grid and buckets default to None, so
-# that a packed target needs neither.
+# place of a Pallas spec; ICPTarget's grid, buckets and rows (the grid
+# method's points in bucket order, read by the grid stats kernel) default to
+# None, so that a packed target needs none of them.
 DEVIATIONS = {
     "VoxelMap": "(origin_cell, dims, cell_size, means, covs, normals, counts, valid, icovs, "
                 "cells, grid=None)",
@@ -59,7 +60,7 @@ DEVIATIONS = {
     "make_map_mesh": "(model, data=None, *, device_type='cuda')",
     "align_batched_fused_sharded": "(target, normals, sources, src_weights, init_Ts, cfg, kind, "
                                    "mesh)",
-    "ICPTarget": "(points, packed, proxy, grid=None, buckets=None)",
+    "ICPTarget": "(points, packed, proxy, grid=None, buckets=None, rows=None)",
 }
 
 
