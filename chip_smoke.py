@@ -1961,14 +1961,14 @@ def grid_operands(kind: str, s) -> tuple:
 def kernel_alone_ms(fn, reps: int, name: str, tries: int = 3) -> float:
     """Device milliseconds per call of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn``, by ``torch.profiler``; a trace that holds
-    no such kernel (the profiler drops one now and then) is taken again, up
-    to ``tries`` times."""
+    no such kernel (the profiler drops one now and then) is logged and taken
+    again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1976,6 +1976,8 @@ def kernel_alone_ms(fn, reps: int, name: str, tries: int = 3) -> float:
         rows = [e for e in prof.key_averages() if name in e.key and e.self_device_time_total > 0]
         if rows:
             return sum(e.self_device_time_total for e in rows) / 1e3 / reps
+        log(f"[profiler] trace {attempt} of {tries} holds no kernel named {name}"
+            + ("; taking it again" if attempt < tries else ""))
     raise AssertionError(f"the profiler saw no kernel named {name} in {tries} traces")
 
 
@@ -2015,16 +2017,31 @@ def check_grid_launch(label: str, kind: str, grid, table, src, w, T, offsets, ma
     return err
 
 
+def grid_sample_max() -> int:
+    """``kSampleMax`` of ``csrc/grid_align.cu``: the most keys of a block's
+    sampled key index."""
+    import re
+
+    source = (Path(__file__).resolve().parent / GRID_SOURCE).read_text()
+    return int(re.search(r"constexpr int kSampleMax = (\d+);", source).group(1))
+
+
 def grid_work(kind: str, grid, table, src, w, T, offsets, max_dist, idx, d2) -> tuple:
-    """``(bytes, operations)`` the stats of ``kind`` need on these inputs:
-    the weighted scan points, all weights, the offsets and the 29 sums once;
-    on a grid target the dense table's entries the windows probe, the start
-    and count of every slot found and the bucket points scanned (an index
-    and a point each), the normals of the winners; on a hashed map the key,
-    flag and centroid of every slot found and the features of the winners.
-    Operations: the transform and the cell (18 a query), a key (2) and, on a
-    hashed map, the binary search (2 per step) per probe of an in-box cell,
-    a distance (``FLOPS_DIST``) per candidate, a linearization per inlier."""
+    """``(bytes, operations, design)`` of the stats of ``kind`` on these
+    inputs. Bytes: the weighted scan points, all weights, the offsets and
+    the 29 sums once; on a grid target the dense table's entries the windows
+    probe, the start and count of every slot found and the bucket points
+    scanned (an index and a point each), the normals of the winners; on a
+    hashed map the key, flag and centroid of every slot found and the
+    features of the winners. Operations: the transform and the cell (18 a
+    query), a key (2) per probe of an in-box cell and, on a hashed map, its
+    lookup as one read and compare (2): the function needs the slot, not a
+    search for it; a distance (``FLOPS_DIST``) per candidate, a
+    linearization per inlier. ``design``, without a dense key table: the
+    kernel's own searches (one per window row with a cell in the box, each
+    its steps in the sampled index in shared memory and in the keys it
+    leaves), which do more than the function needs and so stay out of the
+    bound."""
     import torch
 
     from point_cloud_registration_tpu_torch.core.se3 import transform_points
@@ -2033,18 +2050,22 @@ def grid_work(kind: str, grid, table, src, w, T, offsets, max_dist, idx, d2) -> 
         lookup_slots,
         query_cells,
     )
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 
     dev = src.device
     live = w != 0
     q = transform_points(T.to(dev), src)[live]
     off = torch.as_tensor(np.asarray(offsets), dtype=torch.int64, device=dev)
+    _, ranks = ga.window_rows(np.asarray(offsets))
+    row_of = [torch.as_tensor(r[r >= 0], dtype=torch.int64, device=dev) for r in ranks]
     probed, found = [], []
-    in_box = candidates = 0.0
+    in_box = candidates = row_searches = 0.0
     for a in range(0, q.shape[0], 1 << 14):
         key = coords_to_key(query_cells(q[a:a + (1 << 14)], grid.cell_size)[:, None, :]
                             + off[None], grid.origin_cell, grid.dims)
         slot = lookup_slots(grid, key)
         in_box += float((key >= 0).sum())
+        row_searches += sum(float((key[:, r] >= 0).any(1).sum()) for r in row_of)
         probed.append(torch.unique(key[key >= 0]))
         found.append(torch.unique(slot[slot >= 0]))
         if table.valid is None:
@@ -2066,13 +2087,24 @@ def grid_work(kind: str, grid, table, src, w, T, offsets, max_dist, idx, d2) -> 
         flops += 2 * in_box
     else:
         n_bytes += 17 * found.numel() + table.feats.shape[1] * 4 * winners
-        steps = 1 if grid.dense is not None else int(np.ceil(np.log2(grid.n_cells + 1)))
-        flops += in_box * (2 + 2 * steps)
+        flops += 4 * in_box
+    design = None
+    if grid.dense is None:
+        shift = 0
+        while -(-grid.n_cells // (1 << shift)) > grid_sample_max():
+            shift += 1
+        n_sample = -(-grid.n_cells // (1 << shift))
+        design = {"row_searches": int(row_searches), "rows_per_query": len(row_of),
+                  "shared_steps": int(np.ceil(np.log2(n_sample + 1))), "global_steps": shift}
     log(f"[{kind} kernel] work at the converged pose: {n_live} weighted queries, {in_box:.0f} "
         f"in-box probes ({probed} distinct cells, {found.numel()} slots found), "
         f"{candidates:.0f} candidates, {int(inlier.sum())} inliers ({winners} distinct winners): "
-        f"{n_bytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP")
-    return n_bytes, flops
+        f"{n_bytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP"
+        + (f"; the kernel's own searches (not in the bound): {design['row_searches']} row "
+           f"searches ({design['rows_per_query']} rows a query, those with a cell in the box), "
+           f"each up to {design['shared_steps']} steps in the shared sample and "
+           f"{design['global_steps']} in the keys" if design else ""))
+    return n_bytes, flops, design
 
 
 def hold_grid_kernel(tag: str, kind: str, s, src, w, T_k, d) -> dict:
@@ -2134,13 +2166,15 @@ def hold_grid_kernel(tag: str, kind: str, s, src, w, T_k, d) -> dict:
     plain_ms = [cuda_ms(plain_call, 5), None]
     kernel_ms[1], plain_ms[1] = cuda_ms(launch, 20), cuda_ms(plain_call, 5)
     alone = kernel_alone_ms(launch, 10, "grid_stats_kernel")
-    b_ms, b_by = bound_ms(*grid_work(kind, grid, table, src, w, Tc, offsets, cfg.max_dist, idx,
-                                     d2))
+    n_bytes, flops, design = grid_work(kind, grid, table, src, w, Tc, offsets, cfg.max_dist,
+                                       idx, d2)
+    b_ms, b_by = bound_ms(n_bytes, flops)
     log(f"{tag} per-iteration stats at the converged T (the align's bound launch, plain, launch, "
         f"plain): {kernel_ms[0]:.4f}, {plain_ms[0]:.4f}, {kernel_ms[1]:.4f}, {plain_ms[1]:.4f} ms; "
         f"the kernel alone (profiler) {alone:.4f} ms; bound {b_ms:.6f} ms by {b_by}")
     return {"kernel_ms": kernel_ms, "plain_ms": plain_ms, "alone_ms": alone, "bound_ms": b_ms,
-            "bound_by": b_by, "max_abs_err": worst, "dT_plain": dT, "library_ms": None}
+            "bound_by": b_by, "max_abs_err": worst, "dT_plain": dT, "library_ms": None,
+            "design": design}
 
 
 def grid_lattice_cases(kind: str, dev) -> float:
@@ -2161,6 +2195,7 @@ def grid_lattice_cases(kind: str, dev) -> float:
         DENSE_CELL_BUDGET,
         INVALID_KEY,
         Grid,
+        bucket_rows,
         build_grid,
         search_offsets,
     )
@@ -2174,8 +2209,9 @@ def grid_lattice_cases(kind: str, dev) -> float:
         offsets = search_offsets(2.0, 1.0)
         for budget in (DENSE_CELL_BUDGET, 1):
             grid, _, buckets = build_grid(pts_t, 1.0, with_buckets=True, dense_budget=budget)
+            rows = bucket_rows(pts_t, buckets)
             for cap in (64, 5):
-                table = ga.point_table(pts_t, buckets, cap, nrm)
+                table = ga.point_table(pts_t, buckets, cap, nrm, rows=rows)
                 for name, scan in scans.items():
                     src = torch.from_numpy(scan).to(dev)
                     w = torch.ones(len(scan), device=dev)
@@ -2270,12 +2306,11 @@ def quarter_lattice_cases(kind: str, dev) -> float:
     one beyond, a third of weight 0; at T = I and a shift by quarters; with
     the dense key table and without it. Returns the largest absolute
     error."""
-    import re
-
     import torch
 
     from point_cloud_registration_tpu_torch.ops.hashgrid import (
         DENSE_CELL_BUDGET,
+        bucket_rows,
         build_grid,
         search_offsets,
     )
@@ -2301,8 +2336,9 @@ def quarter_lattice_cases(kind: str, dev) -> float:
         for budget in (DENSE_CELL_BUDGET, 1):
             grid, _, buckets = build_grid(pts_t, 1.0, with_buckets=True, dense_budget=budget)
             sizes.append(grid.n_cells)
+            rows = bucket_rows(pts_t, buckets)
             for cap in (6, 64):
-                table = ga.point_table(pts_t, buckets, cap, nrm)
+                table = ga.point_table(pts_t, buckets, cap, nrm, rows=rows)
                 for T in poses:
                     worst = max(worst, check_grid_launch(
                         f"[{kind} quarter lattice] cap {cap}, dense table "
@@ -2334,8 +2370,7 @@ def quarter_lattice_cases(kind: str, dev) -> float:
                 worst = max(worst, check_grid_launch(
                     f"[{kind} quarter lattice] dense table {grid.dense is not None}", kind, grid,
                     table, src, w, T, offsets, 2.0))
-    source = (Path(__file__).resolve().parent / GRID_SOURCE).read_text()
-    sample_max = int(re.search(r"constexpr int kSampleMax = (\d+);", source).group(1))
+    sample_max = grid_sample_max()
     if min(sizes) <= sample_max:
         raise AssertionError(f"[{kind} quarter lattice] {sizes} cells: no sampled interval")
     log(f"[{kind} kernel] vs plain on the quarter lattice ({sizes[0]} occupied cells; 4,000 "
@@ -3614,7 +3649,9 @@ def main() -> None:
                          "kernel_ms": held["kernel_ms"], "plain_ms": held["plain_ms"],
                          "bound_ms": held["bound_ms"], "bound_by": held["bound_by"],
                          "library_ms": held["library_ms"],
-                         "extra": {"alone_ms": held["alone_ms"], "ptxas": grid["ptxas"][kind]}}))
+                         "extra": {"alone_ms": held["alone_ms"], "ptxas": grid["ptxas"][kind],
+                                   **({"design_searches": held["design"]}
+                                      if held["design"] else {})}}))
     # launches on each path that runs the kernel, the main path's first
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],

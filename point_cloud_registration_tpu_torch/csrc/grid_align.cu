@@ -46,13 +46,13 @@
 // search over the sorted keys per cell. The design spreads and shortens
 // those chains:
 //
-//   * The launcher orders the scan by the cell of each point, once per align
-//     (ops/kernels/grid_align.py::scan_order): a rigid pose keeps neighbours
-//     together, so the queries of a block look in overlapping windows at
-//     every pose and find them in L1 (unordered, the kernel takes about twice
-//     as long). Query i is the caller's point order[i]: the kernel reads it
-//     there and writes its match there.
-//   * A group of kGridLanes (8) or kHashedLanes (2) lanes takes one query. On
+//   * Query i is the caller's point i, in the scan's own order. A scan
+//     ordered by cell takes a fifth off the kernel alone on a grid target and
+//     two fifths on a hashed map (the queries of a block then share their
+//     windows in L1), but a sort once an align costs the host more than the
+//     card saves, and the aligns are host-bound: their walls were no shorter
+//     with it (scripts/grid_stats_ablation.py --walls compares them).
+//   * A group of kGridLanes (32) or kHashedLanes (2) lanes takes one query. On
 //     a grid with a dense key table lane l probes the offsets k = l, l + L,
 //     ... (one table read each); without one (a hashed map, or a grid target
 //     over the dense budget) it takes the window's rows r = l, l + L, ...:
@@ -63,8 +63,9 @@
 //     memory (every 2^s-th key, at most kSampleMax) and ends in the 2^s keys
 //     it leaves. A hit's probe rank comes from the window's rank table (rows
 //     and ranks are built on the host from the offsets, once per bind). The
-//     10k queries of a small target's scan fill 80k lanes; the 100k of a
-//     hashed map's need few lanes each, and more cost more than they hide.
+//     10k queries of a small target's scan fill 320k lanes, a warp each;
+//     the 100k of a hashed map's need few lanes each, and more cost more
+//     than they hide.
 //   * A lane keeps its first minimum on (d2, probe rank, bucket position),
 //     which is order-free, so lanes may visit cells in any order; the group
 //     merges by xor shuffles on the same key. The result is the plain first
@@ -74,9 +75,12 @@
 //     target): one 16-byte load per candidate, no read of perm.
 //   * The lanes take the linearization in turn (one lane a query, the group's
 //     round number picks it), so the next query's searches overlap it.
-//   * Registers: the pose lives in shared memory, so that no kind spills
-//     within the budget of kMinBlocks blocks an SM (without that hint ptxas
-//     keeps the grid kinds at 74 registers, and they run 20 % longer).
+//   * Registers and occupancy: the pose lives in shared memory, so that no
+//     kind spills within its budget. The grid kinds' scattered loads want
+//     warps in flight: three blocks of 256 an SM (kGridMinBlocks, at most 85
+//     registers) and a warp a query take 40 % less time than two blocks and
+//     8 lanes; the hashed kinds keep two (kHashedMinBlocks), three cost them
+//     a few per cent.
 // Blocks of kThreads threads stride over the scan by groups; each block
 // writes one row of the (n_blocks, 29) partials, which the wrapper sums. No
 // atomics: for a fixed launch shape the sums repeat bit for bit.
@@ -103,15 +107,20 @@ namespace {
 using pcr::kStats;
 using pcr::Pose;
 
-constexpr int kThreads = 256;      // threads per block
-constexpr int kGridLanes = 8;      // lanes per query, grid kinds
-constexpr int kHashedLanes = 2;    // lanes per query, hashed kinds
-constexpr int kMinBlocks = 2;      // blocks an SM must hold: at most 128 registers
-constexpr int kSampleMax = 512;    // keys of a block's sampled index (2 KB)
+constexpr int kThreads = 256;        // threads per block
+constexpr int kGridLanes = 32;       // lanes per query, grid kinds: a warp
+constexpr int kHashedLanes = 2;      // lanes per query, hashed kinds
+constexpr int kGridMinBlocks = 3;    // blocks an SM must hold, grid kinds: <= 85 registers
+constexpr int kHashedMinBlocks = 2;  // hashed kinds: <= 128 registers
+constexpr int kSampleMax = 512;      // keys of a block's sampled index (2 KB)
 enum Kind { kPoint = 0, kPlanePt = 1, kPlane = 2, kNdt = 3 };
 
 __host__ __device__ constexpr int lanes_of(int kind) {
   return kind == kPoint || kind == kPlanePt ? kGridLanes : kHashedLanes;
+}
+
+__host__ __device__ constexpr int min_blocks_of(int kind) {
+  return kind == kPoint || kind == kPlanePt ? kGridMinBlocks : kHashedMinBlocks;
 }
 
 // The hashed grid and the search window.
@@ -324,9 +333,9 @@ __device__ __forceinline__ void visit(const Table& tb, Best<Order<kKind>>& b, fl
 }
 
 template <int kKind>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) grid_stats_kernel(
+__global__ void __launch_bounds__(kThreads, min_blocks_of(kKind)) grid_stats_kernel(
     Index ix, Table tb, const float* __restrict__ src, const float* __restrict__ w,
-    const long long* __restrict__ order, int n, const float* __restrict__ pose,
+    int n, const float* __restrict__ pose,
     const int* __restrict__ done, float max_dist, int use_huber, float huber_delta,
     float* __restrict__ partials, int* __restrict__ match_idx, float* __restrict__ match_d2) {
   constexpr int kL = lanes_of(kKind);
@@ -363,11 +372,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grid_stats_kernel(
   int round = 0;
   for (int i = blockIdx.x * kGroups + static_cast<int>(threadIdx.x) / kL; i < n;
        i += gridDim.x * kGroups, ++round) {
-    const long long at = __ldg(&order[i]);  // the caller's point
-    const float wi = __ldg(&w[at]);
+    const float wi = __ldg(&w[i]);
     if (wi == 0.f && match_idx == nullptr) continue;  // adds nothing
-    const float px = __ldg(&src[3 * at]), py = __ldg(&src[3 * at + 1]),
-                pz = __ldg(&src[3 * at + 2]);
+    const float* p = src + 3 * static_cast<size_t>(i);
+    const float px = __ldg(p), py = __ldg(p + 1), pz = __ldg(p + 2);
     const float qx = __fadd_rn(
         __fadd_rn(__fadd_rn(__fmul_rn(px, T.r00), __fmul_rn(py, T.r01)), __fmul_rn(pz, T.r02)),
         T.t0);
@@ -411,8 +419,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) grid_stats_kernel(
     group_merge<kL>(b, mask);
     if (lane != (round & (kL - 1))) continue;  // one lane a query, in turn
     if (match_idx != nullptr) {
-      match_idx[at] = b.idx;
-      match_d2[at] = b.d2;
+      match_idx[i] = b.idx;
+      match_d2[i] = b.d2;
     }
     if (wi == 0.f || b.idx < 0 || !(__fsqrt_rn(b.d2) < max_dist)) continue;
 
@@ -438,17 +446,17 @@ int launch(const float* pts, const float* feats, const unsigned char* valid,
            const float* bucket_rows, const int* starts, const int* counts, int cap,
            const int* keys, int n_cells, const int* dense, int ox, int oy, int oz, int nx,
            int ny, int nz, float cell, const int* offsets, int n_offsets, const int* rows,
-           int n_rows, const int* ranks, int row_width, const float* src, const float* w,
-           const long long* order, int n, const float* pose, const int* done, float max_dist,
-           int use_huber, float huber_delta, float* partials, int n_blocks, int* match_idx,
-           float* match_d2, void* stream) {
+           int n_rows, const int* ranks, int row_width, const float* src, const float* w, int n,
+           const float* pose, const int* done, float max_dist, int use_huber,
+           float huber_delta, float* partials, int n_blocks, int* match_idx, float* match_d2,
+           void* stream) {
   const Index ix{keys, n_cells, dense, ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets,
                  reinterpret_cast<const int4*>(rows), n_rows, ranks, row_width};
   const Table tb{pts, feats, valid, reinterpret_cast<const float4*>(bucket_rows), starts, counts,
                  cap};
   grid_stats_kernel<kKind><<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ix, tb, src, w, order, n, pose, done, max_dist, use_huber, huber_delta, partials,
-      match_idx, match_d2);
+      ix, tb, src, w, n, pose, done, max_dist, use_huber, huber_delta, partials, match_idx,
+      match_d2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,23 +479,22 @@ int pcr_grid_queries_per_block(int kind) { return kThreads / lanes_of(kind); }
 // the origin cell and dims of the grid's box and its cell size; offsets
 // (K, 3) i32 (read with a dense table); rows (R, 4) i32 (16-byte aligned)
 // and ranks (R, row_width) i32 (read without one); src (n, 3), w (n,),
-// order (n,) i64 (the points in the order of the queries), pose (1, 12) f32
-// and done (1,) i32 or null on the device; partials (n_blocks, 29) f32;
-// match_idx (n,) i32 and match_d2 (n,) f32, or null.
+// pose (1, 12) f32 and done (1,) i32 or null on the device; partials
+// (n_blocks, 29) f32; match_idx (n,) i32 and match_d2 (n,) f32, or null.
 #define PCR_GRID_ENTRY(name, kind)                                                            \
   int name(const float* pts, const float* feats, const unsigned char* valid,                 \
            const float* bucket_rows, const int* starts, const int* counts, int cap,          \
            const int* keys, int n_cells, const int* dense, int ox, int oy, int oz,           \
            int nx, int ny, int nz, float cell, const int* offsets, int n_offsets,            \
            const int* rows, int n_rows, const int* ranks, int row_width, const float* src,   \
-           const float* w, const long long* order, int n, const float* pose,                 \
-           const int* done, float max_dist, int use_huber, float huber_delta, float* partials, \
-           int n_blocks, int* match_idx, float* match_d2, void* stream) {                    \
+           const float* w, int n, const float* pose, const int* done, float max_dist,        \
+           int use_huber, float huber_delta, float* partials, int n_blocks, int* match_idx,  \
+           float* match_d2, void* stream) {                                                  \
     return launch<kind>(pts, feats, valid, bucket_rows, starts, counts, cap, keys,           \
                         n_cells, dense, ox, oy, oz, nx, ny, nz, cell, offsets, n_offsets,    \
-                        rows, n_rows, ranks, row_width, src, w, order, n, pose, done,        \
-                        max_dist, use_huber, huber_delta, partials, n_blocks, match_idx,     \
-                        match_d2, stream);                                                   \
+                        rows, n_rows, ranks, row_width, src, w, n, pose, done, max_dist,     \
+                        use_huber, huber_delta, partials, n_blocks, match_idx, match_d2,     \
+                        stream);                                                             \
   }
 
 PCR_GRID_ENTRY(pcr_grid_point_stats, kPoint)

@@ -62,7 +62,7 @@ def grid_operands(target: PointCorrTarget, cfg: ICPConfig | PlaneICPConfig,
     ``normals`` (PlaneICP's) in the table, and the window of
     ``match_points`` (``search_offsets`` of the bucket cell)."""
     table = grid_align.point_table(target.points, target.buckets, cfg.corr.cell_cap, normals,
-                                   target.rows)
+                                   rows=target.rows)
     return target.grid, table, search_offsets(cfg.max_dist, grid_cell_of(cfg.corr, cfg.max_dist))
 
 

@@ -19,9 +19,8 @@ The kernel reads the grid and a :class:`GridTable`: :func:`point_table`
 (a small target's points, optional normals, CSR buckets, their points in
 bucket order (``hashgrid.bucket_rows``) and ``cap``) or :func:`voxel_table`
 (a hashed map's centroids, valid flags and normals or packed inverse
-covariances). The launcher orders the scan by cell (:func:`scan_order`)
-once per bind and, for a grid without a dense key table, hands the kernel
-the window as rows of consecutive keys with their probe ranks
+covariances). For a grid without a dense key table the launcher hands the
+kernel the window as rows of consecutive keys with their probe ranks
 (:func:`window_rows`). The wrappers :func:`grid_point_stats`,
 :func:`grid_plane_point_stats`, :func:`hashed_plane_stats` and
 :func:`hashed_ndt_stats` launch the hand-written kernels of
@@ -55,7 +54,7 @@ import torch
 from point_cloud_registration_tpu_torch.core.gn import packed_from_stats
 from point_cloud_registration_tpu_torch.core.se3 import makeT, transform_points
 from point_cloud_registration_tpu_torch.ops import reduce
-from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid, bucket_rows
+from point_cloud_registration_tpu_torch.ops.hashgrid import Buckets, Grid
 from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     STATS_WIDTH,
@@ -71,18 +70,16 @@ from point_cloud_registration_tpu_torch.ops.knn import _sq_dist, nearest_point, 
 __all__ = [
     "GridTable", "grid_plane_point_stats", "grid_point_stats", "grid_point_stats_reference",
     "hashed_ndt_stats", "hashed_plane_stats", "hashed_voxel_stats_reference", "point_table",
-    "resident_stats", "scan_order", "voxel_table", "window_rows",
+    "resident_stats", "voxel_table", "window_rows",
 ]
 
 # Most blocks of one launch (256 threads each); past it the blocks stride over
-# the scan. A small target's 10k queries take 313 blocks, a hashed map's 100k
-# 782 (8 and 2 lanes a query).
+# the scan. A small target's 10k queries would take 1,250 blocks, a hashed
+# map's 100k 782 (32 and 2 lanes a query).
 MAX_BLOCKS = 1024
 _C_SYMBOLS = {"point": "pcr_grid_point_stats", "plane_pt": "pcr_grid_plane_point_stats",
               "plane": "pcr_hashed_plane_stats", "ndt": "pcr_hashed_ndt_stats"}
 _KIND_IDS = {"point": 0, "plane_pt": 1, "plane": 2, "ndt": 3}
-# scan_order's key: x + 2^17 y + 2^34 z of a point's cell, in float64
-_ORDER_BITS = 17
 # The kernel forms cells in the box's coordinates as int32, clamped to +-2^30:
 # exact while every dim and every offset stays below these.
 _MAX_DIM, _MAX_OFFSET = 1 << 29, 1 << 20
@@ -103,14 +100,11 @@ class GridTable(NamedTuple):
 
 
 def point_table(points: torch.Tensor, buckets: Buckets, cap: int,
-                normals: torch.Tensor | None = None,
-                rows: torch.Tensor | None = None) -> GridTable:
+                normals: torch.Tensor | None = None, *, rows: torch.Tensor) -> GridTable:
     """The table of a grid target: ``points`` (N, 3) bucketed by the grid,
     at most ``cap`` of a bucket scanned, ``normals`` (N, 3) for PlaneICP;
     ``rows``, the points in bucket order (``hashgrid.bucket_rows``, kept
-    with the target), built here when not given."""
-    if rows is None:
-        rows = bucket_rows(points, buckets)
+    with the target)."""
     return GridTable(points=points, feats=normals, valid=None, buckets=buckets, cap=int(cap),
                      rows=rows)
 
@@ -225,27 +219,6 @@ def window_rows(offsets) -> tuple[np.ndarray, np.ndarray]:
     return rows, ranks
 
 
-@functools.lru_cache(maxsize=8)
-def _order_weights(device: torch.device) -> torch.Tensor:
-    return torch.pow(2.0, torch.arange(0, 3 * _ORDER_BITS, _ORDER_BITS, dtype=torch.float64,
-                                       device=device))
-
-
-def scan_order(src: torch.Tensor, w: torch.Tensor, cell_size: float) -> torch.Tensor:
-    """(n,) int64 on the device of ``src``: the scan's points ordered by
-    their own cell ``c = floor(p / cell_size)``, by the float64 key
-    ``cx + 2^17 cy + 2^34 cz`` (exactly z, then y, then x while every
-    coordinate stays within +-2^16 cells), the points of weight 0 after the
-    others (key +inf) and those with a NaN coordinate last, equal keys in
-    input order (a stable sort). A rigid pose keeps neighbours together, so
-    queries next to each other in this order look in overlapping windows at
-    every pose. A handful of launches, no host sync."""
-    key = torch.div(src, float(cell_size), rounding_mode="floor").double() @ _order_weights(
-        src.device)
-    key.masked_fill_(w == 0, float("inf"))
-    return torch.sort(key, stable=True).indices
-
-
 def _bind(lib: ctypes.CDLL, kind: str):
     """``(C function, queries per block)`` of ``kind`` in a built library."""
     fn = getattr(lib, _C_SYMBOLS[kind])
@@ -254,7 +227,7 @@ def _bind(lib: ctypes.CDLL, kind: str):
         [c_ptr] * 6 + [c_int]  # pts, feats, valid, bucket rows, starts, counts, cap
         + [c_ptr, c_int, c_ptr] + [c_int] * 6 + [c_float]  # keys, n_cells, dense, box, cell
         + [c_ptr, c_int, c_ptr, c_int, c_ptr, c_int]  # offsets, K, rows, R, ranks, W
-        + [c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_ptr]  # src, w, order, n, pose, done
+        + [c_ptr, c_ptr, c_int, c_ptr, c_ptr]  # src, w, n, pose, done
         + [c_float, c_int, c_float]  # max_dist, use_huber, huber_delta
         + [c_ptr, c_int, c_ptr, c_ptr, c_ptr]  # partials, n_blocks, matches, stream
     )
@@ -342,7 +315,7 @@ def _check_matches(matches, n: int, device) -> None:
         _need("matches[1]", d2, torch.float32, (n,), device)
 
 
-def _launch_args(bound, grid: Grid, table: GridTable, src, w, order, offsets, window,
+def _launch_args(bound, grid: Grid, table: GridTable, src, w, offsets, window,
                  poses, done, max_dist, huber_delta, matches) -> tuple:
     """``(fn, args, partials)``: the C function of ``bound`` and its
     arguments for these checked operands on the card, on the current
@@ -366,7 +339,7 @@ def _launch_args(bound, grid: Grid, table: GridTable, src, w, order, offsets, wi
         float(np.float32(grid.cell_size)),
         offsets.data_ptr(), offsets.shape[0],
         ptr(rows), n_rows, rows.data_ptr() + 16 * n_rows if rows is not None else None, width,
-        src.data_ptr(), w.data_ptr(), order.data_ptr(), n, poses.data_ptr(), ptr(done),
+        src.data_ptr(), w.data_ptr(), n, poses.data_ptr(), ptr(done),
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
         partials.data_ptr(), n_blocks,
@@ -404,11 +377,9 @@ def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
     """``launch() -> (1, 29)`` on the card: the kernel of ``kind`` on ``src``
     (n, 3) and ``w`` (n,) at the pose row ``poses`` (1, 12) on the card,
     writing zeros once ``done`` (1,) is set (None: never), with every
-    operand checked and every argument bound once: the scan's order by cell
-    (:func:`scan_order`, on the card; the kernel reads each query's point
-    through it and writes its match at the caller's position), the offsets
-    on the card and, without a dense key table, the window's rows and ranks
-    (both kept per device for later binds). Each call adds one to the
+    operand checked and every argument bound once: the offsets on the card
+    and, without a dense key table, the window's rows and ranks (both kept
+    per device for later binds). Each call adds one to the
     kind's wrapper's ``launches``."""
     require_cuda(src)
     check_operands(src, w)
@@ -423,11 +394,10 @@ def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
         raise ValueError(f"offsets must be (K, 3), got {host.shape}")
     offsets, window = _window_on(np.ascontiguousarray(host, np.int32).tobytes(), src.device,
                                  grid.dense is None)
-    order = scan_order(src, w, grid.cell_size)
-    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, order, offsets,
-                                      window, poses, done, max_dist, huber_delta, matches)
+    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, offsets, window,
+                                      poses, done, max_dist, huber_delta, matches)
     return bound_launch(fn, args, partials, _counter(kind), f"grid {kind} stats",
-                        (grid, table, src, w, order, offsets, window, poses, done, matches))
+                        (grid, table, src, w, offsets, window, poses, done, matches))
 
 
 def resident_stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,

@@ -13,13 +13,13 @@ against the JAX package on seeded NumPy inputs.
   for index (and the port's plain queries'), on inputs with a tie in one
   cell, a tie across two offsets, a bucket over ``cap``, a query outside
   the box, a NaN query, on a dense and a hashed grid.
-* A second model follows the kernel's decomposition: the scan in
-  ``scan_order``, a group of lanes per query (offsets ``k = lane mod L``
+* A second model follows the kernel's decomposition: the scan in the
+  caller's order, a group of lanes per query (offsets ``k = lane mod L``
   through the dense table, or the window's rows of ``window_rows``, each
   by one lower-bound search from a sampled key index and a walk over the
   sorted keys), the candidates from ``hashgrid.bucket_rows``, each lane's
   first minimum on (d2, probe rank, bucket position) and the xor merge of
-  the lanes, the matches written back in the caller's order. At the
+  the lanes, each query's match at its own position. At the
   kernel's lane counts and sample size, and at others, it gives the JAX
   queries' winners on seeded scenes and on lattices whose ties fall in two
   lanes and in two rows, with rows clipped at the box's faces, empty rows,
@@ -256,10 +256,10 @@ def _consider(best, d2, order, idx):
     return best
 
 
-def model_lane_matches(src, w, T, grid, offsets, candidates, lanes, sample_max=SAMPLE_MAX,
+def model_lane_matches(src, T, grid, offsets, candidates, lanes, sample_max=SAMPLE_MAX,
                        events=None):
-    """The kernel's matches of ``src`` at ``T``, each query written at its
-    caller's position: ``candidates(slot) -> [(index, xyz)]`` in bucket
+    """The kernel's matches of ``src`` at ``T``, each query at its own
+    position: ``candidates(slot) -> [(index, xyz)]`` in bucket
     order, read from the table the kernel reads. ``events`` counts what the
     lattices must reach: ties merged across lanes and rows, clipped and
     empty rows, over-cap buckets (counted by ``candidates``), searches
@@ -272,12 +272,11 @@ def model_lane_matches(src, w, T, grid, offsets, candidates, lanes, sample_max=S
     dims = np.asarray(grid["dims"], np.int64)
     keys, n_cells, dense = grid["keys"], grid["n_cells"], grid["dense"]
     rows, ranks = ga.window_rows(offsets)
-    order = ga.scan_order(torch.from_numpy(src), torch.from_numpy(w), grid["cell"]).numpy()
     q = _transform(src, T)
     c = _cells(q, grid["cell"])
     idx = np.full(len(src), -2, np.int64)
     best_d2 = np.full(len(src), np.nan, np.float32)
-    for i in order:  # the kernel's query order; each result lands at i
+    for i in range(len(src)):
         lane_best, lane_rows = [NONE] * lanes, [None] * lanes
 
         def visit(lane, slot, rank, row):
@@ -520,8 +519,9 @@ def test_port_matches_equal_the_model(point_case, voxel_case, layout):
     pts, normals, q, offsets, grids = point_case
     jg, jb, model = grids[layout]
     grid = _port_grid(jg)
-    table = ga.point_table(torch.from_numpy(pts), buckets_from_numpy(
-        _np(jb.perm), _np(jb.starts), _np(jb.counts), device="cpu"), CAP)
+    buckets = buckets_from_numpy(_np(jb.perm), _np(jb.starts), _np(jb.counts), device="cpu")
+    table = ga.point_table(torch.from_numpy(pts), buckets, CAP,
+                           rows=tgrid.bucket_rows(torch.from_numpy(pts), buckets))
     src, w = torch.from_numpy(q), torch.ones(len(q))
     T = torch.from_numpy(POSE)
     idx, d2 = model["pose"]
@@ -560,7 +560,8 @@ def _port_rows(pts, jb):
 def test_bucket_rows_are_the_points_in_bucket_order(point_case):
     """``hashgrid.bucket_rows``: row ``starts[s] + j`` is point
     ``perm[starts[s] + j]``, its index in the fourth float's bits; the
-    table a grid target keeps and ``point_table`` builds are the same."""
+    rows a grid target keeps, which its operands hand the kernel, are
+    those of its points and buckets."""
     pts, _, _, _, grids = point_case
     jg, jb, _ = grids["dense"]
     rows = _port_rows(pts, jb)
@@ -570,8 +571,9 @@ def test_bucket_rows_are_the_points_in_bucket_order(point_case):
     np.testing.assert_array_equal(rows[:, 3].numpy().view(np.int32), perm)
     target = build_point_corr(pts, ICPConfig().corr, MAX_DIST, device="cpu")
     assert target.packed is None
-    table = ga.point_table(target.points, target.buckets, CAP)
-    assert torch.equal(target.rows, table.rows)
+    _, table, _ = _point_fused.grid_operands(target, ICPConfig(max_dist=MAX_DIST))
+    assert table.rows is target.rows
+    assert torch.equal(target.rows, tgrid.bucket_rows(target.points, target.buckets))
     np.testing.assert_array_equal(target.rows[:, :3].numpy(),
                                   pts[target.buckets.perm.long().numpy()])
 
@@ -602,30 +604,25 @@ def test_window_rows_cover_the_offsets_with_their_ranks(offsets):
         assert len(rows) == len({(o[1], o[2]) for o in np.asarray(offsets).tolist()})
 
 
-def test_scan_order_groups_the_scan_by_cell():
-    """A permutation: the weighted points with finite coordinates by their
-    cell (z, then y, then x), equal cells in input order; then the points of
-    weight 0 and one far off the map (key +inf); the weighted NaN points
-    last."""
-    rng = np.random.RandomState(11)
-    src = (rng.rand(500, 3) * 6 - 3).astype(np.float32)
-    src[::50] = np.nan
-    src[7] = [1e12, -1e12, 3e38]
-    w = (rng.rand(500) > 0.25).astype(np.float32)
-    w[7] = 1.0
-    order = ga.scan_order(torch.from_numpy(src), torch.from_numpy(w), 1.0).numpy()
-    assert sorted(order.tolist()) == list(range(500))
-    nan = np.isnan(src).any(1) & (w != 0)
-    head = (w != 0) & ~np.isnan(src).any(1)
-    head[7] = False
-    n_head, n_nan = int(head.sum()), int(nan.sum())
-    assert head[order[:n_head]].all() and nan[order[-n_nan:]].all()
-    assert set(order[n_head:-n_nan].tolist()) == set(np.flatnonzero(~head & ~nan).tolist())
-    cells = np.floor(src[order[:n_head]])
-    key = [(c[2], c[1], c[0]) for c in cells.tolist()]
-    assert key == sorted(key)
-    same = (np.array(key[1:]) == np.array(key[:-1])).all(1)
-    assert (order[1:n_head][same] > order[:n_head - 1][same]).all()
+def test_point_table_checks_the_rows_it_is_given(point_case):
+    """A grid target's table takes its bucket rows from the caller (the
+    target keeps them): ``point_table`` builds none, and the launcher's
+    checks refuse rows that are missing, of another shape or dtype, or not
+    at a 16-byte boundary (the kernel reads them as float4)."""
+    pts, _, _, _, grids = point_case
+    _, jb, _ = grids["dense"]
+    buckets = buckets_from_numpy(_np(jb.perm), _np(jb.starts), _np(jb.counts), device="cpu")
+    points = torch.from_numpy(pts)
+    with pytest.raises(TypeError):
+        ga.point_table(points, buckets, CAP)  # the rows are required
+    rows = tgrid.bucket_rows(points, buckets)
+    grid, cpu = _port_grid(grids["dense"][0]), torch.device("cpu")
+    ga.check_table("point", grid, ga.point_table(points, buckets, CAP, rows=rows), cpu)
+    shifted = torch.empty(rows.numel() + 1)[1:].view(rows.shape)
+    shifted.copy_(rows)
+    for bad in (None, rows[:-1], rows.double(), rows[:, :3].contiguous(), shifted):
+        with pytest.raises(ValueError):
+            ga.check_table("point", grid, ga.point_table(points, buckets, CAP, rows=bad), cpu)
 
 
 def _lane_cases(layout, samples):
@@ -648,10 +645,8 @@ def test_lane_model_point_matches_equal_jax(point_case, layout, lanes, sample_ma
     pts, _, q, offsets, grids = point_case
     jg, jb, model = grids[layout]
     cands = rows_candidates(_port_rows(pts, jb), _np(jb.starts), _np(jb.counts), CAP)
-    w = np.random.RandomState(12).rand(len(q)).astype(np.float32)
-    w[::3] = 0.0  # matches are written for every query, weighted or not
     for name, T in POSES.items():
-        idx, d2 = model_lane_matches(q, w, T, _grid_dict(jg), offsets, cands, lanes, sample_max)
+        idx, d2 = model_lane_matches(q, T, _grid_dict(jg), offsets, cands, lanes, sample_max)
         np.testing.assert_array_equal(idx, model[name][0])
         np.testing.assert_array_equal(d2, model[name][1])
         res = jknn.nearest_point(jg, jb, jnp.asarray(pts), jnp.asarray(_transform(q, T)),
@@ -665,9 +660,8 @@ def test_lane_model_voxel_matches_equal_jax(voxel_case, layout, lanes, sample_ma
     empty cell) against the JAX ``nearest_voxel``."""
     q, offsets, grids = voxel_case
     jg, means, valid, model = grids[layout]
-    w = np.ones(len(q), np.float32)
     for name, T in POSES.items():
-        idx, d2 = model_lane_matches(q, w, T, _grid_dict(jg), offsets,
+        idx, d2 = model_lane_matches(q, T, _grid_dict(jg), offsets,
                                      voxel_candidates(means, valid), lanes, sample_max)
         np.testing.assert_array_equal(idx, model[name][0])
         np.testing.assert_array_equal(d2, model[name][1])
@@ -736,7 +730,6 @@ def test_lane_model_on_the_point_lattice(point_lattice, layout):
     perm, starts, counts = _np(jb.perm), _np(jb.starts), _np(jb.counts)
     events = {}
     cands = rows_candidates(_port_rows(pts, jb), starts, counts, LATTICE_CAP, events)
-    w = np.ones(len(q), np.float32)
     for name, T in LATTICE_POSES.items():
         plain = model_matches(_transform(q, T), g, offsets,
                               bucket_candidates(pts, perm, starts, counts, LATTICE_CAP))
@@ -744,7 +737,7 @@ def test_lane_model_on_the_point_lattice(point_lattice, layout):
                                  offsets, LATTICE_CAP)
         np.testing.assert_array_equal(plain[0], _np(res.idx))
         for lanes, sample_max in _lane_cases(layout, (SAMPLE_MAX, 16, 3)):
-            idx, d2 = model_lane_matches(q, w, T, g, offsets, cands, lanes, sample_max, events)
+            idx, d2 = model_lane_matches(q, T, g, offsets, cands, lanes, sample_max, events)
             np.testing.assert_array_equal(idx, plain[0])
             np.testing.assert_array_equal(d2, plain[1])
     _assert_events(events, ["lane_tie", "over_cap"])
@@ -765,14 +758,13 @@ def test_lane_model_on_the_voxel_lattice(voxel_lattice, layout):
     slot_means[_np(jinv)], slot_valid[_np(jinv)] = means, valid
     g, cands = _grid_dict(jg), voxel_candidates(slot_means, slot_valid)
     events = {}
-    w = np.ones(len(q), np.float32)
     for name, T in LATTICE_POSES.items():
         plain = model_matches(_transform(q, T), g, offsets, cands)
         res = jknn.nearest_voxel(jg, jnp.asarray(slot_means), jnp.asarray(slot_valid),
                                  jnp.asarray(_transform(q, T)), offsets)
         np.testing.assert_array_equal(plain[0], _np(res.idx))
         for lanes, sample_max in _lane_cases(layout, (SAMPLE_MAX, 16, 3)):
-            idx, d2 = model_lane_matches(q, w, T, g, offsets, cands, lanes, sample_max, events)
+            idx, d2 = model_lane_matches(q, T, g, offsets, cands, lanes, sample_max, events)
             np.testing.assert_array_equal(idx, plain[0])
             np.testing.assert_array_equal(d2, plain[1])
     _assert_events(events, ["lane_tie"])
@@ -904,7 +896,8 @@ def test_wrappers_on_cpu_are_the_plain_path(scene, kind, huber):
 def test_wrappers_raise_on_operands_the_kernel_cannot_read(scene):
     pts, normals, src = scene
     grid, _, buckets = tgrid.build_grid(pts, CELL, with_buckets=True, device="cpu")
-    table = ga.point_table(pts, buckets, CAP)
+    rows = tgrid.bucket_rows(pts, buckets)
+    table = ga.point_table(pts, buckets, CAP, rows=rows)
     w, eye, zero = torch.ones(len(src)), torch.eye(3), torch.zeros(3)
     offsets = tgrid.search_offsets(MAX_DIST, CELL)
     ok = ga.grid_point_stats(grid, table, src, w, eye, zero, offsets, MAX_DIST)
@@ -917,7 +910,7 @@ def test_wrappers_raise_on_operands_the_kernel_cannot_read(scene):
         "perm dtype": dict(table=table._replace(buckets=buckets._replace(
             perm=buckets.perm.long()))),
         "keys shape": dict(grid=grid._replace(keys=grid.keys[:-1])),
-        "table kind": dict(table=ga.point_table(pts, buckets, CAP, normals)),
+        "table kind": dict(table=ga.point_table(pts, buckets, CAP, normals, rows=rows)),
         "offsets shape": dict(offsets=offsets[:, :2]),
     }
     for case, kw in bad.items():
@@ -927,8 +920,8 @@ def test_wrappers_raise_on_operands_the_kernel_cannot_read(scene):
             ga.grid_point_stats(**args)
             pytest.fail(f"no error for {case}")
     with pytest.raises(ValueError):  # a voxel kind without valid flags
-        ga.hashed_plane_stats(grid, ga.point_table(pts, buckets, CAP, normals), src, w, eye,
-                              zero, offsets, MAX_DIST)
+        ga.hashed_plane_stats(grid, ga.point_table(pts, buckets, CAP, normals, rows=rows), src,
+                              w, eye, zero, offsets, MAX_DIST)
 
 
 def test_resident_launcher_stops_with_the_loop(scene):
@@ -936,7 +929,8 @@ def test_resident_launcher_stops_with_the_loop(scene):
     called, zeros once the done flag is set."""
     pts, _, src = scene
     grid, _, buckets = tgrid.build_grid(pts, CELL, with_buckets=True, device="cpu")
-    table, offsets = ga.point_table(pts, buckets, CAP), tgrid.search_offsets(MAX_DIST, CELL)
+    table = ga.point_table(pts, buckets, CAP, rows=tgrid.bucket_rows(pts, buckets))
+    offsets = tgrid.search_offsets(MAX_DIST, CELL)
     w = torch.ones(len(src))
     state = gn.new_state(torch.eye(4)[None], 30, "cpu")
     launch = ga.resident_stats("point", grid, table, src, w, offsets, MAX_DIST, None,
