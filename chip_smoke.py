@@ -20,19 +20,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    (events and the profiler) beside the plain version's, beside
    ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` of the same systems,
    and its bound.
+2c. gn_loop: the loop kernel (``csrc/gn_loop.cu``, kinds plane and ndt),
+   VPlaneICP's and NDT's whole Gauss-Newton loop in one cooperative launch,
+   on the city map and the 100k scan below, from T = I and from a perturbed
+   start, against the two-launch resident loop on the same tensors: the
+   first iteration's block rows bit-equal to the stats kernel's, equal
+   iterations and flags, T within ``TOL_LOOP``, the e2 and |dx| histories
+   within a relative ``TOL_LOOP``, the inliers equal, three more aligns
+   bit-identical; its plain
+   version's T within ``TOL_LOOP``. Its time per align (events and alone),
+   the plain version's, the aligns of both loops in turns (walls, device
+   time, busy share, syncs), each kind's ptxas report and its bound.
 
-Every align below runs the resident Gauss-Newton loop (``core/gn.py``:
-the stats kernel and ``gn_step`` once per iteration, enqueued in chunks of
-``GN_CHUNK``, the state read once per chunk). Where the script checks
-launches, the stats kernel and ``gn_step`` must each have launched once per
-enqueued iteration (``core.gn.enqueued_iterations``), and it prints the
-stats launches that did work (the iterations) beside them. Each path is
-also run again under the host loop (``core.gn.gauss_newton_host``, the
-plain reference): T within ``TOL_HOST``, equal iterations, ``converged``
-and ``solver_failed``; it prints the syncs of one align of each loop
+VPlaneICP and NDT on a dense map align through the loop kernel: one launch
+of ``gn_loop.fused_loop`` and one read of the state an align, no launch of
+the stats kernel or of ``gn_step``. Every other align below runs the
+two-launch resident Gauss-Newton loop (``core/gn.py``: the stats kernel and
+``gn_step`` once per iteration, enqueued in chunks of ``GN_CHUNK``, the
+state read once per chunk). Where the script checks launches, the stats
+kernel and ``gn_step`` must each have launched once per enqueued iteration
+(``core.gn.enqueued_iterations``) on those, and it prints the stats
+launches that did work (the iterations) beside them. Each path is also run
+again under the host loop (``core.gn.gauss_newton_host``, the plain
+reference): T within ``TOL_HOST``, equal iterations, ``converged`` and
+``solver_failed``; it prints the syncs of one align of each loop
 (``torch.cuda.set_sync_debug_mode("warn")``, with the lines that caused
-them), at most one per chunk on the kernel paths (all of them since the
-grid stats kernels of phases 9 and 10).
+them): one on the loop kernel's paths, at most one per chunk on the other
+kernel paths.
 
 Then, for each solver path (VPlaneICP, NDT, ICP and, after the normals
 phase, PlaneICP) on bench.py's seed-42 city map (1.2M points) and 100k-point
@@ -47,7 +61,8 @@ scan, with the bench parameters:
    launch count set to 0 just before and read just after; it must converge
    near the scan's known offset, to the JAX package's result on the same
    data with the same iteration count, through the kernel (its launch count
-   must equal the iteration count). Then three warm runs, bit-identical to
+   must equal the enqueued iterations; VPlaneICP and NDT: one launch of the
+   loop kernel and none of the stats kernel). Then three warm runs, bit-identical to
    the first, and the per-iteration time of the align's bound launch
    beside the plain version's (and the wrapper's, which copies its pose). Then the resident loop against the host loop: the align walls
    in turns (host, resident, resident, host), each loop's device time and
@@ -126,9 +141,9 @@ package's result on the same seeded data (``T_REF_*`` and the
    as a hashed map with occupied cells that are not valid; build and align
    times, peak memory.
 11. ``update_target``: the map split in two by a seeded permutation;
-   ``set_target(half 1)``, ``update_target(half 2)``, ``align(scan)``: the
-   fused kernel once per iteration on the rebuilt cell index, and held to its
-   plain version there; counts and valid cells equal a full rebuild's.
+   ``set_target(half 1)``, ``update_target(half 2)``, ``align(scan)``: one
+   launch of the loop kernel on the rebuilt cell index, the fused kernel held
+   to its plain version there; counts and valid cells equal a full rebuild's.
 12. Utilities at full size: ``KDTree(map).query(scan, k=1)`` equal to the
    exact 1-NN kernel (its escapes run that kernel), ``query(k=8)`` to
    ``brute_force_knn``; ``VoxelGrid`` ``set_points`` / ``calc_icov`` /
@@ -157,9 +172,10 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
    PlaneICP's (phase 6's normals), through
    ``models._point_fused.fused_point_align_batched``.
 15. FastVPlaneICP on the map and the 100k scan: ``"auto"`` equal to phase
-   4's VPlaneICP bit for bit (T, iterations, fused launches); ``"always"``
-   with the switch ``FAST_SWITCH``: phase 1's iterations equal to JAX's,
-   one fused launch per phase-2 iteration on the ``N_target`` coreset rows,
+   4's VPlaneICP bit for bit (T, iterations, one loop launch); ``"always"``
+   with the switch ``FAST_SWITCH``: phase 1 in one launch of the loop
+   kernel, its iterations equal to JAX's, one fused launch per enqueued
+   phase-2 iteration on the ``N_target`` coreset rows,
    T within 6e-2 of JAX's and of VPlaneICP's; the live points, the host
    lift's seconds and microseconds a live point beside one full-cloud
    iteration's wall and nanoseconds a point, and their ratio: the card's
@@ -212,7 +228,8 @@ name and power limit:
    set to 0 just before each run and read just after: the path's kernel
    once per iteration (PlaneICP: also the k-NN kernel once per tier in its
    ``set_target``), no other kernel; T within 1e-3 of the JAX package's with
-   equal iterations and ``converged``. ``demo_estimate_normals_torch`` on the
+   equal iterations and ``converged`` (VPlaneICP, NDT and FastVPlaneICP: one
+   launch of the loop kernel). ``demo_estimate_normals_torch`` on the
    file, k = 15: the k-NN kernel once per tier, the normals phase 6's bit
    for bit. ``demo_visualize_voxels_torch`` on the file, voxel 1: the valid
    voxels, the counts' mean, max and sum, ``voxel_filter``'s rows and the
@@ -243,7 +260,13 @@ shapes. The grid stats kernels of phases 9 and 10 (``grid_point_stats``,
 ``grid_plane_point_stats``, ``hashed_plane_stats``, ``hashed_ndt_stats``)
 stand for XLA code of the JAX package (``replaces`` names the query,
 ``ops/knn.py``), as ``gn_step`` does; each has ``alone_ms``, its time by the
-profiler. The last line is ``{"ok": true, "device": {...}}``.
+profiler. ``fused_loop`` (the loop kernel) replaces the JAX while_loop
+around the fused stats: its numbers are phase 2c's, VPlaneICP's at the top
+and each kind's in ``kinds``. ``launches_path`` names the path that
+``launches`` counts: the kernel's main path or, where that no longer
+launches it (the fused stats and ``gn_step`` on VPlaneICP and NDT), the
+first of its paths that does. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -516,8 +539,10 @@ MAP_REF = {  # kind: (iterations, rows 0-2 of T)
 DEMOS = Path(__file__).resolve().parent / "demos"
 DEMO_ARGS = ["--scan-points", str(N_SCAN), "--voxel-size", "1.0", "--max-dist", "2.0",
              "--max-iter", "30", "--tol", "1e-3", "--k", str(K_NORMALS)]
-DEMO_KERNEL = {"VPlaneICP": "fused_plane_stats", "NDT": "fused_ndt_stats", "ICP": "point_stats",
-               "PlaneICP": "plane_point_stats", "FastVPlaneICP": "fused_plane_stats"}
+# each method's kernel; VPlaneICP, NDT and FastVPlaneICP ("auto": VPlaneICP at
+# max_iter 30) align in one launch of the loop kernel
+DEMO_KERNEL = {"VPlaneICP": "fused_loop", "NDT": "fused_loop", "ICP": "point_stats",
+               "PlaneICP": "plane_point_stats", "FastVPlaneICP": "fused_loop"}
 # The JAX package's results of the demos on the same data (JAX 0.9.0 on the CPU;
 # JAX_PLATFORMS=cpu python3 scripts/jax_reference_demos.py): the demos' own draws and
 # classes; PlaneICP's normals from the JAX package's CPU default (the packed-block XLA
@@ -569,6 +594,7 @@ class SolverPath(NamedTuple):
     iterations_ref: int
     source: str
     replaces: str
+    loop: bool = False  # its align runs the loop kernel (gn_loop.fused_loop): one launch
 
 
 def log(*args):
@@ -739,6 +765,7 @@ def all_kernels() -> list:
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
     from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 
@@ -746,7 +773,7 @@ def all_kernels() -> list:
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
             pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
             ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
-            ga.hashed_ndt_stats]
+            ga.hashed_ndt_stats, gl.fused_loop]
 
 
 def reset_launches() -> None:
@@ -783,6 +810,22 @@ def check_resident(tag: str, counts: dict, kernel: str | None, iterations,
     if counts["gn_step"] != want or (kernel is not None and counts[kernel] != want):
         raise AssertionError(f"{tag} launches {counts} for {worked} iterations: expected {want} "
                              f"of {kernel} and of gn_step")
+    return out
+
+
+def check_loop(tag: str, counts: dict, iterations) -> dict:
+    """The launches of one align through the loop kernel (VPlaneICP and NDT
+    on a dense map): one launch of ``fused_loop``, none of the stats
+    kernels, of ``gn_step`` or of any other kernel of the loop. Returns the
+    counts."""
+    out = {"worked": int(np.asarray(iterations).max()), "loop": counts["fused_loop"],
+           "enqueued": counts["fused_plane_stats"] + counts["fused_ndt_stats"],
+           "gn_step": counts["gn_step"]}
+    log(f"{tag} loop kernel: {out['loop']} launch for {out['worked']} iterations; stats "
+        f"launches {out['enqueued']}, gn_step launches {out['gn_step']} (expected 1, 0, 0)")
+    if (out["loop"], out["enqueued"], out["gn_step"]) != (1, 0, 0):
+        raise AssertionError(f"{tag} launches {counts}: expected one of fused_loop and none of "
+                             "the two-launch loop's kernels")
     return out
 
 
@@ -1054,11 +1097,13 @@ def solver_paths() -> list[SolverPath]:
         SolverPath("vplane_icp", lambda d: pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=d),
                    fa.fused_plane_stats, fa.fused_plane_stats_reference, voxel_args,
                    voxel_work(FLOPS_PLANE_ROW), plain_target, "max",
-                   T_REF_VPLANE, 4, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550"),
+                   T_REF_VPLANE, 4, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550",
+                   loop=True),
         SolverPath("ndt", lambda d: pt.NDT(voxel_size=1.0, **PARAMS, device=d),
                    fa.fused_ndt_stats, fa.fused_ndt_stats_reference, voxel_args,
                    voxel_work(FLOPS_M3_POINT), plain_target, "entry",
-                   T_REF_NDT, 3, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550"),
+                   T_REF_NDT, 3, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550",
+                   loop=True),
         SolverPath("icp", lambda d: pt.ICP(**PARAMS, device=d),
                    pa.point_stats, pa.point_stats_reference, point_args,
                    point_work(FLOPS_M3_POINT, 12, 16), plain_target, "entry",
@@ -1138,7 +1183,10 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
             f"JAX difference {ref_err}, {d.iterations} iterations "
             f"(JAX: {path.iterations_ref})"
         )
-    resident = check_resident(tag, counts, path.kernel.__name__, d.iterations)
+    if path.loop:
+        resident = check_loop(tag, counts, d.iterations)
+    else:
+        resident = check_resident(tag, counts, path.kernel.__name__, d.iterations)
 
     map_t = torch.from_numpy(map_np).to(dev)
     scan_t = torch.from_numpy(scan_np).to(dev)
@@ -1157,7 +1205,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
     log(f"{tag} warm (device-resident inputs), set_target s / align s: "
         + ", ".join(f"{s:.4f} / {a:.4f}" for s, a in warm))
     loops = compare_loops(tag, lambda: (solver.align(scan_t), solver.last_diagnostics), T_k, d,
-                          chunks(d.iterations))
+                          1 if path.loop else chunks(d.iterations))
 
     Tc = torch.as_tensor(T_k, dtype=torch.float32)
     args = path.args(solver, src, w, Tc)
@@ -1206,7 +1254,8 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         "plain_ms": [plain_ms, plain_ms_2], "offset_err": off_err, "dT_jax": ref_err,
         "dT_plain": dT, "launches": launches, "max_abs_err": max_abs_err,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "T": T_k,
-        "resident": resident, "gn_step_launches": counts["gn_step"], **loops,
+        "resident": resident, "gn_step_launches": counts["gn_step"],
+        "loop_launches": counts["fused_loop"], **loops,
         "extra": {"wrapper_ms": wrapper_ms},
         **({"proxy_share": proxy_share} if packed_grid else {}),
     }
@@ -1379,6 +1428,175 @@ def run_gn_step(dev) -> dict:
                      ("bound_ms", b_ms)):
             out[k][B] = v
         out["bound_by"] = b_by
+    return out
+
+
+# Phase 2c: the loop kernel (csrc/gn_loop.cu), VPlaneICP's and NDT's whole
+# Gauss-Newton loop in one launch
+LOOP_KINDS = {"vplane_icp": ("plane", "VPlaneICP", FLOPS_PLANE_ROW),
+              "ndt": ("ndt", "NDT", FLOPS_M3_POINT)}
+TOL_LOOP = 1e-5  # max |dT| and the e2 / |dx| histories' relative gap to the two-launch loop
+LOOP_SOURCE = f"{CSRC}/gn_loop.cu"
+LOOP_REPLACES = "point_cloud_registration_tpu/core/gn.py:182"  # the while_loop of gauss_newton
+LOOP_LABELS = {"ILi0E": "plane", "ILi1E": "ndt"}
+
+
+def rel_gap(a, b, n: int) -> float:
+    """Largest |a - b| / |b| over the first ``n`` entries (0 where both are 0)."""
+    a = np.asarray(a[:n], np.float64)
+    b = np.asarray(b[:n], np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30), initial=0.0))
+
+
+def run_gn_loop(map_np, scan_np, dev) -> dict:
+    """Phase 2c: the loop kernel at the main path's shapes (the city map, the
+    100k scan, VPlaneICP's and NDT's targets and settings), from T = I and
+    from a perturbed start, against the two-launch resident loop
+    (``core.gn.gauss_newton_device`` over ``resident_stats``) on the same
+    tensors: the first iteration's block rows bit-equal to the stats kernel's
+    (the loop kernel's ``rows`` output), equal iterations and flags, T within
+    TOL_LOOP, the e2 and |dx| histories within a relative TOL_LOOP, the
+    inlier histories equal; three more aligns bit-identical; against its plain version
+    (``fused_loop_reference``) T within TOL_LOOP. Then its time per align by
+    events (a copy of the initial state and the launch) and alone (the
+    profiler), the plain version's, the walls of both loops in turns with
+    their device time, busy share and syncs, and its bound."""
+    import functools
+
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core import gn
+    from point_cloud_registration_tpu_torch.models import pad_points
+    from point_cloud_registration_tpu_torch.models._fused import fused_voxel_stats_resident
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+
+    src, w = pad_points(scan_np, device=dev)
+    eye = torch.eye(4)
+    T_pert = pt.plus(eye, torch.tensor(PERTURBATION))
+    ptxas = library_ptxas("gn_loop", "gn_loop_kernel", LOOP_LABELS)
+    log("[gn_loop] ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, {v.get('spill_stores', 0)} / {v.get('spill_loads', 0)} "
+        f"bytes spilled, {v.get('stack', 0)} bytes stack" for k, v in ptxas.items()))
+    out = {"ptxas": ptxas, "launches_check": 0}
+    for name, (kind, cls, row_flops) in LOOP_KINDS.items():
+        tag = f"[gn_loop {kind}]"
+        solver = getattr(pt, cls)(voxel_size=1.0, **PARAMS, device=dev)
+        solver.set_target(map_np)
+        vm, cfg = solver._target, solver.cfg
+        operands = (kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w)
+        settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                        max_iter=cfg.max_iter)
+        stats_fn = fused_voxel_stats_resident(vm, src, w, cfg, kind)
+        r = {"dT_two_launch": 0.0, "dT_plain": 0.0, "e2_rel": 0.0, "dx_rel": 0.0}
+        before = gl.fused_loop.launches
+        for label, T0 in (("T=I", eye), ("T=perturbed", T_pert)):
+            # the two-launch loop's first stats launch at T0, and its block rows
+            fn, args, partials = fa.launch_args(
+                fa._kernel_fn(kind), vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src[None],
+                w[None], gn.pose_rows_of(T0[None]).to(dev), None, cfg.max_dist, cfg.huber_delta)
+            if fn(*args) != 0:
+                raise AssertionError(f"{tag} the stats launch failed")
+            rows = torch.full_like(partials[0], float("nan"))
+            state = gn.new_state(T0[None], cfg.max_iter, dev)
+            launch = gl.fused_looper(*operands, state, **settings, rows=rows)
+            launch()
+            k = gn.read_state(state)
+            rows_equal = torch.equal(rows, partials[0])
+            T_two, d_two = gn.gauss_newton_device(stats_fn, T0, cfg.max_iter, cfg.tol, dev)
+            plain = gn.new_state(T0[None], cfg.max_iter, "cpu")
+            gl.fused_loop_reference(*operands, plain, **settings)
+            its = int(k.it[0])
+            T_k = gn.transforms_of(k.poses)[0]
+            dT_two = float((T_k - T_two).abs().max())
+            dT_plain = float((T_k - gn.transforms_of(plain.poses)[0]).abs().max())
+            flags = (its, bool(k.converged[0]), bool(k.failed[0]))
+            e2_rel = rel_gap(k.e2[0], d_two.e2_history, its)
+            dx_rel = rel_gap(k.dx_norm[0], d_two.dx_norm_history, its)
+            inliers_equal = torch.equal(k.inliers[0], d_two.inlier_history)
+            warm_equal = []
+            for _ in range(3):
+                state = gn.new_state(T0[None], cfg.max_iter, dev)
+                gl.fused_loop(*operands, state, **settings)
+                warm_equal.append(torch.equal(gn.read_state(state).words, k.words))
+            log(f"{tag} {label} on {src.shape[0]} points, grid {launch.grid[0]} CTAs for "
+                f"{launch.grid[1]} block ids: first iteration's block rows bit-equal to the stats "
+                f"kernel's {rows_equal}; {its} iterations "
+                f"(two-launch {d_two.iterations}, plain {int(plain.it[0])}), converged "
+                f"{flags[1]} / {d_two.converged}, failed {flags[2]} / {d_two.solver_failed}; "
+                f"max |T - T_two_launch| {dT_two:.3e}, |T - T_plain| {dT_plain:.3e}; relative "
+                f"e2 gap {e2_rel:.3e}, |dx| gap {dx_rel:.3e}; inliers equal {inliers_equal}; "
+                f"three more aligns bit-identical {warm_equal}")
+            if not (rows_equal and flags == (d_two.iterations, d_two.converged,
+                                                   d_two.solver_failed)
+                    and flags == (int(plain.it[0]), bool(plain.converged[0]),
+                                  bool(plain.failed[0]))
+                    and dT_two <= TOL_LOOP and dT_plain <= TOL_LOOP and e2_rel <= TOL_LOOP
+                    and dx_rel <= TOL_LOOP and inliers_equal and all(warm_equal)):
+                raise AssertionError(f"{tag} {label}: the loop kernel is off the two-launch loop "
+                                     "or its plain version")
+            for key, v in (("dT_two_launch", dT_two), ("dT_plain", dT_plain), ("e2_rel", e2_rel),
+                           ("dx_rel", dx_rel)):
+                r[key] = max(r[key], v)
+            if label == "T=I":
+                r["iterations"], T_conv = its, T_k
+                r["inliers"] = float(k.inliers[0][its - 1])
+        out["launches_check"] += gl.fused_loop.launches - before
+
+        # time per align at T = I: events (the state's copy and the launch), alone
+        init = gn.new_state(eye[None], cfg.max_iter, dev)
+        state = gn.new_state(eye[None], cfg.max_iter, dev)
+        launch = gl.fused_looper(*operands, state, **settings)
+
+        def once():
+            state.words.copy_(init.words)
+            launch()
+
+        r["ms"] = cuda_ms(once, 50)
+        r["alone_ms"] = kernel_alone_ms(once, 20, "gn_loop_kernel")
+        r["plain_ms"] = cuda_ms(lambda: gl.fused_loop_reference(
+            *operands, gn.new_state(eye[None], cfg.max_iter, "cpu"), **settings), 2)
+        # both loops' aligns in turns (two-launch, loop, loop, two-launch)
+        loop = functools.partial(gl.fused_loop, *operands, **settings)
+        aligns = {"two_launch": lambda: gn.gauss_newton_device(stats_fn, eye, cfg.max_iter,
+                                                               cfg.tol, dev),
+                  "loop": lambda: gn.gauss_newton_device(stats_fn, eye, cfg.max_iter, cfg.tol,
+                                                         dev, loop=loop)}
+        walls = {m: [] for m in aligns}
+        for mode in ("two_launch", "loop", "loop", "two_launch"):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                aligns[mode]()
+                walls[mode].append(time.perf_counter() - t0)
+        line = []
+        for mode, align in aligns.items():
+            device_ms, n_kernels, busy = device_busy(align, min(walls[mode]))
+            _, syncs = count_syncs(align)
+            r[mode] = {"align_walls_s": walls[mode], "device_ms": device_ms, "kernels": n_kernels,
+                       "busy": busy, "syncs": syncs}
+            line.append(f"{mode}: align ms {', '.join(f'{1e3 * x:.3f}' for x in walls[mode])}; "
+                        f"device {device_ms:.3f} ms in {n_kernels} kernels, busy "
+                        f"{100 * busy:.1f} %, {syncs} syncs")
+        if r["loop"]["syncs"] != 1:
+            raise AssertionError(f"{tag} {r['loop']['syncs']} syncs in an align through the loop "
+                                 "kernel, not 1")
+        # bound: the stats' work at the converged pose for each iteration run,
+        # each input read once, the state's 260 bytes; also with the stats'
+        # bytes read again every iteration
+        its = r["iterations"]
+        n_bytes, flops = voxel_work(row_flops)(solver, src, w, T_conv, r["inliers"])
+        ops = its * (flops + GN_STEP_FLOPS)
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes + GN_STEP_BYTES, ops)
+        r["bound_reread_ms"] = bound_ms(its * n_bytes + GN_STEP_BYTES, ops)[0]
+        log(f"{tag} {its} iterations a launch: {r['ms']:.4f} ms by events (the state's copy and "
+            f"the launch), alone {r['alone_ms']:.4f} ms (profiler); the plain version "
+            f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} (the stats' "
+            f"bytes read every iteration: {r['bound_reread_ms']:.5f} ms)")
+        log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+        out[kind] = r
+    out["max_abs_err"] = max(out[k]["dT_plain"] for k in ("plane", "ndt"))
     return out
 
 
@@ -1903,34 +2121,58 @@ GRID_REPLACES = {"point": "point_cloud_registration_tpu/ops/knn.py:410",
                  "ndt": "point_cloud_registration_tpu/ops/knn.py:78"}
 
 
-def grid_ptxas() -> dict:
-    """Registers, stack frame and spill bytes of each kind's kernel in the
-    build of ``csrc/grid_align.cu``, from ptxas's report in ``nvcc.log``:
-    ``{kind: {"registers": r, "stack": s, "spill_stores": a, "spill_loads": b}}``."""
+def ptxas_entries(text: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel entry in a ptxas
+    report (``nvcc -Xptxas -v``'s output, as in ``nvcc.log``): ``{mangled
+    name: {"registers": r, "stack": s, "spill_stores": a, "spill_loads": b}}``."""
     import re
 
-    from point_cloud_registration_tpu_torch.ops.kernels import _build
-
-    text = (_build.library_path("grid_align").parent / "nvcc.log").read_text()
-    out, kind = {}, None
+    out, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w*grid_stats_kernel\w*)'", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kind = {"ILi0": "point", "ILi1": "plane_pt", "ILi2": "plane", "ILi3": "ndt"}[
-                re.search(r"ILi\d", m.group(1)).group(0)]
-            out[kind] = {}
+            name = m.group(1)
+            out[name] = {}
             continue
-        if kind is None:
+        if name is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", line)
         if m:
-            out[kind].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[kind]["registers"] = int(m.group(1))
-    if set(out) != set(GRID_KINDS) or any("registers" not in v for v in out.values()):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def library_ptxas(library: str, kernel: str, labels: dict) -> dict:
+    """:func:`ptxas_entries` of the entries named ``kernel`` in the build of
+    ``csrc/<library>.cu``, keyed by ``labels[their template arguments]``
+    (the mangled ``ILi0E...`` part); raises unless every label has a report."""
+    import re
+
+    from point_cloud_registration_tpu_torch.ops.kernels import _build
+
+    text = (_build.library_path(library).parent / "nvcc.log").read_text()
+    out = {}
+    for name, v in ptxas_entries(text).items():
+        if kernel in name:
+            args = re.search(rf"{kernel}(I\w*?E)E", name)
+            out[labels[args.group(1) if args else ""]] = v
+    if set(out) != set(labels.values()) or any("registers" not in v for v in out.values()):
+        raise AssertionError(f"no ptxas report of every {kernel} in {library}'s nvcc.log: {out}")
+    return out
+
+
+def grid_ptxas() -> dict:
+    """Registers, stack frame and spill bytes of each kind's kernel in the
+    build of ``csrc/grid_align.cu``, from ptxas's report in ``nvcc.log``:
+    ``{kind: {"registers": r, "stack": s, "spill_stores": a, "spill_loads": b}}``."""
+    out = library_ptxas("grid_align", "grid_stats_kernel",
+                        {"ILi0E": "point", "ILi1E": "plane_pt", "ILi2E": "plane", "ILi3E": "ndt"})
+    if set(out) != set(GRID_KINDS):
         raise AssertionError(f"no ptxas report of the four grid kinds in nvcc.log: {out}")
     log("[grid kernel] ptxas: " + "; ".join(
         f"{k} {v['registers']} registers, {v.get('spill_stores', 0)} / {v.get('spill_loads', 0)} "
@@ -2541,8 +2783,8 @@ def run_hashed_map(map_np, scan_np, dev) -> dict:
 def run_update_target(map_np, scan_np, dev) -> dict:
     """Phase 11: ``set_target(half 1)``, ``update_target(half 2)``,
     ``align(scan)`` for VPlaneICP and NDT: the updated map's cell index feeds
-    the fused kernel, once per iteration; counts and valid cells equal a full
-    rebuild's."""
+    the loop kernel, one launch an align; the fused stats kernel on it against
+    its plain version; counts and valid cells equal a full rebuild's."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -2573,10 +2815,9 @@ def run_update_target(map_np, scan_np, dev) -> dict:
             f"{first_update_s:.3f} s; launch counts {counts}")
         err = check_T(tag, T, d, t_ref, its)
         launches = kernel.launches  # before the comparisons below launch it again
-        resident = check_resident(tag, counts, kernel.__name__, d.iterations)
+        resident = check_loop(tag, counts, d.iterations)
         scan_t = torch.from_numpy(scan_np).to(dev)
-        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
-                             chunks(d.iterations))
+        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d, 1)
         full = cls(voxel_size=1.0, **PARAMS, device=dev)
         full.set_target(map_np)
         a, b = s.voxels, full.voxels
@@ -2606,7 +2847,8 @@ def run_update_target(map_np, scan_np, dev) -> dict:
             f"{cov_err:.3e} of the cell's largest entry; kernel vs plain at the converged T: "
             f"rel err H {kerr['max']:.3e}, n diff {kerr['n']:.0f}; warm update_target s "
             + ", ".join(f"{x:.4f}" for x in times))
-        out[name] = {"iterations": d.iterations, "launches": launches, "dT_jax": err,
+        out[name] = {"iterations": d.iterations, "launches": launches,
+                     "loop_launches": counts["fused_loop"], "dT_jax": err,
                      "resident": resident, **loops,
                      "update_s": min(times), "mean_err": mean_err, "cov_err": cov_err}
     return out
@@ -2864,8 +3106,10 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
 
 def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     """Phase 15: FastVPlaneICP on the map and the 100k scan. ``"auto"`` is
-    VPlaneICP bit for bit (``vplane``: phase 4's results); ``"always"``
-    engages the coreset and runs phase 2 on the fused kernel."""
+    VPlaneICP bit for bit (``vplane``: phase 4's results), one launch of the
+    loop kernel; ``"always"`` runs phase 1 in one launch of the loop kernel,
+    engages the coreset and runs phase 2 on the fused kernel in the
+    two-launch resident loop."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -2874,6 +3118,7 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     from point_cloud_registration_tpu_torch.models.fast_vplane_icp import vplane_linearize
     from point_cloud_registration_tpu_torch.models.base import pad_points
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 
     tag = "[fast_vplane_icp]"
     reset_launches()
@@ -2881,16 +3126,20 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     fast.set_target(map_np)
     T_auto = fast.align(scan_np)
     d = fast.last_diagnostics
+    auto_counts = launch_counts()
     auto_launches = fa.fused_plane_stats.launches
-    log(f"{tag} auto: {d.iterations} iterations, {auto_launches} fused launches; equal to "
-        f"VPlaneICP: T {np.array_equal(T_auto, vplane['T'])}, iterations "
-        f"{d.iterations == vplane['iterations']}, launches {auto_launches == vplane['launches']}")
+    log(f"{tag} auto: {d.iterations} iterations, {auto_counts['fused_loop']} loop launch, "
+        f"{auto_launches} fused launches; equal to VPlaneICP: T "
+        f"{np.array_equal(T_auto, vplane['T'])}, iterations "
+        f"{d.iterations == vplane['iterations']}, launches "
+        f"{auto_counts['fused_loop'] == vplane['loop_launches']}")
     if not (np.array_equal(T_auto, vplane["T"]) and d.iterations == vplane["iterations"]
-            and auto_launches == vplane["launches"]):
+            and auto_counts["fused_loop"] == vplane["loop_launches"] == 1
+            and auto_launches == 0 and auto_counts["gn_step"] == 0):
         raise AssertionError(f"{tag} \"auto\" is not VPlaneICP bit for bit")
     scan_t = torch.from_numpy(scan_np).to(dev)
     auto = hold_to_host(f"{tag} auto", lambda: (fast.align(scan_t), fast.last_diagnostics),
-                        T_auto, d, chunks(d.iterations))
+                        T_auto, d, 1)
 
     # "always": record phase 1, and the rows of every fused launch
     fast = pt.FastVPlaneICP(voxel_size=1.0, **PARAMS, coreset="always",
@@ -2901,7 +3150,8 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
 
     def record(*args):
         T, diag = inner(*args)
-        phase1.update(T=T, diag=diag, launches=fa.fused_plane_stats.launches)
+        phase1.update(T=T, diag=diag, launches=fa.fused_plane_stats.launches,
+                      loop_launches=gl.fused_loop.launches)
         return T, diag
 
     fast._phase1 = record
@@ -2927,22 +3177,26 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         _fused.resident_stats = resident_stats
     d, d1 = fast.last_diagnostics, phase1["diag"]
     launches = fa.fused_plane_stats.launches
+    loop_1, fused_1 = phase1["loop_launches"], phase1["launches"]  # the later aligns move them
     it2 = d.iterations - d1.iterations
-    # each phase enqueues whole chunks of its own budget
+    # phase 1: one launch of the loop kernel; phase 2 enqueues whole chunks of
+    # its own budget in the two-launch loop
     left = PARAMS["max_iter"] - d1.iterations
-    enqueued_1, enqueued_2 = enqueued(d1.iterations), enqueued(it2, left)
-    phase2_rows = rows_per_launch[enqueued_1:]
+    enqueued_2 = enqueued(it2, left)
+    phase2_rows = rows_per_launch
     dT_jax = float(np.abs(T[:3].reshape(-1) - FAST_REF_T).max())
     dT_plain = float(np.abs(T - vplane["T"]).max())
     log(f"{tag} always, switch {FAST_SWITCH}: first call {first_s:.3f} s; phase 1 {d1.iterations} "
         f"iterations (JAX {FAST_REF_PHASE1}), phase 2 {it2} (in all {d.iterations}, JAX "
-        f"{FAST_REF_ITERATIONS}), converged {d.converged}; fused launches {launches} "
-        f"({enqueued_1} + {enqueued_2} enqueued, {d.iterations} that did work) "
+        f"{FAST_REF_ITERATIONS}), converged {d.converged}; phase 1 in "
+        f"{loop_1} loop launch ({fused_1} fused launches); phase 2 "
+        f"fused launches {launches} ({enqueued_2} enqueued, {it2} that did work) "
         f"(phase 2 on rows {sorted(set(phase2_rows))}); max |T - T_jax| {dT_jax:.3e}, "
         f"max |T - T_vplane| {dT_plain:.3e}")
     log(f"{tag} T =\n{np.array2string(T, precision=7)}")
     if not (d1.iterations == FAST_REF_PHASE1 and it2 >= 1 and not d.solver_failed
-            and launches == enqueued_1 + enqueued_2 == launch_counts()["gn_step"]
+            and loop_1 == launch_counts()["fused_loop"] == 1 and fused_1 == 0
+            and launches == enqueued_2 == launch_counts()["gn_step"]
             and len(phase2_rows) == enqueued_2
             and set(phase2_rows) == {fast.N_target} and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
         raise AssertionError(f"{tag} \"always\" is off: {d}")
@@ -2972,13 +3226,13 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         f"point; breakeven {lift_s / iter_s:.0f} iterations; warm \"always\" align s "
         + ", ".join(f"{x:.3f}" for x in walls))
     return {"auto_launches": auto_launches, "always_launches": launches,
+            "loop_auto": auto_counts["fused_loop"], "loop_always": loop_1,
             "phase1_iterations": d1.iterations, "phase2_iterations": it2, "dT_jax": dT_jax,
             "dT_plain": dT_plain, "live": int(len(live)), "lift_s": lift_s,
             "lift_us_per_point": 1e6 * lift_s / len(live), "iteration_s": iter_s,
             "iteration_ns_per_point": 1e9 * iter_s / len(live), "breakeven": lift_s / iter_s,
             "always_align_s": min(walls), "auto_loops": auto, "always_loops": always,
-            "gn_step_auto": enqueued(vplane["iterations"]),
-            "gn_step_always": enqueued_1 + enqueued_2}
+            "gn_step_auto": auto_counts["gn_step"], "gn_step_always": enqueued_2}
 
 
 def sharded_targets(map_src, normals, dev) -> dict:
@@ -3426,7 +3680,8 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
             first, warm = run_demo(demo_matching_torch.main, argv, mtag)
             ref = DEMO_REF[method]
             for r in (first, warm):
-                expected = {kernel: enqueued(r["iterations"]), "gn_step": enqueued(r["iterations"])}
+                expected = ({kernel: 1} if kernel == "fused_loop" else
+                            {kernel: enqueued(r["iterations"]), "gn_step": enqueued(r["iterations"])})
                 if method == "PlaneICP":  # its normals in set_target, one launch per tier
                     expected["knn_moments"] = tiers
                 check_launches(mtag, r["launch_counts"], expected)
@@ -3558,6 +3813,8 @@ def main() -> None:
     map_np = make_city_map(rng, N_MAP)
     scan_np = make_scan(rng, map_np, N_SCAN)
     log(f"map {map_np.shape}, scan {scan_np.shape}")
+    # 2c. The loop kernel against the two-launch loop and its plain version
+    gn_loop = run_gn_loop(map_np, scan_np, dev)
 
     map_t = torch.from_numpy(map_np).to(dev)
     paths = {p.name: p for p in solver_paths()}
@@ -3624,13 +3881,31 @@ def main() -> None:
 
     rows.append(("gn_step", gs.gn_step, f"{CSRC}/gn_step.cu",
                  "point_cloud_registration_tpu/core/gn.py:78", {
-                     "launches": results["vplane_icp"]["gn_step_launches"],
+                     "launches": 0,  # its launches on its paths: path_launches below
                      "max_abs_err": gn_step["max_abs_err"], "kernel_ms": [gn_step["ms"][1]],
                      "plain_ms": [gn_step["plain_ms"][1]], "bound_ms": gn_step["bound_ms"][1],
                      "bound_by": gn_step["bound_by"], "library_ms": gn_step["library_ms"][1],
                      "extra": {"alone_ms": gn_step["alone_ms"][1], "batched": {
                          "B": 8, **{k: gn_step[k][8] for k in (
                              "ms", "alone_ms", "plain_ms", "library_ms", "bound_ms")}}}}))
+    # the loop kernel: the while_loop of the JAX gauss_newton around the fused
+    # stats; its numbers at the main path's shapes, VPlaneICP's at the top, each
+    # kind's in "kinds"
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+
+    plane = gn_loop["plane"]
+    rows.append(("fused_loop", gl.fused_loop, LOOP_SOURCE, LOOP_REPLACES, {
+        "launches": results["vplane_icp"]["loop_launches"], "max_abs_err": gn_loop["max_abs_err"],
+        "kernel_ms": [plane["ms"]], "plain_ms": [plane["plain_ms"]],
+        "bound_ms": plane["bound_ms"], "bound_by": plane["bound_by"], "library_ms": None,
+        "extra": {"alone_ms": plane["alone_ms"], "stats_of": f"{PALLAS}/fused_align.py:550",
+                  "ptxas": gn_loop["ptxas"], "kinds": {kind: {
+                      k: gn_loop[kind][k] for k in (
+                          "iterations", "ms", "alone_ms", "plain_ms", "bound_ms", "bound_by",
+                          "bound_reread_ms", "dT_two_launch", "dT_plain", "e2_rel", "dx_rel")}
+                      | {f"{m}_device_ms": gn_loop[kind][m]["device_ms"]
+                         for m in ("loop", "two_launch")}
+                      for kind in ("plane", "ndt")}}}))
     # the grid stats kernels (csrc/grid_align.cu), the port's own kernels for
     # XLA code of the JAX package: their numbers on phases 9 and 10
     grid = results["grid"]
@@ -3655,11 +3930,11 @@ def main() -> None:
     # launches on each path that runs the kernel, the main path's first
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
+                              "fast_vplane_icp_always": results["fast"]["always_launches"],
                               "update_target": results["update"]["vplane_icp"]["launches"],
                               "hashed_map": 0,
                               "batched_vplane_icp": batched["vplane_icp"]["launches"],
-                              "fast_vplane_icp_auto": results["fast"]["auto_launches"],
-                              "fast_vplane_icp_always": results["fast"]["always_launches"]},
+                              "fast_vplane_icp_auto": results["fast"]["auto_launches"]},
         "fused_ndt_stats": {"ndt": results["ndt"]["launches"],
                             "update_target": results["update"]["ndt"]["launches"],
                             "hashed_map": 0, "batched_ndt": batched["ndt"]["launches"]},
@@ -3675,6 +3950,15 @@ def main() -> None:
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
         **{GRID_KINDS[kind][0]: {path_name: res["launches"][GRID_KINDS[kind][0]]}
            for kind, (path_name, res) in grid_paths.items()},
+    }
+    path_launches["fused_loop"] = {
+        **{name: results[name]["loop_launches"] for name in paths},
+        **{f"update_target_{name}": results["update"][name]["loop_launches"]
+           for name in ("vplane_icp", "ndt")},
+        "fast_vplane_icp_auto": results["fast"]["loop_auto"],
+        "fast_vplane_icp_always": results["fast"]["loop_always"],
+        "hashed_map": 0,
+        **{f"batched_{name}": 0 for name in batched},
     }
     path_launches["gn_step"] = {
         **{name: results[name]["gn_step_launches"] for name in paths},
@@ -3704,6 +3988,14 @@ def main() -> None:
     # launches on phase 17's demo paths, 0 where a demo bypasses the kernel
     for name, row in path_launches.items():
         row.update({path: counts[name] for path, counts in results["demos"]["paths"].items()})
+    # each kernel's launches on its main path, the first of its paths; one whose
+    # main path's align now runs in the loop kernel (the fused stats on
+    # VPlaneICP and NDT, gn_step) reports them on the first path that launches it
+    launches_on = {}
+    for name, kernel, source, replaces, r in rows:
+        paths_of = path_launches[kernel.__name__]
+        on = next((p for p, n in paths_of.items() if n), None)
+        launches_on[name] = (r["launches"] or paths_of.get(on, 0), on)
     for r in results.values():
         r.pop("T", None)
     for r in batched.values():
@@ -3714,7 +4006,8 @@ def main() -> None:
     # knn_moments: the top-level numbers are the base tier's; "tiers" holds both
     print(json.dumps({"kernels": [{
         "name": kernel.__name__, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "launches": launches_on[name][0], "launches_path": launches_on[name][1],
+        "max_abs_err": r["max_abs_err"],
         "ms": min(r["kernel_ms"]), "plain_ms": min(r["plain_ms"]),
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "paths": path_launches[kernel.__name__],

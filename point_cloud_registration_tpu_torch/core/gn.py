@@ -9,7 +9,10 @@ every iteration is the solver's stats launch, which reads the pose and the
 done flag from the state, then one ``gn_step`` launch (solve, test, update,
 histories). Iterations are enqueued in chunks of ``GN_CHUNK``; the host reads
 the state once per chunk, one copy, and stops when every problem is done.
-On CPU tensors the same loop runs the plain ``gn_step_reference``.
+On CPU tensors the same loop runs the plain ``gn_step_reference``. Where a
+kernel runs the whole loop (VPlaneICP and NDT on a dense map,
+``ops/kernels/gn_loop``), :func:`gauss_newton_device` takes it as ``loop``:
+one launch and one read an align.
 
 :func:`gauss_newton` and :func:`batched_gauss_newton` are the host loops
 (one copy of the stats to the host per iteration, the solve and the update
@@ -378,8 +381,10 @@ def enqueued_iterations(iterations: int, max_iter: int) -> int:
     return min(max_iter, -(-max(int(iterations), 1) // GN_CHUNK) * GN_CHUNK)
 
 
-def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, device):
-    """The resident loop of B problems -> their final state, on the host."""
+def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, device,
+                  loop: Callable[[GNState], None] | None = None):
+    """The resident loop of B problems -> their final state, on the host;
+    with ``loop``, that one call runs the whole loop, then one read."""
     # The step's wrapper stands on this module (the state, the solve), so it
     # is imported when a loop runs.
     from point_cloud_registration_tpu_torch.ops.kernels.gn_step import gn_stepper
@@ -387,6 +392,9 @@ def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, d
     if max_iter <= 0:
         return new_state(init_Ts, max_iter, "cpu")
     state = new_state(init_Ts, max_iter, device)
+    if loop is not None:
+        loop(state)
+        return read_state(state)
     stats, step = stats_fn(state.poses, state.done), gn_stepper(state, tol)
     enqueued = 0
     while True:
@@ -400,15 +408,22 @@ def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, d
 
 
 def gauss_newton_device(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
-                        device) -> tuple[torch.Tensor, GNDiagnostics]:
+                        device, loop: Callable[[GNState], None] | None = None,
+                        ) -> tuple[torch.Tensor, GNDiagnostics]:
     """The resident loop of one problem on ``device``: the semantics of
     :func:`gauss_newton`, whose result it returns in the same form, with
     ``stats_fn(poses (1, 12), done (1,))`` in place of ``stats_fn(T)``.
     ``stats_fn`` and ``gn_step`` are bound once; the host reads the state
-    once per chunk of ``GN_CHUNK`` iterations and copies nothing else; ``T``
-    and the diagnostics come from the last read."""
+    once per chunk of ``GN_CHUNK`` iterations and copies nothing else (the
+    two-launch loop: the stats, then ``gn_step``, each iteration); ``T``
+    and the diagnostics come from the last read.
+
+    ``loop``, when given, runs every iteration of the same stats in one call
+    on the state (``ops/kernels/gn_loop.fused_loop``: one launch), which is
+    then read once; ``stats_fn`` is not called. :func:`gauss_newton_host`
+    takes the same arguments and runs ``stats_fn``."""
     s = _run_resident(stats_fn, torch.as_tensor(init_T).reshape(1, 4, 4), max_iter, tol,
-                      device)
+                      device, loop)
     diag = GNDiagnostics(
         iterations=int(s.it[0]),
         converged=bool(s.converged[0]),
@@ -441,10 +456,12 @@ def batched_gauss_newton_device(stats_fn: ResidentStats, init_Ts, max_iter: int,
 
 
 def gauss_newton_host(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
-                      device) -> tuple[torch.Tensor, GNDiagnostics]:
+                      device, loop: Callable[[GNState], None] | None = None,
+                      ) -> tuple[torch.Tensor, GNDiagnostics]:
     """:func:`gauss_newton` over a resident stats function: each iteration
     copies the pose to ``device`` and the stats back. The plain reference of
-    :func:`gauss_newton_device` on the same path."""
+    :func:`gauss_newton_device` on the same path, whose whole-loop ``loop``
+    it leaves aside."""
     def stats(T):
         packed = stats_fn(pose_rows_of(T[None]).to(device), None)()
         return stats_from_packed(packed.reshape(-1).cpu())

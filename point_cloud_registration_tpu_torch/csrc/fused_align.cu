@@ -77,12 +77,14 @@
 // in the kernel, as much as the wrapper's sum, and its host saving did not
 // show in an align's wall time (scripts/fused_stats_ablation.py builds it).
 
-#include "gn_accumulate.cuh"
+#include "fused_stats.cuh"
 
 namespace {
 
 using pcr::kBlock;
 using pcr::kStats;
+using pcr::kNdt;
+using pcr::kPlane;
 using pcr::Pose;
 
 // Resident blocks per SM the registers are budgeted for: 65,536 / (256 * 3)
@@ -90,61 +92,10 @@ using pcr::Pose;
 // registers) the kernel took 0.036-0.038 ms against 0.034 on the bench scan;
 // at 6 (40 registers, spilling) 0.039-0.041.
 constexpr int kMinBlocks = 3;
-// A squared distance at or above FOUND_MAX**2 (ops/knn.py) means no valid
-// cell was found; it also rejects the +inf initial value.
-constexpr float kFoundMax2 = 1e28f;
-enum Kind { kPlane = 0, kNdt = 1 };
 
-__device__ __forceinline__ int cell_of(float v, float inv_cell, int origin) {
-  return pcr::clamped_cell(floorf(v * inv_cell), origin);
-}
-
-// Nearest valid centroid in the cells [c - r, c + r]^3 of the grid (nx, ny,
-// nz), by the occupancy words `occ` ([bits, rank] per 32 cells) and the
-// valid cells' centers ([mu_x, mu_y, mu_z, 1]).
-// Rows of the window run y, then z; inside a row the valid cells run in
-// ascending x: the dense probe's order, with the empty cells left out. The
-// valid cells of a row's stretch of a word are consecutive rows, the first at
-// rank + __popc(bits below the stretch). Returns the winner's row (-1 when
-// the window holds no valid cell) and its squared distance in best_d2 (+inf
-// if none).
-__device__ __forceinline__ int nearest_valid_row(
-    const int2* __restrict__ occ, const float4* __restrict__ centers, int nx,
-    int ny, int nz, int cx, int cy, int cz, int radius, float qx, float qy,
-    float qz, float& best_d2) {
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_row = -1;
-  const int x0 = max(cx - radius, 0), x1 = min(cx + radius, nx - 1);
-  const int y0 = max(cy - radius, 0), y1 = min(cy + radius, ny - 1);
-  const int z0 = max(cz - radius, 0), z1 = min(cz + radius, nz - 1);
-  if (x0 <= x1) {
-    for (int z = z0; z <= z1; ++z) {
-      for (int y = y0; y <= y1; ++y) {
-        const int first = nx * (y + ny * z) + x0, last = first + (x1 - x0);
-        // the row's cells [first, last], one word at a time
-        for (int k = first; k <= last; k = (k | 31) + 1) {
-          const int2 wr = __ldg(&occ[k >> 5]);
-          const unsigned bits = static_cast<unsigned>(wr.x);
-          const int lo = k & 31, hi = min(last - (k & ~31), 31);
-          const unsigned m = (bits >> lo << lo) & (0xffffffffu >> (31 - hi));
-          const int idx = wr.y + __popc(bits & ((1u << lo) - 1u));
-          for (int j = idx, end = idx + __popc(m); j < end; ++j) {
-            const float4 c = __ldg(&centers[j]);
-            const float dx = qx - c.x, dy = qy - c.y, dz = qz - c.z;
-            const float d2 = dx * dx + dy * dy + dz * dz;
-            if (d2 < best) {
-              best = d2;
-              best_row = j;
-            }
-          }
-        }
-      }
-    }
-  }
-  best_d2 = best;
-  return best_row;
-}
-
+// The per-point work is fused_stats.cuh's, shared with the loop kernel
+// (gn_loop.cu): block blockIdx.x of gridDim.x covers its points of problem
+// blockIdx.y and writes that problem's row blockIdx.x of partials.
 template <int kKind>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) fused_stats_kernel(
     const int2* __restrict__ occ, const float4* __restrict__ centers,
@@ -163,37 +114,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) fused_stats_kernel(
   float acc[kStats];
 #pragma unroll
   for (int k = 0; k < kStats; ++k) acc[k] = 0.f;
-
-  for (int i = blockIdx.x * kBlock + threadIdx.x; i < n;
-       i += gridDim.x * kBlock) {
-    const float wq = w[i];
-    if (wq == 0.f) continue;
-    const float px = src[3 * i], py = src[3 * i + 1], pz = src[3 * i + 2];
-    // q = R p + t in the JAX package's order: ((x R0 + y R1) + z R2) + t.
-    const float qx = px * T.r00 + py * T.r01 + pz * T.r02 + T.t0;
-    const float qy = px * T.r10 + py * T.r11 + pz * T.r12 + T.t1;
-    const float qz = px * T.r20 + py * T.r21 + pz * T.r22 + T.t2;
-    const int cx = cell_of(qx, inv_cell, ox);
-    const int cy = cell_of(qy, inv_cell, oy);
-    const int cz = cell_of(qz, inv_cell, oz);
-
-    float best;
-    const int row = nearest_valid_row(occ, centers, nx, ny, nz, cx, cy, cz,
-                                      radius, qx, qy, qz, best);
-    if (!(best < kFoundMax2) || !(sqrtf(best) < max_dist)) continue;
-    const float4 mu = __ldg(&centers[row]);
-    if constexpr (kKind == kPlane) {
-      const float4 f1 = __ldg(&feats[row]);
-      pcr::accumulate_plane(acc, wq, T, px, py, pz, f1.x, f1.y, f1.z, qx - mu.x,
-                            qy - mu.y, qz - mu.z, use_huber, huber_delta);
-    } else {
-      const float4 f1 = __ldg(&feats[2 * row]);
-      const float4 f2 = __ldg(&feats[2 * row + 1]);
-      const float u[6] = {f1.x, f1.y, f1.z, f1.w, f2.x, f2.y};
-      pcr::accumulate_whitened(acc, wq, u, T, px, py, pz, qx - mu.x, qy - mu.y,
-                               qz - mu.z, use_huber, huber_delta);
-    }
-  }
+  const pcr::FusedMap m{occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell, radius};
+  pcr::fused_block_stats<kKind>(m, src, w, n, T, blockIdx.x, gridDim.x, max_dist, use_huber,
+                                huber_delta, acc);
   pcr::block_reduce_store(acc, partials);
 }
 

@@ -112,13 +112,12 @@ __device__ __forceinline__ void accumulate_whitened(
 }
 
 // Sums the per-thread accumulators of a block of kBlockWarps warps (warp
-// shuffles, then shared memory) into row blockIdx.y * gridDim.x + blockIdx.x
-// of `partials` (B, n_blocks, 29): a launch runs problem blockIdx.y on its
-// row of gridDim.x blocks. No atomics: for a fixed launch shape the sums repeat bit for
-// bit from run to run.
+// shuffles, then shared memory) into `row` (29 floats); thread k < 29 also
+// returns sum k (the others 0). No atomics: the sums repeat bit for bit from
+// run to run. A block that reduces again must pass a __syncthreads() first:
+// the warps' sums share one buffer.
 template <int kBlockWarps = kWarps>
-__device__ __forceinline__ void block_reduce_store(const float* acc,
-                                                   float* __restrict__ partials) {
+__device__ __forceinline__ float block_reduce_row(const float* acc, float* row) {
   __shared__ float warp_sums[kBlockWarps][kStats];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -129,13 +128,24 @@ __device__ __forceinline__ void block_reduce_store(const float* acc,
     if (lane == 0) warp_sums[warp][k] = v;
   }
   __syncthreads();
+  float s = 0.f;
   if (threadIdx.x < kStats) {
-    float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kBlockWarps; ++wi) s += warp_sums[wi][threadIdx.x];
-    const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-    partials[row * kStats + threadIdx.x] = s;
+    row[threadIdx.x] = s;
   }
+  return s;
+}
+
+// block_reduce_row into row blockIdx.y * gridDim.x + blockIdx.x of
+// `partials` (B, n_blocks, 29): a launch runs problem blockIdx.y on its row
+// of gridDim.x blocks, so for a fixed launch shape the rows repeat bit for
+// bit from run to run.
+template <int kBlockWarps = kWarps>
+__device__ __forceinline__ void block_reduce_store(const float* acc,
+                                                   float* __restrict__ partials) {
+  const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  block_reduce_row<kBlockWarps>(acc, partials + row * kStats);
 }
 
 }  // namespace pcr

@@ -16,7 +16,11 @@ The map's layout picks the stats, as in the JAX package:
   Mahalanobis form) in one kernel; the JAX package leaves them to XLA
   (``voxel_fused_spec`` returns None without dense blocks).
 
-Either way the align runs the resident Gauss-Newton loop
+On a dense map the whole Gauss-Newton loop of an align is one launch of the
+loop kernel (``ops/kernels/gn_loop.fused_loop``: the fused stats, the row
+sum and the update of every iteration, on the card), and the host reads
+the state once, as the JAX package compiles the loop into one dispatch. On
+a hashed map the align runs the two-launch resident loop
 (``core.gn.gauss_newton_device``): the kernel reads the pose and the done
 flag from the loop's state on the card and ``gn_step`` updates it there;
 the host reads the state once per chunk of iterations.
@@ -30,6 +34,8 @@ the problems that are done.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from point_cloud_registration_tpu_torch.core import gn
@@ -37,7 +43,7 @@ from point_cloud_registration_tpu_torch.core.config import NDTConfig, VPlaneICPC
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
 from point_cloud_registration_tpu_torch.core.se3 import makeRt
 from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
-from point_cloud_registration_tpu_torch.ops.kernels import grid_align
+from point_cloud_registration_tpu_torch.ops.kernels import gn_loop, grid_align
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     fused_ndt_stats,
     fused_plane_stats,
@@ -121,10 +127,17 @@ def fused_voxel_stats_resident(vm: VoxelMap, source: torch.Tensor, src_weight: t
 def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
                       init_T, cfg: VPlaneICPConfig | NDTConfig,
                       kind: str = "plane") -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` over :func:`fused_voxel_stats_resident` in the resident
-    loop on the scan's device: returns ``(T, GNDiagnostics)`` on the host."""
+    """``align`` over :func:`fused_voxel_stats_resident` on the scan's
+    device: returns ``(T, GNDiagnostics)`` on the host. On a dense map the
+    whole loop is one launch of the loop kernel (``gn_loop.fused_loop``, its
+    plain version on the CPU) and one read of the state; on a hashed map the
+    two-launch resident loop."""
+    loop = None if vm.hashed else functools.partial(
+        gn_loop.fused_loop, kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, source,
+        src_weight, max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+        max_iter=cfg.max_iter)
     return gn.gauss_newton_device(fused_voxel_stats_resident(vm, source, src_weight, cfg, kind),
-                                  init_T, cfg.max_iter, cfg.tol, source.device)
+                                  init_T, cfg.max_iter, cfg.tol, source.device, loop=loop)
 
 
 def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,

@@ -27,7 +27,9 @@ mode): (B, 29), row b equal to the single wrapper's stats of problem b.
 
 Every launch, single or batched, is one launch path: the kernel reads each
 problem's pose from (B, 12) pose rows on the card (B = 1 for a single
-problem; the wrappers copy their host pose there first). A resident
+problem; the wrappers copy their host pose there first), and each
+problem's block rows are summed in double precision, then rounded once to
+float32, as the loop kernel (``ops/kernels/gn_loop``) sums them. A resident
 Gauss-Newton loop (``core/gn.py``) binds :func:`resident_stats` once per
 align: its state's pose rows and done flags stay on the card, where the
 kernel reads them; the blocks of a finished problem exit at once. Nothing is
@@ -326,22 +328,30 @@ def launch_args(bound, cells, origin_cell, dims, cell_size, src, w, poses, done,
     return fn, args, partials
 
 
-def bound_launch(fn, args, partials: torch.Tensor, counter, what: str, operands: tuple):
+def bound_launch(fn, args, partials: torch.Tensor, counter, what: str, operands: tuple,
+                 sum_dtype: torch.dtype = torch.float32):
     """``launch() -> (B, 29)``: one launch of ``fn(*args)``, every argument
     bound beforehand, adding one to ``counter.launches``, then each
-    problem's (n_blocks, 29) partials summed as :func:`sum_partials` sums
-    them, into one (B, 29) buffer that every call refills. The launcher
-    holds ``operands``, the tensors whose pointers ``args`` carries."""
+    problem's (n_blocks, 29) partials summed into one float32 (B, 29)
+    buffer that every call refills: in float32 as :func:`sum_partials` sums
+    them, or, with ``sum_dtype`` float64, all problems' rows in one sum in
+    double precision, rounded once to float32. The launcher holds
+    ``operands``, the tensors whose pointers ``args`` carries."""
     out = torch.empty((partials.shape[0], STATS_WIDTH), dtype=torch.float32,
                       device=partials.device)
+    acc = None if sum_dtype == torch.float32 else torch.empty_like(out, dtype=sum_dtype)
 
     def launch() -> torch.Tensor:
         rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
         counter.launches += 1
-        for b in range(out.shape[0]):
-            torch.sum(partials[b], dim=0, out=out[b])
+        if acc is None:
+            for b in range(out.shape[0]):
+                torch.sum(partials[b], dim=0, out=out[b])
+        else:
+            torch.sum(partials, dim=1, dtype=acc.dtype, out=acc)
+            out.copy_(acc)
         return out
 
     launch.operands = operands
@@ -373,8 +383,9 @@ def resident_launch(kind, counter, cells, origin_cell, dims, cell_size, src, w, 
         return lambda: zeros
     fn, args, partials = launch_args(_kernel_fn(kind), cells, origin_cell, dims, cell_size, src,
                                      w, poses, done, max_dist, huber_delta)
+    # the rows summed in double, as the loop kernel sums them (ops/kernels/gn_loop)
     return bound_launch(fn, args, partials, counter, f"fused {kind} stats",
-                        (cells, src, w, poses, done))
+                        (cells, src, w, poses, done), sum_dtype=torch.float64)
 
 
 def require_cuda(src: torch.Tensor) -> None:

@@ -35,11 +35,19 @@ With ``--chunks``, a tree whose resident loop has ``core.gn.GN_CHUNK``
 instead times every path's warm align at each of the listed chunk lengths,
 in ``--reps`` rounds: every length once per round, the order rotating from
 round to round; it prints the min and median wall of each length.
+
+Then VPlaneICP and NDT in turns, ``--reps`` rounds of two aligns: the
+tree's own align (on a dense map the loop kernel, ``ops/kernels/gn_loop``,
+where the tree has it) and the two-launch resident loop
+(``core.gn.gauss_newton_device`` without its ``loop``), the order swapped
+every round; for each the walls, the device time and busy share and the
+syncs, as rows ``<path>_align_turn`` and ``<path>_two_launch_turn``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import inspect
 import json
 import subprocess
@@ -128,6 +136,23 @@ def grid_kernel_ms(s, kind: str, scan_t, reps: int) -> dict:
             if "grid_stats_kernel" in e.key and e.self_device_time_total > 0]
     return {"bind_ms": min(bind), "alone_ms": sum(e.self_device_time_total for e in rows) / 1e3
             / reps}
+
+
+def two_launch(run):
+    """``run()`` with ``core.gn.gauss_newton_device`` taking no whole-loop
+    ``loop``: every align in it runs the two-launch resident loop."""
+    from point_cloud_registration_tpu_torch.core import gn
+
+    device = gn.gauss_newton_device
+
+    def stripped(*args, loop=None, **kwargs):
+        return device(*args, **kwargs)
+
+    gn.gauss_newton_device = stripped
+    try:
+        return run()
+    finally:
+        gn.gauss_newton_device = device
 
 
 def sweep_chunks(paths: dict, chunks: list, args) -> dict:
@@ -235,14 +260,29 @@ def main() -> None:
     if args.chunks is not None:
         out["chunks"] = sweep_chunks(paths, [int(c) for c in args.chunks.split(",")], args)
         paths = {}
+    turn_walls = {}
+    if paths:
+        for name in ("vplane_icp", "ndt"):
+            modes = {f"{name}_align_turn": paths[name],
+                     f"{name}_two_launch_turn": functools.partial(two_launch, paths[name])}
+            for run in modes.values():
+                run()
+            for r in range(args.reps):
+                for mode in list(modes)[::1 if r % 2 == 0 else -1]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    modes[mode]()
+                    turn_walls.setdefault(mode, []).append(1e3 * (time.perf_counter() - t0))
+            paths.update(modes)
     for name, run in paths.items():
         run()
-        walls = []
-        for _ in range(args.reps):
+        walls = turn_walls.get(name, [])
+        for _ in range(0 if walls else args.reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, its = run()
             walls.append(1e3 * (time.perf_counter() - t0))
+        its = run()[1]
         dev_ms, kernels = device_ms(run)
         row = {"walls_ms": walls, "iterations": its, "device_ms": dev_ms, "kernels": kernels,
                "busy": dev_ms / min(walls), "host_ms_per_iteration": (min(walls) - dev_ms) / its,

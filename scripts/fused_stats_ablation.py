@@ -56,7 +56,7 @@ from point_cloud_registration_tpu_torch.ops.voxelize import sqrt_icov_u6
 
 STATS = fa.STATS_WIDTH
 PER_SM = "constexpr int kMinBlocks = 3;"
-INCLUDE = '#include "gn_accumulate.cuh"'
+INCLUDE = '#include "fused_stats.cuh"'
 # The partials summed inside the kernel: block_reduce_store, then the last
 # block of the grid to finish (elected by a counter that it finds at
 # gridDim.x - 1 and leaves at 0) adds the rows, eight threads per column with

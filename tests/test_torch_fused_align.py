@@ -221,6 +221,6 @@ def test_library_path_is_keyed_by_sources():
     path = _build.library_path("fused_align")
     assert path.parent.parent == _build.BUILD_ROOT
     assert path.name == "libfused_align.so"
-    assert [p.name for p in _build._sources()] == ["exact_nn.cu", "fused_align.cu", "gn_step.cu",
-                                                  "grid_align.cu", "knn_normals.cu",
+    assert [p.name for p in _build._sources()] == ["exact_nn.cu", "fused_align.cu", "gn_loop.cu",
+                                                  "gn_step.cu", "grid_align.cu", "knn_normals.cu",
                                                   "point_align.cu"]

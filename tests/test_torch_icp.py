@@ -320,8 +320,8 @@ def test_check_operands_rejects_bad_inputs():
 
 
 def test_library_per_source():
-    assert _build.library_names() == ["exact_nn", "fused_align", "gn_step", "grid_align",
-                                      "knn_normals", "point_align"]
+    assert _build.library_names() == ["exact_nn", "fused_align", "gn_loop", "gn_step",
+                                      "grid_align", "knn_normals", "point_align"]
     a, b = _build.library_path("fused_align"), _build.library_path("point_align")
     assert a.parent != b.parent and a.name == "libfused_align.so"
     with pytest.raises(ValueError):
