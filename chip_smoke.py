@@ -31,21 +31,38 @@ Phases, in order; any failure raises and the script exits nonzero:
    version's T within ``TOL_LOOP``. Its time per align (events and alone),
    the plain version's, the aligns of both loops in turns (walls, device
    time, busy share, syncs), each kind's ptxas report and its bound.
+2d. The point and grid loops (``csrc/point_loop.cu``: ICP and PlaneICP on
+   the packed grid of the city map, the 100k scan; ``csrc/grid_loop.cu``:
+   ICP and PlaneICP on phase 9's small target, VPlaneICP and NDT on phase
+   10's hashed map), the same loop kernel (``csrc/gn_loop.cuh``) over the
+   packed-grid and grid stats bodies, each case from T = I and from the
+   perturbed start against the two-launch resident loop on the same
+   tensors: the first iteration's block rows, T, the iterations, the flags
+   and the e2, |dx| and inlier histories bit-equal, three more aligns
+   bit-identical; its plain version's T within ``TOL_T``, equal iterations
+   and flags; a launch of more CTAs than fit on the card raises (the card
+   refuses it) and counts nothing. Its time per align (events and alone),
+   the plain version's, both loops' aligns in turns (walls, device time,
+   busy share, syncs: one through the loop kernel), each kind's ptxas
+   report and its bound.
 
-VPlaneICP and NDT on a dense map align through the loop kernel: one launch
-of ``gn_loop.fused_loop`` and one read of the state an align, no launch of
-the stats kernel or of ``gn_step``. Every other align below runs the
-two-launch resident Gauss-Newton loop (``core/gn.py``: the stats kernel and
-``gn_step`` once per iteration, enqueued in chunks of ``GN_CHUNK``, the
-state read once per chunk). Where the script checks launches, the stats
-kernel and ``gn_step`` must each have launched once per enqueued iteration
-(``core.gn.enqueued_iterations``) on those, and it prints the stats
-launches that did work (the iterations) beside them. Each path is also run
-again under the host loop (``core.gn.gauss_newton_host``, the plain
-reference): T within ``TOL_HOST``, equal iterations, ``converged`` and
+Every single-problem align below runs a loop kernel: one launch and one
+read of the state an align, no launch of the stats kernel or of
+``gn_step`` (VPlaneICP and NDT on a dense map ``gn_loop.fused_loop``, ICP
+and PlaneICP on a packed target ``point_loop``, the grid and hashed aligns
+``grid_loop``). The batched streams (phases 13-14) and FastVPlaneICP's
+phase 2 run the two-launch resident Gauss-Newton loop (``core/gn.py``: the
+stats kernel and ``gn_step`` once per iteration, enqueued in chunks of
+``GN_CHUNK``, the state read once per chunk); where the script checks
+their launches, the stats kernel and ``gn_step`` must each have launched
+once per enqueued iteration (``core.gn.enqueued_iterations``), and it
+prints the stats launches that did work (the iterations) beside them. Each
+path is also run again under the host loop (``core.gn.gauss_newton_host``,
+the plain reference, which launches the stats kernel once per iteration):
+T within ``TOL_HOST``, equal iterations, ``converged`` and
 ``solver_failed``; it prints the syncs of one align of each loop
 (``torch.cuda.set_sync_debug_mode("warn")``, with the lines that caused
-them): one on the loop kernel's paths, at most one per chunk on the other
+them): one on the loop kernels' paths, at most one per chunk on the other
 kernel paths.
 
 Then, for each solver path (VPlaneICP, NDT, ICP and, after the normals
@@ -60,9 +77,8 @@ scan, with the bench parameters:
 4. Main path: ``Solver(...).set_target(map)`` then ``align(scan)`` with every
    launch count set to 0 just before and read just after; it must converge
    near the scan's known offset, to the JAX package's result on the same
-   data with the same iteration count, through the kernel (its launch count
-   must equal the enqueued iterations; VPlaneICP and NDT: one launch of the
-   loop kernel and none of the stats kernel). Then three warm runs, bit-identical to
+   data with the same iteration count, through its loop kernel (one launch
+   of it, none of the stats kernel or of ``gn_step``). Then three warm runs, bit-identical to
    the first, and the per-iteration time of the align's bound launch
    beside the plain version's (and the wrapper's, which copies its pose). Then the resident loop against the host loop: the align walls
    in turns (host, resident, resident, host), each loop's device time and
@@ -119,8 +135,11 @@ package's result on the same seeded data (``T_REF_*`` and the
    10,000-point scan of it: the ``"grid"`` method, its CSR bucket scan and
    linearization in the grid stats kernel (``csrc/grid_align.cu``, kinds
    "point" and "plane_pt"), no packed-grid kernel launch; PlaneICP's normals
-   through the k-NN kernel. The grid kernel and ``gn_step`` once per
-   enqueued iteration, at most one sync per chunk. The host loop over the
+   through the k-NN kernel. One launch of the grid loop kernel
+   (``csrc/grid_loop.cu``, the grid stats body inside), no launch of the grid
+   stats kernel or of ``gn_step``, one sync; the host loop's aligns launch the
+   grid stats kernel once per iteration (the path its kernels-line row
+   names). The host loop over the
    kernel's plain version reaches the align's T within ``TOL_GRID_PLAIN``
    with equal iterations and flags; at that loop's initial, a middle and
    the converged pose the kernel's stats hold to the plain version's within
@@ -135,8 +154,9 @@ package's result on the same seeded data (``T_REF_*`` and the
    bound, and the time of one stats call.
 10. Over-budget map: the city tile plus the same tile 3 km away (2.4M
    points, about 2.15e8 cells): ``VPlaneICP`` and ``NDT`` on the hashed map,
-   through the hashed stats kernel (``grid_align.cu``, kinds "plane" and
-   "ndt", NDT in the icov form; no fused launch), checked as in phase 9
+   through the grid loop kernel over the hashed stats (``grid_loop.cu`` and
+   ``grid_align.cu``, kinds "plane" and "ndt", NDT in the icov form; no
+   fused launch), checked as in phase 9
    (``knn.nearest_voxel`` for the winners), and on phase 5's voxel lattice
    as a hashed map with occupied cells that are not valid; build and align
    times, peak memory.
@@ -225,11 +245,10 @@ name and power limit:
    100,000, the demo's default pose, the B-01 parameters and ``--device
    cuda``, once per method (VPlaneICP, NDT, ICP, PlaneICP, FastVPlaneICP),
    twice each (the first run and a warm one, bit-equal), the launch counts
-   set to 0 just before each run and read just after: the path's kernel
-   once per iteration (PlaneICP: also the k-NN kernel once per tier in its
+   set to 0 just before each run and read just after: one launch of the
+   path's loop kernel (PlaneICP: also the k-NN kernel once per tier in its
    ``set_target``), no other kernel; T within 1e-3 of the JAX package's with
-   equal iterations and ``converged`` (VPlaneICP, NDT and FastVPlaneICP: one
-   launch of the loop kernel). ``demo_estimate_normals_torch`` on the
+   equal iterations and ``converged``. ``demo_estimate_normals_torch`` on the
    file, k = 15: the k-NN kernel once per tier, the normals phase 6's bit
    for bit. ``demo_visualize_voxels_torch`` on the file, voxel 1: the valid
    voxels, the counts' mean, max and sum, ``voxel_filter``'s rows and the
@@ -260,18 +279,21 @@ shapes. The grid stats kernels of phases 9 and 10 (``grid_point_stats``,
 ``grid_plane_point_stats``, ``hashed_plane_stats``, ``hashed_ndt_stats``)
 stand for XLA code of the JAX package (``replaces`` names the query,
 ``ops/knn.py``), as ``gn_step`` does; each has ``alone_ms``, its time by the
-profiler. ``fused_loop`` (the loop kernel) replaces the JAX while_loop
-around the fused stats: its numbers are phase 2c's, VPlaneICP's at the top
-and each kind's in ``kinds``. ``launches_path`` names the path that
-``launches`` counts: the kernel's main path or, where that no longer
-launches it (the fused stats and ``gn_step`` on VPlaneICP and NDT), the
-first of its paths that does. The last line is ``{"ok": true, "device":
-{...}}``.
+profiler. ``fused_loop``, ``point_loop`` and ``grid_loop`` (the loop
+kernels) replace the JAX while_loop around the fused, the packed-grid and
+the grid stats: their numbers are phase 2c's and 2d's, VPlaneICP's, ICP's
+and ICP grid's at the top and each kind's in ``kinds``. ``launches_path``
+names the path that ``launches`` counts: the kernel's main path or, where
+that no longer launches it (the stats kernels and ``gn_step`` on every
+single-problem align), the first of its paths that does (the batched
+streams, FastVPlaneICP's phase 2, the host loop's aligns of phases 9 and
+10). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import inspect
 import json
 import subprocess
@@ -539,10 +561,10 @@ MAP_REF = {  # kind: (iterations, rows 0-2 of T)
 DEMOS = Path(__file__).resolve().parent / "demos"
 DEMO_ARGS = ["--scan-points", str(N_SCAN), "--voxel-size", "1.0", "--max-dist", "2.0",
              "--max-iter", "30", "--tol", "1e-3", "--k", str(K_NORMALS)]
-# each method's kernel; VPlaneICP, NDT and FastVPlaneICP ("auto": VPlaneICP at
-# max_iter 30) align in one launch of the loop kernel
-DEMO_KERNEL = {"VPlaneICP": "fused_loop", "NDT": "fused_loop", "ICP": "point_stats",
-               "PlaneICP": "plane_point_stats", "FastVPlaneICP": "fused_loop"}
+# each method's loop kernel: every method ("auto" FastVPlaneICP: VPlaneICP at
+# max_iter 30) aligns in one launch of one
+DEMO_KERNEL = {"VPlaneICP": "fused_loop", "NDT": "fused_loop", "ICP": "point_loop",
+               "PlaneICP": "point_loop", "FastVPlaneICP": "fused_loop"}
 # The JAX package's results of the demos on the same data (JAX 0.9.0 on the CPU;
 # JAX_PLATFORMS=cpu python3 scripts/jax_reference_demos.py): the demos' own draws and
 # classes; PlaneICP's normals from the JAX package's CPU default (the packed-block XLA
@@ -594,7 +616,7 @@ class SolverPath(NamedTuple):
     iterations_ref: int
     source: str
     replaces: str
-    loop: bool = False  # its align runs the loop kernel (gn_loop.fused_loop): one launch
+    loop: str = "fused_loop"  # its align's loop kernel (ops/kernels/gn_loop): one launch
 
 
 def log(*args):
@@ -773,7 +795,7 @@ def all_kernels() -> list:
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
             pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
             ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
-            ga.hashed_ndt_stats, gl.fused_loop]
+            ga.hashed_ndt_stats, gl.fused_loop, gl.point_loop, gl.grid_loop]
 
 
 def reset_launches() -> None:
@@ -813,18 +835,19 @@ def check_resident(tag: str, counts: dict, kernel: str | None, iterations,
     return out
 
 
-def check_loop(tag: str, counts: dict, iterations) -> dict:
-    """The launches of one align through the loop kernel (VPlaneICP and NDT
-    on a dense map): one launch of ``fused_loop``, none of the stats
-    kernels, of ``gn_step`` or of any other kernel of the loop. Returns the
-    counts."""
-    out = {"worked": int(np.asarray(iterations).max()), "loop": counts["fused_loop"],
-           "enqueued": counts["fused_plane_stats"] + counts["fused_ndt_stats"],
-           "gn_step": counts["gn_step"]}
-    log(f"{tag} loop kernel: {out['loop']} launch for {out['worked']} iterations; stats "
+def check_loop(tag: str, counts: dict, iterations, loop: str = "fused_loop",
+               stats: tuple = ("fused_plane_stats", "fused_ndt_stats")) -> dict:
+    """The launches of one align through the loop kernel ``loop`` (VPlaneICP
+    and NDT on a dense map: ``fused_loop``; ICP and PlaneICP on a packed
+    target: ``point_loop``; the grid and hashed aligns: ``grid_loop``): one
+    launch of it, none of its ``stats`` kernels, of ``gn_step`` or of any
+    other kernel of the two-launch loop. Returns the counts."""
+    out = {"worked": int(np.asarray(iterations).max()), "loop": counts[loop],
+           "enqueued": sum(counts[k] for k in stats), "gn_step": counts["gn_step"]}
+    log(f"{tag} loop kernel {loop}: {out['loop']} launch for {out['worked']} iterations; stats "
         f"launches {out['enqueued']}, gn_step launches {out['gn_step']} (expected 1, 0, 0)")
     if (out["loop"], out["enqueued"], out["gn_step"]) != (1, 0, 0):
-        raise AssertionError(f"{tag} launches {counts}: expected one of fused_loop and none of "
+        raise AssertionError(f"{tag} launches {counts}: expected one of {loop} and none of "
                              "the two-launch loop's kernels")
     return out
 
@@ -910,6 +933,21 @@ def hold_to_host(tag: str, align, T, d, max_syncs: int | None = None) -> dict:
                              f"loop of {int(np.asarray(d.iterations).max())} iterations")
     return {"dT_host": dT, "syncs": syncs_d, "sync_sites": sites, "syncs_host": syncs_h,
             "T_host": np.asarray(T_h).tolist()}
+
+
+def host_loop_launches(tag: str, kernel: str, hold) -> dict:
+    """``hold()`` (:func:`hold_to_host`) with the launch counts set to 0
+    just before: its result with ``host_loop_launches``, the launches of the
+    stats kernel ``kernel`` in the aligns it ran. The align through the loop
+    kernel launches none; the host loop (``core.gn.gauss_newton_host``, the
+    loop of the multi-device paths) launches it once per iteration: the path
+    whose launches its kernels-line row names."""
+    reset_launches()
+    out = hold()
+    out["host_loop_launches"] = launch_counts()[kernel]
+    log(f"{tag} {kernel} launches in the aligns of the resident and the host loop: "
+        f"{out['host_loop_launches']}")
+    return out
 
 
 def resident_launcher(path: SolverPath, s, src, w, T):
@@ -1097,17 +1135,16 @@ def solver_paths() -> list[SolverPath]:
         SolverPath("vplane_icp", lambda d: pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=d),
                    fa.fused_plane_stats, fa.fused_plane_stats_reference, voxel_args,
                    voxel_work(FLOPS_PLANE_ROW), plain_target, "max",
-                   T_REF_VPLANE, 4, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550",
-                   loop=True),
+                   T_REF_VPLANE, 4, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550"),
         SolverPath("ndt", lambda d: pt.NDT(voxel_size=1.0, **PARAMS, device=d),
                    fa.fused_ndt_stats, fa.fused_ndt_stats_reference, voxel_args,
                    voxel_work(FLOPS_M3_POINT), plain_target, "entry",
-                   T_REF_NDT, 3, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550",
-                   loop=True),
+                   T_REF_NDT, 3, f"{CSRC}/fused_align.cu", f"{PALLAS}/fused_align.py:550"),
         SolverPath("icp", lambda d: pt.ICP(**PARAMS, device=d),
                    pa.point_stats, pa.point_stats_reference, point_args,
                    point_work(FLOPS_M3_POINT, 12, 16), plain_target, "entry",
-                   T_REF_ICP, 6, f"{CSRC}/point_align.cu", f"{PALLAS}/point_align.py:594"),
+                   T_REF_ICP, 6, f"{CSRC}/point_align.cu", f"{PALLAS}/point_align.py:594",
+                   loop="point_loop"),
     ]
 
 
@@ -1121,7 +1158,7 @@ def plane_icp_path(normals) -> SolverPath:
                       pa.plane_point_stats, pa.plane_point_stats_reference, point_args,
                       point_work(FLOPS_PLANE_ROW, 24, 32), lambda s, m: s.set_target(m, norm=normals),
                       "entry", T_REF_PLANE_ICP, 3, f"{CSRC}/point_align.cu",
-                      f"{PALLAS}/point_align.py:594")
+                      f"{PALLAS}/point_align.py:594", loop="point_loop")
 
 
 def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
@@ -1183,10 +1220,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
             f"JAX difference {ref_err}, {d.iterations} iterations "
             f"(JAX: {path.iterations_ref})"
         )
-    if path.loop:
-        resident = check_loop(tag, counts, d.iterations)
-    else:
-        resident = check_resident(tag, counts, path.kernel.__name__, d.iterations)
+    resident = check_loop(tag, counts, d.iterations, path.loop, (path.kernel.__name__,))
 
     map_t = torch.from_numpy(map_np).to(dev)
     scan_t = torch.from_numpy(scan_np).to(dev)
@@ -1204,8 +1238,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
             raise AssertionError(f"{tag} a warm run gave another result than the first")
     log(f"{tag} warm (device-resident inputs), set_target s / align s: "
         + ", ".join(f"{s:.4f} / {a:.4f}" for s, a in warm))
-    loops = compare_loops(tag, lambda: (solver.align(scan_t), solver.last_diagnostics), T_k, d,
-                          1 if path.loop else chunks(d.iterations))
+    loops = compare_loops(tag, lambda: (solver.align(scan_t), solver.last_diagnostics), T_k, d, 1)
 
     Tc = torch.as_tensor(T_k, dtype=torch.float32)
     args = path.args(solver, src, w, Tc)
@@ -1255,7 +1288,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         "dT_plain": dT, "launches": launches, "max_abs_err": max_abs_err,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "T": T_k,
         "resident": resident, "gn_step_launches": counts["gn_step"],
-        "loop_launches": counts["fused_loop"], **loops,
+        "loop_launches": counts[path.loop], **loops,
         "extra": {"wrapper_ms": wrapper_ms},
         **({"proxy_share": proxy_share} if packed_grid else {}),
     }
@@ -1461,8 +1494,6 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
     events (a copy of the initial state and the launch) and alone (the
     profiler), the plain version's, the walls of both loops in turns with
     their device time, busy share and syncs, and its bound."""
-    import functools
-
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -1597,6 +1628,288 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
         log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
         out[kind] = r
     out["max_abs_err"] = max(out[k]["dT_plain"] for k in ("plane", "ndt"))
+    return out
+
+
+# Phase 2d: the point loop (csrc/point_loop.cu: ICP and PlaneICP on the
+# packed grid) and the grid loop (csrc/grid_loop.cu: ICP and PlaneICP on a
+# small target's grid, VPlaneICP and NDT on a hashed map), each align's
+# whole Gauss-Newton loop in one launch
+NEW_LOOPS = {  # case: (loop wrapper, kind, the stats kernel it runs)
+    "icp": ("point_loop", "point", "point_stats"),
+    "plane_icp": ("point_loop", "plane_pt", "plane_point_stats"),
+    "icp_grid": ("grid_loop", "point", "grid_point_stats"),
+    "plane_icp_grid": ("grid_loop", "plane_pt", "grid_plane_point_stats"),
+    "vplane_icp_hashed": ("grid_loop", "plane", "hashed_plane_stats"),
+    "ndt_hashed": ("grid_loop", "ndt", "hashed_ndt_stats"),
+}
+LOOP_SOURCES = {"point_loop": f"{CSRC}/point_loop.cu", "grid_loop": f"{CSRC}/grid_loop.cu"}
+LOOP_STATS_OF = {"point_loop": f"{PALLAS}/point_align.py:594",
+                 "grid_loop": "point_cloud_registration_tpu/ops/knn.py:410, :78"}
+LOOP_PTXAS_LABELS = {"point_loop": {"ILi0E": "point", "ILi1E": "plane_pt"},
+                     "grid_loop": {"ILi0E": "point", "ILi1E": "plane_pt", "ILi2E": "plane",
+                                   "ILi3E": "ndt"}}
+
+
+def float_bits(x):
+    """A tensor's words as int32, so that NaN payloads compare too."""
+    import torch
+
+    x = torch.as_tensor(x)
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def new_loop_cases(map_np, scan_np, dev) -> dict:
+    """Phase 2d's operands: for each case of ``NEW_LOOPS`` its solver's
+    :func:`loop_case` on the case's target and scan."""
+    import point_cloud_registration_tpu_torch as pt
+    from bench import make_lidar_map, make_scan
+
+    rng = np.random.RandomState(SEED)
+    small = make_lidar_map(rng, N_SMALL)
+    small_scan = make_scan(rng, small, N_SMALL_SCAN)
+    two = np.vstack([map_np, map_np + TILE_SHIFT])
+    solvers = {
+        "icp": (pt.ICP(**PARAMS, device=dev), map_np, scan_np),
+        "plane_icp": (pt.PlaneICP(**PARAMS, k=K_NORMALS, device=dev), map_np, scan_np),
+        "icp_grid": (pt.ICP(**PARAMS, device=dev), small, small_scan),
+        "plane_icp_grid": (pt.PlaneICP(**PARAMS, device=dev), small, small_scan),
+        "vplane_icp_hashed": (pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=dev), two, scan_np),
+        "ndt_hashed": (pt.NDT(voxel_size=1.0, **PARAMS, device=dev), two, scan_np),
+    }
+    return {case: loop_case(case, s, target, scan, dev)
+            for case, (s, target, scan) in solvers.items()}
+
+
+def loop_case(case: str, s, target_np, scan, dev) -> dict:
+    """Solver ``s`` with its target set to ``target_np``, its align's scan
+    tensors on the card, ``looper(state, rows=None)`` (the loop kernel's
+    bound launch), the plain loop ``plain(state)``, the two-launch loop's
+    stats ``stats_fn``, ``first(T0) -> (fn, args, partials)`` (the stats
+    launch that the two-launch loop makes first) and ``work(T, n_inliers)
+    -> (bytes, flops)`` of one iteration's stats."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.core import gn
+    from point_cloud_registration_tpu_torch.models import _fused, _point_fused, pad_points
+    from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+
+    loop, kind, _ = NEW_LOOPS[case]
+    s.set_target(target_np)
+    cfg = s.cfg
+    src, w = pad_points(scan, device=dev)
+    settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                    max_iter=cfg.max_iter)
+    pose = lambda T0: gn.pose_rows_of(T0[None]).to(dev)  # noqa: E731
+    if loop == "point_loop":
+        tg = getattr(s._target, "corr", s._target)
+        if tg.packed is None:
+            raise AssertionError(f"[{case}] the target is not packed")
+        radius = proxy_radius(cfg.corr, cfg.max_dist)
+        operands = (kind, tg.packed, tg.proxy, src, w)
+        looper = functools.partial(gl.point_looper, *operands, proxy_radius=radius, **settings)
+        plain = functools.partial(gl.point_loop_reference, *operands, proxy_radius=radius,
+                                  **settings)
+        stats_fn = _point_fused.fused_point_stats_resident(tg, src, w, cfg, kind)
+        first = lambda T0: pa.partials_args(  # noqa: E731
+            pa._kernel_fn(kind), tg.packed, tg.proxy, src[None], w[None], pose(T0), None,
+            cfg.max_dist, radius, cfg.huber_delta)
+        point = kind == "point"
+        per_call = point_work(FLOPS_M3_POINT if point else FLOPS_PLANE_ROW, 12 if point else 24,
+                              16 if point else 32)
+        work = lambda T, n: per_call(s, src, w, T, n)  # noqa: E731
+    else:
+        hashed = kind in ("plane", "ndt")
+        if hashed != bool(getattr(s._target, "hashed", False)):
+            raise AssertionError(f"[{case}] the target's layout is not the case's")
+        grid, table, offsets = grid_operands(kind, s)
+        operands = (kind, grid, table, src, w, offsets)
+        looper = functools.partial(gl.grid_looper, *operands, **settings)
+        plain = functools.partial(gl.grid_loop_reference, *operands, **settings)
+        stats_fn = (_fused.fused_voxel_stats_resident(s._target, src, w, cfg, kind) if hashed
+                    else _point_fused.fused_point_stats_resident(
+                        getattr(s._target, "corr", s._target), src, w, cfg, kind,
+                        s._target.normals if kind == "plane_pt" else None))
+        off_d, window = ga.bind_window(grid, offsets, dev)
+        first = lambda T0: ga._launch_args(  # noqa: E731
+            ga._kernel_fn(kind), grid, table, src, w, off_d, window, pose(T0), None,
+            cfg.max_dist, cfg.huber_delta, None)
+
+        def work(T, n_inliers):
+            idx = torch.empty(src.shape[0], dtype=torch.int32, device=dev)
+            d2 = torch.empty(src.shape[0], device=dev)
+            grid_fns(kind)[0](grid, table, src, w, T[:3, :3], T[:3, 3], offsets, cfg.max_dist,
+                              cfg.huber_delta, matches=(idx, d2))
+            return grid_work(kind, grid, table, src, w, T, offsets, cfg.max_dist, idx, d2)[:2]
+    return {"solver": s, "src": src, "w": w, "cfg": cfg, "looper": looper, "plain": plain,
+            "stats_fn": stats_fn, "first": first, "work": work}
+
+
+def run_new_loops(map_np, scan_np, dev) -> dict:
+    """Phase 2d: the point and grid loops on the main paths' data (the city
+    map and the 100k scan for ICP and PlaneICP on the packed grid and for
+    VPlaneICP and NDT on phase 10's two-tile hashed map; phase 9's 40k LiDAR
+    target and 10k scan for ICP and PlaneICP on a grid target), from T = I
+    and from a perturbed start, against the two-launch resident loop
+    (``core.gn.gauss_newton_device`` over ``resident_stats``) on the same
+    tensors: the first iteration's block rows, T, the iterations, the flags
+    and the e2, |dx| and inlier histories bit-equal; three more aligns
+    bit-identical; against its plain version (``point_loop_reference`` /
+    ``grid_loop_reference``: the plain stats on the card, ``gn_step_reference``
+    on the host) T within TOL_T (phase 5's bound on the plain stats' GN
+    loop: their float32 sums run in another order), equal iterations and
+    flags; for ICP a launch of more CTAs than fit on the card (832 on room
+    for 792) must raise and change nothing. Then its
+    time per align by events (a copy of the initial state and the launch)
+    and alone (the profiler), the plain version's, both loops' aligns in
+    turns with their device time, busy share and syncs (one through the loop
+    kernel), its bound (the stats' work at the converged pose times the
+    iterations, each input read once, with ``gn_step``'s) and each kind's
+    ptxas report."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core import gn
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+
+    eye = torch.eye(4)
+    T_pert = pt.plus(eye, torch.tensor(PERTURBATION))
+    out = {"ptxas": {}}
+    for loop, labels in LOOP_PTXAS_LABELS.items():
+        out["ptxas"][loop] = library_ptxas(loop, "gn_loop_kernel", labels)
+        log(f"[{loop}] ptxas: " + "; ".join(
+            f"{k} {v['registers']} registers, {v.get('spill_stores', 0)} / "
+            f"{v.get('spill_loads', 0)} bytes spilled, {v.get('stack', 0)} bytes stack"
+            for k, v in out["ptxas"][loop].items()))
+    for case, c in new_loop_cases(map_np, scan_np, dev).items():
+        loop, kind, _ = NEW_LOOPS[case]
+        wrapper = getattr(gl, loop)
+        tag = f"[{loop} {case}]"
+        cfg, src = c["cfg"], c["src"]
+        r = {"dT_plain": 0.0, "e2_rel_plain": 0.0}
+        before = wrapper.launches
+        for label, T0 in (("T=I", eye), ("T=perturbed", T_pert)):
+            fn, args, partials = c["first"](T0)
+            if fn(*args) != 0:
+                raise AssertionError(f"{tag} the stats launch failed")
+            rows = torch.full_like(partials[0], float("nan"))
+            state = gn.new_state(T0[None], cfg.max_iter, dev)
+            launch = c["looper"](state, rows=rows)
+            launch()
+            k = gn.read_state(state)
+            rows_equal = torch.equal(rows, partials[0])
+            T_two, d_two = gn.gauss_newton_device(c["stats_fn"], T0, cfg.max_iter, cfg.tol, dev)
+            plain = gn.new_state(T0[None], cfg.max_iter, "cpu")
+            c["plain"](plain)
+            its = int(k.it[0])
+            T_k = gn.transforms_of(k.poses)[0]
+            same = (torch.equal(float_bits(T_k), float_bits(T_two))
+                    and (its, bool(k.converged[0]), bool(k.failed[0])) == (
+                        d_two.iterations, d_two.converged, d_two.solver_failed)
+                    and all(torch.equal(float_bits(a), float_bits(b)) for a, b in (
+                        (k.e2[0], d_two.e2_history), (k.dx_norm[0], d_two.dx_norm_history),
+                        (k.inliers[0], d_two.inlier_history),
+                        (k.final_e2[0], torch.tensor(d_two.final_e2)))))
+            dT_plain = float((T_k - gn.transforms_of(plain.poses)[0]).abs().max())
+            e2_rel = rel_gap(k.e2[0], plain.e2[0], its)
+            plain_same = (its, bool(k.converged[0]), bool(k.failed[0])) == (
+                int(plain.it[0]), bool(plain.converged[0]), bool(plain.failed[0]))
+            warm_equal = []
+            for _ in range(3):
+                state = gn.new_state(T0[None], cfg.max_iter, dev)
+                c["looper"](state)()
+                warm_equal.append(torch.equal(gn.read_state(state).words, k.words))
+            log(f"{tag} {label} on {src.shape[0]} points, grid {launch.grid[0]} CTAs for "
+                f"{launch.grid[1]} block ids: first iteration's block rows bit-equal to the stats "
+                f"kernel's {rows_equal}; {its} iterations (two-launch {d_two.iterations}, plain "
+                f"{int(plain.it[0])}), converged {bool(k.converged[0])}, failed "
+                f"{bool(k.failed[0])}; T, flags and histories bit-equal to the two-launch loop's "
+                f"{same}; plain version: max |dT| {dT_plain:.3e}, relative e2 gap {e2_rel:.3e}, "
+                f"iterations and flags equal {plain_same}; three more aligns bit-identical "
+                f"{warm_equal}")
+            if not (rows_equal and same and plain_same and dT_plain < TOL_T and all(warm_equal)
+                    and bool(k.converged[0])):
+                raise AssertionError(f"{tag} {label}: the loop kernel is off the two-launch loop "
+                                     "or its plain version")
+            r["dT_plain"] = max(r["dT_plain"], dT_plain)
+            r["e2_rel_plain"] = max(r["e2_rel_plain"], e2_rel)
+            if label == "T=I":
+                r["iterations"], T_conv = its, T_k
+                r["inliers"] = float(k.inliers[0][its - 1])
+        r["launches_check"] = wrapper.launches - before
+        if case == "icp":  # more CTAs than fit at once: the card refuses, the wrapper raises
+            fn, block, per_sm, error_string = gl._point_kernel_fn(kind)
+            state = gn.new_state(eye[None], cfg.max_iter, dev)
+            launch = c["looper"](state, bound=(fn, block, lambda: per_sm() + 1, error_string))
+            try:
+                launch()
+            except RuntimeError as err:
+                log(f"{tag} {launch.grid[0]} CTAs of {launch.grid[1]} block ids with room for "
+                    f"{per_sm()} an SM: {err}")
+            else:
+                raise AssertionError(f"{tag} a cooperative launch of more CTAs than fit ran")
+            if wrapper.launches != before + r["launches_check"] or int(
+                    gn.read_state(state).it[0]) != 0:
+                raise AssertionError(f"{tag} the refused launch counted or ran")
+
+        # time per align at T = I: events (the state's copy and the launch), alone
+        init = gn.new_state(eye[None], cfg.max_iter, dev)
+        state = gn.new_state(eye[None], cfg.max_iter, dev)
+        launch = c["looper"](state)
+
+        def once():
+            state.words.copy_(init.words)
+            launch()
+
+        r["ms"] = cuda_ms(once, 30)
+        r["alone_ms"] = kernel_alone_ms(once, 20, "gn_loop_kernel")
+        r["plain_ms"] = cuda_ms(lambda: c["plain"](gn.new_state(eye[None], cfg.max_iter, "cpu")),
+                                2)
+        # both loops' aligns in turns (two-launch, loop, loop, two-launch)
+        loop_call = lambda state: c["looper"](state)()  # noqa: E731
+        aligns = {"two_launch": lambda: gn.gauss_newton_device(c["stats_fn"], eye, cfg.max_iter,
+                                                               cfg.tol, dev),
+                  "loop": lambda: gn.gauss_newton_device(c["stats_fn"], eye, cfg.max_iter,
+                                                         cfg.tol, dev, loop=loop_call)}
+        walls = {m: [] for m in aligns}
+        for mode in ("two_launch", "loop", "loop", "two_launch"):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                aligns[mode]()
+                walls[mode].append(time.perf_counter() - t0)
+        line = []
+        for mode, align in aligns.items():
+            device_ms, n_kernels, busy = device_busy(align, min(walls[mode]))
+            _, syncs = count_syncs(align)
+            r[mode] = {"align_walls_s": walls[mode], "device_ms": device_ms, "kernels": n_kernels,
+                       "busy": busy, "syncs": syncs}
+            line.append(f"{mode}: align ms {', '.join(f'{1e3 * x:.3f}' for x in walls[mode])}; "
+                        f"device {device_ms:.3f} ms in {n_kernels} kernels, busy "
+                        f"{100 * busy:.1f} %, {syncs} syncs")
+        if r["loop"]["syncs"] != 1:
+            raise AssertionError(f"{tag} {r['loop']['syncs']} syncs in an align through the loop "
+                                 "kernel, not 1")
+        # bound: the stats' work at the converged pose for each iteration run,
+        # each input read once, the state's 260 bytes; also with the stats'
+        # bytes read again every iteration
+        its = r["iterations"]
+        n_bytes, flops = c["work"](T_conv, r["inliers"])
+        ops = its * (flops + GN_STEP_FLOPS)
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes + GN_STEP_BYTES, ops)
+        r["bound_reread_ms"] = bound_ms(its * n_bytes + GN_STEP_BYTES, ops)[0]
+        log(f"{tag} {its} iterations a launch: {r['ms']:.4f} ms by events (the state's copy and "
+            f"the launch), alone {r['alone_ms']:.4f} ms (profiler); the plain version "
+            f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} (the stats' "
+            f"bytes read every iteration: {r['bound_reread_ms']:.5f} ms)")
+        log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+        out[case] = r
+    for loop in LOOP_SOURCES:
+        out[f"{loop}_max_abs_err"] = max(out[case]["dT_plain"] for case, (l, _, _) in
+                                         NEW_LOOPS.items() if l == loop)
     return out
 
 
@@ -1947,7 +2260,8 @@ def run_rounds(map_np, scan_np, dev) -> dict:
         f"{float(np.abs(T[:3] - T_REF_PLANE_ICP).max()):.2e}; launch counts {counts}")
     if not (d.converged and np.isfinite(T).all() and off_err < TOL_OFFSET
             and counts["knn_moments"] == tiers
-            and counts["plane_point_stats"] == enqueued(d.iterations) == counts["gn_step"]):
+            and (counts["point_loop"], counts["plane_point_stats"], counts["gn_step"])
+            == (1, 0, 0)):
         raise AssertionError(f"{tag} PlaneICP(k={K_ROUNDS}) off its path or its offset")
     return {"first_call_s": first_s, "estimate_normals_ms": warm_s, "max_abs_err": err,
             "iterations": d.iterations, "offset_err": off_err}
@@ -2127,18 +2441,22 @@ def ptxas_entries(text: str) -> dict:
     name: {"registers": r, "stack": s, "spill_stores": a, "spill_loads": b}}``."""
     import re
 
-    out, name = {}, None
+    out, name, props = {}, None, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name, props = m.group(1), None
             out[name] = {}
             continue
         if name is None:
             continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:  # the entry's own, or a device function's that it calls
+            props = m.group(1)
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
                       r"loads", line)
-        if m:
+        if m and props in (None, name):
             out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
@@ -2149,8 +2467,10 @@ def ptxas_entries(text: str) -> dict:
 
 def library_ptxas(library: str, kernel: str, labels: dict) -> dict:
     """:func:`ptxas_entries` of the entries named ``kernel`` in the build of
-    ``csrc/<library>.cu``, keyed by ``labels[their template arguments]``
-    (the mangled ``ILi0E...`` part); raises unless every label has a report."""
+    ``csrc/<library>.cu``, keyed by ``labels[their kind]`` (the first
+    mangled integer template argument, ``ILi0E``, after the name: the
+    kernel's own or its stats body's); raises unless every label has a
+    report."""
     import re
 
     from point_cloud_registration_tpu_torch.ops.kernels import _build
@@ -2159,7 +2479,7 @@ def library_ptxas(library: str, kernel: str, labels: dict) -> dict:
     out = {}
     for name, v in ptxas_entries(text).items():
         if kernel in name:
-            args = re.search(rf"{kernel}(I\w*?E)E", name)
+            args = re.search(rf"{kernel}\w*?(ILi\d+E)", name)
             out[labels[args.group(1) if args else ""]] = v
     if set(out) != set(labels.values()) or any("registers" not in v for v in out.values()):
         raise AssertionError(f"no ptxas report of every {kernel} in {library}'s nvcc.log: {out}")
@@ -2260,11 +2580,12 @@ def check_grid_launch(label: str, kind: str, grid, table, src, w, T, offsets, ma
 
 
 def grid_sample_max() -> int:
-    """``kSampleMax`` of ``csrc/grid_align.cu``: the most keys of a block's
+    """``kSampleMax`` of the grid stats body (``csrc/grid_stats.cuh``, which
+    ``grid_align.cu`` and ``grid_loop.cu`` run): the most keys of a block's
     sampled key index."""
     import re
 
-    source = (Path(__file__).resolve().parent / GRID_SOURCE).read_text()
+    source = (Path(__file__).resolve().parent / CSRC / "grid_stats.cuh").read_text()
     return int(re.search(r"constexpr int kSampleMax = (\d+);", source).group(1))
 
 
@@ -2669,11 +2990,11 @@ def run_grid_targets(dev) -> dict:
             raise AssertionError(f"{tag} the normals did not go through the k-NN kernel")
         d = s.last_diagnostics
         err = check_T(tag, T, d, t_ref, its)
-        resident = check_resident(tag, counts, kernel, d.iterations)
+        resident = check_loop(tag, counts, d.iterations, "grid_loop", (kernel,))
         normals = s._target.normals if name == "plane_icp" else None
         warm = warm_runs(s, lambda x: x.set_target(target_t), scan_t, T)
-        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
-                             chunks(d.iterations))
+        loops = host_loop_launches(tag, kernel, lambda: hold_to_host(
+            tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d, 1))
         src, w = pad_points(scan_t, device=dev)
         held = hold_grid_kernel(tag, kind, s, src, w, T, d)
         Tc = torch.as_tensor(T, dtype=torch.float32)
@@ -2762,10 +3083,10 @@ def run_hashed_map(map_np, scan_np, dev) -> dict:
             raise AssertionError(f"{tag} the fused kernel ran on a hashed map")
         d = s.last_diagnostics
         err = check_T(tag, T, d, t_ref, its)
-        resident = check_resident(tag, counts, GRID_KINDS[kind][0], d.iterations)
+        resident = check_loop(tag, counts, d.iterations, "grid_loop", (GRID_KINDS[kind][0],))
         warm = warm_runs(s, lambda x: x.set_target(two_t), scan_t, T)
-        loops = hold_to_host(tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d,
-                             chunks(d.iterations))
+        loops = host_loop_launches(tag, GRID_KINDS[kind][0], lambda: hold_to_host(
+            tag, lambda: (s.align(scan_t), s.last_diagnostics), T, d, 1))
         src, w = pad_points(scan_t, device=dev)
         held = hold_grid_kernel(tag, kind, s, src, w, T, d)
         align_s = min(b for _, b in warm)
@@ -3680,8 +4001,7 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
             first, warm = run_demo(demo_matching_torch.main, argv, mtag)
             ref = DEMO_REF[method]
             for r in (first, warm):
-                expected = ({kernel: 1} if kernel == "fused_loop" else
-                            {kernel: enqueued(r["iterations"]), "gn_step": enqueued(r["iterations"])})
+                expected = {kernel: 1}  # every demo aligns through a loop kernel
                 if method == "PlaneICP":  # its normals in set_target, one launch per tier
                     expected["knn_moments"] = tiers
                 check_launches(mtag, r["launch_counts"], expected)
@@ -3813,8 +4133,10 @@ def main() -> None:
     map_np = make_city_map(rng, N_MAP)
     scan_np = make_scan(rng, map_np, N_SCAN)
     log(f"map {map_np.shape}, scan {scan_np.shape}")
-    # 2c. The loop kernel against the two-launch loop and its plain version
+    # 2c. The loop kernel against the two-launch loop and its plain version; 2d.
+    # the point and grid loops
     gn_loop = run_gn_loop(map_np, scan_np, dev)
+    new_loops = run_new_loops(map_np, scan_np, dev)
 
     map_t = torch.from_numpy(map_np).to(dev)
     paths = {p.name: p for p in solver_paths()}
@@ -3906,6 +4228,25 @@ def main() -> None:
                       | {f"{m}_device_ms": gn_loop[kind][m]["device_ms"]
                          for m in ("loop", "two_launch")}
                       for kind in ("plane", "ndt")}}}))
+    # the point and grid loops: the same while_loop around the packed-grid
+    # stats and the grid stats; their numbers on phase 2d's paths, ICP's at the
+    # top, each case's in "kinds"
+    for loop, top in (("point_loop", "icp"), ("grid_loop", "icp_grid")):
+        cases = [case for case, (l, _, _) in NEW_LOOPS.items() if l == loop]
+        first = new_loops[top]
+        rows.append((loop, getattr(gl, loop), LOOP_SOURCES[loop], LOOP_REPLACES, {
+            "launches": 0,  # its launches on its paths: path_launches below
+            "max_abs_err": new_loops[f"{loop}_max_abs_err"], "kernel_ms": [first["ms"]],
+            "plain_ms": [first["plain_ms"]], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "extra": {"alone_ms": first["alone_ms"], "stats_of": LOOP_STATS_OF[loop],
+                      "ptxas": new_loops["ptxas"][loop], "kinds": {case: {
+                          k: new_loops[case][k] for k in (
+                              "iterations", "ms", "alone_ms", "plain_ms", "bound_ms", "bound_by",
+                              "bound_reread_ms", "dT_plain", "e2_rel_plain")}
+                          | {f"{m}_{q}": new_loops[case][m][q] for m in ("loop", "two_launch")
+                             for q in ("device_ms", "syncs")}
+                          for case in cases}}}))
     # the grid stats kernels (csrc/grid_align.cu), the port's own kernels for
     # XLA code of the JAX package: their numbers on phases 9 and 10
     grid = results["grid"]
@@ -3919,7 +4260,7 @@ def main() -> None:
             "lattice_max_abs_err"][kind]
         rows.append((path_name, grid_fns(kind)[0], GRID_SOURCE,
                      GRID_REPLACES[kind], {
-                         "launches": res["resident"]["enqueued"],
+                         "launches": res["resident"]["enqueued"],  # 0: its align runs grid_loop
                          "max_abs_err": max(held["max_abs_err"], lattice),
                          "kernel_ms": held["kernel_ms"], "plain_ms": held["plain_ms"],
                          "bound_ms": held["bound_ms"], "bound_by": held["bound_by"],
@@ -3948,17 +4289,25 @@ def main() -> None:
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
-        **{GRID_KINDS[kind][0]: {path_name: res["launches"][GRID_KINDS[kind][0]]}
+        **{GRID_KINDS[kind][0]: {path_name: res["launches"][GRID_KINDS[kind][0]],
+                                 f"{path_name}_host_loop": res["host_loop_launches"]}
            for kind, (path_name, res) in grid_paths.items()},
     }
     path_launches["fused_loop"] = {
-        **{name: results[name]["loop_launches"] for name in paths},
+        **{name: results[name]["loop_launches"] for name in ("vplane_icp", "ndt")},
         **{f"update_target_{name}": results["update"][name]["loop_launches"]
            for name in ("vplane_icp", "ndt")},
         "fast_vplane_icp_auto": results["fast"]["loop_auto"],
         "fast_vplane_icp_always": results["fast"]["loop_always"],
         "hashed_map": 0,
         **{f"batched_{name}": 0 for name in batched},
+    }
+    path_launches["point_loop"] = {
+        **{name: results[name]["loop_launches"] for name in ("icp", "plane_icp")},
+        **{f"batched_{name}": 0 for name in ("icp", "plane_icp")},
+    }
+    path_launches["grid_loop"] = {
+        **{path_name: res["resident"]["loop"] for path_name, res in grid_paths.values()},
     }
     path_launches["gn_step"] = {
         **{name: results[name]["gn_step_launches"] for name in paths},
@@ -4002,7 +4351,8 @@ def main() -> None:
         r.pop("Ts", None)
     for mode in ("nccl1", "gloo4"):
         results[mode] = jsonable(results[mode])
-    log("summary: " + json.dumps({"card": smi, "build_s": build_s, **results}))
+    log("summary: " + json.dumps({"card": smi, "build_s": build_s, "new_loops": new_loops,
+                                  **results}))
     # knn_moments: the top-level numbers are the base tier's; "tiers" holds both
     print(json.dumps({"kernels": [{
         "name": kernel.__name__, "route": "cuda", "source": source, "replaces": replaces,

@@ -9,10 +9,12 @@ every iteration is the solver's stats launch, which reads the pose and the
 done flag from the state, then one ``gn_step`` launch (solve, test, update,
 histories). Iterations are enqueued in chunks of ``GN_CHUNK``; the host reads
 the state once per chunk, one copy, and stops when every problem is done.
-On CPU tensors the same loop runs the plain ``gn_step_reference``. Where a
-kernel runs the whole loop (VPlaneICP and NDT on a dense map,
-``ops/kernels/gn_loop``), :func:`gauss_newton_device` takes it as ``loop``:
-one launch and one read an align.
+On CPU tensors the same loop runs the plain ``gn_step_reference``. Every
+single-problem align of the four solvers has a kernel that runs its whole
+loop (``ops/kernels/gn_loop``), which :func:`gauss_newton_device` takes as
+``loop``: one launch and one read an align; the two-launch loop stays the
+loop of the batched streams and FastVPlaneICP's phase 2, and the
+reference that the loop kernels are held to.
 
 :func:`gauss_newton` and :func:`batched_gauss_newton` are the host loops
 (one copy of the stats to the host per iteration, the solve and the update

@@ -4,26 +4,27 @@ plain ``vplane_stats`` / ``ndt_solver_stats``).
 
 The map's layout picks the stats, as in the JAX package:
 
-* a dense-direct map: each iteration is one launch of the fused stats
-  kernel over the whole scan. The TPU align's band layout, tile scaling and
+* a dense-direct map: each iteration's stats are the fused stats kernel's
+  over the whole scan. The TPU align's band layout, tile scaling and
   straggler fallback tiers (_fused.py:136-163) serve its region clamp; the
   CUDA kernel reads every window from global memory, so no query is ever
   left unresolved and none of them is needed;
-* a hashed map (over the dense budget): each iteration is one launch of
-  ``ops/kernels/grid_align.hashed_plane_stats`` or ``hashed_ndt_stats``,
+* a hashed map (over the dense budget): each iteration's stats are those
+  of ``ops/kernels/grid_align.hashed_plane_stats`` or ``hashed_ndt_stats``,
   ``query_nearest_voxel``'s binary searches and the reductions of
   ``ops/reduce.py`` (voxelized_plane_icp.py:64, ndt.py:64; NDT in the
   Mahalanobis form) in one kernel; the JAX package leaves them to XLA
   (``voxel_fused_spec`` returns None without dense blocks).
 
-On a dense map the whole Gauss-Newton loop of an align is one launch of the
-loop kernel (``ops/kernels/gn_loop.fused_loop``: the fused stats, the row
-sum and the update of every iteration, on the card), and the host reads
-the state once, as the JAX package compiles the loop into one dispatch. On
-a hashed map the align runs the two-launch resident loop
-(``core.gn.gauss_newton_device``): the kernel reads the pose and the done
-flag from the loop's state on the card and ``gn_step`` updates it there;
-the host reads the state once per chunk of iterations.
+Either way the whole Gauss-Newton loop of an align is one launch of a loop
+kernel (``ops/kernels/gn_loop.fused_loop`` on a dense map, ``grid_loop`` on
+a hashed one: the stats, the row sum and the update of every iteration, on
+the card), and the host reads the state once, as the JAX package compiles
+the loop into one dispatch. The two-launch resident loop
+(``core.gn.gauss_newton_device`` over :func:`fused_voxel_stats_resident`: a
+stats launch that reads the pose and the done flag from the loop's state on
+the card, then ``gn_step``) computes the same state and is the loop of the
+batched stream.
 
 :func:`fused_voxel_align_batched` aligns B scans against one dense map with
 one launch of the batched kernel per Gauss-Newton iteration, in the
@@ -113,12 +114,15 @@ def fused_voxel_stats_resident(vm: VoxelMap, source: torch.Tensor, src_weight: t
     ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
     data's device, a launch per iteration of a kernel that reads the pose
     and the flag on the card: the fused kernel (``fused_align``) on a dense
-    map, the hashed stats kernel (``grid_align``) on a hashed one."""
+    map, the hashed stats kernel (``grid_align``) on a hashed one (its
+    operands made when the stats are bound: an align through the loop
+    kernel binds none)."""
     if vm.hashed:
-        grid, table, offsets = hashed_operands(vm, cfg, kind)
-        return lambda poses, done: grid_align.resident_stats(
-            kind, grid, table, source, src_weight, offsets, cfg.max_dist, cfg.huber_delta,
-            poses, done)
+        def bind(poses, done):
+            grid, table, offsets = hashed_operands(vm, cfg, kind)
+            return grid_align.resident_stats(kind, grid, table, source, src_weight, offsets,
+                                             cfg.max_dist, cfg.huber_delta, poses, done)
+        return bind
     return lambda poses, done: resident_stats(kind, vm.cells, vm.origin_cell, vm.dims,
                                               vm.cell_size, source, src_weight, cfg.max_dist,
                                               cfg.huber_delta, poses, done)
@@ -128,14 +132,19 @@ def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tens
                       init_T, cfg: VPlaneICPConfig | NDTConfig,
                       kind: str = "plane") -> tuple[torch.Tensor, GNDiagnostics]:
     """``align`` over :func:`fused_voxel_stats_resident` on the scan's
-    device: returns ``(T, GNDiagnostics)`` on the host. On a dense map the
-    whole loop is one launch of the loop kernel (``gn_loop.fused_loop``, its
-    plain version on the CPU) and one read of the state; on a hashed map the
-    two-launch resident loop."""
-    loop = None if vm.hashed else functools.partial(
-        gn_loop.fused_loop, kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, source,
-        src_weight, max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
-        max_iter=cfg.max_iter)
+    device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
+    one launch of a loop kernel (its plain version on the CPU) and one read
+    of the state: ``gn_loop.fused_loop`` on a dense map, ``gn_loop.grid_loop``
+    on a hashed one."""
+    settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                    max_iter=cfg.max_iter)
+    if vm.hashed:
+        grid, table, offsets = hashed_operands(vm, cfg, kind)
+        loop = functools.partial(gn_loop.grid_loop, kind, grid, table, source, src_weight,
+                                 offsets, **settings)
+    else:
+        loop = functools.partial(gn_loop.fused_loop, kind, vm.cells, vm.origin_cell, vm.dims,
+                                 vm.cell_size, source, src_weight, **settings)
     return gn.gauss_newton_device(fused_voxel_stats_resident(vm, source, src_weight, cfg, kind),
                                   init_T, cfg.max_iter, cfg.tol, source.device, loop=loop)
 

@@ -5,22 +5,28 @@ and "plane_pt" for PlaneICP, and of the plain ``icp_stats`` /
 
 The target's layout picks the stats, as in the JAX package:
 
-* a packed target: each iteration is one launch of
+* a packed target: each iteration's stats are those of
   ``ops/kernels/point_align.point_stats`` or ``plane_point_stats`` over the
   whole scan. The kernel resolves every query itself (tier 1 or the proxy
   voxel), so the TPU align's Morton layout, tile key lists, dense fused rows
   and fallback tiers (_point_fused.py:38-66, :110-167), which serve its VMEM
   tiles, have no counterpart;
-* a grid target (small targets, ``"grid"`` correspondence): each iteration
-  is one launch of ``ops/kernels/grid_align.grid_point_stats`` or
+* a grid target (small targets, ``"grid"`` correspondence): each
+  iteration's stats are those of ``ops/kernels/grid_align.grid_point_stats`` or
   ``grid_plane_point_stats``, the CSR bucket scan of ``match_points`` and
   the reductions of ``ops/reduce.py`` (icp.py:48-56, plane_icp.py:60-85) in
   one kernel; the JAX package leaves them to XLA (``point_fused_spec``
   needs a packed target).
 
-Either way the align runs the resident Gauss-Newton loop
-(``core.gn.gauss_newton_device``): the kernel reads the pose and the done
-flag from the loop's state on the card and ``gn_step`` updates it there.
+Either way the whole Gauss-Newton loop of an align is one launch of a loop
+kernel (``ops/kernels/gn_loop.point_loop`` on a packed target, ``grid_loop``
+on a grid target: the stats, the row sum and the update of every iteration,
+on the card), and the host reads the state once, as the JAX package
+compiles the loop into one dispatch. The two-launch resident loop
+(``core.gn.gauss_newton_device`` over :func:`fused_point_stats_resident`:
+a stats launch that reads the pose and the done flag from the loop's state
+on the card, then ``gn_step``) computes the same state and is the loop of
+the batched stream.
 
 :func:`fused_point_align_batched` aligns B scans against one packed target
 with one launch of the batched kernel per Gauss-Newton iteration, in the
@@ -28,6 +34,8 @@ resident loop of all B problems (``core.gn.batched_gauss_newton_device``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -41,7 +49,7 @@ from point_cloud_registration_tpu_torch.models._point_corr import (
     proxy_radius,
 )
 from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
-from point_cloud_registration_tpu_torch.ops.kernels import grid_align
+from point_cloud_registration_tpu_torch.ops.kernels import gn_loop, grid_align
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import stats_from_packed
 from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
     plane_point_stats,
@@ -121,13 +129,15 @@ def fused_point_stats_resident(target: PointCorrTarget, source: torch.Tensor,
     data's device, a launch per iteration of the kernel of ``kind``, which
     reads the pose and the flag on the card: the packed-grid kernel
     (``point_align``) on a packed target, the grid stats kernel
-    (``grid_align``) on a grid target."""
+    (``grid_align``) on a grid target (its operands made when the stats are
+    bound: an align through the loop kernel binds none)."""
     if target.packed is None:
-        grid, table, offsets = grid_operands(target, cfg,
-                                             normals if kind == "plane_pt" else None)
-        return lambda poses, done: grid_align.resident_stats(
-            kind, grid, table, source, src_weight, offsets, cfg.max_dist, cfg.huber_delta,
-            poses, done)
+        def bind(poses, done):
+            grid, table, offsets = grid_operands(target, cfg,
+                                                 normals if kind == "plane_pt" else None)
+            return grid_align.resident_stats(kind, grid, table, source, src_weight, offsets,
+                                             cfg.max_dist, cfg.huber_delta, poses, done)
+        return bind
     radius = proxy_radius(cfg.corr, cfg.max_dist)
     return lambda poses, done: resident_stats(kind, target.packed, target.proxy, source,
                                               src_weight, cfg.max_dist, radius,
@@ -138,10 +148,24 @@ def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, init_T, cfg: ICPConfig | PlaneICPConfig,
                       kind: str = "point", normals: torch.Tensor | None = None,
                       ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` over :func:`fused_point_stats_resident` in the resident
-    loop on the scan's device: returns ``(T, GNDiagnostics)`` on the host."""
+    """``align`` over :func:`fused_point_stats_resident` on the scan's
+    device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
+    one launch of a loop kernel (its plain version on the CPU) and one read
+    of the state: ``gn_loop.point_loop`` on a packed target,
+    ``gn_loop.grid_loop`` on a grid target."""
+    settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                    max_iter=cfg.max_iter)
+    if target.packed is None:
+        grid, table, offsets = grid_operands(target, cfg, normals if kind == "plane_pt" else None)
+        loop = functools.partial(gn_loop.grid_loop, kind, grid, table, source, src_weight,
+                                 offsets, **settings)
+    else:
+        loop = functools.partial(gn_loop.point_loop, kind, target.packed, target.proxy, source,
+                                 src_weight, proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
+                                 **settings)
     stats_fn = fused_point_stats_resident(target, source, src_weight, cfg, kind, normals)
-    return gn.gauss_newton_device(stats_fn, init_T, cfg.max_iter, cfg.tol, source.device)
+    return gn.gauss_newton_device(stats_fn, init_T, cfg.max_iter, cfg.tol, source.device,
+                                  loop=loop)
 
 
 def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | None, sources,

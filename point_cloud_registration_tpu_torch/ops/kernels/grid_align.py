@@ -29,9 +29,11 @@ CPU tensors take the plain PyTorch versions,
 :func:`grid_point_stats_reference` and :func:`hashed_voxel_stats_reference`
 (``knn.nearest_point`` / ``nearest_voxel`` and ``ops/reduce.py``), which the
 tests and ``chip_smoke.py`` also call directly. There is no fallback between
-the two. A resident Gauss-Newton loop binds :func:`resident_stats` once per
-align: the pose row and the done flag stay on the card, where the kernel
-reads them.
+the two. The aligns run the same per-query work inside the loop kernel
+(``ops/kernels/gn_loop.grid_loop``, ``csrc/grid_loop.cu``; the body is
+``csrc/grid_stats.cuh``); a two-launch resident Gauss-Newton loop binds
+:func:`resident_stats` once per align: the pose row and the done flag stay
+on the card, where the kernel reads them.
 
 ``matches``, a pair of (n,) int32 and float32 tensors, receives each query's
 winner (a point index or a slot, -1 for none) and its squared distance
@@ -315,6 +317,27 @@ def _check_matches(matches, n: int, device) -> None:
         _need("matches[1]", d2, torch.float32, (n,), device)
 
 
+def table_args(grid: Grid, table: GridTable, offsets: torch.Tensor, window) -> tuple:
+    """The C arguments that name the table, the grid's index and the window
+    (:func:`bind_window`'s ``offsets`` and ``window`` on the card): the first
+    23 of the stats kernels' and of the loop kernel's (``csrc/grid_loop.cu``)
+    entries."""
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    b = table.buckets
+    n_rows, width = window[1] if window is not None else (0, 0)
+    rows = window[0] if window is not None else None
+    return (
+        ptr(table.points), ptr(table.feats), ptr(table.valid),
+        ptr(table.rows), ptr(b.starts if b else None), ptr(b.counts if b else None),
+        table.cap,
+        grid.keys.data_ptr(), int(grid.n_cells), ptr(grid.dense),
+        *(int(o) for o in grid.origin_cell), *(int(d) for d in grid.dims),
+        float(np.float32(grid.cell_size)),
+        offsets.data_ptr(), offsets.shape[0],
+        ptr(rows), n_rows, rows.data_ptr() + 16 * n_rows if rows is not None else None, width,
+    )
+
+
 def _launch_args(bound, grid: Grid, table: GridTable, src, w, offsets, window,
                  poses, done, max_dist, huber_delta, matches) -> tuple:
     """``(fn, args, partials)``: the C function of ``bound`` and its
@@ -327,18 +350,8 @@ def _launch_args(bound, grid: Grid, table: GridTable, src, w, offsets, window,
     n_blocks = min(-(-n // per_block), MAX_BLOCKS)
     partials = torch.empty((1, n_blocks, STATS_WIDTH), dtype=torch.float32, device=src.device)
     ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
-    b = table.buckets
-    n_rows, width = window[1] if window is not None else (0, 0)
-    rows = window[0] if window is not None else None
     args = (
-        ptr(table.points), ptr(table.feats), ptr(table.valid),
-        ptr(table.rows), ptr(b.starts if b else None), ptr(b.counts if b else None),
-        table.cap,
-        grid.keys.data_ptr(), int(grid.n_cells), ptr(grid.dense),
-        *(int(o) for o in grid.origin_cell), *(int(d) for d in grid.dims),
-        float(np.float32(grid.cell_size)),
-        offsets.data_ptr(), offsets.shape[0],
-        ptr(rows), n_rows, rows.data_ptr() + 16 * n_rows if rows is not None else None, width,
+        *table_args(grid, table, offsets, window),
         src.data_ptr(), w.data_ptr(), n, poses.data_ptr(), ptr(done),
         float(max_dist), int(huber_delta is not None),
         float(huber_delta) if huber_delta is not None else 0.0,
@@ -389,15 +402,25 @@ def resident_launch(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
     if src.shape[0] == 0:
         zeros = torch.zeros((1, STATS_WIDTH), dtype=torch.float32, device=src.device)
         return lambda: zeros
+    offsets, window = bind_window(grid, offsets, src.device)
+    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, offsets, window,
+                                      poses, done, max_dist, huber_delta, matches)
+    # the rows summed in double, as the loop kernel sums them (ops/kernels/gn_loop)
+    return bound_launch(fn, args, partials, _counter(kind), f"grid {kind} stats",
+                        (grid, table, src, w, offsets, window, poses, done, matches),
+                        sum_dtype=torch.float64)
+
+
+def bind_window(grid: Grid, offsets, device) -> tuple:
+    """``(offsets, window)`` on ``device`` for the kernels: the (K, 3) window
+    offsets and, for a grid without a dense key table, its rows and ranks
+    (:func:`window_rows`) as one int32 tensor with their shape (else None);
+    kept per device for later binds."""
     host = offsets.cpu().numpy() if isinstance(offsets, torch.Tensor) else np.asarray(offsets)
     if host.ndim != 2 or host.shape[1] != 3:
         raise ValueError(f"offsets must be (K, 3), got {host.shape}")
-    offsets, window = _window_on(np.ascontiguousarray(host, np.int32).tobytes(), src.device,
-                                 grid.dense is None)
-    fn, args, partials = _launch_args(_kernel_fn(kind), grid, table, src, w, offsets, window,
-                                      poses, done, max_dist, huber_delta, matches)
-    return bound_launch(fn, args, partials, _counter(kind), f"grid {kind} stats",
-                        (grid, table, src, w, offsets, window, poses, done, matches))
+    return _window_on(np.ascontiguousarray(host, np.int32).tobytes(), torch.device(device),
+                      grid.dense is None)
 
 
 def resident_stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,

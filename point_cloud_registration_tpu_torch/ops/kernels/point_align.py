@@ -29,7 +29,9 @@ stats for B scans, each with its own pose, against one target in one launch
 (the TPU kernel's ``per_tile`` mode): (B, 29), row b equal to the single
 wrapper's stats of problem b. Single and batched wrappers and the resident
 loop's :func:`resident_stats` make one launch path, as in ``fused_align``:
-the kernel reads the poses from (B, 12) pose rows on the card.
+the kernel reads the poses from (B, 12) pose rows on the card. A single
+align runs the same per-query work (``csrc/point_stats.cuh``) inside the
+loop kernel (``ops/kernels/gn_loop.point_loop``, ``csrc/point_loop.cu``).
 """
 
 from __future__ import annotations
@@ -156,8 +158,10 @@ def _kernel_fn(kind: str):
     return _bind(load_library("point_align"), kind)
 
 
-def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
-                  src: torch.Tensor) -> None:
+def check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
+                 src: torch.Tensor) -> None:
+    """Raise unless the kernels of ``kind`` can read ``pg`` and ``proxy``
+    beside ``src``."""
     r1, cap = pg.idx_packed.shape
     nb_total = pg.nb_dims[0] * pg.nb_dims[1] * pg.nb_dims[2]
     expect = {
@@ -178,6 +182,19 @@ def _check_tables(kind: str, pg: PackedPointGrid, proxy: ProxyMap,
         raise ValueError(f"proxy dims {proxy.dims} are not the block grid {pg.nb_dims}")
 
 
+def table_args(pg: PackedPointGrid, proxy: ProxyMap, proxy_radius: int) -> tuple:
+    """The C arguments that name the packed grid and its proxy map: the
+    first 17 of the stats kernels' and of the loop kernel's
+    (``csrc/point_loop.cu``) entries."""
+    return (
+        pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
+        pg.cap, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
+        float(pg.cell_fine),
+        proxy.table.data_ptr(), *(int(o) for o in proxy.origin_cell),
+        float(proxy.cell_size), int(proxy_radius),
+    )
+
+
 def partials_args(bound, pg, proxy, src, w, poses, done, max_dist, proxy_radius,
                   huber_delta) -> tuple:
     """``(fn, args, partials)``: the C function of ``bound`` (:func:`_bind`)
@@ -190,11 +207,7 @@ def partials_args(bound, pg, proxy, src, w, poses, done, max_dist, proxy_radius,
     partials = torch.empty((src.shape[0], n_blocks, STATS_WIDTH), dtype=torch.float32,
                            device=src.device)
     args = (
-        pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
-        pg.cap, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
-        float(pg.cell_fine),
-        proxy.table.data_ptr(), *(int(o) for o in proxy.origin_cell),
-        float(proxy.cell_size), int(proxy_radius),
+        *table_args(pg, proxy, proxy_radius),
         src.data_ptr(), w.data_ptr(), n, src.shape[0], poses.data_ptr(),
         done.data_ptr() if done is not None else None,
         float(max_dist), int(huber_delta is not None),
@@ -215,14 +228,15 @@ def resident_launch(kind, counter, pg, proxy, src, w, poses, done, max_dist, pro
     check_batched(src, w, *rt_of_poses(poses, True))
     check_poses(poses, done, src.shape[0], src.device)
     check_operands(src.reshape(-1, 3), w.reshape(-1))
-    _check_tables(kind, pg, proxy, src)
+    check_tables(kind, pg, proxy, src)
     if src.shape[1] == 0:
         zeros = torch.zeros((src.shape[0], STATS_WIDTH), dtype=torch.float32, device=src.device)
         return lambda: zeros
     fn, args, partials = partials_args(_kernel_fn(kind), pg, proxy, src, w, poses, done,
                                        max_dist, proxy_radius, huber_delta)
+    # the rows summed in double, as the loop kernel sums them (ops/kernels/gn_loop)
     return bound_launch(fn, args, partials, counter, f"{kind} stats",
-                        (pg, proxy, src, w, poses, done))
+                        (pg, proxy, src, w, poses, done), sum_dtype=torch.float64)
 
 
 def _stats(kind, counter, reference, batched, pg, proxy, src, w, R, t, max_dist, proxy_radius,

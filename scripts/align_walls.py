@@ -36,12 +36,14 @@ instead times every path's warm align at each of the listed chunk lengths,
 in ``--reps`` rounds: every length once per round, the order rotating from
 round to round; it prints the min and median wall of each length.
 
-Then VPlaneICP and NDT in turns, ``--reps`` rounds of two aligns: the
-tree's own align (on a dense map the loop kernel, ``ops/kernels/gn_loop``,
-where the tree has it) and the two-launch resident loop
-(``core.gn.gauss_newton_device`` without its ``loop``), the order swapped
-every round; for each the walls, the device time and busy share and the
-syncs, as rows ``<path>_align_turn`` and ``<path>_two_launch_turn``.
+Then each single-problem path in turns (``TURNS``: VPlaneICP and NDT on
+the dense map, ICP and PlaneICP on the packed grid, the grid and hashed
+paths), ``--reps`` rounds of two aligns: the tree's own align (one launch
+of a loop kernel, ``ops/kernels/gn_loop``, where the tree has one for the
+path) and the two-launch resident loop (``core.gn.gauss_newton_device``
+without its ``loop``), the order swapped every round; for each the walls,
+the device time and busy share and the syncs, as rows
+``<path>_align_turn`` and ``<path>_two_launch_turn``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ SEED, N_MAP, N_SCAN, N_BATCHES, N_BATCH = 42, 1_200_000, 100_000, 8, 16384
 N_SMALL, N_SMALL_SCAN = 40_000, 10_000  # chip_smoke.py phase 9
 TILE_SHIFT = np.float32([3000.0, 3000.0, 0.0])  # chip_smoke.py phase 10
 PARAMS = dict(max_iter=30, max_dist=2.0, tol=1e-3)
+# the paths timed in turns through their own align and the two-launch loop
+TURNS = ("vplane_icp", "ndt", "icp", "plane_icp", "icp_grid", "plane_icp_grid",
+         "vplane_icp_hashed", "ndt_hashed")
 
 
 def device_ms(fn) -> tuple[float, int]:
@@ -262,7 +267,7 @@ def main() -> None:
         paths = {}
     turn_walls = {}
     if paths:
-        for name in ("vplane_icp", "ndt"):
+        for name in TURNS:
             modes = {f"{name}_align_turn": paths[name],
                      f"{name}_two_launch_turn": functools.partial(two_launch, paths[name])}
             for run in modes.values():

@@ -8,7 +8,8 @@ the 100k-point scan, VPlaneICP's and NDT's targets, max_iter 30, tol 1e-3),
 from T = I, for kinds plane and ndt:
 
 * the shipped build (phase B in CTA 0 behind a second grid sync) against a
-  build of ``csrc/gn_loop.cu`` with ``kRedundant = true`` (phase B in every
+  build of ``csrc/gn_loop.cu`` with ``kRedundant = true`` in
+  ``csrc/gn_loop.cuh`` (phase B in every
   CTA, one grid sync an iteration): the final state bit for bit, the
   launch alone by ``torch.profiler`` (kernels named ``gn_loop_kernel``) and
   by CUDA events around the state's copy and the launch, in turns (one CTA,
@@ -29,12 +30,15 @@ from T = I, for kinds plane and ndt:
   their own time.
 
 With ``--parent DIR`` (the ``csrc`` directory of another tree, e.g. the
-parent commit unpacked by ``git archive``), its ``fused_align.cu`` and
-``gn_step.cu`` are built beside this tree's (the same flags, one nvcc each,
-all started together) and compared: each kernel's ptxas registers, stack
-and spills; the stats kernel's block rows and ``gn_step``'s state bit for
-bit; the stats kernel alone (plane and ndt, T = I) and ``gn_step`` alone
-(B = 1) by the profiler in turns (parent, this tree, this tree, parent).
+parent commit unpacked by ``git archive``), its ``fused_align.cu``,
+``gn_step.cu``, ``gn_loop.cu``, ``point_align.cu`` and ``grid_align.cu``
+are built beside this tree's (the same flags, one nvcc each, all started
+together) and compared: each kernel's ptxas registers, stack and spills;
+the stats kernels' block rows at T = I (the fused kinds on the city map,
+ICP and PlaneICP on the city map's packed grid, the four grid kinds on the
+data of ``chip_smoke.py`` phases 9 and 10), ``gn_step``'s state and the
+loop kernel's final state (VPlaneICP and NDT) bit for bit; each kernel
+alone by the profiler in turns (parent, this tree, this tree, parent).
 Prints the card's name and power limit first; with ``--out-dir`` it writes
 the numbers to ``DIR/gn_loop_ablation.json``.
 """
@@ -49,6 +53,7 @@ import json
 import os
 import pstats
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,6 +76,8 @@ from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
+# the sources that --parent builds from both trees
+PARENT_SOURCES = ("fused_align", "gn_step", "gn_loop", "point_align", "grid_align")
 SYNCS = 2000
 ONE_CTA = "constexpr bool kRedundant = false;"
 # A cooperative kernel of the loop kernel's launch shape that only syncs.
@@ -143,9 +150,11 @@ def ptxas(report: str) -> dict:
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '\w*?(fused_stats_kernel|gn_step_kernel|"
-                      r"gn_loop_kernel|grid_sync_kernel)(I\w*?E(?=E))?", line)
-        if m:
-            name = m.group(1) + (m.group(2) or "")
+                      r"gn_loop_kernel|grid_sync_kernel|point_stats_kernel|grid_stats_kernel)"
+                      r"(\w*)", line)
+        if m:  # the name and its kind: the first integer template argument after it
+            kind = re.search(r"ILi\d+E", m.group(2))
+            name = m.group(1) + (kind.group(0) if kind else "")
             out[name] = ""
         elif name and ("registers" in line or "spill" in line):
             out[name] += line.split(":", 1)[-1].strip() + " "
@@ -183,15 +192,21 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         sync_path = os.path.join(out_dir, "grid_sync.cu")
         Path(sync_path).write_text(SYNC_SOURCE)
-        source = (_build.CSRC_DIR / "gn_loop.cu").read_text()
-        if ONE_CTA not in source:
-            raise RuntimeError(f"pattern {ONE_CTA!r} is not in csrc/gn_loop.cu")
-        every_path = os.path.join(out_dir, "gn_loop_every_cta.cu")
-        Path(every_path).write_text(source.replace(ONE_CTA, "constexpr bool kRedundant = true;"))
+        header = (_build.CSRC_DIR / "gn_loop.cuh").read_text()
+        if ONE_CTA not in header:
+            raise RuntimeError(f"pattern {ONE_CTA!r} is not in csrc/gn_loop.cuh")
+        # the loop kernel's header with the substitution beside a copy of gn_loop.cu,
+        # where the copy's include finds it first
+        every_dir = os.path.join(out_dir, "every_cta")
+        os.makedirs(every_dir)
+        Path(every_dir, "gn_loop.cuh").write_text(
+            header.replace(ONE_CTA, "constexpr bool kRedundant = true;"))
+        every_path = os.path.join(every_dir, "gn_loop.cu")
+        shutil.copy(_build.CSRC_DIR / "gn_loop.cu", every_path)
         sources = {"grid_sync": (sync_path, out_dir),
                    "gn_loop every CTA": (every_path, str(_build.CSRC_DIR))}
         if args.parent:
-            for name in ("fused_align", "gn_step"):
+            for name in PARENT_SOURCES:
                 sources[f"parent {name}"] = (os.path.join(args.parent, f"{name}.cu"),
                                              args.parent)
                 sources[f"this {name}"] = (str(_build.CSRC_DIR / f"{name}.cu"),
@@ -317,6 +332,7 @@ def main() -> None:
 
         if args.parent:
             result["parent"] = compare_parent(libs, solvers, src, w, dev)
+            result["parent"].update(compare_parent_stats(libs, map_t, scan_t, dev))
     if args.out_dir:
         path = Path(args.out_dir) / "gn_loop_ablation.json"
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -378,6 +394,104 @@ def compare_parent(libs: dict, solvers: dict, src, w, dev) -> dict:
     print(f"gn_step at B = 1, parent / this tree: state after three steps bit-equal {equal}; "
           f"alone (profiler) {alone} ms", flush=True)
     out["gn_step"] = {"state_equal": equal, "alone_ms": alone}
+    # the loop kernel of VPlaneICP and NDT: final states bit for bit, alone in turns
+    eye = torch.eye(4)
+    for kind, solver in solvers.items():
+        vm, cfg = solver._target, solver.cfg
+        operands = (kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w)
+        settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                        max_iter=cfg.max_iter)
+        init = gn.new_state(eye[None], cfg.max_iter, dev)
+        runs, finals = {}, {}
+        for tree in ("parent", "this"):
+            state = gn.new_state(eye[None], cfg.max_iter, dev)
+            launch = gl.fused_looper(*operands, state, **settings,
+                                     bound=gl.bind(libs[f"{tree} gn_loop"], kind))
+
+            def once(state=state, launch=launch):
+                state.words.copy_(init.words)
+                launch()
+
+            once()
+            finals[tree] = gn.read_state(state).words
+            runs[tree] = once
+        equal = torch.equal(finals["parent"], finals["this"])
+        alone = turns(runs, ("parent", "this", "this", "parent"),
+                      lambda f: device_ms(f, 20, "gn_loop_kernel"))
+        print(f"[{kind}] loop kernel from T = I, parent / this tree: final states bit-equal "
+              f"{equal}; alone (profiler) {alone} ms", flush=True)
+        out[f"gn_loop_{kind}"] = {"state_equal": equal, "alone_ms": alone}
+    return out
+
+
+def compare_parent_stats(libs: dict, map_t, scan_t, dev) -> dict:
+    """The parent's and this tree's builds of point_align.cu (ICP and
+    PlaneICP on the city map) and grid_align.cu (ICP and PlaneICP on the
+    40k LiDAR target, VPlaneICP and NDT on the two-tile hashed map of
+    chip_smoke.py phases 9 and 10): each kernel's block rows at T = I bit
+    for bit and its time alone in turns."""
+    from bench import make_lidar_map
+
+    from point_cloud_registration_tpu_torch.models import _fused, _point_fused
+    from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
+    from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+
+    P = {k: v for k, v in PARAMS.items() if k != "voxel_size"}
+    pose = gn.pose_rows_of(torch.eye(4)[None]).to(dev)
+    src, w = pad_points(scan_t, device=dev)
+    rng = np.random.RandomState(42)
+    small = torch.from_numpy(make_lidar_map(rng, 40_000)).to(dev)
+    small_src, small_w = pad_points(torch.from_numpy(make_scan(rng, small.cpu().numpy(),
+                                                               10_000)).to(dev), device=dev)
+    two = torch.cat([map_t, map_t + torch.tensor([3000.0, 3000.0, 0.0], device=dev)])
+    cases = {}
+    for kind, s in (("point", pt.ICP(**P, device=dev)), ("plane_pt", pt.PlaneICP(**P, device=dev))):
+        s.set_target(map_t)
+        tg = getattr(s._target, "corr", s._target)
+        radius = proxy_radius(s.cfg.corr, s.cfg.max_dist)
+        cases[f"point_stats {kind}"] = ("point_align", "point_stats_kernel", lambda lib, tg=tg,
+                                        s=s, kind=kind, radius=radius: pa.partials_args(
+            pa._bind(lib, kind), tg.packed, tg.proxy, src[None], w[None], pose, None,
+            s.cfg.max_dist, radius, s.cfg.huber_delta))
+    for kind, s, target, (q, qw) in (
+            ("point", pt.ICP(**P, device=dev), small, (small_src, small_w)),
+            ("plane_pt", pt.PlaneICP(**P, device=dev), small, (small_src, small_w)),
+            ("plane", pt.VPlaneICP(**PARAMS, device=dev), two, (src, w)),
+            ("ndt", pt.NDT(**PARAMS, device=dev), two, (src, w))):
+        s.set_target(target)
+        if kind in ("plane", "ndt"):
+            grid, table, offsets = _fused.hashed_operands(s._target, s.cfg, kind)
+        else:
+            grid, table, offsets = _point_fused.grid_operands(
+                getattr(s._target, "corr", s._target), s.cfg,
+                s._target.normals if kind == "plane_pt" else None)
+        off_d, window = ga.bind_window(grid, offsets, dev)
+        cases[f"grid_stats {kind}"] = ("grid_align", "grid_stats_kernel", lambda lib, s=s,
+                                       kind=kind, grid=grid, table=table, q=q, qw=qw,
+                                       off_d=off_d, window=window: ga._launch_args(
+            ga._bind(lib, kind), grid, table, q, qw, off_d, window, pose, None, s.cfg.max_dist,
+            s.cfg.huber_delta, None))
+    out = {}
+    for case, (source, kernel, args_of) in cases.items():
+        runs, rows = {}, {}
+        for tree in ("parent", "this"):
+            fn, args, partials = args_of(libs[f"{tree} {source}"])
+
+            def run(fn=fn, args=args):
+                if fn(*args) != 0:
+                    raise RuntimeError(f"{case} launch failed")
+
+            run()
+            torch.cuda.synchronize()
+            rows[tree] = partials.clone()
+            runs[tree] = run
+        equal = torch.equal(rows["parent"], rows["this"])
+        alone = turns(runs, ("parent", "this", "this", "parent"),
+                      lambda f: device_ms(f, 20, kernel))
+        print(f"[{case}] at T = I, parent / this tree: block rows bit-equal {equal}; alone "
+              f"(profiler) {alone} ms", flush=True)
+        out[case] = {"rows_equal": equal, "alone_ms": alone}
     return out
 
 

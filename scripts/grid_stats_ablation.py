@@ -81,7 +81,8 @@ VARIANTS = {
                           "__launch_bounds__(kThreads)")],
     **{f"sampled index of {n:,} keys": [("kSampleMax = 512;", f"kSampleMax = {n};")]
        for n in (128, 2048, 8192)},
-    "the pose in registers": [("const Pose& T = pose_s;", "const Pose T = pcr::load_pose(pose);")],
+    "the pose in registers": [("grid_block_stats<kKind>(ix, tb, src, w, n, pose_s,",
+                               "grid_block_stats<kKind>(ix, tb, src, w, n, pcr::load_pose(pose),")],
     "blocks of 128 threads": [("kThreads = 256;", "kThreads = 128;")],
     # the grid kinds' occupancy and lanes together: blocks of 128 threads,
     # the register budget that lets an SM hold 640-768 of them
@@ -100,20 +101,26 @@ def build_variants() -> dict:
     from point_cloud_registration_tpu_torch.ops.kernels import _build
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 
-    source = (_build.CSRC_DIR / "grid_align.cu").read_text()
+    # the kernel and its stats body: a variant's copies of both, side by side,
+    # so that the copy's include finds the changed body first
+    files = {name: (_build.CSRC_DIR / name).read_text()
+             for name in ("grid_align.cu", "grid_stats.cuh")}
     out_dir = _build.BUILD_ROOT / "grid_ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, cuts in VARIANTS.items():
-        text = source
+        texts = dict(files)
         for old, new in cuts:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: pattern {old!r} is not in the source once")
-            text = text.replace(old, new)
+            where = [f for f, text in texts.items() if old in text]
+            if len(where) != 1 or texts[where[0]].count(old) != 1:
+                raise RuntimeError(f"{name}: pattern {old!r} is not in the sources once")
+            texts[where[0]] = texts[where[0]].replace(old, new)
         stem = "".join(c if c.isalnum() else "_" for c in name)
-        (out_dir / f"{stem}.cu").write_text(text)
+        (out_dir / stem).mkdir(exist_ok=True)
+        for f, text in texts.items():
+            (out_dir / stem / f).write_text(text)
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o",
-               str(out_dir / f"{stem}.so"), str(out_dir / f"{stem}.cu")]
+               str(out_dir / f"{stem}.so"), str(out_dir / stem / "grid_align.cu")]
         procs[name] = (out_dir / f"{stem}.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}

@@ -60,19 +60,25 @@ VARIANTS = {
 
 
 def build_variants(extra_sources: list) -> dict:
-    source = (_build.CSRC_DIR / "point_align.cu").read_text()
+    # the kernel and its per-query body: a variant's copies of both, side by
+    # side, so that the copy's include finds the changed body first
+    files = {name: (_build.CSRC_DIR / name).read_text()
+             for name in ("point_align.cu", "point_stats.cuh")}
     out_dir = _build.BUILD_ROOT / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = {}
     for name, cuts in VARIANTS.items():
-        text = source
+        texts = dict(files)
         for old, new in cuts:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: pattern {old!r} is not in the source once")
-            text = text.replace(old, new)
-        path = out_dir / (name.replace(" ", "_").replace(",", "") + ".cu")
-        path.write_text(text)
-        todo[name] = (path, _build.CSRC_DIR)
+            where = [f for f, text in texts.items() if old in text]
+            if len(where) != 1 or texts[where[0]].count(old) != 1:
+                raise RuntimeError(f"{name}: pattern {old!r} is not in the sources once")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        variant = out_dir / name.replace(" ", "_").replace(",", "")
+        variant.mkdir(exist_ok=True)
+        for f, text in texts.items():
+            (variant / f).write_text(text)
+        todo[name] = (variant / "point_align.cu", _build.CSRC_DIR)
     for k, src in enumerate(extra_sources):
         todo[f"source {src}"] = (os.path.abspath(src), os.path.dirname(os.path.abspath(src)))
     procs = {}

@@ -337,10 +337,12 @@ def test_packed_targets_match_the_host_loop(monkeypatch, scene, name):
 
 
 def test_plain_stats_stop_with_the_problem(monkeypatch, scene):
-    """On a grid target the grid stats launcher (``grid_align.resident_stats``,
-    its plain version on the CPU, as the kernel on the card) computes no
-    stats for the iterations enqueued after the problem stopped: the stats
-    run once per iteration."""
+    """On a grid target the stats stop with the problem: the align's loop
+    (``gn_loop.grid_loop``, its plain version on the CPU, as the loop kernel
+    on the card) computes them once per iteration, none after the problem
+    stopped. (The two-launch loop's grid launcher, which computes none for
+    the iterations enqueued after the stop, is held in
+    test_torch_grid_align.py.)"""
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align
 
     pts, scan = scene

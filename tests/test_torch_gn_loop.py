@@ -8,7 +8,10 @@ loop of a VPlaneICP or NDT align on a dense map).
 on the CPU) and to the port's two-launch resident loop over the same plain
 stats; ``loop_grid`` to the stats launch's block ids; a NumPy model of the
 kernel's fixed-order row sum (in double precision, rounded once) to a
-float64 sum.
+float64 sum; every single-problem align of the four solvers to one call of
+its loop (the point and grid loops' own checks are in
+test_torch_gn_loop_point.py and test_torch_gn_loop_grid.py); each stats
+kernel's source and its loop's to one shared body.
 
 Tolerances: T within 1e-3 of JAX's (the bound of test_torch_vplane_icp.py
 and test_torch_ndt.py: the port builds its own map, so the maps agree to
@@ -21,6 +24,7 @@ below a float32 rounding step of these sums), and bit-equal whatever the
 CTA count.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -186,27 +190,41 @@ def test_max_iter_zero_and_one(scene, targets, kind, max_iter):
 
 
 def test_dense_aligns_run_one_loop_and_hashed_ones_do_not(monkeypatch, scene):
-    """VPlaneICP and NDT on a dense map call the loop (here its plain
-    version) once an align and count no launch on the CPU; on a hashed map
-    they keep the two-launch loop."""
+    """Every single-problem align calls a loop (here its plain version)
+    once an align and counts no launch on the CPU: VPlaneICP and NDT the
+    fused loop on a dense map and the grid loop on a hashed one (they no
+    longer keep the two-launch loop there); ICP and PlaneICP the point loop
+    on a packed target and the grid loop on a grid target. Two iterations
+    of a 300-point scan: the calls, not the result, are held here."""
     calls = []
-    reference = gl.fused_loop_reference
-    monkeypatch.setattr(gl, "fused_loop_reference",
-                        lambda *a, **k: calls.append(a[0]) or reference(*a, **k))
-    scan = _scan(scene, "small_offset")
-    before = gl.fused_loop.launches
-    for kind, cls in KINDS.items():
-        s = cls(**PARAMS, device="cpu")
-        s.set_target(scene)
+    for name in ("fused_loop_reference", "point_loop_reference", "grid_loop_reference"):
+        reference = getattr(gl, name)
+        monkeypatch.setattr(gl, name, lambda *a, _name=name, _ref=reference, **k:
+                            calls.append((_name.split("_")[0], a[0])) or _ref(*a, **k))
+    scan = _scan(scene, "small_offset")[:300]
+    before = (gl.fused_loop.launches, gl.point_loop.launches, gl.grid_loop.launches)
+    short = {**PARAMS, "max_iter": 2}
+    up = np.tile(np.float32([0.0, 0.0, 1.0]), (len(scene), 1))  # any normals: calls only
+
+    def align_voxels():
+        for cls in (pt.VPlaneICP, pt.NDT):
+            s = cls(**short, device="cpu")
+            s.set_target(scene)
+            s.align(scan)
+
+    align_voxels()
+    for cls, corr in ((pt.ICP, "packed"), (pt.ICP, "grid"), (pt.PlaneICP, "packed"),
+                      (pt.PlaneICP, "grid")):
+        s = cls(**{k: v for k, v in short.items() if k != "voxel_size"}, device="cpu")
+        s.cfg = dataclasses.replace(s.cfg, corr=pt.CorrespondenceConfig(method=corr))
+        s.set_target(scene) if cls is pt.ICP else s.set_target(scene, norm=up)
         s.align(scan)
-        assert s.last_diagnostics.converged
-    assert calls == ["plane", "ndt"] and gl.fused_loop.launches == before
-    monkeypatch.setattr(voxelize, "DENSE_CELL_BUDGET", 1)  # a hashed map at this size
-    hashed = pt.VPlaneICP(**PARAMS, device="cpu")
-    hashed.set_target(scene)
-    assert hashed._target.hashed
-    hashed.align(scan)
-    assert calls == ["plane", "ndt"]
+    monkeypatch.setattr(voxelize, "DENSE_CELL_BUDGET", 1)  # hashed maps at this size
+    align_voxels()
+    assert calls == [("fused", "plane"), ("fused", "ndt"), ("point", "point"), ("grid", "point"),
+                     ("point", "plane_pt"), ("grid", "plane_pt"), ("grid", "plane"),
+                     ("grid", "ndt")]
+    assert (gl.fused_loop.launches, gl.point_loop.launches, gl.grid_loop.launches) == before
 
 
 def test_wrapper_refuses_what_it_cannot_run(scene, targets):
@@ -245,7 +263,7 @@ def test_loop_grid_without_a_resident_cta_raises():
 
 
 def _sum_lanes() -> int:
-    text = (CSRC / "gn_loop.cu").read_text()
+    text = (CSRC / "gn_loop.cuh").read_text()
     lanes = int(re.search(r"constexpr int kSumLanes = (\d+);", text).group(1))
     assert f"static_assert(kSumLanes == {lanes}" in text
     return lanes
@@ -299,18 +317,29 @@ def test_row_sum_does_not_depend_on_the_cta_count():
 
 
 def test_kernels_share_the_stats_and_update_bodies():
-    """The stats kernel and the loop kernel run fused_stats.cuh's per-point
-    work; gn_step.cu and the loop kernel gn_step.cuh's update: neither body
-    is copied into a kernel's source."""
-    sources = {name: (CSRC / name).read_text() for name in (
-        "fused_align.cu", "gn_step.cu", "gn_loop.cu", "fused_stats.cuh", "gn_step.cuh")}
-    for name in ("fused_align.cu", "gn_loop.cu"):
-        assert '#include "fused_stats.cuh"' in sources[name]
-        assert "pcr::fused_block_stats<kKind>(" in sources[name]
-        assert "nearest_valid_row(" not in sources[name]
-    for name in ("gn_step.cu", "gn_loop.cu"):
+    """Each stats kernel and its loop kernel run one body: fused_align.cu
+    and gn_loop.cu fused_stats.cuh's per-point work, point_align.cu and
+    point_loop.cu point_stats.cuh's, grid_align.cu and grid_loop.cu
+    grid_stats.cuh's; gn_step.cu and the loop kernel (gn_loop.cuh, which
+    the three loops include) gn_step.cuh's update: no body is copied into a
+    kernel's source."""
+    sources = {p.name: p.read_text() for p in sorted(CSRC.iterdir())}
+    for stats, loop, header, body, inner in (
+            ("fused_align.cu", "gn_loop.cu", "fused_stats.cuh", "fused_block_stats",
+             "nearest_valid_row("),
+            ("point_align.cu", "point_loop.cu", "point_stats.cuh", "point_block_stats",
+             "scan_row<"),
+            ("grid_align.cu", "grid_loop.cu", "grid_stats.cuh", "grid_block_stats",
+             "group_merge<")):
+        for name in (stats, loop):
+            assert f'#include "{header}"' in sources[name]
+            assert f"{body}<kKind>(" in sources[name]
+            assert inner not in sources[name]
+        assert f"__device__ __forceinline__ void {body}(" in sources[header]
+        assert '#include "gn_loop.cuh"' in sources[loop] and "pcr::launch_loop(" in sources[loop]
+        assert "__global__" not in sources[loop]
+    for name in ("gn_step.cu", "gn_loop.cuh"):
         assert '#include "gn_step.cuh"' in sources[name]
-        assert "pcr::gn_update(" in sources[name]
+        assert "gn_update(" in sources[name]
         assert "solve_6x6(" not in sources[name]
-    assert "__device__ __forceinline__ void fused_block_stats(" in sources["fused_stats.cuh"]
     assert "__device__ __forceinline__ void gn_update(" in sources["gn_step.cuh"]

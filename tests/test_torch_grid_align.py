@@ -214,8 +214,10 @@ def _port_grid(g, dev="cpu"):
 
 
 def _kernel_constant(name):
-    """A constant of ``csrc/grid_align.cu``: the model follows the kernel."""
-    text = (_build.CSRC_DIR / "grid_align.cu").read_text()
+    """A constant of the grid stats body (``csrc/grid_stats.cuh``, which
+    ``grid_align.cu`` and ``grid_loop.cu`` run): the model follows the
+    kernel."""
+    text = (_build.CSRC_DIR / "grid_stats.cuh").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
