@@ -46,17 +46,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    busy share, syncs: one through the loop kernel), each kind's ptxas
    report and its bound.
 
-Every single-problem align below runs a loop kernel: one launch and one
-read of the state an align, no launch of the stats kernel or of
-``gn_step`` (VPlaneICP and NDT on a dense map ``gn_loop.fused_loop``, ICP
-and PlaneICP on a packed target ``point_loop``, the grid and hashed aligns
-``grid_loop``). The batched streams (phases 13-14) and FastVPlaneICP's
-phase 2 run the two-launch resident Gauss-Newton loop (``core/gn.py``: the
-stats kernel and ``gn_step`` once per iteration, enqueued in chunks of
-``GN_CHUNK``, the state read once per chunk); where the script checks
-their launches, the stats kernel and ``gn_step`` must each have launched
-once per enqueued iteration (``core.gn.enqueued_iterations``), and it
-prints the stats launches that did work (the iterations) beside them. Each
+Every align below runs a loop kernel: one launch and one read of the
+state an align, no launch of the stats kernel or of ``gn_step``
+(VPlaneICP and NDT on a dense map ``gn_loop.fused_loop``, ICP and PlaneICP
+on a packed target ``point_loop``, the grid and hashed aligns
+``grid_loop``, the batched streams of phases 13-14 ``fused_loop_batched``
+and ``point_loop_batched``, FastVPlaneICP's phase 2 ``fused_loop``). The
+two-launch resident Gauss-Newton loop (``core/gn.py``: the stats kernel
+and ``gn_step`` once per iteration, enqueued in chunks of ``GN_CHUNK``,
+the state read once per chunk) runs only as the reference the loop
+kernels are held to; where the script checks its launches, the stats
+kernel and ``gn_step`` must each have launched once per enqueued
+iteration (``core.gn.enqueued_iterations``), and it prints the stats
+launches that did work (the iterations) beside them. Each
 path is also run again under the host loop (``core.gn.gauss_newton_host``,
 the plain reference, which launches the stats kernel once per iteration):
 T within ``TOL_HOST``, equal iterations, ``converged`` and
@@ -177,11 +179,19 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
 13. The batched voxel stream: bench.py's B = 8 scans of 16,384 points
    (``make_scan(RandomState(100 + b), map, 16384)``) against VPlaneICP's
    and NDT's targets from T = I through
-   ``models._fused.fused_voxel_align_batched``: the batched kernel once per
-   batched iteration (launches = the largest iteration count, no single
-   launch); each problem's T within 1e-5 of its single ``align`` with equal
-   iterations and flags, and within 1e-3 of the JAX package's with equal
-   iterations. Before it the batched kernel against its plain version and
+   ``models._fused.fused_voxel_align_batched``: one launch of the batched
+   loop kernel (``gn_loop.fused_loop_batched``), no stats or ``gn_step``
+   launch, one sync; each problem's T, iterations, flags and histories
+   bit-equal to its single ``align``, T within 1e-3 of the JAX package's
+   with equal iterations. The batched loop from T = I and from 8 perturbed
+   starts (``hold_batched_loop``): its first iteration's block rows
+   bit-equal to the batched stats kernel's, the state's words bit-equal to
+   the two-launch batched loop's and each problem's to its single-problem
+   loop kernel's, T within 1e-4 of its plain version with equal iterations
+   and flags; a launch of more CTAs than fit refused with ``RuntimeError``;
+   its time by events and alone, the plain version's, both loops' aligns
+   in turns (walls, device time, syncs, launches), ptxas and its bound.
+   Before it the batched stats kernel against its plain version and
    its single entry at these shapes and 8 distinct poses, and at n = 1, 7,
    257 points a problem (a problem's tail must read nothing of the next
    one's). A mixed batch: one scan 100 m up (all outliers: failed, T = I,
@@ -194,12 +204,19 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
 15. FastVPlaneICP on the map and the 100k scan: ``"auto"`` equal to phase
    4's VPlaneICP bit for bit (T, iterations, one loop launch); ``"always"``
    with the switch ``FAST_SWITCH``: phase 1 in one launch of the loop
-   kernel, its iterations equal to JAX's, one fused launch per enqueued
-   phase-2 iteration on the ``N_target`` coreset rows,
-   T within 6e-2 of JAX's and of VPlaneICP's; the live points, the host
+   kernel, its iterations equal to JAX's, phase 2 in one more launch of it
+   on the ``N_target`` coreset rows (no stats or ``gn_step`` launch), its T,
+   iterations, flags and histories bit-equal to the two-launch loop's
+   phase 2 on the same coreset, T within 6e-2 of JAX's and of
+   VPlaneICP's; the live points, the host
    lift's seconds and microseconds a live point beside one full-cloud
    iteration's wall and nanoseconds a point, and their ratio: the card's
    breakeven in remaining iterations.
+15b. The current card set explicitly (``torch.cuda.set_device`` of the last
+   card) and the solvers on ``cuda:<index>``: VPlaneICP's align and the
+   batched ICP align equal to phases 4's and 14's bit for bit, one launch
+   of their loop kernels (every launcher binds and launches on its
+   tensors' card; one card here: the same card).
 
 Then the multi-device paths (phase 16, ``point_cloud_registration_tpu_torch.parallel``),
 held to the JAX package's results of the same paths (``SHARDED_REF``,
@@ -213,7 +230,9 @@ size:
    with its iterations and flags and one kernel launch per iteration;
    ``align_batched_sharded`` and ``align_batched_fused_sharded`` of the four
    kinds on phases 13-14's 8 scans equal to their per-problem T bit for bit,
-   one batched launch per batched iteration; ``align_map_sharded`` of
+   one batched launch per batched iteration for ``align_batched_sharded``
+   (the host loop), one launch of the batched loop kernel for
+   ``align_batched_fused_sharded``; ``align_map_sharded`` of
    VPlaneICP and NDT (``make_map_mesh(1, 1)``, plain query and stats, no
    kernel) within 5e-5 of phase 4's T with equal iterations. The process
    group is destroyed afterwards.
@@ -282,12 +301,15 @@ stand for XLA code of the JAX package (``replaces`` names the query,
 profiler. ``fused_loop``, ``point_loop`` and ``grid_loop`` (the loop
 kernels) replace the JAX while_loop around the fused, the packed-grid and
 the grid stats: their numbers are phase 2c's and 2d's, VPlaneICP's, ICP's
-and ICP grid's at the top and each kind's in ``kinds``. ``launches_path``
-names the path that ``launches`` counts: the kernel's main path or, where
-that no longer launches it (the stats kernels and ``gn_step`` on every
-single-problem align), the first of its paths that does (the batched
-streams, FastVPlaneICP's phase 2, the host loop's aligns of phases 9 and
-10). The last line is ``{"ok": true, "device": {...}}``.
+and ICP grid's at the top and each kind's in ``kinds``;
+``fused_loop_batched`` and ``point_loop_batched`` the while_loop of the
+JAX ``batched_gauss_newton``: their numbers are phases 13's and 14's at B =
+8 x 16,384, VPlaneICP's and ICP's at the top, each kind's in ``kinds``.
+``launches_path`` names the path that ``launches`` counts: the kernel's
+main path or, where that no longer launches it (the stats kernels and
+``gn_step`` on every align), the first of its paths that does (the host
+loop's aligns of phases 9, 10 and 16, the two-launch reference aligns of
+phases 13-15, ``*_two_launch``). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -432,6 +454,14 @@ N_BATCHES, N_BATCH = 8, 16384
 BATCH_TAILS = (1, 7, 257)  # scans of no multiple of 8 or of a block, kernel vs plain
 TOL_BATCHED = 1e-5  # max |T - T_single| of a problem of a batched align
 BATCHED_KINDS = {"vplane_icp": "plane", "ndt": "ndt", "icp": "point", "plane_icp": "plane_pt"}
+# The batched loop kernels (gn_loop.cuh's batched template, built in
+# csrc/gn_loop.cu and csrc/point_loop.cu): each batched align's whole loop in
+# one launch, the while_loop of the JAX batched_gauss_newton
+BATCHED_LOOPS = {"plane": "fused_loop_batched", "ndt": "fused_loop_batched",
+                 "point": "point_loop_batched", "plane_pt": "point_loop_batched"}
+# each one's library (csrc/<library>.cu)
+BATCHED_LOOP_LIBRARIES = {"fused_loop_batched": "gn_loop", "point_loop_batched": "point_loop"}
+BATCHED_LOOP_REPLACES = "point_cloud_registration_tpu/models/_fused.py:345"
 # The JAX package's per-scan results (JAX 0.9.0 on the CPU, the class API one
 # scan at a time; JAX_PLATFORMS=cpu python3 scripts/jax_reference_batched.py):
 # kind -> [(iterations, rows 0-2 of T)] per scan
@@ -795,7 +825,8 @@ def all_kernels() -> list:
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
             pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
             ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
-            ga.hashed_ndt_stats, gl.fused_loop, gl.point_loop, gl.grid_loop]
+            ga.hashed_ndt_stats, gl.fused_loop, gl.point_loop, gl.grid_loop,
+            gl.fused_loop_batched, gl.point_loop_batched]
 
 
 def reset_launches() -> None:
@@ -1843,7 +1874,8 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
         if case == "icp":  # more CTAs than fit at once: the card refuses, the wrapper raises
             fn, block, per_sm, error_string = gl._point_kernel_fn(kind)
             state = gn.new_state(eye[None], cfg.max_iter, dev)
-            launch = c["looper"](state, bound=(fn, block, lambda: per_sm() + 1, error_string))
+            launch = c["looper"](state, bound=(fn, block, lambda device=None: per_sm(device) + 1,
+                                               error_string))
             try:
                 launch()
             except RuntimeError as err:
@@ -3256,20 +3288,32 @@ def run_utilities(map_np, scan_np, dev) -> dict:
     return out
 
 
-def device_busy(fn, wall_s: float) -> tuple:
+def device_busy(fn, wall_s: float, expect: str | None = None, tries: int = 3) -> tuple:
     """``(device ms, kernels, busy share)`` of one traced call of ``fn`` by
     ``torch.profiler``: the kernels' own device time over ``wall_s``, the
-    untraced wall of the same call."""
+    untraced wall of the same call. With ``expect``, a trace that holds no
+    kernel whose name holds it (the profiler drops kernels now and then) is
+    logged and taken again, up to ``tries`` times, the later ones tracing
+    the card alone; if none holds it, the device time and busy share are
+    NaN: not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    # kernel rows only: an aten op's row repeats the time of the kernels it launched
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (attempt == 1)
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # kernel rows only: an aten op's row repeats the time of the kernels it launched
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if expect is None or any(expect in e.key for e in rows):
+            break
+        log(f"[profiler] trace {attempt} of {tries} holds no kernel named {expect}"
+            + ("; taking it again" if attempt < tries else "; the device time is not measured"))
+    else:
+        return float("nan"), 0, float("nan")
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     return device_ms, sum(e.count for e in rows), device_ms / (1e3 * wall_s)
 
@@ -3286,9 +3330,225 @@ def batched_align(path: SolverPath, s, src, w, Ts):
                                      getattr(s._target, "normals", None), src, w, Ts, s.cfg, kind)
 
 
+def problem_words(state, b: int):
+    """Problem ``b``'s words of a batched ``GNState`` in the order of a
+    single problem's state words (pose, it, done, failed, converged,
+    final_e2, the three histories), as int32: a single align's state compares
+    with them bit for bit, NaN payloads included."""
+    import torch
+
+    return torch.cat([float_bits(state.poses[b]), state.it[b:b + 1], state.done[b:b + 1],
+                      state.failed[b:b + 1], state.converged[b:b + 1],
+                      float_bits(state.final_e2[b:b + 1]), float_bits(state.e2[b]),
+                      float_bits(state.dx_norm[b]), state.inliers[b]])
+
+
+def batched_loop_operands(path: SolverPath, s, src, w):
+    """``(operands, settings, looper, loop, plain_loop, single_loop, stats_all,
+    stats_rows)`` of the batched loop kernel of ``path``'s kind on solver
+    ``s``'s target and the scans ``src`` (B, n, 3), ``w`` (B, n): its
+    leading arguments and keyword settings, its wrappers, the single-problem
+    loop of one scan (``single_loop(src_b, w_b, state)``), the two-launch
+    loop's stats (``fused_*_stats_packed_batched``) and ``stats_rows(poses)``,
+    the batched stats kernel's (B, n_blocks, 29) block rows at pose rows
+    ``poses`` (one launch of the two-launch loop's stats)."""
+    from point_cloud_registration_tpu_torch.models import _fused, _point_fused
+    from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
+    from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+    from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+
+    kind, cfg = BATCHED_KINDS[path.name], s.cfg
+    settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
+                    max_iter=cfg.max_iter)
+    if path.args is voxel_args:
+        vm = s._target
+        head = (vm.cells, vm.origin_cell, vm.dims, vm.cell_size)
+        stats_all = _fused.fused_voxel_stats_packed_batched(vm, src, w, cfg, kind)
+
+        def stats_rows(poses):
+            return fa.launch_args(fa._kernel_fn(kind), *head, src, w, poses, None, cfg.max_dist,
+                                  cfg.huber_delta)
+
+        return ((kind, *head, src, w), settings, gl.fused_looper_batched, gl.fused_loop_batched,
+                gl.fused_loop_batched_reference,
+                lambda src_b, w_b, state: gl.fused_loop(kind, *head, src_b, w_b, state,
+                                                        **settings),
+                stats_all, stats_rows)
+    tg = getattr(s._target, "corr", s._target)
+    settings["proxy_radius"] = proxy_radius(cfg.corr, cfg.max_dist)
+    stats_all = _point_fused.fused_point_stats_packed_batched(tg, src, w, cfg, kind)
+
+    def stats_rows(poses):
+        return pa.partials_args(pa._kernel_fn(kind), tg.packed, tg.proxy, src, w, poses, None,
+                                cfg.max_dist, settings["proxy_radius"], cfg.huber_delta)
+
+    return ((kind, tg.packed, tg.proxy, src, w), settings, gl.point_looper_batched,
+            gl.point_loop_batched, gl.point_loop_batched_reference,
+            lambda src_b, w_b, state: gl.point_loop(kind, tg.packed, tg.proxy, src_b, w_b, state,
+                                                    **settings),
+            stats_all, stats_rows)
+
+
+def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> dict:
+    """Phases 13-14: the batched loop kernel of ``path``'s kind at the main
+    path's shapes, from T = I and from B distinct perturbed starts: the
+    first iteration's block rows (its ``rows`` output) bit-equal to the
+    batched stats kernel's (``batched``) at the starts; every problem's
+    state words (pose, counters, flags, final e2, histories) bit-equal to
+    the two-launch batched loop's (``core.gn.batched_gauss_newton_device``
+    without ``loop``: the batched stats launch, the double sum of its rows
+    and ``gn_step`` an iteration) and to the single-problem loop kernel's
+    align of that scan; T within TOL_T of the plain version
+    (``*_loop_batched_reference``) with equal iterations and flags. Then its
+    time per align by events (a copy of the initial state and the launch)
+    and alone (the profiler), the plain version's, both loops' aligns in
+    turns with their device time, busy share, syncs and launches, the
+    ptxas report and the bound: the stats' work at each problem's converged
+    pose for each iteration it ran (the map's bytes once for all problems)
+    and ``gn_step``'s per problem and iteration."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core import gn
+    from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
+
+    kind = BATCHED_KINDS[path.name]
+    name = BATCHED_LOOPS[kind]
+    (operands, settings, looper, loop_fn, plain_loop, single_loop, stats_all,
+     stats_rows) = batched_loop_operands(path, s, src, w)
+    cfg, B, dev = s.cfg, src.shape[0], src.device
+    T_pert = torch.stack([pt.plus(torch.eye(4), torch.tensor(PERTURBATION) * (b - 3.5) / 4)
+                          for b in range(B)])
+    r = {"dT_plain": 0.0, "rows_equal": True, "two_launch_equal": True, "single_equal": True}
+    for label, T0 in (("T=I", eye), ("T=perturbed", T_pert)):
+        fn, args, partials = stats_rows(gn.pose_rows_of(T0).to(dev).contiguous())
+        if fn(*args) != 0:
+            raise AssertionError(f"{tag} the batched stats launch failed")
+        rows = torch.full_like(partials, float("nan"))
+        state = gn.new_state(T0, cfg.max_iter, dev)
+        launch = looper(*operands, state, **settings, rows=rows)
+        launch()
+        k = gn.read_state(state)
+        rows_equal = torch.equal(rows, partials)
+        two = gn._run_resident(stats_all, T0, cfg.max_iter, cfg.tol, dev)
+        two_equal = torch.equal(k.words, two.words)
+        single_equal = []
+        for b in range(B):
+            one = gn.new_state(T0[b:b + 1], cfg.max_iter, dev)
+            single_loop(src[b], w[b], one)
+            single_equal.append(torch.equal(problem_words(k, b), gn.read_state(one).words))
+        plain = gn.new_state(T0, cfg.max_iter, "cpu")
+        plain_loop(*operands, plain, **settings)
+        dT_plain = float((gn.transforms_of(k.poses) - gn.transforms_of(plain.poses)).abs().max())
+        flags_plain = all(torch.equal(getattr(k, f), getattr(plain, f))
+                          for f in ("it", "failed", "converged"))
+        log(f"{tag} batched loop {label}: grid {launch.grid[0]} CTAs for {B} x {launch.grid[1]} "
+            f"block ids; first iteration's block rows bit-equal to the batched stats kernel's "
+            f"{rows_equal}; iterations {k.it.tolist()}; state words bit-equal to the two-launch "
+            f"batched loop's {two_equal}, each problem's to its single-problem loop's "
+            f"{single_equal}; max |T - T_plain| {dT_plain:.3e}, iterations and flags equal to "
+            f"the plain version's {flags_plain}")
+        if not (rows_equal and two_equal and all(single_equal) and dT_plain <= TOL_T
+                and flags_plain and bool(k.done.all())):
+            raise AssertionError(f"{tag} {label}: the batched loop kernel is off the two-launch "
+                                 "batched loop, the single aligns or its plain version")
+        r["dT_plain"] = max(r["dT_plain"], dT_plain)
+        if label == "T=I":
+            r["iterations"], k_eye = k.it.tolist(), k
+
+    # time per align at T = I: events (the state's copy and the launch), alone
+    init = gn.new_state(eye, cfg.max_iter, dev)
+    state = gn.new_state(eye, cfg.max_iter, dev)
+    launch = looper(*operands, state, **settings)
+
+    def once():
+        state.words.copy_(init.words)
+        launch()
+
+    r["ms"] = cuda_ms(once, 50)
+    r["alone_ms"] = kernel_alone_ms(once, 20, "gn_loop_batched_kernel")
+    # more CTAs than fit at once: the card refuses, the wrapper raises, no
+    # launch counted, the state untouched
+    fn, block, per_sm, error_string = (gl._batched_kernel_fn if name == "fused_loop_batched"
+                                       else gl._point_batched_kernel_fn)(kind)
+    wrapper, before = getattr(gl, name), getattr(gl, name).launches
+    refused = gn.new_state(eye, cfg.max_iter, dev)
+    launch = looper(*operands, refused, **settings,
+                    bound=(fn, block, lambda device=None: per_sm(device) + 1, error_string))
+    try:
+        launch()
+    except RuntimeError as err:
+        log(f"{tag} batched loop: {launch.grid[0]} CTAs of {B} x {launch.grid[1]} block ids with "
+            f"room for {per_sm(dev)} an SM: {err}")
+    else:
+        raise AssertionError(f"{tag} a cooperative launch of more CTAs than fit ran")
+    if wrapper.launches != before or int(gn.read_state(refused).it.max()) != 0:
+        raise AssertionError(f"{tag} the refused batched launch counted or ran")
+    r["plain_ms"] = cuda_ms(lambda: plain_loop(*operands, gn.new_state(eye, cfg.max_iter, "cpu"),
+                                               **settings), 1)
+    # both loops' aligns in turns (two-launch, loop, loop, two-launch), each
+    # with its launches counted
+    loop = functools.partial(loop_fn, *operands, **settings)
+    aligns = {"two_launch": lambda: gn.batched_gauss_newton_device(
+                  stats_all, eye, cfg.max_iter, cfg.tol, dev),
+              "loop": lambda: gn.batched_gauss_newton_device(
+                  stats_all, eye, cfg.max_iter, cfg.tol, dev, loop=loop)}
+    walls = {m: [] for m in aligns}
+    for mode in ("two_launch", "loop", "loop", "two_launch"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aligns[mode]()
+            walls[mode].append(time.perf_counter() - t0)
+    line = []
+    for mode, align in aligns.items():
+        device_ms, n_kernels, busy = device_busy(
+            align, min(walls[mode]), "gn_loop_batched_kernel" if mode == "loop" else "gn_step")
+        reset_launches()
+        _, syncs = count_syncs(align)
+        counts = launch_counts()
+        r[mode] = {"align_walls_s": walls[mode], "device_ms": device_ms, "kernels": n_kernels,
+                   "busy": busy, "syncs": syncs,
+                   "launches": {k: v for k, v in counts.items() if v}}
+        line.append(f"{mode}: align ms {', '.join(f'{1e3 * x:.3f}' for x in walls[mode])}; "
+                    f"device {device_ms:.3f} ms in {n_kernels} kernels, busy "
+                    f"{100 * busy:.1f} %, {syncs} syncs, launches {r[mode]['launches']}")
+        if mode == "two_launch":  # a stats launch and gn_step each enqueued iteration
+            r["two_launch_resident"] = check_resident(f"{tag} two-launch", counts,
+                                                      batched.__name__, r["iterations"])
+    log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+    its = r["iterations"]
+    if not (r["loop"]["syncs"] == 1 and r["loop"]["launches"] == {name: 1}):
+        raise AssertionError(f"{tag} the align through the batched loop kernel made "
+                             f"{r['loop']['syncs']} syncs and launched {r['loop']['launches']}: "
+                             f"expected 1 sync and one launch of {name}")
+    # bound: the stats' work at each problem's converged pose for each
+    # iteration it ran; the map's bytes once for all problems, each scan
+    # once, gn_step's state bytes per problem
+    T_conv = gn.transforms_of(k_eye.poses)
+    R, t = T_conv[:, :3, :3].to(dev), T_conv[:, :3, 3].to(dev)
+    q_all = (torch.einsum("bij,bnj->bni", R, src) + t[:, None, :]).reshape(-1, 3).contiguous()
+    inliers = [float(k_eye.inliers[b][its[b] - 1]) for b in range(B)]
+    n_bytes, _ = path.work(s, q_all, w.reshape(-1), torch.eye(4), sum(inliers))
+    ops = sum(its[b] * (path.work(s, src[b], w[b], T_conv[b], inliers[b])[1] + GN_STEP_FLOPS)
+              for b in range(B))
+    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes + B * GN_STEP_BYTES, ops)
+    r["ptxas"] = library_ptxas(BATCHED_LOOP_LIBRARIES[name], "gn_loop_batched_kernel",
+                               LOOP_LABELS if name == "fused_loop_batched"
+                               else LOOP_PTXAS_LABELS["point_loop"])[kind]
+    log(f"{tag} batched loop kernel, iterations {its}: {r['ms']:.4f} ms by events (the state's "
+        f"copy and the launch), alone {r['alone_ms']:.4f} ms (profiler); the plain version "
+        f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']}; ptxas "
+        f"{r['ptxas']}")
+    return r
+
+
 def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
     """Phases 13 and 14 for one kind: B = 8 scans of 16,384 points against
-    ``path``'s target through the batched kernel entry ``batched``."""
+    ``path``'s target; the align through the batched loop kernel, held to
+    its batched stats kernel ``batched`` (and its plain version ``plain``),
+    to the two-launch batched loop and to each scan's single align."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -3339,7 +3599,10 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
                 and torch.equal(k_t[:, 28].round(), p_t[:, 28].round())):
             raise AssertionError(f"{tag} n = {n_t}: the batched kernel's rows are off")
 
-    # 13/14. Main path: the batched align with the counts reset just before
+    # 13/14. Main path: the batched align with the counts reset just before:
+    # one launch of the batched loop kernel, none of the stats kernels or
+    # gn_step
+    loop_name = BATCHED_LOOPS[BATCHED_KINDS[path.name]]
     reset_launches()
     t0 = time.perf_counter()
     Ts, d = batched_align(path, s, src, w, eye)
@@ -3352,16 +3615,17 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
     if not (bool(d.converged.all()) and not bool(d.solver_failed.any())
             and np.isfinite(Ts.numpy()).all()):
         raise AssertionError(f"{tag} a problem did not converge: {d}")
-    if counts[path.kernel.__name__] != 0:
-        raise AssertionError(f"{tag} single launches {counts[path.kernel.__name__]} in a batch")
-    resident = check_resident(tag, counts, batched.__name__, its)
-    # Each problem against its single align and the JAX package's
+    resident = check_loop(tag, counts, its, loop_name, (batched.__name__, path.kernel.__name__))
+    # Each problem against its single align (bit for bit: T, iterations,
+    # flags, histories) and the JAX package's
     dT_single, dT_jax, bit_equal = 0.0, 0.0, True
     for b in range(B):
         T_1 = s.align(scans[b])
         d_1 = s.last_diagnostics
         dT_single = max(dT_single, float(np.abs(Ts[b].numpy() - T_1).max()))
-        bit_equal &= bool(np.array_equal(Ts[b].numpy(), T_1.astype(np.float32)))
+        bit_equal &= bool(np.array_equal(Ts[b].numpy(), T_1.astype(np.float32))) and all(
+            torch.equal(float_bits(getattr(d, f)[b]), float_bits(getattr(d_1, f)))
+            for f in ("e2_history", "dx_norm_history", "inlier_history"))
         if not (int(d.iterations[b]) == d_1.iterations and bool(d.converged[b]) == d_1.converged
                 and bool(d.solver_failed[b]) == d_1.solver_failed):
             raise AssertionError(f"{tag} problem {b}: batched {int(d.iterations[b])} iterations, "
@@ -3371,10 +3635,13 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
         if int(d.iterations[b]) != its_ref:
             raise AssertionError(f"{tag} problem {b}: {int(d.iterations[b])} iterations, JAX "
                                  f"{its_ref}")
-    log(f"{tag} max |T - T_single| {dT_single:.3e} (bit-equal {bit_equal}), max |T - T_jax| "
-        f"{dT_jax:.3e}, iterations equal to both")
-    if not (dT_single < TOL_BATCHED and dT_jax < TOL_REF):
+    log(f"{tag} max |T - T_single| {dT_single:.3e} (T and histories bit-equal {bit_equal}), "
+        f"max |T - T_jax| {dT_jax:.3e}, iterations equal to both")
+    if not (bit_equal and dT_single < TOL_BATCHED and dT_jax < TOL_REF):
         raise AssertionError(f"{tag} a problem's T is off its single align or the JAX package's")
+    # The batched loop kernel against the two-launch batched loop, the single
+    # aligns and its plain version; its times and bound
+    loop = hold_batched_loop(tag, path, batched, s, src, w, eye)
     # A mixed batch: problem 1 moved 100 m up (all outliers), problem 2 with
     # half its weights 0; the others must keep the clean batch's T
     src_m, w_m = src.clone(), w.clone()
@@ -3399,8 +3666,9 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
         if not torch.equal(Ts_w, Ts):
             raise AssertionError(f"{tag} a warm run gave another result than the first")
     wall = min(walls)
-    device_ms, n_kernels, busy = device_busy(lambda: batched_align(path, s, src, w, eye), wall)
-    loops = compare_loops(tag, lambda: batched_align(path, s, src, w, eye), Ts, d, chunks(its),
+    device_ms, n_kernels, busy = device_busy(lambda: batched_align(path, s, src, w, eye), wall,
+                                             "gn_loop_batched_kernel")
+    loops = compare_loops(tag, lambda: batched_align(path, s, src, w, eye), Ts, d, 1,
                           n_points=n)
     args = path.args(s, src, w, Ts)
     kernel_ms = cuda_ms(lambda: batched(*args), 20)
@@ -3417,7 +3685,8 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
           f"untraced wall)")
     log(f"{tag} one batched launch (events) {kernel_ms:.4f} ms, its plain version "
         f"{plain_ms:.2f} ms, {B} single launches {singles_ms:.4f} ms; bound {b_ms:.5f} ms by {b_by}")
-    return {"Ts": Ts.numpy(), "launches": launches, "iterations": its, "first_call_s": first_s,
+    return {"Ts": Ts.numpy(), "launches": launches, "loop_launches": counts[loop_name],
+            "loop": loop, "iterations": its, "first_call_s": first_s,
             "align_s": wall, "align_walls_s": walls, "regs_per_s": B / wall, "mpts_per_s": B * n / wall / 1e6,
             "device_ms": device_ms, "kernels": n_kernels, "busy": busy, "ms": kernel_ms,
             "plain_ms": plain_ms, "singles_ms": singles_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -3429,12 +3698,15 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     """Phase 15: FastVPlaneICP on the map and the 100k scan. ``"auto"`` is
     VPlaneICP bit for bit (``vplane``: phase 4's results), one launch of the
     loop kernel; ``"always"`` runs phase 1 in one launch of the loop kernel,
-    engages the coreset and runs phase 2 on the fused kernel in the
-    two-launch resident loop."""
+    engages the coreset and runs phase 2 on its rows in one more launch of
+    the loop kernel, held bit for bit to the two-launch loop's phase 2 on the
+    same coreset."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
+    from point_cloud_registration_tpu_torch.core import gn
     from point_cloud_registration_tpu_torch.models import _fused
+    from point_cloud_registration_tpu_torch.models import fast_vplane_icp as fvp
     from point_cloud_registration_tpu_torch.models.coreset import create_gn_set, fast_caratheodory
     from point_cloud_registration_tpu_torch.models.fast_vplane_icp import vplane_linearize
     from point_cloud_registration_tpu_torch.models.base import pad_points
@@ -3462,11 +3734,11 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     auto = hold_to_host(f"{tag} auto", lambda: (fast.align(scan_t), fast.last_diagnostics),
                         T_auto, d, 1)
 
-    # "always": record phase 1, and the rows of every fused launch
+    # "always": record phase 1, and phase 2's inputs, result and launches
     fast = pt.FastVPlaneICP(voxel_size=1.0, **PARAMS, coreset="always",
                             coreset_switch=FAST_SWITCH, device=dev)
     fast.set_target(map_np)
-    phase1 = {}
+    phase1, phase2 = {}, {}
     inner = fast._phase1
 
     def record(*args):
@@ -3476,50 +3748,58 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         return T, diag
 
     fast._phase1 = record
-    rows_per_launch = []
-    resident_stats = _fused.resident_stats
+    phase2_align = fvp._phase2_align
 
-    def counted(kind, cells, origin, dims, cell, src, *rest):
-        launch = resident_stats(kind, cells, origin, dims, cell, src, *rest)
-
-        def counted_launch():
-            rows_per_launch.append(src.shape[0])
-            return launch()
-
-        return counted_launch
+    def record_phase2(*args):
+        before = launch_counts()
+        T, diag = phase2_align(*args)
+        after = launch_counts()
+        phase2.update(args=args, T=T, diag=diag,
+                      launches={k: v - before[k] for k, v in after.items() if v != before[k]})
+        return T, diag
 
     reset_launches()
-    _fused.resident_stats = counted
+    fvp._phase2_align = record_phase2
     try:
         t0 = time.perf_counter()
         T = fast.align(scan_np)
         first_s = time.perf_counter() - t0
     finally:
-        _fused.resident_stats = resident_stats
+        fvp._phase2_align = phase2_align
+    counts = launch_counts()
     d, d1 = fast.last_diagnostics, phase1["diag"]
     launches = fa.fused_plane_stats.launches
     loop_1, fused_1 = phase1["loop_launches"], phase1["launches"]  # the later aligns move them
     it2 = d.iterations - d1.iterations
-    # phase 1: one launch of the loop kernel; phase 2 enqueues whole chunks of
-    # its own budget in the two-launch loop
-    left = PARAMS["max_iter"] - d1.iterations
-    enqueued_2 = enqueued(it2, left)
-    phase2_rows = rows_per_launch
+    # phase 2 through the two-launch loop on the same coreset and start: the
+    # same state bit for bit
+    vm, src_sub, w_sub, T1, left, cfg = phase2["args"]
+    reset_launches()
+    T_two, d_two = gn.gauss_newton_device(_fused.fused_voxel_stats_resident(
+        vm, src_sub, w_sub, cfg, "plane"), T1, left, cfg.tol, dev)
+    two_launch = {k: v for k, v in launch_counts().items() if v}
+    d2 = phase2["diag"]
+    phase2_equal = torch.equal(phase2["T"], T_two) and d2.iterations == d_two.iterations and (
+        d2.converged, d2.solver_failed, d2.final_e2) == (
+        d_two.converged, d_two.solver_failed, d_two.final_e2) and all(
+        torch.equal(float_bits(getattr(d2, f)), float_bits(getattr(d_two, f)))
+        for f in ("e2_history", "dx_norm_history", "inlier_history"))
     dT_jax = float(np.abs(T[:3].reshape(-1) - FAST_REF_T).max())
     dT_plain = float(np.abs(T - vplane["T"]).max())
     log(f"{tag} always, switch {FAST_SWITCH}: first call {first_s:.3f} s; phase 1 {d1.iterations} "
         f"iterations (JAX {FAST_REF_PHASE1}), phase 2 {it2} (in all {d.iterations}, JAX "
         f"{FAST_REF_ITERATIONS}), converged {d.converged}; phase 1 in "
-        f"{loop_1} loop launch ({fused_1} fused launches); phase 2 "
-        f"fused launches {launches} ({enqueued_2} enqueued, {it2} that did work) "
-        f"(phase 2 on rows {sorted(set(phase2_rows))}); max |T - T_jax| {dT_jax:.3e}, "
-        f"max |T - T_vplane| {dT_plain:.3e}")
+        f"{loop_1} loop launch ({fused_1} fused launches); phase 2 on {src_sub.shape[0]} rows "
+        f"with launches {phase2['launches']}; the align's launches "
+        f"{ {k: v for k, v in counts.items() if v} }; the two-launch loop's phase 2 on the same "
+        f"coreset: launches {two_launch}, T, iterations, flags and histories bit-equal "
+        f"{phase2_equal}; max |T - T_jax| {dT_jax:.3e}, max |T - T_vplane| {dT_plain:.3e}")
     log(f"{tag} T =\n{np.array2string(T, precision=7)}")
     if not (d1.iterations == FAST_REF_PHASE1 and it2 >= 1 and not d.solver_failed
-            and loop_1 == launch_counts()["fused_loop"] == 1 and fused_1 == 0
-            and launches == enqueued_2 == launch_counts()["gn_step"]
-            and len(phase2_rows) == enqueued_2
-            and set(phase2_rows) == {fast.N_target} and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
+            and loop_1 == 1 and fused_1 == 0 and phase2["launches"] == {"fused_loop": 1}
+            and counts["fused_loop"] == 2 and launches == 0 and counts["gn_step"] == 0
+            and src_sub.shape[0] == fast.N_target and left == PARAMS["max_iter"] - d1.iterations
+            and phase2_equal and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
         raise AssertionError(f"{tag} \"always\" is off: {d}")
 
     # The lift against one full-cloud iteration, both on the live points
@@ -3547,13 +3827,60 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         f"point; breakeven {lift_s / iter_s:.0f} iterations; warm \"always\" align s "
         + ", ".join(f"{x:.3f}" for x in walls))
     return {"auto_launches": auto_launches, "always_launches": launches,
-            "loop_auto": auto_counts["fused_loop"], "loop_always": loop_1,
+            "loop_auto": auto_counts["fused_loop"], "loop_always": counts["fused_loop"],
+            "loop_phase2": phase2["launches"]["fused_loop"], "phase2_two_launch": two_launch,
             "phase1_iterations": d1.iterations, "phase2_iterations": it2, "dT_jax": dT_jax,
             "dT_plain": dT_plain, "live": int(len(live)), "lift_s": lift_s,
             "lift_us_per_point": 1e6 * lift_s / len(live), "iteration_s": iter_s,
             "iteration_ns_per_point": 1e9 * iter_s / len(live), "breakeven": lift_s / iter_s,
             "always_align_s": min(walls), "auto_loops": auto, "always_loops": always,
-            "gn_step_auto": auto_counts["gn_step"], "gn_step_always": enqueued_2}
+            "gn_step_auto": auto_counts["gn_step"], "gn_step_always": counts["gn_step"]}
+
+
+def run_explicit_device(icp_path: SolverPath, map_np, scan_np, T_vplane, Ts_icp) -> dict:
+    """Phase 15b: the current card set explicitly (``torch.cuda.set_device``)
+    to the last card, and the solvers' tensors there (``device="cuda:<i>"``):
+    VPlaneICP's align and the batched ICP align give phase 4's ``T_vplane``
+    and phase 14's ``Ts_icp`` bit for bit, each in one launch of its loop
+    kernel. Each launcher enters its tensors' card when it binds and when it
+    launches; on a machine of one card this is that card."""
+    import torch
+
+    import point_cloud_registration_tpu_torch as pt
+
+    index = torch.cuda.device_count() - 1
+    dev = torch.device("cuda", index)
+    tag = f"[explicit device {dev}]"
+    previous = torch.cuda.current_device()
+    torch.cuda.set_device(index)
+    try:
+        s = pt.VPlaneICP(voxel_size=1.0, **PARAMS, device=dev)
+        s.set_target(map_np)
+        reset_launches()
+        T = s.align(scan_np)
+        counts = launch_counts()
+        icp = icp_path.make(dev)
+        icp_path.set_target(icp, map_np)
+        scans = batched_scans(map_np, dev)
+        eye = torch.eye(4).expand(N_BATCHES, 4, 4).clone()
+        reset_launches()
+        Ts, d = batched_align(icp_path, icp, scans, torch.ones(scans.shape[:2], device=dev), eye)
+        counts_b = launch_counts()
+        current = torch.cuda.current_device()
+    finally:
+        torch.cuda.set_device(previous)
+    out = {"T": T, "fused_loop": counts["fused_loop"],
+           "point_loop_batched": counts_b["point_loop_batched"],
+           "T_equal": bool(np.array_equal(T, T_vplane)),
+           "Ts_equal": bool(np.array_equal(Ts.numpy(), Ts_icp))}
+    log(f"{tag} current device {current}: VPlaneICP T bit-equal to phase 4's {out['T_equal']}, "
+        f"launches {({k: v for k, v in counts.items() if v})}; batched ICP Ts bit-equal to "
+        f"phase 14's {out['Ts_equal']}, launches {({k: v for k, v in counts_b.items() if v})}")
+    if not (current == index and out["T_equal"] and out["Ts_equal"]
+            and {k: v for k, v in counts.items() if v} == {"fused_loop": 1}
+            and {k: v for k, v in counts_b.items() if v} == {"point_loop_batched": 1}):
+        raise AssertionError(f"{tag} an align on the explicit current device is off: {out}")
+    return out
 
 
 def sharded_targets(map_src, normals, dev) -> dict:
@@ -3622,7 +3949,8 @@ def drive_sharded(targets: dict, src, w, scans, mesh, mesh_batched, fused_batche
             reset_launches()
             r = align_batched_fused_sharded(target, normals, scans[:b], ones[:b], eyes[:b], s.cfg,
                                             kind, mesh_batched)
-            out[f"batched_fused_sharded_{kind}_{b}"] = _result_row(r, launch_counts(), batched)
+            out[f"batched_fused_sharded_{kind}_{b}"] = _result_row(r, launch_counts(),
+                                                                   BATCHED_LOOPS[kind])
     return out
 
 
@@ -3700,9 +4028,11 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
     bit), to JAX's within TOL_REF, with equal iterations and flags and one
     launch per iteration; the batched paths to phases 13-14's per-problem T
     (``align_batched_fused_sharded`` bit for bit, ``align_batched_sharded``
-    within ``tol``) with one batched launch per batched iteration of rank 0's
-    problems (the first B / ranks of the batch, on the (batch, data) mesh
-    ``batch_mesh``)."""
+    within ``tol``): ``align_batched_sharded`` with one batched launch per
+    batched iteration of rank 0's problems (the first B / ranks of the
+    batch, on the (batch, data) mesh ``batch_mesh``), the fused paths with
+    one launch of the batched loop kernel on rank 0 and no stats or
+    ``gn_step`` launch."""
     nb, nd = batch_mesh
     for name in SHARDED_KINDS:
         # align_sharded runs the host loop: held to phase 4's host loop
@@ -3731,13 +4061,16 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
             dT_jax = max(float(np.abs(T[:3].reshape(-1) - rows_jax).max())
                          for T, (_, rows_jax) in zip(r["T"], jax_ref))
             single = r["launch_counts"][KERNELS_OF[name][0]]
-            want = enqueued(its[:mine]) if fused else max(its[:mine])
-            log(f"{tag} {key}: iterations {its}, {r['launches']} batched launches on rank 0 "
-                f"({mine} problems), max |T - T_phase13/14| {dT:.3e}, max |T - T_jax| "
-                f"{dT_jax:.3e}")
+            # a fused path's stats and gn_step launches: none, its loop's once
+            stray = (r["launch_counts"][KERNELS_OF[name][1]] + r["launch_counts"]["gn_step"]
+                     if fused else 0)
+            want = 1 if fused else max(its[:mine])
+            log(f"{tag} {key}: iterations {its}, {r['launches']} "
+                f"{'batched loop' if fused else 'batched'} launches on rank 0 ({mine} problems), "
+                f"max |T - T_phase13/14| {dT:.3e}, max |T - T_jax| {dT_jax:.3e}")
             if not (dT <= tol_b and its == ref["iterations"][:b] == [i for i, _ in jax_ref]
                     and dT_jax < TOL_REF and bool(r["converged"].all())
-                    and r["launches"] == want and single == 0):
+                    and r["launches"] == want and single == 0 and stray == 0):
                 raise AssertionError(f"{tag} {key} is off phases 13-14: {r}")
 
 
@@ -4109,6 +4442,16 @@ def jsonable(x):
     return x
 
 
+def no_nan(x):
+    """``x`` with every NaN float (a device time not measured) as None, so
+    that its JSON is strict."""
+    if isinstance(x, dict):
+        return {k: no_nan(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [no_nan(v) for v in x]
+    return None if isinstance(x, float) and x != x else x
+
+
 def main() -> None:
     import torch
 
@@ -4177,6 +4520,10 @@ def main() -> None:
         batched[path_name] = run_batched(paths[path_name], kernel, plain, map_np, dev)
     results["batched"] = batched
     results["fast"] = run_fast(map_np, scan_np, dev, results["vplane_icp"])
+    # 15b. Aligns with the current card set explicitly and the tensors there
+    results["explicit_device"] = run_explicit_device(paths["icp"], map_np, scan_np,
+                                                     results["vplane_icp"]["T"],
+                                                     batched["icp"]["Ts"])
     # 16. The multi-device paths: world size 1 with NCCL here, then N_RANKS gloo
     # ranks on the one card
     results["nccl1"] = run_parallel_nccl1(map_np, scan_np, normals, results, batched, smi, dev)
@@ -4247,6 +4594,29 @@ def main() -> None:
                           | {f"{m}_{q}": new_loops[case][m][q] for m in ("loop", "two_launch")
                              for q in ("device_ms", "syncs")}
                           for case in cases}}}))
+    # the batched loops: the while_loop of the JAX batched_gauss_newton around
+    # the batched fused and packed-grid stats; their numbers at phases 13 and
+    # 14's shapes (B = 8 scans of 16,384 points), VPlaneICP's and ICP's at the
+    # top, each kind's in "kinds"
+    for loop, top in (("fused_loop_batched", "vplane_icp"), ("point_loop_batched", "icp")):
+        names = [n for n in batched if BATCHED_LOOPS[BATCHED_KINDS[n]] == loop]
+        first = batched[top]["loop"]
+        rows.append((loop, getattr(gl, loop), f"{CSRC}/{BATCHED_LOOP_LIBRARIES[loop]}.cu",
+                     BATCHED_LOOP_REPLACES, {
+                         "launches": batched[top]["loop_launches"],
+                         "max_abs_err": max(batched[n]["loop"]["dT_plain"] for n in names),
+                         "kernel_ms": [first["ms"]], "plain_ms": [first["plain_ms"]],
+                         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                         "library_ms": None,
+                         "extra": {"alone_ms": first["alone_ms"], "B": N_BATCHES, "n": N_BATCH,
+                                   "kinds": {BATCHED_KINDS[n]: {
+                                       k: batched[n]["loop"][k] for k in (
+                                           "iterations", "ms", "alone_ms", "plain_ms",
+                                           "bound_ms", "bound_by", "dT_plain", "ptxas")}
+                                       | {f"{m}_{q}": batched[n]["loop"][m][q]
+                                          for m in ("loop", "two_launch")
+                                          for q in ("device_ms", "syncs")}
+                                       for n in names}}}))
     # the grid stats kernels (csrc/grid_align.cu), the port's own kernels for
     # XLA code of the JAX package: their numbers on phases 9 and 10
     grid = results["grid"]
@@ -4268,23 +4638,33 @@ def main() -> None:
                          "extra": {"alone_ms": held["alone_ms"], "ptxas": grid["ptxas"][kind],
                                    **({"design_searches": held["design"]}
                                       if held["design"] else {})}}))
-    # launches on each path that runs the kernel, the main path's first
+    # launches on each path that runs the kernel, the main path's first; the
+    # two-launch reference aligns of phases 13-15 (``_two_launch``) last
+    two_launch = {name: batched[name]["loop"]["two_launch_resident"] for name in batched}
+    fast_two_launch = results["fast"]["phase2_two_launch"]
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
                               "fast_vplane_icp_always": results["fast"]["always_launches"],
                               "update_target": results["update"]["vplane_icp"]["launches"],
                               "hashed_map": 0,
                               "batched_vplane_icp": batched["vplane_icp"]["launches"],
-                              "fast_vplane_icp_auto": results["fast"]["auto_launches"]},
+                              "fast_vplane_icp_auto": results["fast"]["auto_launches"],
+                              "batched_vplane_icp_two_launch": two_launch["vplane_icp"]["enqueued"],
+                              "fast_vplane_icp_always_phase2_two_launch":
+                                  fast_two_launch.get("fused_plane_stats", 0)},
         "fused_ndt_stats": {"ndt": results["ndt"]["launches"],
                             "update_target": results["update"]["ndt"]["launches"],
-                            "hashed_map": 0, "batched_ndt": batched["ndt"]["launches"]},
+                            "hashed_map": 0, "batched_ndt": batched["ndt"]["launches"],
+                            "batched_ndt_two_launch": two_launch["ndt"]["enqueued"]},
         "point_stats": {"icp": results["icp"]["launches"],
                         "icp_grid": grid["icp"]["launches"]["point_stats"],
-                        "batched_icp": batched["icp"]["launches"]},
+                        "batched_icp": batched["icp"]["launches"],
+                        "batched_icp_two_launch": two_launch["icp"]["enqueued"]},
         "plane_point_stats": {"plane_icp": results["plane_icp"]["launches"],
                               "plane_icp_grid": grid["plane_icp"]["launches"]["plane_point_stats"],
-                              "batched_plane_icp": batched["plane_icp"]["launches"]},
+                              "batched_plane_icp": batched["plane_icp"]["launches"],
+                              "batched_plane_icp_two_launch":
+                                  two_launch["plane_icp"]["enqueued"]},
         "knn_moments": {"estimate_normals": results["normals"]["launches"],
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
@@ -4300,11 +4680,19 @@ def main() -> None:
         "fast_vplane_icp_auto": results["fast"]["loop_auto"],
         "fast_vplane_icp_always": results["fast"]["loop_always"],
         "hashed_map": 0,
+        "explicit_device_vplane_icp": results["explicit_device"]["fused_loop"],
         **{f"batched_{name}": 0 for name in batched},
     }
     path_launches["point_loop"] = {
         **{name: results[name]["loop_launches"] for name in ("icp", "plane_icp")},
         **{f"batched_{name}": 0 for name in ("icp", "plane_icp")},
+    }
+    path_launches["fused_loop_batched"] = {
+        **{f"batched_{name}": batched[name]["loop_launches"] for name in ("vplane_icp", "ndt")},
+    }
+    path_launches["point_loop_batched"] = {
+        **{f"batched_{name}": batched[name]["loop_launches"] for name in ("icp", "plane_icp")},
+        "explicit_device_batched_icp": results["explicit_device"]["point_loop_batched"],
     }
     path_launches["grid_loop"] = {
         **{path_name: res["resident"]["loop"] for path_name, res in grid_paths.values()},
@@ -4319,6 +4707,8 @@ def main() -> None:
         **{f"batched_{name}": batched[name]["resident"]["gn_step"] for name in batched},
         "fast_vplane_icp_auto": results["fast"]["gn_step_auto"],
         "fast_vplane_icp_always": results["fast"]["gn_step_always"],
+        **{f"batched_{name}_two_launch": two_launch[name]["gn_step"] for name in batched},
+        "fast_vplane_icp_always_phase2_two_launch": fast_two_launch.get("gn_step", 0),
     }
     # launches of the kernels on phase 16's paths: the single entry's on
     # align_sharded, the batched entry's on the batched paths, none on map-sharded
@@ -4326,12 +4716,14 @@ def main() -> None:
              f"gloo{N_RANKS}_rank0": (results["gloo4"], GLOO_FUSED_BATCHES)}
     for name in SHARDED_KINDS:
         row = path_launches[KERNELS_OF[name][0]]
+        loop_row = path_launches[BATCHED_LOOPS[BATCHED_KINDS[name]]]
         for mode, (out, fused_batches) in modes.items():
             row[f"sharded_{name}_{mode}"] = out[f"sharded_{name}"]["launches"]
             row[f"batched_sharded_{name}_{mode}"] = out[f"batched_sharded_{name}"]["launches"]
             for b in fused_batches:
                 key = f"batched_fused_sharded_{BATCHED_KINDS[name]}_{b}"
-                row[f"{key}_{mode}"] = out[key]["launches"]
+                row[f"{key}_{mode}"] = out[key]["launch_counts"][KERNELS_OF[name][1]]
+                loop_row[f"{key}_{mode}"] = out[key]["launches"]
             if f"map_sharded_{name}" in out:
                 row[f"map_sharded_{name}_{mode}"] = out[f"map_sharded_{name}"]["all_launches"]
     # launches on phase 17's demo paths, 0 where a demo bypasses the kernel
@@ -4349,12 +4741,13 @@ def main() -> None:
         r.pop("T", None)
     for r in batched.values():
         r.pop("Ts", None)
+    results["explicit_device"].pop("T", None)
     for mode in ("nccl1", "gloo4"):
         results[mode] = jsonable(results[mode])
     log("summary: " + json.dumps({"card": smi, "build_s": build_s, "new_loops": new_loops,
                                   **results}))
     # knn_moments: the top-level numbers are the base tier's; "tiers" holds both
-    print(json.dumps({"kernels": [{
+    print(json.dumps(no_nan({"kernels": [{
         "name": kernel.__name__, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches_on[name][0], "launches_path": launches_on[name][1],
         "max_abs_err": r["max_abs_err"],
@@ -4371,7 +4764,7 @@ def main() -> None:
                              "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
                              "bound_by": t["bound_by"]} for name, t in r["tiers"].items()}}
            if "tiers" in r else {}),
-    } for name, kernel, source, replaces, r in rows]}))
+    } for name, kernel, source, replaces, r in rows]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -10,11 +10,12 @@ done flag from the state, then one ``gn_step`` launch (solve, test, update,
 histories). Iterations are enqueued in chunks of ``GN_CHUNK``; the host reads
 the state once per chunk, one copy, and stops when every problem is done.
 On CPU tensors the same loop runs the plain ``gn_step_reference``. Every
-single-problem align of the four solvers has a kernel that runs its whole
-loop (``ops/kernels/gn_loop``), which :func:`gauss_newton_device` takes as
-``loop``: one launch and one read an align; the two-launch loop stays the
-loop of the batched streams and FastVPlaneICP's phase 2, and the
-reference that the loop kernels are held to.
+align of the four solvers, single or batched, has a kernel that runs its
+whole loop (``ops/kernels/gn_loop``), which :func:`gauss_newton_device` and
+:func:`batched_gauss_newton_device` take as ``loop``: one launch and one
+read an align, as the JAX package compiles each loop into one dispatch. The
+two-launch loop stays as the plain two-launch reference that the loop
+kernels are held to.
 
 :func:`gauss_newton` and :func:`batched_gauss_newton` are the host loops
 (one copy of the stats to the host per iteration, the solve and the update
@@ -439,12 +440,18 @@ def gauss_newton_device(stats_fn: ResidentStats, init_T, max_iter: int, tol: flo
 
 
 def batched_gauss_newton_device(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
-                                device) -> tuple[torch.Tensor, GNDiagnostics]:
+                                device, loop: Callable[[GNState], None] | None = None,
+                                ) -> tuple[torch.Tensor, GNDiagnostics]:
     """The resident loop of B problems on ``device``: the semantics and the
     result of :func:`batched_gauss_newton`, with ``stats_fn(poses (B, 12),
     done (B,))`` in place of ``stats_all(Ts)``; a problem that is done is
-    skipped by the stats kernels and by ``gn_step``."""
-    s = _run_resident(stats_fn, init_Ts, max_iter, tol, device)
+    skipped by the stats kernels and by ``gn_step``.
+
+    ``loop``, when given, runs every iteration of all B problems in one call
+    on the state (``ops/kernels/gn_loop.fused_loop_batched``,
+    ``point_loop_batched``: one launch), which is then read once;
+    ``stats_fn`` is not called."""
+    s = _run_resident(stats_fn, init_Ts, max_iter, tol, device, loop)
     diag = GNDiagnostics(
         iterations=s.it.clone(),
         converged=s.converged.to(torch.bool),
@@ -472,9 +479,11 @@ def gauss_newton_host(stats_fn: ResidentStats, init_T, max_iter: int, tol: float
 
 
 def batched_gauss_newton_host(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
-                              device) -> tuple[torch.Tensor, GNDiagnostics]:
+                              device, loop: Callable[[GNState], None] | None = None,
+                              ) -> tuple[torch.Tensor, GNDiagnostics]:
     """:func:`batched_gauss_newton` over a resident stats function: the
-    plain reference of :func:`batched_gauss_newton_device`."""
+    plain reference of :func:`batched_gauss_newton_device`, whose
+    whole-loop ``loop`` it leaves aside."""
     def stats(Ts):
         packed = stats_fn(pose_rows_of(Ts).to(device), None)()
         return stats_from_packed(packed.reshape(Ts.shape[0], -1).cpu())

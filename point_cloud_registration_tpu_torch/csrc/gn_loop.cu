@@ -15,6 +15,12 @@
 // The kernel keeps the stats kernel's register budget (three CTAs of 256
 // an SM); its grid is at most the stats launch's n_blocks =
 // min(ceil(n / 256), 1024).
+//
+// The batched entries (pcr_gn_loop_batched_*) run the loop of B scans
+// against one map in one launch: gn_loop.cuh's batched kernel over the same
+// body, the counterpart of the JAX package's batched_gauss_newton
+// (models/_fused.py:288-355) around the batched fused stats
+// (fused_voxel_align_batched, :152-169). Its grid is at most B * n_blocks.
 
 #include "fused_stats.cuh"
 #include "gn_loop.cuh"
@@ -53,10 +59,11 @@ struct FusedStats {
   }
 };
 
-// One cooperative launch of the kernel of `kind`: its CUDA error.
+// One cooperative launch of the kernel of `kind`: the single-problem loop
+// when B is 0, else the batched loop of B problems; its CUDA error.
 int launch(int kind, const int* occ, const float* centers, const float* feats, int nx,
            int ny, int nz, int ox, int oy, int oz, float inv_cell, int radius,
-           const float* src, const float* w, int n, int n_blocks, float max_dist,
+           const float* src, const float* w, int n, int B, int n_blocks, float max_dist,
            int use_huber, float huber_delta, float* poses, int* it, int* done, int* failed,
            int* converged, float* final_e2, float* e2_hist, float* dxn_hist, int* inl_hist,
            float* partials, float* rows_out, int max_iter, float tol, int grid,
@@ -67,12 +74,14 @@ int launch(int kind, const int* occ, const float* centers, const float* feats, i
                           nx, ny, nz, ox, oy, oz, inv_cell, radius};
   const pcr::LoopState st{poses,   it,       done,     failed,   converged, final_e2, e2_hist,
                           dxn_hist, inl_hist, partials, rows_out, n_blocks,  max_iter, tol};
-  if (kind == pcr::kPlane)
-    return pcr::launch_loop(
-        FusedStats<pcr::kPlane>{map, src, w, n, max_dist, use_huber, huber_delta}, st, grid,
-        stream);
-  return pcr::launch_loop(FusedStats<pcr::kNdt>{map, src, w, n, max_dist, use_huber, huber_delta},
-                          st, grid, stream);
+  if (kind == pcr::kPlane) {
+    const FusedStats<pcr::kPlane> stats{map, src, w, n, max_dist, use_huber, huber_delta};
+    return B == 0 ? pcr::launch_loop(stats, st, grid, stream)
+                  : pcr::launch_loop_batched(stats, st, B, grid, stream);
+  }
+  const FusedStats<pcr::kNdt> stats{map, src, w, n, max_dist, use_huber, huber_delta};
+  return B == 0 ? pcr::launch_loop(stats, st, grid, stream)
+                : pcr::launch_loop_batched(stats, st, B, grid, stream);
 }
 
 }  // namespace
@@ -87,6 +96,12 @@ int pcr_gn_loop_block_size() { return kBlock; }
 int pcr_gn_loop_blocks_per_sm(int kind, int* out) {
   return kind == pcr::kPlane ? pcr::loop_blocks_per_sm<FusedStats<pcr::kPlane>>(out)
                              : pcr::loop_blocks_per_sm<FusedStats<pcr::kNdt>>(out);
+}
+
+// The same for the batched kernel of `kind`.
+int pcr_gn_loop_batched_blocks_per_sm(int kind, int* out) {
+  return kind == pcr::kPlane ? pcr::loop_batched_blocks_per_sm<FusedStats<pcr::kPlane>>(out)
+                             : pcr::loop_batched_blocks_per_sm<FusedStats<pcr::kNdt>>(out);
 }
 
 // The CUDA runtime's text for an error code.
@@ -111,7 +126,7 @@ int pcr_gn_loop_plane(const int* occ, const float* centers, const float* feats, 
                       float* dxn_hist, int* inl_hist, float* partials, float* rows_out,
                       int max_iter, float tol, int grid, void* stream) {
   return launch(pcr::kPlane, occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell, radius,
-                src, w, n, n_blocks, max_dist, use_huber, huber_delta, poses, it, done,
+                src, w, n, 0, n_blocks, max_dist, use_huber, huber_delta, poses, it, done,
                 failed, converged, final_e2, e2_hist, dxn_hist, inl_hist, partials, rows_out,
                 max_iter, tol, grid, stream);
 }
@@ -124,9 +139,48 @@ int pcr_gn_loop_ndt(const int* occ, const float* centers, const float* feats, in
                     float* dxn_hist, int* inl_hist, float* partials, float* rows_out,
                     int max_iter, float tol, int grid, void* stream) {
   return launch(pcr::kNdt, occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell, radius,
-                src, w, n, n_blocks, max_dist, use_huber, huber_delta, poses, it, done,
+                src, w, n, 0, n_blocks, max_dist, use_huber, huber_delta, poses, it, done,
                 failed, converged, final_e2, e2_hist, dxn_hist, inl_hist, partials, rows_out,
                 max_iter, tol, grid, stream);
+}
+
+// The CUDA runtime's text for an error code (the batched entries' binding).
+const char* pcr_gn_loop_batched_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Each runs the loop of B problems as one cooperative launch of `grid` CTAs
+// (at most the co-resident count of the batched kernel) on `stream` and
+// returns the launch's CUDA error. As the single entries, with src (B, n, 3)
+// and w (B, n), the B problems' state words (GNState of B problems: poses
+// (B, 12), it, done, failed, converged, final_e2 (B,), the histories
+// (B, max_iter)), partials B * n_blocks * 29 floats of scratch and rows_out
+// B * n_blocks * 29 floats, or null.
+int pcr_gn_loop_batched_plane(const int* occ, const float* centers, const float* feats,
+                              int nx, int ny, int nz, int ox, int oy, int oz, float inv_cell,
+                              int radius, const float* src, const float* w, int n, int B,
+                              int n_blocks, float max_dist, int use_huber, float huber_delta,
+                              float* poses, int* it, int* done, int* failed, int* converged,
+                              float* final_e2, float* e2_hist, float* dxn_hist, int* inl_hist,
+                              float* partials, float* rows_out, int max_iter, float tol,
+                              int grid, void* stream) {
+  return launch(pcr::kPlane, occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell, radius,
+                src, w, n, B, n_blocks, max_dist, use_huber, huber_delta, poses, it, done,
+                failed, converged, final_e2, e2_hist, dxn_hist, inl_hist, partials, rows_out,
+                max_iter, tol, grid, stream);
+}
+
+int pcr_gn_loop_batched_ndt(const int* occ, const float* centers, const float* feats, int nx,
+                            int ny, int nz, int ox, int oy, int oz, float inv_cell, int radius,
+                            const float* src, const float* w, int n, int B, int n_blocks,
+                            float max_dist, int use_huber, float huber_delta, float* poses,
+                            int* it, int* done, int* failed, int* converged, float* final_e2,
+                            float* e2_hist, float* dxn_hist, int* inl_hist, float* partials,
+                            float* rows_out, int max_iter, float tol, int grid, void* stream) {
+  return launch(pcr::kNdt, occ, centers, feats, nx, ny, nz, ox, oy, oz, inv_cell, radius, src,
+                w, n, B, n_blocks, max_dist, use_huber, huber_delta, poses, it, done, failed,
+                converged, final_e2, e2_hist, dxn_hist, inl_hist, partials, rows_out, max_iter,
+                tol, grid, stream);
 }
 
 }  // extern "C"

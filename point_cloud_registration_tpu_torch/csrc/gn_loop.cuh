@@ -2,7 +2,9 @@
 // Hopper (sm_90a), over any stats body: the loop kernel of gn_loop.cu (the
 // fused voxel stats: VPlaneICP and NDT on a dense map), point_loop.cu (the
 // packed-grid stats: ICP and PlaneICP) and grid_loop.cu (the grid stats: ICP
-// and PlaneICP on a small target, VPlaneICP and NDT on a hashed map).
+// and PlaneICP on a small target, VPlaneICP and NDT on a hashed map). Below
+// it, the loop of B problems in one launch (gn_loop_batched_kernel, built in
+// gn_loop.cu and point_loop.cu for the batched streams).
 //
 // Counterpart of the JAX package's compiled loop: gauss_newton's
 // jax.lax.while_loop (point_cloud_registration_tpu/core/gn.py:124-192)
@@ -59,7 +61,9 @@
 //   float row(Shared&, const Cta&, const float* pose, int v, int n_blocks,
 //     float* out) const: the row of virtual block v of n_blocks at the pose
 //     (12 floats in shared memory) into out[29]; thread k < 29 returns sum
-//     k. Every thread of the CTA calls it.
+//     k. Every thread of the CTA calls it;
+//   and, for the batched kernel, the members src, w (the scan and weights)
+//     and n (points a problem), which batch_problem moves to a problem's rows.
 //
 // What bounds it: the stats' work (each kernel's note) and 260 bytes of
 // state; the grid syncs and phase B's serial solve are latency, a few
@@ -203,6 +207,117 @@ __global__ void __launch_bounds__(Stats::kThreads, Stats::kMinBlocks) gn_loop_ke
   }
 }
 
+// The loop of B problems in one cooperative launch (counterpart of the JAX
+// package's batched_gauss_newton while_loop, models/_fused.py:288-355, around
+// the batched stats): the same kernel over the B problems' scans, each a
+// problem's rows of a (B, n, 3) scan and (B, n) weights, with its own pose
+// and state words (GNState's B rows). The virtual block ids are
+// (problem b, block v), id = b * n_blocks + v, problem-major, and a CTA takes
+// the ids blockIdx.x, + gridDim.x, ... below B * n_blocks. Every iteration,
+// while any problem is not done:
+//   A. for each of its ids whose problem is not done, the row of block v of
+//      problem b with the stats body of that problem (batch_problem: the body
+//      with its scan and weights moved to problem b's rows), at b's pose,
+//      loaded into shared memory when the CTA's ids move to a new problem;
+//      the row goes to row id of the (B, n_blocks, 29) partials (and of
+//      rows_out at the first iteration), the batched stats kernel's row
+//      blockIdx.y * n_blocks + blockIdx.x, the same bits;
+//   grid sync;
+//   B. each problem that is not done, in CTA b mod gridDim.x: its n_blocks
+//      rows summed by sum_rows (the fixed order of one problem's loop, which
+//      depends on n_blocks only), then gn_update on its state words;
+//   grid sync, then every CTA reads the done flags.
+// A done problem's ids are skipped and its words are never written again,
+// as the JAX loop's active mask and gn_step.cu leave it. Per problem the
+// rows, the sums and the update are those of the single-problem loop
+// kernel over that problem's scan, so the problem's state is that align's,
+// bit for bit. The ids are ints: B * n_blocks stays below 2^31 (the
+// wrapper checks), and B has no other bound (the batched stats kernel's is
+// 65,535, the grid's y dimension). The loop over ids keeps more state live
+// than the single-problem loop: under the stats' register budget the
+// batched kernels spill 56-224 bytes where the single-problem ones spill
+// 0-56 (ptxas, sm_90a).
+
+// The stats body of problem b of a batch: a copy of `stats` whose scan and
+// weights are problem b's rows of the (B, n, 3) scan and (B, n) weights.
+template <class Stats>
+__device__ __forceinline__ Stats batch_problem(const Stats& stats, int b) {
+  Stats s = stats;
+  s.src += static_cast<size_t>(b) * 3 * s.n;
+  s.w += static_cast<size_t>(b) * s.n;
+  return s;
+}
+
+template <class Stats>
+__global__ void __launch_bounds__(Stats::kThreads, Stats::kMinBlocks) gn_loop_batched_kernel(
+    const Stats stats, float* poses, int* it, int* done, int* failed, int* converged,
+    float* final_e2, float* e2_hist, float* dxn_hist, int* inl_hist, float* partials,
+    float* rows_out, int n_blocks, int B, int max_iter, float tol) {
+  static_assert(Stats::kThreads >= 32, "a CTA holds the pose and the 29 sums");
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  __shared__ float pose_s[12];
+  __shared__ float sums_s[kStats];
+  __shared__ double lanes_s[kSumLanes * kStats];
+  __shared__ int live_s;
+  __shared__ typename Stats::Shared stats_s;
+  const int t = threadIdx.x;
+  const auto cta = stats.setup(stats_s);
+  const int total = B * n_blocks;
+  int live = 0;
+  for (int b = t; b < B; b += Stats::kThreads) live |= !__ldcg(done + b);
+  live = __syncthreads_or(live);
+  for (int k = 0; live; ++k) {
+    // A. this CTA's rows, each at its problem's current pose
+    int loaded = -1;
+    for (int id = blockIdx.x; id < total; id += gridDim.x) {
+      const int b = id / n_blocks, v = id - b * n_blocks;
+      if (b != loaded) {
+        __syncthreads();  // every thread is past the previous problem's pose
+        if (t < 12) pose_s[t] = __ldcg(poses + 12 * static_cast<size_t>(b) + t);
+        if (t == 0) live_s = !__ldcg(done + b);
+        __syncthreads();
+        loaded = b;
+      }
+      if (!live_s) continue;
+      const float s = batch_problem(stats, b).row(stats_s, cta, pose_s, v, n_blocks,
+                                                  partials + static_cast<size_t>(id) * kStats);
+      if (rows_out != nullptr && k == 0 && t < kStats)
+        rows_out[static_cast<size_t>(id) * kStats + t] = s;
+      __syncthreads();  // the block reduction's shared sums are reused
+    }
+    grid.sync();
+    // B. each live problem of this CTA: the sum, the update
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      if (__ldcg(done + b)) continue;  // read by every thread before thread 0 writes it
+      if (t < 12) pose_s[t] = __ldcg(poses + 12 * static_cast<size_t>(b) + t);
+      sum_rows<Stats::kThreads>(partials + static_cast<size_t>(b) * n_blocks * kStats, n_blocks,
+                                lanes_s, sums_s);
+      if (t == 0) {
+        GNCounters c{__ldcg(it + b), 0, __ldcg(failed + b), __ldcg(converged + b),
+                     __ldcg(final_e2 + b)};
+        const size_t row = static_cast<size_t>(b) * max_iter;
+        gn_update(sums_s, pose_s, &c.it, &c.done, &c.failed, &c.converged, &c.final_e2,
+                  nullptr, max_iter, tol, [&](int at, float e2, float dx_norm, int inliers) {
+                    e2_hist[row + at] = e2;
+                    dxn_hist[row + at] = dx_norm;
+                    inl_hist[row + at] = inliers;
+                  });
+        for (int q = 0; q < 12; ++q) poses[12 * static_cast<size_t>(b) + q] = pose_s[q];
+        it[b] = c.it;
+        failed[b] = c.failed;
+        converged[b] = c.converged;
+        final_e2[b] = c.final_e2;
+        done[b] = c.done;
+      }
+      __syncthreads();  // pose_s and sums_s are reused
+    }
+    grid.sync();
+    live = 0;
+    for (int b = t; b < B; b += Stats::kThreads) live |= !__ldcg(done + b);
+    live = __syncthreads_or(live);
+  }
+}
+
 // A stats body with nothing to keep across the loop.
 struct NoShared {};
 struct NoCta {};
@@ -228,6 +343,31 @@ int launch_loop(Stats stats, LoopState st, int grid, void* stream) {
       args, 0, static_cast<cudaStream_t>(stream));
   // read (and so clear) the last error either way: a refused launch must not
   // surface later at another launch
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// The CTAs of the batched loop kernel over `Stats` that fit on one SM at
+// once, into *out; returns the CUDA error.
+template <class Stats>
+int loop_batched_blocks_per_sm(int* out) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, gn_loop_batched_kernel<Stats>, Stats::kThreads, 0));
+}
+
+// One cooperative launch of the batched loop kernel over `stats` (the body
+// of problem 0: its scan and weights are the batch's first rows) for B
+// problems with `grid` CTAs on `stream`: its CUDA error. st names the B
+// problems' state words; its partials and rows_out hold B * n_blocks rows.
+template <class Stats>
+int launch_loop_batched(Stats stats, LoopState st, int B, int grid, void* stream) {
+  void* args[] = {&stats,       &st.poses,    &st.it,       &st.done,     &st.failed,
+                  &st.converged, &st.final_e2, &st.e2_hist,  &st.dxn_hist, &st.inl_hist,
+                  &st.partials, &st.rows_out, &st.n_blocks, &B,           &st.max_iter,
+                  &st.tol};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gn_loop_batched_kernel<Stats>), dim3(grid),
+      dim3(Stats::kThreads), args, 0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }

@@ -19,6 +19,13 @@
 // virtual blocks of the bench scan, 100k points padded to 106,496; the last
 // 50 hold padding only); its grid is at most the stats launch's n_blocks =
 // min(ceil(n / 128), 1024).
+//
+// The batched entries (pcr_point_loop_batched_*) run the loop of B scans
+// against one target in one launch: gn_loop.cuh's batched kernel over the
+// same body, the counterpart of the JAX package's batched_gauss_newton
+// (models/_fused.py:288-355) around the batched packed-point stats
+// (models/_point_fused.py::fused_point_align_batched, :171-189). Its grid is
+// at most B * n_blocks.
 
 #include "gn_loop.cuh"
 #include "point_stats.cuh"
@@ -71,6 +78,17 @@ int pcr_point_loop_blocks_per_sm(int kind, int* out) {
                         : pcr::loop_blocks_per_sm<PointStats<kPlanePt>>(out);
 }
 
+// The same for the batched kernel of `kind`.
+int pcr_point_loop_batched_blocks_per_sm(int kind, int* out) {
+  return kind == kPoint ? pcr::loop_batched_blocks_per_sm<PointStats<kPoint>>(out)
+                        : pcr::loop_batched_blocks_per_sm<PointStats<kPlanePt>>(out);
+}
+
+// The CUDA runtime's text for an error code.
+const char* pcr_point_loop_batched_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
 // The CUDA runtime's text for an error code.
 const char* pcr_point_loop_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -98,5 +116,29 @@ PCR_POINT_LOOP_ENTRY(pcr_point_loop_point, kPoint)
 PCR_POINT_LOOP_ENTRY(pcr_point_loop_plane_pt, kPlanePt)
 
 #undef PCR_POINT_LOOP_ENTRY
+
+// Each runs the loop of B problems as one cooperative launch of `grid` CTAs
+// (at most the co-resident count of the batched kernel) on `stream` and
+// returns the launch's CUDA error. As the single entries, with src (B, n, 3)
+// and w (B, n); the state arguments name the B problems' words (GNState of
+// B problems), partials and rows_out B * n_blocks * 29 floats.
+#define PCR_POINT_LOOP_BATCHED_ENTRY(name, kind)                                           \
+  int name(const float* pts, const int* row_count, const int* block_row, int cap, int nbx, \
+           int nby, int nbz, int ofx, int ofy, int ofz, float cell_fine, const float* proxy, \
+           int pox, int poy, int poz, float proxy_cell, int proxy_radius, const float* src,  \
+           const float* w, int n, int B, float max_dist, int use_huber, float huber_delta,   \
+           PCR_LOOP_STATE_PARAMS) {                                                          \
+    const Tables tb = make_tables<kind>(pts, row_count, block_row, cap, nbx, nby, nbz, ofx,  \
+                                        ofy, ofz, cell_fine, proxy, pox, poy, poz,           \
+                                        proxy_cell, proxy_radius);                           \
+    return pcr::launch_loop_batched(                                                         \
+        PointStats<kind>{tb, src, w, n, max_dist, use_huber, huber_delta}, PCR_LOOP_STATE,   \
+        B, grid, stream);                                                                    \
+  }
+
+PCR_POINT_LOOP_BATCHED_ENTRY(pcr_point_loop_batched_point, kPoint)
+PCR_POINT_LOOP_BATCHED_ENTRY(pcr_point_loop_batched_plane_pt, kPlanePt)
+
+#undef PCR_POINT_LOOP_BATCHED_ENTRY
 
 }  // extern "C"

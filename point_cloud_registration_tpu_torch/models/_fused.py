@@ -23,14 +23,17 @@ the card), and the host reads the state once, as the JAX package compiles
 the loop into one dispatch. The two-launch resident loop
 (``core.gn.gauss_newton_device`` over :func:`fused_voxel_stats_resident`: a
 stats launch that reads the pose and the done flag from the loop's state on
-the card, then ``gn_step``) computes the same state and is the loop of the
-batched stream.
+the card, then ``gn_step``) computes the same state and is the plain
+two-launch reference the loop kernels are held to.
 
-:func:`fused_voxel_align_batched` aligns B scans against one dense map with
-one launch of the batched kernel per Gauss-Newton iteration, in the
-resident loop of all B problems (``core.gn.batched_gauss_newton_device``,
-shared with ``models/_point_fused.fused_point_align_batched``), which skips
-the problems that are done.
+:func:`fused_voxel_align_batched` aligns B scans against one dense map in
+one launch of the batched loop kernel (``gn_loop.fused_loop_batched``: every
+iteration of all B problems, a done problem left as it is), the
+counterpart of the JAX ``batched_gauss_newton`` around the batched fused
+stats; its two-launch reference is the resident loop of all B problems
+(``core.gn.batched_gauss_newton_device`` over
+:func:`fused_voxel_stats_packed_batched`: one launch of the batched stats
+kernel, then ``gn_step``, an iteration).
 """
 
 from __future__ import annotations
@@ -152,21 +155,27 @@ def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tens
 def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,
                               cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane",
                               ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """Batched multi-scan ``align`` of ``kind`` against one dense map, one
-    launch of the batched fused kernel per Gauss-Newton iteration
-    (``models/_fused.py::fused_voxel_align_batched`` of the JAX package).
+    """Batched multi-scan ``align`` of ``kind`` against one dense map, the
+    whole loop of the B problems in one launch of the batched loop kernel
+    (``gn_loop.fused_loop_batched``; its plain version on the CPU) and one
+    read of the state (``models/_fused.py::fused_voxel_align_batched`` of the
+    JAX package).
 
     ``sources`` (B, n, 3), ``src_weights`` (B, n) and ``init_Ts`` (B, 4, 4).
-    The resident loop (``core.gn.batched_gauss_newton_device``) keeps each
-    problem's single-align semantics; a problem that is done is skipped by
-    the kernel. Returns ``(Ts (B, 4, 4), GNDiagnostics with leading dim B)``.
+    The loop (``core.gn.batched_gauss_newton_device``) keeps each problem's
+    single-align semantics; a problem that is done is left as it is.
+    Returns ``(Ts (B, 4, 4), GNDiagnostics with leading dim B)``.
     The TPU's band layout, scatter and straggler tiers have no counterpart
     (see the module's docstring). A hashed map raises ``ValueError``: it has
     no cell index for the kernel, as the JAX function needs a fused spec.
     """
     stats_all = fused_voxel_stats_packed_batched(vm, sources, src_weights, cfg, kind)
+    src, w = batch_on(vm.cells.centers.device, sources, src_weights)
+    loop = functools.partial(gn_loop.fused_loop_batched, kind, vm.cells, vm.origin_cell, vm.dims,
+                             vm.cell_size, src, w, max_dist=cfg.max_dist,
+                             huber_delta=cfg.huber_delta, tol=cfg.tol, max_iter=cfg.max_iter)
     return gn.batched_gauss_newton_device(stats_all, init_Ts, cfg.max_iter, cfg.tol,
-                                          vm.cells.centers.device)
+                                          vm.cells.centers.device, loop=loop)
 
 
 def fused_voxel_stats_packed_batched(vm: VoxelMap, sources, src_weights,
@@ -182,9 +191,14 @@ def fused_voxel_stats_packed_batched(vm: VoxelMap, sources, src_weights,
     if vm.hashed:
         raise ValueError("a hashed voxel map has no cell index for the batched fused kernel; "
                          "align its scans one by one")
-    dev = vm.cells.centers.device
-    src = torch.as_tensor(sources, dtype=torch.float32).to(dev).contiguous()
-    w = torch.as_tensor(src_weights, dtype=torch.float32).to(dev).contiguous()
+    src, w = batch_on(vm.cells.centers.device, sources, src_weights)
     return lambda poses, done=None: resident_stats(kind, vm.cells, vm.origin_cell, vm.dims,
                                                    vm.cell_size, src, w, cfg.max_dist,
                                                    cfg.huber_delta, poses, done)
+
+
+def batch_on(device, sources, src_weights) -> tuple:
+    """``(src, w)``: B scans (B, n, 3) and their weights (B, n) as contiguous
+    float32 tensors on ``device`` (no copy when they are already)."""
+    return tuple(torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+                 for x in (sources, src_weights))

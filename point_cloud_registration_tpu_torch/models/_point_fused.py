@@ -25,12 +25,15 @@ on the card), and the host reads the state once, as the JAX package
 compiles the loop into one dispatch. The two-launch resident loop
 (``core.gn.gauss_newton_device`` over :func:`fused_point_stats_resident`:
 a stats launch that reads the pose and the done flag from the loop's state
-on the card, then ``gn_step``) computes the same state and is the loop of
-the batched stream.
+on the card, then ``gn_step``) computes the same state and is the plain
+two-launch reference the loop kernels are held to.
 
 :func:`fused_point_align_batched` aligns B scans against one packed target
-with one launch of the batched kernel per Gauss-Newton iteration, in the
-resident loop of all B problems (``core.gn.batched_gauss_newton_device``).
+in one launch of the batched loop kernel (``gn_loop.point_loop_batched``),
+the counterpart of the JAX ``batched_gauss_newton`` around the batched
+packed-point stats; its two-launch reference is the resident loop of all B
+problems (``core.gn.batched_gauss_newton_device`` over
+:func:`fused_point_stats_packed_batched`).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
 from point_cloud_registration_tpu_torch.core.se3 import makeRt
+from point_cloud_registration_tpu_torch.models._fused import batch_on
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
     grid_cell_of,
@@ -171,22 +175,29 @@ def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
 def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | None, sources,
                               src_weights, init_Ts, cfg: ICPConfig | PlaneICPConfig,
                               kind: str = "point") -> tuple[torch.Tensor, GNDiagnostics]:
-    """Batched multi-scan ``align`` of ``kind`` against one packed target, one
-    launch of the batched point kernel per Gauss-Newton iteration
-    (``models/_point_fused.py::fused_point_align_batched`` of the JAX package).
+    """Batched multi-scan ``align`` of ``kind`` against one packed target, the
+    whole loop of the B problems in one launch of the batched loop kernel
+    (``gn_loop.point_loop_batched``; its plain version on the CPU) and one
+    read of the state (``models/_point_fused.py::fused_point_align_batched``
+    of the JAX package).
 
     ``sources`` (B, n, 3), ``src_weights`` (B, n) and ``init_Ts`` (B, 4, 4).
     Kind ``"plane_pt"`` takes the target that ``PlaneICP.set_target`` builds,
     whose packed slots carry the normals; ``normals``, the JAX function's
     operand for its fallback tiers, is not read: the kernel resolves every
     query itself. Returns ``(Ts (B, 4, 4), GNDiagnostics with leading dim
-    B)`` from the resident loop, as ``core.gn.batched_gauss_newton_device``.
+    B)``, as ``core.gn.batched_gauss_newton_device``.
     A grid target (no packed grid) raises ``ValueError``, as the JAX
     function needs a packed spec.
     """
     stats_all = fused_point_stats_packed_batched(target, sources, src_weights, cfg, kind)
+    src, w = batch_on(target.packed.pts_packed.device, sources, src_weights)
+    loop = functools.partial(gn_loop.point_loop_batched, kind, target.packed, target.proxy, src,
+                             w, max_dist=cfg.max_dist,
+                             proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
+                             huber_delta=cfg.huber_delta, tol=cfg.tol, max_iter=cfg.max_iter)
     return gn.batched_gauss_newton_device(stats_all, init_Ts, cfg.max_iter, cfg.tol,
-                                          target.packed.pts_packed.device)
+                                          target.packed.pts_packed.device, loop=loop)
 
 
 def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weights,
@@ -202,9 +213,7 @@ def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weigh
     if target.packed is None:
         raise ValueError("a grid target has no packed grid for the batched point kernel; "
                          "align its scans one by one")
-    dev = target.packed.pts_packed.device
-    src = torch.as_tensor(sources, dtype=torch.float32).to(dev).contiguous()
-    w = torch.as_tensor(src_weights, dtype=torch.float32).to(dev).contiguous()
+    src, w = batch_on(target.packed.pts_packed.device, sources, src_weights)
     radius = proxy_radius(cfg.corr, cfg.max_dist)
     return lambda poses, done=None: resident_stats(kind, target.packed, target.proxy, src, w,
                                                    cfg.max_dist, radius, cfg.huber_delta,

@@ -16,8 +16,9 @@ on the coreset.
   ``models/coreset.py``), from the per-point (J, r, w) of
   :func:`vplane_linearize` at phase 1's transform.
 * Phase 2 (:func:`_phase2_align`) is the GN loop over the ``N_target``
-  coreset within the remaining iteration budget; on a dense map each
-  iteration is one launch of the fused plane kernel on ``N_target`` rows.
+  coreset within the remaining iteration budget: the plain solver's align
+  again, one launch of the loop kernel (``fused_loop`` on a dense map,
+  ``grid_loop`` on a hashed one) over ``N_target`` rows.
 
 Phase 1 freezes T on its breaking step (the GN loop's contract) and the
 lift runs at that transform; because the coreset reproduces H and g exactly
@@ -31,14 +32,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics
 from point_cloud_registration_tpu_torch.core.se3 import makeRt, skew_time_vector, transform_points
-from point_cloud_registration_tpu_torch.models._fused import (
-    fused_voxel_align,
-    fused_voxel_stats_resident,
-)
+from point_cloud_registration_tpu_torch.models._fused import fused_voxel_align
 from point_cloud_registration_tpu_torch.models.base import Registration, pad_points
 from point_cloud_registration_tpu_torch.models.coreset import create_gn_set, fast_caratheodory
 from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import build_vplane_target
@@ -77,15 +74,16 @@ def _phase2_align(vm: VoxelMap, src_sub: torch.Tensor, w_sub: torch.Tensor, init
     from ``init_T``, for at most ``iters_left`` iterations (the JAX
     package's ``_phase2_align``, fast_vplane_icp.py:109-168).
 
-    Its stats are the plane stats of the coreset weighted by ``w_sub``
-    (``fused_voxel_stats_resident``): on a dense map one launch of the fused
-    plane kernel, which folds in the match and the ``dist < max_dist`` gate
-    as the JAX loop's ``w_sub * (w_lin > 0)`` does; on a hashed map one
-    launch of the hashed plane kernel. The loop is the resident one, on the coreset's device. The
-    histories have length ``iters_left``.
+    Its stats are the plane stats of the coreset weighted by ``w_sub``,
+    which fold in the match and the ``dist < max_dist`` gate as the JAX
+    loop's ``w_sub * (w_lin > 0)`` does. The whole loop is
+    ``fused_voxel_align``'s with ``max_iter = iters_left``: one launch of the
+    loop kernel (``gn_loop.fused_loop`` on a dense map, ``grid_loop`` on a
+    hashed one) and one read, on the coreset's device, as the JAX phase 2 is
+    one dispatch. The histories have length ``iters_left``.
     """
-    stats_fn = fused_voxel_stats_resident(vm, src_sub, w_sub, cfg, "plane")
-    return gn.gauss_newton_device(stats_fn, init_T, iters_left, cfg.tol, src_sub.device)
+    return fused_voxel_align(vm, src_sub, w_sub, init_T,
+                             dataclasses.replace(cfg, max_iter=iters_left), "plane")
 
 
 class FastVPlaneICP(Registration):

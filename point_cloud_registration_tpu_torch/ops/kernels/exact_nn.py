@@ -11,6 +11,8 @@ For CUDA tensors it launches the hand-written kernel ``csrc/exact_nn.cu``;
 for CPU tensors it runs the plain PyTorch version,
 :func:`exact_nn_reference` (``ops.knn.brute_force_nn``), which the tests and
 ``chip_smoke.py`` also call directly. There is no fallback between the two.
+The kernel's shape query and its launch run with the card of ``query``
+current.
 """
 
 from __future__ import annotations
@@ -88,9 +90,10 @@ def exact_nn(query: torch.Tensor, ref: torch.Tensor) -> tuple[torch.Tensor, torc
     segments, _ = launch_shape(nq, nr, query.device)  # segments that fill the card
     part_d2 = torch.empty((segments, nq), dtype=torch.float32, device=query.device)
     part_idx = torch.empty((segments, nq), dtype=torch.int32, device=query.device)
-    rc = fn(query.data_ptr(), nq, ref.data_ptr(), nr, segments, part_d2.data_ptr(),
-            part_idx.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(query.device).cuda_stream)
+    with torch.cuda.device(query.device):
+        rc = fn(query.data_ptr(), nq, ref.data_ptr(), nr, segments, part_d2.data_ptr(),
+                part_idx.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(query.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"exact_nn kernel launch failed: CUDA error {rc}")
     exact_nn.launches += 1

@@ -25,7 +25,9 @@ also call directly. There is no fallback between the two.
 own pose, against one map in one launch (the TPU kernel's ``per_tile``
 mode): (B, 29), row b equal to the single wrapper's stats of problem b.
 
-Every launch, single or batched, is one launch path: the kernel reads each
+Every launch runs with the card of its tensors current
+(``torch.cuda.device``), whatever the caller's current device. Every
+launch, single or batched, is one launch path: the kernel reads each
 problem's pose from (B, 12) pose rows on the card (B = 1 for a single
 problem; the wrappers copy their host pose there first), and each
 problem's block rows are summed in double precision, then rounded once to
@@ -335,14 +337,16 @@ def bound_launch(fn, args, partials: torch.Tensor, counter, what: str, operands:
     problem's (n_blocks, 29) partials summed into one float32 (B, 29)
     buffer that every call refills: in float32 as :func:`sum_partials` sums
     them, or, with ``sum_dtype`` float64, all problems' rows in one sum in
-    double precision, rounded once to float32. The launcher holds
-    ``operands``, the tensors whose pointers ``args`` carries."""
+    double precision, rounded once to float32. The launch runs with the
+    card of ``partials`` current. The launcher holds ``operands``, the
+    tensors whose pointers ``args`` carries."""
     out = torch.empty((partials.shape[0], STATS_WIDTH), dtype=torch.float32,
                       device=partials.device)
     acc = None if sum_dtype == torch.float32 else torch.empty_like(out, dtype=sum_dtype)
 
     def launch() -> torch.Tensor:
-        rc = fn(*args)
+        with torch.cuda.device(out.device):
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
         counter.launches += 1

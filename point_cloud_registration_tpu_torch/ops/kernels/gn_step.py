@@ -100,7 +100,7 @@ def gn_stepper(state: GNState, tol: float):
     """``step(stats, dx=None)``: :func:`gn_step` of ``state`` with ``tol``,
     the state's arguments bound once (the resident loop's step). CPU states
     take :func:`gn_step_reference`; CUDA states launch the kernel on the
-    stream current now."""
+    stream current now, with the state's card current."""
     dev = state.words.device
     if dev.type == "cpu":
         return lambda stats, dx=None: gn_step_reference(stats, state, tol, dx)
@@ -119,7 +119,8 @@ def gn_stepper(state: GNState, tol: float):
         if dx is not None and (dx.device != dev or dx.dtype != torch.float32
                                or tuple(dx.shape) != (B, 6) or not dx.is_contiguous()):
             raise ValueError(f"dx must be a contiguous float32 ({B}, 6) tensor on {dev}")
-        rc = fn(stats.data_ptr(), *bound, dx.data_ptr() if dx is not None else None, *tail)
+        with torch.cuda.device(dev):
+            rc = fn(stats.data_ptr(), *bound, dx.data_ptr() if dx is not None else None, *tail)
         if rc != 0:
             raise RuntimeError(f"gn_step kernel launch failed: CUDA error {rc}")
         gn_step.launches += 1

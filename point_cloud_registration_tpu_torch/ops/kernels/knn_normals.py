@@ -154,14 +154,17 @@ def box_groups_cuda(pg: PackedPointGrid, q: torch.Tensor, radius: int):
     wide = _box_key_space(pg, radius)[2] > _INT32_MAX
     stream = torch.cuda.current_stream(q.device).cuda_stream
     key = torch.empty(n, dtype=torch.int64 if wide else torch.int32, device=q.device)
-    rc = lib.pcr_knn_box_keys(
-        q.data_ptr(), n, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
-        float(inv_cell_f32(pg.cell_fine)), int(radius), int(wide), key.data_ptr(), stream)
+    with torch.cuda.device(q.device):
+        rc = lib.pcr_knn_box_keys(
+            q.data_ptr(), n, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
+            float(inv_cell_f32(pg.cell_fine)), int(radius), int(wide), key.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"knn_moments box-key kernel launch failed: CUDA error {rc}")
     skey, order = torch.sort(key, stable=True)
     flag = torch.empty(n, dtype=torch.bool, device=q.device)
-    rc = lib.pcr_knn_item_flags(skey.data_ptr(), int(wide), n, ITEM, flag.data_ptr(), stream)
+    with torch.cuda.device(q.device):
+        rc = lib.pcr_knn_item_flags(skey.data_ptr(), int(wide), n, ITEM, flag.data_ptr(),
+                                    stream)
     if rc != 0:
         raise RuntimeError(f"knn_moments item-flag kernel launch failed: CUDA error {rc}")
     return order, torch.nonzero(flag)[:, 0]
@@ -268,16 +271,19 @@ def launch_moments(pg: PackedPointGrid, q, w, k: int, radius: int, order, starts
     """Launch the kernel on checked operands: the queries grouped as
     ``(order, starts)`` by :func:`box_groups_cuda`, ``out`` (10, N) float32.
     Apart from :func:`knn_moments`, the measurement scripts call it to time
-    the kernel without its grouping."""
-    rc = _library().pcr_knn_moments(
-        pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
-        pg.row_over.data_ptr(), pg.cap, pg.width, *(int(d) for d in pg.nb_dims),
-        *(int(o) for o in pg.origin_fine), float(inv_cell_f32(pg.cell_fine)),
-        float(exact_d2_f32(radius, pg.cell_fine)), int(radius), int(k),
-        q.data_ptr(), w.data_ptr(), q.shape[0],
-        order.data_ptr(), starts.data_ptr(), starts.shape[0],
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    the kernel without its grouping. It runs with the card of ``q`` current
+    (the kernel's shared-memory limit is set there)."""
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.pcr_knn_moments(
+            pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
+            pg.row_over.data_ptr(), pg.cap, pg.width, *(int(d) for d in pg.nb_dims),
+            *(int(o) for o in pg.origin_fine), float(inv_cell_f32(pg.cell_fine)),
+            float(exact_d2_f32(radius, pg.cell_fine)), int(radius), int(k),
+            q.data_ptr(), w.data_ptr(), q.shape[0],
+            order.data_ptr(), starts.data_ptr(), starts.shape[0],
+            out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     if rc < 0:
         raise ValueError(f"knn_moments: {_REFUSED.get(rc, rc)}")
     if rc != 0:

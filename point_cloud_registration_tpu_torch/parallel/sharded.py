@@ -17,9 +17,9 @@
   results gathered over ``batch`` at the end.
 * **the fused batched streams** (:func:`align_batched_fused_sharded`):
   problems over the ranks, each rank running the batched align of
-  ``models/_fused.py`` / ``_point_fused.py`` on its own problems in the
-  resident loop on its card; no collective in the loop, one gather at the
-  end.
+  ``models/_fused.py`` / ``_point_fused.py`` on its own problems, one
+  launch of the batched loop kernel on its card; no collective in the loop,
+  one gather at the end.
 
 The arguments are the global arrays, as in JAX; each rank takes its part.
 The target map is replicated: every rank builds or holds it on its compute
@@ -194,9 +194,9 @@ def align_batched_fused_sharded(target, normals, sources, src_weights, init_Ts, 
     ``normals`` ignored) and ``models._point_fused.fused_point_align_batched``
     (``"point"`` / ``"plane_pt"``: ``target`` a packed
     ``PointCorrTarget``, ``normals`` its normal field or None). Each rank
-    runs the whole batched align, one launch per iteration in the resident
-    loop, on its own problems: no collective in the loop, one gather at the
-    end.
+    runs the whole batched align on its own problems, one launch of the
+    batched loop kernel (``ops/kernels/gn_loop``): no collective in the
+    loop, one gather at the end.
 
     ``sources`` (B, n, 3) / ``src_weights`` (B, n) / ``init_Ts`` (B, 4, 4).
     When B divides the whole mesh (batch x data), problems go over every

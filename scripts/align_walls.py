@@ -36,12 +36,13 @@ instead times every path's warm align at each of the listed chunk lengths,
 in ``--reps`` rounds: every length once per round, the order rotating from
 round to round; it prints the min and median wall of each length.
 
-Then each single-problem path in turns (``TURNS``: VPlaneICP and NDT on
-the dense map, ICP and PlaneICP on the packed grid, the grid and hashed
-paths), ``--reps`` rounds of two aligns: the tree's own align (one launch
-of a loop kernel, ``ops/kernels/gn_loop``, where the tree has one for the
-path) and the two-launch resident loop (``core.gn.gauss_newton_device``
-without its ``loop``), the order swapped every round; for each the walls,
+Then each path in turns (``TURNS``: VPlaneICP and NDT on the dense map,
+ICP and PlaneICP on the packed grid, the grid and hashed paths, the
+batched VPlaneICP and ICP streams), ``--reps`` rounds of two aligns: the
+tree's own align (one launch of a loop kernel, ``ops/kernels/gn_loop``,
+where the tree has one for the path) and the two-launch resident loop
+(``core.gn.gauss_newton_device`` and ``batched_gauss_newton_device``
+without their ``loop``), the order swapped every round; for each the walls,
 the device time and busy share and the syncs, as rows
 ``<path>_align_turn`` and ``<path>_two_launch_turn``.
 """
@@ -65,7 +66,7 @@ TILE_SHIFT = np.float32([3000.0, 3000.0, 0.0])  # chip_smoke.py phase 10
 PARAMS = dict(max_iter=30, max_dist=2.0, tol=1e-3)
 # the paths timed in turns through their own align and the two-launch loop
 TURNS = ("vplane_icp", "ndt", "icp", "plane_icp", "icp_grid", "plane_icp_grid",
-         "vplane_icp_hashed", "ndt_hashed")
+         "vplane_icp_hashed", "ndt_hashed", "batched_vplane_icp", "batched_icp")
 
 
 def device_ms(fn) -> tuple[float, int]:
@@ -144,20 +145,21 @@ def grid_kernel_ms(s, kind: str, scan_t, reps: int) -> dict:
 
 
 def two_launch(run):
-    """``run()`` with ``core.gn.gauss_newton_device`` taking no whole-loop
-    ``loop``: every align in it runs the two-launch resident loop."""
+    """``run()`` with ``core.gn.gauss_newton_device`` and
+    ``batched_gauss_newton_device`` taking no whole-loop ``loop``: every
+    align in it runs the two-launch resident loop."""
     from point_cloud_registration_tpu_torch.core import gn
 
-    device = gn.gauss_newton_device
+    devices = gn.gauss_newton_device, gn.batched_gauss_newton_device
 
-    def stripped(*args, loop=None, **kwargs):
-        return device(*args, **kwargs)
+    def stripped(device):
+        return lambda *args, loop=None, **kwargs: device(*args, **kwargs)
 
-    gn.gauss_newton_device = stripped
+    gn.gauss_newton_device, gn.batched_gauss_newton_device = map(stripped, devices)
     try:
         return run()
     finally:
-        gn.gauss_newton_device = device
+        gn.gauss_newton_device, gn.batched_gauss_newton_device = devices
 
 
 def sweep_chunks(paths: dict, chunks: list, args) -> dict:

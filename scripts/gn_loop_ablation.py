@@ -31,14 +31,16 @@ from T = I, for kinds plane and ndt:
 
 With ``--parent DIR`` (the ``csrc`` directory of another tree, e.g. the
 parent commit unpacked by ``git archive``), its ``fused_align.cu``,
-``gn_step.cu``, ``gn_loop.cu``, ``point_align.cu`` and ``grid_align.cu``
-are built beside this tree's (the same flags, one nvcc each, all started
-together) and compared: each kernel's ptxas registers, stack and spills;
-the stats kernels' block rows at T = I (the fused kinds on the city map,
-ICP and PlaneICP on the city map's packed grid, the four grid kinds on the
-data of ``chip_smoke.py`` phases 9 and 10), ``gn_step``'s state and the
-loop kernel's final state (VPlaneICP and NDT) bit for bit; each kernel
-alone by the profiler in turns (parent, this tree, this tree, parent).
+``gn_step.cu``, ``gn_loop.cu``, ``point_align.cu``, ``grid_align.cu`` and
+``point_loop.cu`` are built beside this tree's (the same flags, one nvcc
+each, all started together) and compared: each kernel's ptxas registers,
+stack and spills; the stats kernels' block rows at T = I (the fused kinds
+on the city map, ICP and PlaneICP on the city map's packed grid, the four
+grid kinds on the data of ``chip_smoke.py`` phases 9 and 10), ``gn_step``'s
+state and the single-problem loop kernels' final states (VPlaneICP and NDT
+on the city map; ICP and PlaneICP on its packed grid) bit for bit; each
+kernel alone by the profiler in turns (parent, this tree, this tree,
+parent).
 Prints the card's name and power limit first; with ``--out-dir`` it writes
 the numbers to ``DIR/gn_loop_ablation.json``.
 """
@@ -77,7 +79,8 @@ from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
 # the sources that --parent builds from both trees
-PARENT_SOURCES = ("fused_align", "gn_step", "gn_loop", "point_align", "grid_align")
+PARENT_SOURCES = ("fused_align", "gn_step", "gn_loop", "point_align", "grid_align",
+                  "point_loop")
 SYNCS = 2000
 ONE_CTA = "constexpr bool kRedundant = false;"
 # A cooperative kernel of the loop kernel's launch shape that only syncs.
@@ -429,7 +432,9 @@ def compare_parent_stats(libs: dict, map_t, scan_t, dev) -> dict:
     PlaneICP on the city map) and grid_align.cu (ICP and PlaneICP on the
     40k LiDAR target, VPlaneICP and NDT on the two-tile hashed map of
     chip_smoke.py phases 9 and 10): each kernel's block rows at T = I bit
-    for bit and its time alone in turns."""
+    for bit and its time alone in turns; then point_loop.cu's single-problem
+    loop kernel (ICP and PlaneICP on the city map from T = I): the final
+    states bit for bit and the time alone in turns."""
     from bench import make_lidar_map
 
     from point_cloud_registration_tpu_torch.models import _fused, _point_fused
@@ -445,11 +450,12 @@ def compare_parent_stats(libs: dict, map_t, scan_t, dev) -> dict:
     small_src, small_w = pad_points(torch.from_numpy(make_scan(rng, small.cpu().numpy(),
                                                                10_000)).to(dev), device=dev)
     two = torch.cat([map_t, map_t + torch.tensor([3000.0, 3000.0, 0.0], device=dev)])
-    cases = {}
+    cases, loops = {}, {}
     for kind, s in (("point", pt.ICP(**P, device=dev)), ("plane_pt", pt.PlaneICP(**P, device=dev))):
         s.set_target(map_t)
         tg = getattr(s._target, "corr", s._target)
         radius = proxy_radius(s.cfg.corr, s.cfg.max_dist)
+        loops[kind] = (s.cfg, tg, radius)
         cases[f"point_stats {kind}"] = ("point_align", "point_stats_kernel", lambda lib, tg=tg,
                                         s=s, kind=kind, radius=radius: pa.partials_args(
             pa._bind(lib, kind), tg.packed, tg.proxy, src[None], w[None], pose, None,
@@ -492,6 +498,30 @@ def compare_parent_stats(libs: dict, map_t, scan_t, dev) -> dict:
         print(f"[{case}] at T = I, parent / this tree: block rows bit-equal {equal}; alone "
               f"(profiler) {alone} ms", flush=True)
         out[case] = {"rows_equal": equal, "alone_ms": alone}
+    eye = torch.eye(4)
+    for kind, (cfg, tg, radius) in loops.items():
+        settings = dict(max_dist=cfg.max_dist, proxy_radius=radius, huber_delta=cfg.huber_delta,
+                        tol=cfg.tol, max_iter=cfg.max_iter)
+        init = gn.new_state(eye[None], cfg.max_iter, dev)
+        runs, finals = {}, {}
+        for tree in ("parent", "this"):
+            state = gn.new_state(eye[None], cfg.max_iter, dev)
+            launch = gl.point_looper(kind, tg.packed, tg.proxy, src, w, state, **settings,
+                                     bound=gl.bind_point(libs[f"{tree} point_loop"], kind))
+
+            def once(state=state, launch=launch):
+                state.words.copy_(init.words)
+                launch()
+
+            once()
+            finals[tree] = gn.read_state(state).words
+            runs[tree] = once
+        equal = torch.equal(finals["parent"], finals["this"])
+        alone = turns(runs, ("parent", "this", "this", "parent"),
+                      lambda f: device_ms(f, 20, "gn_loop_kernel"))
+        print(f"[point_loop {kind}] loop kernel from T = I, parent / this tree: final states "
+              f"bit-equal {equal}; alone (profiler) {alone} ms", flush=True)
+        out[f"point_loop {kind}"] = {"state_equal": equal, "alone_ms": alone}
     return out
 
 

@@ -24,6 +24,7 @@ import torch
 from point_cloud_registration_tpu.ops import eigh3 as jeigh3
 from point_cloud_registration_tpu.ops import reduce as jreduce
 from point_cloud_registration_tpu_torch import ops as tops
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JAX_PKG = Path(__file__).resolve().parents[1] / "point_cloud_registration_tpu"
 SUBPACKAGES = ("ops", "models", "core", "parallel", "utils")

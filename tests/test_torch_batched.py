@@ -65,6 +65,7 @@ from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import build_
 from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 from oracles import make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL_T = 1e-5  # batched vs JAX, and vs the port's single aligns (equal on the CPU)
 # NDT against the JAX class: its CPU path takes the icov form and the port the

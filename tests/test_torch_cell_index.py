@@ -38,6 +38,7 @@ from point_cloud_registration_tpu_torch.ops.knn import (
 )
 from point_cloud_registration_tpu_torch.ops.voxelize import build_voxel_map
 from oracles import make_scan, make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 F32 = np.float32
 

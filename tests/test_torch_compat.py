@@ -19,6 +19,7 @@ from point_cloud_registration_tpu.compat import NeighborIndex as JaxNeighborInde
 from point_cloud_registration_tpu.compat import VoxelGrid as JaxVoxelGrid
 from point_cloud_registration_tpu_torch import KDTree, NeighborIndex, VoxelGrid
 from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import point_cloud_registration_tpu.core.gn as jgn
 import point_cloud_registration_tpu.core.se3 as jse3
 import point_cloud_registration_tpu_torch.core.gn as tgn
 import point_cloud_registration_tpu_torch.core.se3 as tse3
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ATOL_ELEM = 1e-6
 ATOL_CHAIN = 1e-5

@@ -29,6 +29,7 @@ import torch
 import point_cloud_registration_tpu as jpcr
 from point_cloud_registration_tpu.ops.normals import estimate_normals as jax_estimate_normals
 from point_cloud_registration_tpu_torch.utils import write_pcd
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DEMOS = Path(__file__).resolve().parents[1] / "demos"
 N_SCENE = 16_000

@@ -19,6 +19,7 @@ from point_cloud_registration_tpu.ops.knn import brute_force_nn as jax_brute_for
 from point_cloud_registration_tpu.ops.pallas.exact_nn import exact_nn_pallas
 from point_cloud_registration_tpu_torch.ops.kernels.exact_nn import exact_nn, exact_nn_reference
 from point_cloud_registration_tpu_torch.ops.knn import brute_force_knn, brute_force_nn
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _clouds(nq, nr, seed):

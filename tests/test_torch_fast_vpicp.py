@@ -36,6 +36,7 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import fused_pla
 from point_cloud_registration_tpu_torch.ops.kernels.fused_align import stats_from_packed
 from point_cloud_registration_tpu_torch.utils.convert import voxel_map_from_numpy
 from oracles import make_scan, make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
 T_PERTURBED = [0.03, -0.02, 0.05, 0.004, -0.003, 0.002]

@@ -42,6 +42,7 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
 )
 from point_cloud_registration_tpu_torch.utils.convert import voxel_map_from_numpy
 from oracles import plus_np, vplane_stats_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 

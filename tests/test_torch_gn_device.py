@@ -31,6 +31,7 @@ from point_cloud_registration_tpu_torch.core.gn import GNStats, packed_from_stat
 from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
 from oracles import make_scan, make_scene
 from test_torch_batched import GN_MAX_ITER, GN_TOL, GN_WEIGHT, _gn_problems, _gn_stats_jax, _gn_stats_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL_SOLVE = 1e-5
 TOL_PLUS = 1e-6

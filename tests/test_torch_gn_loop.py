@@ -46,6 +46,7 @@ from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops import voxelize
 from oracles import make_scan, make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
 TOL_JAX = 1e-3

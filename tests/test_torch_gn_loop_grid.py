@@ -25,6 +25,7 @@ from test_torch_gn_loop_point import (
     check_matches_jax,
     check_two_launch,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PATHS = ALL_PATHS[2:]
 

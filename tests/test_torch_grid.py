@@ -26,6 +26,7 @@ from point_cloud_registration_tpu_torch.utils.convert import (
     grid_from_numpy,
 )
 from oracles import knn_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # The float32/float64 boundary case of tests/test_boundary_guard.py: x / cell
 # lies within an ulp of an integer.

@@ -68,6 +68,7 @@ from point_cloud_registration_tpu_torch.ops.kernels import _build
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 from point_cloud_registration_tpu_torch.ops.voxelize import build_voxel_map, query_nearest_voxel
 from point_cloud_registration_tpu_torch.utils.convert import buckets_from_numpy, grid_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 CELL = 1.0  # the grid method's max_dist / 2, and the voxel size

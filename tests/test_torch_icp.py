@@ -57,6 +57,7 @@ from oracles import (
     plus_np,
     transform_np,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 PACKED = dict(method="packed")

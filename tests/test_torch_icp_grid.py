@@ -33,6 +33,7 @@ from point_cloud_registration_tpu_torch.models._point_corr import build_point_co
 from point_cloud_registration_tpu_torch.models.icp import icp_stats
 from point_cloud_registration_tpu_torch.ops.normals import estimate_normals
 from oracles import icp_stats_np, make_scan, make_scene, plane_stats_np, plus_np, transform_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 PARAMS = dict(max_iter=30, max_dist=MAX_DIST, tol=1e-3)

@@ -51,6 +51,7 @@ from point_cloud_registration_tpu_torch.parallel import (
 from point_cloud_registration_tpu_torch.parallel.mesh import axes_rank
 from oracles import make_scan, make_scene
 from test_torch_parallel import WORKER_ENV, put, rank_main, spawn_ranks
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 TOL_PLAIN = {"z": 1e-5, "auto": 5e-5}  # vs the whole-map plain stats
 TOL_SINGLE = 5e-5  # vs the port's single align

@@ -52,6 +52,7 @@ from point_cloud_registration_tpu_torch.ops.voxelize import (
 )
 from point_cloud_registration_tpu_torch.utils.convert import ndt_map_from_numpy
 from oracles import gn_align_np, make_scan, make_scene, ndt_stats_np, plus_np, voxel_map_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=MAX_DIST, tol=1e-3)

@@ -38,6 +38,7 @@ from point_cloud_registration_tpu_torch.ops.eigh3 import eigh_sym3
 from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
 from point_cloud_registration_tpu_torch.ops.knn import FOUND_MAX, brute_force_knn
 from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid, knn_packed
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 K = 15
 REL = 1e-5

@@ -64,6 +64,7 @@ from point_cloud_registration_tpu_torch.parallel import (
     make_mesh,
 )
 from oracles import make_scan, make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 WORKER_ENV = "PCR_TORCH_RANK"
 RANK_TIMEOUT_S = 120

@@ -43,6 +43,7 @@ from point_cloud_registration_tpu_torch.ops.kernels.point_align import (
 )
 from point_cloud_registration_tpu_torch.utils.convert import plane_icp_target_from_numpy
 from oracles import gn_align_np, make_scan, make_scene, plane_stats_np, plus_np, transform_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_DIST = 2.0
 PACKED = dict(method="packed")

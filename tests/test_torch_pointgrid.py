@@ -36,6 +36,7 @@ from point_cloud_registration_tpu_torch.ops.pointgrid import (
 )
 from point_cloud_registration_tpu_torch.utils.convert import packed_grid_from_numpy
 from oracles import make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CELL_FINE = 0.5
 CAP = 32

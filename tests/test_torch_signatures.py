@@ -39,6 +39,7 @@ from point_cloud_registration_tpu_torch.ops import hashgrid as tgrid
 from point_cloud_registration_tpu_torch.ops import knn as tknn
 from point_cloud_registration_tpu_torch.ops import normals as tnormals
 from point_cloud_registration_tpu_torch.ops import voxelize as tvox
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 JAX_PKG = Path(__file__).resolve().parents[1] / "point_cloud_registration_tpu"
 SUBPACKAGES = ("", "ops", "models", "core", "parallel", "utils")

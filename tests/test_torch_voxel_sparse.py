@@ -38,6 +38,7 @@ from point_cloud_registration_tpu_torch.utils.convert import (
     hashed_voxel_map_from_numpy,
 )
 from oracles import make_scan, make_scene, voxel_stats_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
 DX = np.array([0.05, -0.04, 0.1, 0.01, -0.015, 0.02])

@@ -22,6 +22,7 @@ import point_cloud_registration_tpu_torch.ops.eigh3 as teig
 import point_cloud_registration_tpu_torch.ops.hashgrid as tgrid
 import point_cloud_registration_tpu_torch.ops.voxelize as tvox
 from oracles import make_scene
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _blobs():

@@ -25,6 +25,7 @@ from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
 from point_cloud_registration_tpu_torch.models import pad_points, vplane_align
 from point_cloud_registration_tpu_torch.utils.convert import voxel_map_from_numpy
 from oracles import gn_align_np, make_scan, make_scene, voxel_map_np, vplane_stats_np
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 PARAMS = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3)
 
