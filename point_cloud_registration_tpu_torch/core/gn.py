@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from point_cloud_registration_tpu_torch.core.se3 import plus
+from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 # Iterations enqueued between two reads of the resident state. Measured on
 # an H100 (PERF.md, scripts/align_walls.py --chunks): a larger chunk saves reads
@@ -387,25 +388,34 @@ def enqueued_iterations(iterations: int, max_iter: int) -> int:
 def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, device,
                   loop: Callable[[GNState], None] | None = None):
     """The resident loop of B problems -> their final state, on the host;
-    with ``loop``, that one call runs the whole loop, then one read."""
+    with ``loop``, that one call runs the whole loop, then one read. Under a
+    profiler the state's making, the loop's bind and its launch (or a
+    chunk's enqueue) are the span ``pcr.gn.setup``, each read with its wait
+    for the card ``pcr.gn.read``."""
     # The step's wrapper stands on this module (the state, the solve), so it
     # is imported when a loop runs.
     from point_cloud_registration_tpu_torch.ops.kernels.gn_step import gn_stepper
 
     if max_iter <= 0:
         return new_state(init_Ts, max_iter, "cpu")
-    state = new_state(init_Ts, max_iter, device)
+    with span("pcr.gn.setup"):
+        state = new_state(init_Ts, max_iter, device)
+        if loop is not None:
+            loop(state)
+        else:
+            stats, step = stats_fn(state.poses, state.done), gn_stepper(state, tol)
     if loop is not None:
-        loop(state)
-        return read_state(state)
-    stats, step = stats_fn(state.poses, state.done), gn_stepper(state, tol)
+        with span("pcr.gn.read"):
+            return read_state(state)
     enqueued = 0
     while True:
         n = min(GN_CHUNK, max_iter - enqueued)
-        for _ in range(n):
-            step(stats())
+        with span("pcr.gn.setup"):
+            for _ in range(n):
+                step(stats())
         enqueued += n
-        host = read_state(state)  # the one read of the chunk
+        with span("pcr.gn.read"):
+            host = read_state(state)  # the one read of the chunk
         if enqueued >= max_iter or bool(host.done.all()):
             return host
 

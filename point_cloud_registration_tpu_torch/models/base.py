@@ -16,6 +16,7 @@ import torch
 
 from point_cloud_registration_tpu_torch.core.device import default_device, resolve_device
 from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics
+from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 
 __all__ = ["AlignResult", "Registration", "default_device", "pad_points"]
@@ -81,21 +82,25 @@ class Registration:
 
         Signature and semantics of registration.py:71-112; the per-iteration
         error trace is in ``self.last_diagnostics`` (``verbose`` prints it).
+        Under a profiler the call is the span ``pcr.align``, the scan's
+        copy and padding ``pcr.align.upload``.
         """
         if not self.is_target_set():
             raise ValueError("Target is not set.")
         if init_T is None:
             init_T = np.eye(4)
-        src, w = pad_points(source, device=self.device)
-        result = self._align_fn(
-            self._target, src, w, torch.as_tensor(init_T, dtype=torch.float32)
-        )
-        self.last_diagnostics = result.diagnostics
-        if verbose:
-            d = self.last_diagnostics
-            for i in range(d.iterations):
-                print(f"iter {i}, error {float(d.e2_history[i])}")
-        return result.T.numpy().astype(np.float64)
+        with span("pcr.align"):
+            with span("pcr.align.upload"):
+                src, w = pad_points(source, device=self.device)
+            result = self._align_fn(
+                self._target, src, w, torch.as_tensor(init_T, dtype=torch.float32)
+            )
+            self.last_diagnostics = result.diagnostics
+            if verbose:
+                d = self.last_diagnostics
+                for i in range(d.iterations):
+                    print(f"iter {i}, error {float(d.e2_history[i])}")
+            return result.T.numpy().astype(np.float64)
 
     def calc_H_g_e2(self, cur_T, source):
         """One linearization at ``cur_T`` -> (H, g, e2) as NumPy float64."""

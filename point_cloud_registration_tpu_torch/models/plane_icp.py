@@ -33,6 +33,7 @@ from point_cloud_registration_tpu_torch.models._point_fused import (
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
 from point_cloud_registration_tpu_torch.ops.normals import estimate_normals
+from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 __all__ = ["PlaneICP", "PlaneICPTarget", "build_plane_icp_target", "plane_icp_align",
            "plane_icp_stats"]
@@ -49,14 +50,19 @@ def build_plane_icp_target(points, cfg: PlaneICPConfig, *, normals=None,
                            device=None) -> PlaneICPTarget:
     """Index the target and (unless ``normals`` is given) estimate its
     normals (``PlaneICP.set_target``, plane_icp.py:19-28). The proxy tier
-    serves voxel planes, so its voxels need at least 3 points."""
+    serves voxel planes, so its voxels need at least 3 points. Under a
+    profiler the map's copy, the normals and the index are the spans
+    ``pcr.build.upload``, ``pcr.build.normals`` and ``pcr.build.index``."""
     device = resolve_device(points, device)
-    points = torch.as_tensor(points).to(device=device, dtype=torch.float32)
-    if normals is None:
-        normals = estimate_normals(points, k=cfg.k)
-    normals = torch.as_tensor(normals).to(device=device, dtype=torch.float32)
-    corr = build_point_corr(points, cfg.corr, cfg.max_dist, proxy_min_points=3,
-                            proxy_normals=True, feats=normals)
+    with span("pcr.build.upload"):
+        points = torch.as_tensor(points).to(device=device, dtype=torch.float32)
+    with span("pcr.build.normals"):
+        if normals is None:
+            normals = estimate_normals(points, k=cfg.k)
+        normals = torch.as_tensor(normals).to(device=device, dtype=torch.float32)
+    with span("pcr.build.index"):
+        corr = build_point_corr(points, cfg.corr, cfg.max_dist, proxy_min_points=3,
+                                proxy_normals=True, feats=normals)
     return PlaneICPTarget(corr=corr, normals=normals)
 
 
@@ -97,8 +103,9 @@ class PlaneICP(Registration):
         unused: the grid index is rebuilt on the device. ``norm`` injects
         precomputed normals and skips their estimation."""
         del kdree
-        self._target = build_plane_icp_target(target, self.cfg, normals=norm,
-                                              device=self.device)
+        with span("pcr.set_target"):
+            self._target = build_plane_icp_target(target, self.cfg, normals=norm,
+                                                  device=self.device)
         self.normal = self._target.normals  # attribute parity (plane_icp.py:23)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:

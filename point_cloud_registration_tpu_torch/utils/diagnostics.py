@@ -7,6 +7,19 @@ span from the phase's first launch to its last, which the end event's
 synchronize fences), on the CPU by the host clock, where the work is
 synchronous. :func:`profiler_trace` writes a ``torch.profiler`` trace
 (Chrome trace JSON, viewable in Perfetto) of a block of work.
+
+The program marks its phases with :func:`span`: ``pcr.align`` (with
+``pcr.align.upload``, ``pcr.gn.setup`` and ``pcr.gn.read`` inside it) and
+``pcr.set_target`` (PlaneICP's with ``pcr.build.upload``,
+``pcr.build.normals`` and ``pcr.build.index``, VPlaneICP's with
+``pcr.build.index``). So::
+
+    with profiler_trace("trace_dir"):
+        solver.align(scan)
+
+writes the ``pcr.*`` spans beside the kernels, copies and CUDA runtime calls
+that each phase issued. With no profiler running a span costs one read of the
+profiler's flag; it never synchronizes.
 """
 
 from __future__ import annotations
@@ -18,7 +31,11 @@ from collections import defaultdict
 
 import torch
 
+from torch.autograd import profiler as _autograd_profiler
+
 from point_cloud_registration_tpu_torch.core.device import resolve_device
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class PhaseTimer:
@@ -79,11 +96,28 @@ class PhaseTimer:
         return dict(self.totals)
 
 
+def span(name: str):
+    """A profiler range ``name`` while a torch profiler records, else one
+    shared no-op context: one flag read when no profiler runs. The range
+    takes the host's wall between its ends and waits for nothing on the
+    card.
+
+    The range is of function scope, as an operator's: the profiler mirrors
+    a user-scope range (``record_function``) on the card's timeline, and a
+    reader of the trace's device events would take the mirror for device
+    work."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (the CPU and, when there is
     one, the card) and write ``<log_dir>/trace.json``; yields the profiler,
-    whose ``key_averages()`` tables the device times."""
+    whose ``key_averages()`` tables the device times. The trace holds the
+    program's ``pcr.*`` spans (:func:`span`) beside the kernels and copies,
+    for Perfetto: ``with profiler_trace(dir): solver.align(scan)``."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
