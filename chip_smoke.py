@@ -120,6 +120,26 @@ After PlaneICP:
    the k-NN and plane_pt kernels, converged near the scan's offset (there is
    no JAX reference at this k and size).
 
+6c. The normals chain (``ops/kernels/normals_chain.py``) on phase 6's map
+   and on a map of the benchmark's ``plane_icp_b01`` cells, at k = 5, 15
+   and 40: each step against its plain version on the card, bit for bit
+   (the sampler's cell size; the base tier's planar launch against
+   ``knn_moments``; the lists of the wide tier and of the fallback against
+   ``torch.nonzero(...)[:cap]``; the wide tier written into the planar
+   outputs against gathered queries and an ``index_put``; the normals
+   against ``smallest_eigvec_sym3``; the fallback's normals against its
+   search in PyTorch, a differing point allowed only where its k + 1 nearest
+   distances hold a tie); the whole ``estimate_normals`` against its code
+   before the chain (``parent_normals``): cell size, certificate, tier
+   counts and normals; each wrapper launched once a call; the host's waits
+   by ``torch.cuda.set_sync_debug_mode``; the times of both versions and of
+   each kernel of a call alone. Then the shapes off the main path
+   (``chain_edge_cases``): the sampler by each of its ways, at k above the
+   tiles' 32, with more queries than 8,192 and with k above the references,
+   cell size bit-equal; the fallback at k = 7, 33, 63, 64, 100 and 200 on
+   3,000 points, bit-equal below k = 64 but where a tie is counted, and from
+   64 within ``FALLBACK_TOL``.
+
 7. Exact 1-NN: the kernel against its plain version on 4,096 scan points at
    ICP's converged T against the whole map (distance and index equal), and
    as the oracle of the packed grid: every such query that
@@ -377,7 +397,30 @@ T_REF_PLANE_ICP = np.array([
 ])
 K_NORMALS = 15
 K_ROUNDS = 40  # above knn_normals.ROUND_K: the k-NN kernel selects in rounds
+K_CHAIN = (5, 15, 40)  # phase 6c: the k of the normals chain's checks (5: the benchmark's)
+# the wrappers of ops/kernels/normals_chain.py, each launched once an estimate_normals
+CHAIN_STEPS = ("sampled_median", "tail_lists", "eig_normals", "fallback_normals")
+# their rows of the kernels line: phase 6c's step, the wrapper, the JAX code
+# that the step's plain version ports, the profiler's names of its kernels
+CHAIN_ROWS = (
+    ("sample", "sampled_median", "point_cloud_registration_tpu/ops/normals.py:64",
+     ("sample_", "median_kernel")),
+    ("tails", "tail_lists", "point_cloud_registration_tpu/ops/normals.py:303",
+     ("tails_mark",)),
+    ("eig", "eig_normals", "point_cloud_registration_tpu/ops/eigh3.py:167", ("eig_kernel",)),
+    ("fallback", "fallback_normals", "point_cloud_registration_tpu/ops/normals.py:330",
+     ("fallback_kernel",)),
+)
 K_DEEP = (80, 100)  # two and three rounds, checked kernel against plain
+# phase 6c's fallback off the main path: each side of ATen's changes of
+# schedule (a warp's lanes to 63; from 64 more lanes under 16 points; from
+# 128 vector loads; from 256 the mean across warps), on more points than the
+# plain version's chunk of 2,048
+K_FALLBACK = (7, 33, 63, 64, 100, 200)
+N_FALLBACK = 3000
+# From k = 64 the fallback's sums keep their own order: its normals against
+# the plain version's, 1 - |n . n_plain| on points with no tie
+FALLBACK_TOL = 1e-5
 # cov6 of kernel vs plain: float32 sums of up to ~50 products in another
 # order, relative to the query's largest covariance entry
 TOL_COV = 1e-5
@@ -737,14 +780,18 @@ def knn_tier_stats(tag: str, pg, q, radius: int, selected: float) -> dict:
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
 
     n = q.shape[0]
-    order, starts = kn.box_groups_cuda(pg, q, radius)
-    # the grouping's two kernels against its plain version, with int32 keys and, as
-    # for a grid of so many blocks that int32 cannot hold a box key, with int64 keys
+    # the grouping's kernels against its plain version, with int32 keys and, as
+    # for a grid of so many blocks that int32 cannot hold a box key, with int64
+    # keys; the items' starts up to their count, which stays on the card
     vast = pg._replace(nb_dims=(1 << 12, 1 << 12, 1 << 11))
-    for grid, got in ((pg, (order, starts)), (vast, kn.box_groups_cuda(vast, q, radius))):
-        if not all(torch.equal(a, b) for a, b in zip(got, kn.box_groups(grid, q, radius))):
+    for grid in (pg, vast):
+        order, starts, ctl = kn.box_groups_cuda(grid, q, radius)
+        got = (order, starts[:int(ctl[0])])
+        if not (all(torch.equal(a, b) for a, b in zip(got, kn.box_groups(grid, q, radius)))
+                and ctl[1:].tolist() == [0, 0]):
             raise AssertionError(f"{tag} r = {radius}: box_groups_cuda disagrees with box_groups")
-    n_items = starts.shape[0]
+    order, starts, ctl = kn.box_groups_cuda(pg, q, radius)
+    n_items = int(ctl[0])
     n_boxes = torch.unique(kn._box_start(pg, q, radius), dim=0).shape[0]
     group_ms = cuda_ms(lambda: kn.box_groups_cuda(pg, q, radius), 10)
     group_plain_ms = cuda_ms(lambda: kn.box_groups(pg, q, radius), 10)
@@ -815,6 +862,7 @@ def all_kernels() -> list:
     from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
     from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+    from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
     from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
@@ -826,7 +874,8 @@ def all_kernels() -> list:
             pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
             ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
             ga.hashed_ndt_stats, gl.fused_loop, gl.point_loop, gl.grid_loop,
-            gl.fused_loop_batched, gl.point_loop_batched]
+            gl.fused_loop_batched, gl.point_loop_batched, nc.sampled_median, nc.tail_lists,
+            nc.eig_normals, nc.fallback_normals]
 
 
 def reset_launches() -> None:
@@ -2142,6 +2191,9 @@ def run_normals(map_t, dev) -> tuple:
     tiers = 1 + (info["n_wide"] > 0)
     if launches != tiers:
         raise AssertionError(f"{tag} knn_moments launched {launches} times for {tiers} tiers")
+    chain_launches = {key: counts[key] for key in CHAIN_STEPS}
+    if chain_launches != dict.fromkeys(CHAIN_STEPS, 1):
+        raise AssertionError(f"{tag} a step of the normals chain did not launch once")
     if normals.shape != (n, 3) or not torch.isfinite(normals).all():
         raise AssertionError(f"{tag} normals are not finite (N, 3)")
     unit = float((normals.norm(dim=1) - 1).abs().max())
@@ -2236,6 +2288,7 @@ def run_normals(map_t, dev) -> tuple:
         "kernel_ms": [base_ms, base_ms_2], "plain_ms": [plain_ms], "launches": launches,
         "max_abs_err": max_abs_err, "bound_ms": tiers["base"]["bound_ms"],
         "bound_by": tiers["base"]["bound_by"], "library_ms": None,
+        "chain_launches": chain_launches,
     }
 
 
@@ -2267,9 +2320,11 @@ def run_rounds(map_np, scan_np, dev) -> dict:
         f"{info['cell_size']:.6f}, cap {info['cap']}, wide tier {info['n_wide']}, unresolved "
         f"{info['n_unresolved']}, certified exact {float(info['exact'].float().mean()):.4f}; "
         f"launch counts {launch_counts()}")
-    if kn.knn_moments.launches != tiers:
+    counts = launch_counts()
+    chain_launches = {key: counts[key] for key in CHAIN_STEPS}
+    if kn.knn_moments.launches != tiers or any(counts[key] != 1 for key in CHAIN_STEPS):
         raise AssertionError(f"{tag} knn_moments launched {kn.knn_moments.launches} times "
-                             f"for {tiers} tiers")
+                             f"for {tiers} tiers, the chain's steps {counts}")
     if not (torch.isfinite(normals).all() and float((normals.norm(dim=1) - 1).abs().max()) < 1e-4):
         raise AssertionError(f"{tag} normals are not finite unit vectors")
     warm_s = cuda_ms_once(lambda: nm.estimate_normals(map_t, k=K_ROUNDS))[1]
@@ -2292,11 +2347,335 @@ def run_rounds(map_np, scan_np, dev) -> dict:
         f"{float(np.abs(T[:3] - T_REF_PLANE_ICP).max()):.2e}; launch counts {counts}")
     if not (d.converged and np.isfinite(T).all() and off_err < TOL_OFFSET
             and counts["knn_moments"] == tiers
+            and all(counts[key] == 1 for key in CHAIN_STEPS)
             and (counts["point_loop"], counts["plane_point_stats"], counts["gn_step"])
             == (1, 0, 0)):
         raise AssertionError(f"{tag} PlaneICP(k={K_ROUNDS}) off its path or its offset")
     return {"first_call_s": first_s, "estimate_normals_ms": warm_s, "max_abs_err": err,
-            "iterations": d.iterations, "offset_err": off_err}
+            "iterations": d.iterations, "offset_err": off_err, "chain_launches": chain_launches,
+            "plane_icp_chain_launches": {key: counts[key] for key in CHAIN_STEPS}}
+
+
+def b01_map(seed: int = SEED):
+    """A map of the benchmark's plane_icp_b01 cells: the city tile of
+    ``perfbench/gen/scenes.py`` from the seed's scene stream, shifted by a
+    sub-voxel amount as the rebuild traffic shifts each map."""
+    from perfbench.gen.scenes import make_city_map as cell_city_map
+    from perfbench.gen.traffic import seed_streams
+
+    streams = seed_streams(seed)
+    pts = cell_city_map(streams["scene"], N_MAP, 200.0)
+    return (pts + streams["pool"].rand(3).astype(np.float32)).astype(np.float32)
+
+
+def parent_normals(pg, points, k: int, exact_tail: bool = True) -> tuple:
+    """The kernel path of ``estimate_normals`` from the packed grid on, as it
+    ran before the chain of ``ops/kernels/normals_chain.py``: host-sized
+    lists (``torch.nonzero``), each tier through ``knn_moments`` on gathered
+    queries and an ``index_put``, ``smallest_eigvec_sym3`` and the fallback's
+    search in PyTorch. ``(normals, cov6, exact, n_wide, n_unresolved)``.
+    ``tests/test_torch_normals.py`` holds the chain's plain versions to it on
+    the CPU."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops import normals as nm
+    from point_cloud_registration_tpu_torch.ops.eigh3 import smallest_eigvec_sym3
+    from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+    from point_cloud_registration_tpu_torch.ops.pointgrid import _knn_window_pass
+
+    n = points.shape[0]
+    ones = torch.ones(n, dtype=torch.float32, device=points.device)
+    cov6, _, rk2, unres, exact = kn.knn_moments(pg, points, ones, k, nm.BASE_RADIUS)
+    certifiable = rk2 < float(np.float32((6.0 * pg.cell_fine) ** 2))
+    cap_t = max(min(n // 4, 1 << 18), min(n, 256))
+    tail = torch.nonzero(~exact & ~unres & certifiable)[:, 0][:cap_t if exact_tail else 0]
+    n_wide = int(tail.numel())
+    if n_wide:
+        cov_w, _, _, unres_w, exact_w = kn.knn_moments(pg, points[tail], ones[:n_wide], k,
+                                                       nm.WIDE_RADIUS)
+        upd = tail[~unres_w]
+        cov6[upd] = cov_w[~unres_w]
+        exact[upd] = exact_w[~unres_w]
+    normals = smallest_eigvec_sym3(cov6)
+    cap_q = max(min(n // 16, 8192), min(n, 64))
+    un = torch.nonzero(unres)[:, 0]
+    n_unresolved = int(un.numel())
+    un = un[:cap_q]
+    if un.numel():
+        _, wi = _knn_window_pass(pg, points[un], k, radius=2 * nm.BASE_RADIUS,
+                                 chunk=min(cap_q, 2048))
+        normals[un] = nm.normals_from_neighbors(points, wi, points[un])
+    return normals, cov6, exact, n_wide, n_unresolved
+
+
+def profile_kernels(fn, reps: int = 3) -> tuple:
+    """``(kernels per call, {kernel name: device ms per call})`` of ``fn``
+    on the card, by ``torch.profiler``; copies and sets are no kernels, as
+    the benchmark counts them (``perfbench/trace.py::is_kernel``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    per = {e.key[:80]: e.self_device_time_total / 1e3 / reps for e in rows}
+    return sum(e.count for e in rows) / reps, per
+
+
+def run_normals_chain(maps: dict, dev) -> dict:
+    """Phase 6c: the chain of ``estimate_normals`` (``ops/kernels/normals_chain.py``
+    and the k-NN kernel's device-counted grouping and wide-tier launch) on
+    each map of ``maps`` at each k of ``K_CHAIN``: every step against its
+    plain version on the card, bit for bit (the sampler's cell size, the
+    base tier against ``knn_moments``, the lists against ``torch.nonzero``,
+    the wide tier's rows against gathered queries and an ``index_put``, the
+    normals against ``smallest_eigvec_sym3``, the fallback's normals against
+    its search in PyTorch, with the points whose k-th distance is tied
+    counted), the whole ``estimate_normals`` against its code before the
+    chain (:func:`parent_normals`), each wrapper's launches once a call, the
+    host's waits, and the times of both versions and of each kernel alone."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops import normals as nm
+    from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+    from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
+    from point_cloud_registration_tpu_torch.ops.pointgrid import _knn_window_pass, build_packed_grid
+
+    out_all = {}
+    for name, map_np in maps.items():
+        pts = torch.from_numpy(map_np).to(dev)
+        n = pts.shape[0]
+        ones = torch.ones(n, dtype=torch.float32, device=dev)
+        cap_t = max(min(n // 4, 1 << 18), min(n, 256))
+        cap_q = max(min(n // 16, 8192), min(n, 64))
+        for k in K_CHAIN:
+            tag = f"[normals chain {name} k = {k}]"
+            # the sampler on the same draws
+            sel, ref, k_eff = nm.sample_draws(n, k)
+            sel_t = torch.as_tensor(sel, device=dev)
+            ref_t = None if ref is None else torch.as_tensor(ref, device=dev)
+            before = nc.sampled_median.launches
+            r_kernel = nc.sampled_median(pts, sel_t, ref_t, k_eff)
+            sample_launches = nc.sampled_median.launches - before
+            r_plain = nc.sampled_median_reference(pts, sel_t, ref_t, k_eff)
+            cell = max(r_kernel, 1e-3)
+            pg = build_packed_grid(pts, cell, cap=32, auto_cap=True)
+            # the base tier: the planar launch is knn_moments' bit for bit
+            out = kn.knn_moments_out(pg, pts, None, k, nm.BASE_RADIUS)
+            base_equal = torch.equal(out, kn._planar(kn.knn_moments(pg, pts, ones, k,
+                                                                    nm.BASE_RADIUS)))
+            # the lists against torch.nonzero(...)[:cap]
+            cert = float(np.float32((6.0 * pg.cell_fine) ** 2))
+            tail, un, totals = nc.tail_lists(out, cert, cap_t, cap_q)
+            unres, exact = out[8] > 0, out[9] > 0
+            want_t = torch.nonzero(~exact & ~unres & (out[7] < cert))[:, 0]
+            want_u = torch.nonzero(unres)[:, 0]
+            n_t, n_u = totals.tolist()
+            c_t, c_u = min(n_t, cap_t), min(n_u, cap_q)
+            lists_equal = (n_t == want_t.numel() and n_u == want_u.numel()
+                           and torch.equal(tail[:c_t], want_t[:cap_t])
+                           and torch.equal(un[:c_u], want_u[:cap_q]))
+            # the wide tier into the planar outputs against gathered queries
+            out_k, out_p = out.clone(), out.clone()
+            kn.knn_moments_into(pg, pts, tail, totals[0:1], k, nm.WIDE_RADIUS, out_k)
+            live = want_t[:cap_t]
+            if live.numel():
+                cov_w, _, _, unres_w, exact_w = kn.knn_moments(
+                    pg, pts[live], ones[:live.numel()], k, nm.WIDE_RADIUS)
+                upd = live[~unres_w]
+                out_p[0:6, upd] = cov_w[~unres_w].T
+                out_p[9, upd] = exact_w[~unres_w].float()
+            wide_equal = torch.equal(out_k, out_p)
+            # the eigensolve
+            eig_k, eig_p = nc.eig_normals(out_k), nc.eig_normals_reference(out_k)
+            eig_diff = int((eig_k != eig_p).any(dim=1).sum())
+            # the fallback; a tie among a point's k + 1 nearest distances
+            # leaves torch.topk's choice or order unspecified
+            fb_k, fb_p = eig_k.clone(), eig_k.clone()
+            nc.fallback_normals(pg, pts, un, totals[1:2], k, 2 * nm.BASE_RADIUS, fb_k)
+            nc.fallback_normals_reference(pg, pts, un, totals[1:2], k, 2 * nm.BASE_RADIUS, fb_p)
+            live_u = want_u[:cap_q]
+            fb_diff = (fb_k[live_u] != fb_p[live_u]).any(dim=1)
+            tied = torch.zeros_like(fb_diff)
+            if live_u.numel():
+                d, _ = _knn_window_pass(pg, pts[live_u], k + 1, radius=2 * nm.BASE_RADIUS,
+                                        chunk=2048)
+                tied = ((d[:, 1:] == d[:, :-1]) & torch.isfinite(d[:, 1:])).any(dim=1)
+            fb_angle = float((1 - (fb_k[live_u] * fb_p[live_u]).sum(1).abs()).max()) \
+                if live_u.numel() else 0.0
+            # the whole estimate_normals against its code before the chain
+            reset_launches()
+            normals_c, info = nm.estimate_normals(pts, k=k, return_info=True)
+            counts = {key: v for key, v in launch_counts().items() if v}
+            normals_p, _, exact_p, n_wide_p, n_un_p = parent_normals(pg, pts, k)
+            whole_diff = (normals_c != normals_p).any(dim=1)
+            whole = {"info_cell_equal": info["cell_size"] == pg.cell_fine,
+                     "exact_equal": torch.equal(info["exact"], exact_p),
+                     "counts_equal": (info["n_wide"], info["n_unresolved"]) == (n_wide_p, n_un_p),
+                     "normals_differing": int(whole_diff.sum())}
+            want_counts = {"knn_moments": 2, **dict.fromkeys(CHAIN_STEPS, 1)}
+            sites = {}
+            syncs = count_syncs(lambda: nm.estimate_normals(pts, k=k), sites)[1]
+            # times: the whole estimate_normals, then its code before the chain
+            # with its sampler and grid, by events; each kernel of one call alone
+            chain_ms = cuda_ms(lambda: nm.estimate_normals(pts, k=k), 5)
+
+            def parent_call():
+                c = max(nc.sampled_median_reference(pts, sel_t, ref_t, k_eff), 1e-3)
+                return parent_normals(build_packed_grid(pts, c, cap=32, auto_cap=True), pts, k)
+
+            parent_ms = cuda_ms(parent_call, 3)
+            # each step's plain version on the card, and each kernel's bound: the
+            # bytes it needs to move once or its flops, whichever takes longer
+            steps = {
+                "sample": lambda: nc.sampled_median_reference(pts, sel_t, ref_t, k_eff),
+                "tails": lambda: nc.tail_lists_reference(out, cert, cap_t, cap_q),
+                "eig": lambda: nc.eig_normals_reference(out_k),
+                "fallback": lambda: nc.fallback_normals_reference(
+                    pg, pts, un, totals[1:2], k, 2 * nm.BASE_RADIUS, fb_p),
+            }
+            plain_step_ms = {key: cuda_ms(fn, 2) for key, fn in steps.items()}
+            step_ms = {key: cuda_ms(fn, 5) for key, fn in {
+                "sample": lambda: nc.sampled_median(pts, sel_t, ref_t, k_eff),
+                "tails": lambda: nc.tail_lists(out, cert, cap_t, cap_q),
+                "eig": lambda: nc.eig_normals(out_k),
+                "fallback": lambda: nc.fallback_normals(pg, pts, un, totals[1:2], k,
+                                                        2 * nm.BASE_RADIUS, fb_k),
+            }.items()}
+            step_err = {"sample": abs(r_kernel - r_plain),
+                        "tails": 0.0 if lists_equal else float("inf"),
+                        "eig": float((eig_k - eig_p).abs().max()),
+                        "fallback": float((fb_k - fb_p).abs().max())}
+            n_ref = n if ref is None else len(ref)
+            n_cand = (2 * nm.BASE_RADIUS + 1) ** 3 * pg.cap * int(live_u.numel())
+            bounds = {
+                "sample": bound_ms(20 * n_ref + 20 * len(sel), len(sel) * n_ref * FLOPS_DIST),
+                "tails": bound_ms(13 * n + 8 * (c_t + c_u), 0),
+                "eig": bound_ms(36 * n, 150 * n),
+                "fallback": bound_ms(12 * n_cand + 24 * int(live_u.numel()), n_cand * FLOPS_DIST),
+            }
+            launches_chain, per_kernel = profile_kernels(lambda: nm.estimate_normals(pts, k=k))
+            launches_parent, _ = profile_kernels(parent_call, 1)
+            launches_grid, _ = profile_kernels(
+                lambda: build_packed_grid(pts, cell, cap=32, auto_cap=True), 1)
+            row = {"cell": r_kernel, "cell_equal": r_kernel == r_plain, "k_eff": k_eff,
+                   "sample_launches": sample_launches, "base_equal": base_equal,
+                   "lists_equal": lists_equal, "n_tail": n_t, "n_unresolved": n_u,
+                   "wide_equal": wide_equal, "eig_differing": eig_diff,
+                   "fallback_points": int(live_u.numel()),
+                   "fallback_differing": int(fb_diff.sum()),
+                   "fallback_differing_tied": int((fb_diff & tied).sum()),
+                   "fallback_tied": int(tied.sum()), "fallback_max_1_minus_dot": fb_angle,
+                   **whole, "launch_counts": counts, "syncs": syncs, "sync_sites": sites,
+                   "chain_ms": chain_ms, "parent_ms": parent_ms,
+                   "kernels_per_call": launches_chain, "parent_kernels_per_call": launches_parent,
+                   "grid_kernels_per_call": launches_grid, "plain_step_ms": plain_step_ms,
+                   "step_ms": step_ms,
+                   "bound_ms": {key: v[0] for key, v in bounds.items()},
+                   "bound_by": {key: v[1] for key, v in bounds.items()},
+                   "step_max_abs_err": step_err,
+                   "kernel_ms": {key: v for key, v in per_kernel.items()
+                                 if any(x in key for x in ("sample_", "median_kernel",
+                                                           "tails_mark", "scatter_kernel",
+                                                           "eig_kernel", "fallback_kernel",
+                                                           "knn_moments_kernel", "box_key",
+                                                           "item_mark"))}}
+            log(f"{tag} {json.dumps(row)}")
+            ok = (row["cell_equal"] and sample_launches == 1
+                  and base_equal and lists_equal and wide_equal and eig_diff == 0
+                  and row["fallback_differing"] == row["fallback_differing_tied"]
+                  and whole["info_cell_equal"] and whole["exact_equal"] and whole["counts_equal"]
+                  and whole["normals_differing"] <= row["fallback_differing"]
+                  and counts == want_counts)
+            if not ok:
+                raise AssertionError(f"{tag} the chain is off its plain version or its launches "
+                                     f"(launches {counts}, expected {want_counts})")
+            out_all[f"{name}_k{k}"] = row
+    out_all["edges"] = chain_edge_cases(maps["city"], dev)
+    return out_all
+
+
+def chain_edge_cases(map_np, dev) -> dict:
+    """Phase 6c's shapes off the main path, each kernel against its
+    plain version on the card: the sampler by each of its ways
+    (``normals_chain.sample_plan``), its cell size bit-equal, at k above the
+    tiles' 32 (the select), more than 8,192 queries on each way, and k above
+    the references; the fallback on ``N_FALLBACK`` points of the map at each
+    k of ``K_FALLBACK``, bit-equal below k = 64 (a point whose k + 1 nearest
+    distances hold a tie counted apart), within ``FALLBACK_TOL`` from 64.
+    Each case is logged before any is judged."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops import normals as nm
+    from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
+    from point_cloud_registration_tpu_torch.ops.pointgrid import _knn_window_pass, build_packed_grid
+
+    tag = "[normals chain edges]"
+    pts_all = torch.from_numpy(map_np).to(dev)
+    n_all = pts_all.shape[0]
+    out, bad = {"sample": [], "fallback": []}, []
+    for n, k, n_sample in ((100_000, 40, 256), (100_000, 100, 256), (100_000, 5, 9000),
+                           (100_000, 33, 9000), (n_all, 300, 256), (20, 40, 256)):
+        n = min(n, n_all)
+        pts = pts_all[:n].contiguous()
+        sel, ref, k_eff = nm.sample_draws(n, k, n_sample)
+        sel_t = torch.as_tensor(sel, device=dev)
+        ref_t = None if ref is None else torch.as_tensor(ref, device=dev)
+        before = nc.sampled_median.launches
+        got = nc.sampled_median(pts, sel_t, ref_t, k_eff)
+        launches = nc.sampled_median.launches - before
+        want = nc.sampled_median_reference(pts, sel_t, ref_t, k_eff)
+        case = {"n": n, "k": k, "k_eff": k_eff, "queries": len(sel),
+                "plan": nc.sample_plan(len(sel), n if ref is None else len(ref), k_eff),
+                "cell": got, "equal": got == want, "launches": launches,
+                "ms": cuda_ms(lambda: nc.sampled_median(pts, sel_t, ref_t, k_eff), 2),
+                "plain_ms": cuda_ms(lambda: nc.sampled_median_reference(pts, sel_t, ref_t,
+                                                                        k_eff), 1)}
+        log(f"{tag} sampler {json.dumps(case)}")
+        out["sample"].append(case)
+        if not (case["equal"] and launches == 1):
+            bad.append(f"sampler n = {n}, k_eff = {k_eff}, {len(sel)} queries")
+    pg = build_packed_grid(pts_all, max(nm.sample_knn_radius(pts_all, K_NORMALS), 1e-3),
+                           cap=32, auto_cap=True)
+    pick = torch.from_numpy(np.sort(np.random.RandomState(SEED).choice(
+        n_all, N_FALLBACK, replace=False))).to(dev)
+    count = torch.tensor([N_FALLBACK], dtype=torch.int32, device=dev)
+    radius = 2 * nm.BASE_RADIUS
+    for k in K_FALLBACK:
+        fb_k, fb_p = (torch.zeros((n_all, 3), device=dev) for _ in range(2))
+        before = nc.fallback_normals.launches
+        nc.fallback_normals(pg, pts_all, pick, count, k, radius, fb_k)
+        launches = nc.fallback_normals.launches - before
+        nc.fallback_normals_reference(pg, pts_all, pick, count, k, radius, fb_p)
+        a, b = fb_k[pick], fb_p[pick]
+        differing = (a != b).any(dim=1)
+        d, _ = _knn_window_pass(pg, pts_all[pick], k + 1, radius=radius, chunk=2048)
+        tied = ((d[:, 1:] == d[:, :-1]) & torch.isfinite(d[:, 1:])).any(dim=1)
+        gap = 1 - (a * b).sum(1).abs()
+        case = {"k": k, "points": N_FALLBACK, "cap": pg.cap, "launches": launches,
+                "differing": int(differing.sum()), "differing_tied": int((differing & tied).sum()),
+                "tied": int(tied.sum()), "max_abs_err": float((a - b).abs().max()),
+                "max_1_minus_dot_untied": float(gap[~tied].max()),
+                "absent_slots": int((~torch.isfinite(d[:, :k])).sum()),
+                "ms": cuda_ms(lambda: nc.fallback_normals(pg, pts_all, pick, count, k, radius,
+                                                          fb_k), 3),
+                "plain_ms": cuda_ms(lambda: nc.fallback_normals_reference(
+                    pg, pts_all, pick, count, k, radius, fb_p), 1)}
+        log(f"{tag} fallback {json.dumps(case)}")
+        out["fallback"].append(case)
+        held = (case["differing"] == case["differing_tied"] if k < 64
+                else case["max_1_minus_dot_untied"] <= FALLBACK_TOL)
+        if not (held and launches == 1):
+            bad.append(f"fallback k = {k}")
+    if bad:
+        raise AssertionError(f"{tag} off the plain version or its launches: {bad}")
+    return out
 
 
 def run_exact_nn(map_t, scan_np, T_icp, icp_target, dev) -> dict:
@@ -4284,6 +4663,12 @@ def run_demo(main, argv: list, tag: str) -> list:
     return runs
 
 
+def normals_launches(tiers: int) -> dict:
+    """The launches of one ``estimate_normals`` on the 1.2M map: the k-NN
+    kernel once per tier and each step of the chain once."""
+    return {"knn_moments": tiers, **dict.fromkeys(CHAIN_STEPS, 1)}
+
+
 def check_launches(tag: str, counts: dict, expected: dict) -> None:
     """The launches of a demo run: ``expected`` on its path's kernels, none
     on any other."""
@@ -4336,7 +4721,7 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
             for r in (first, warm):
                 expected = {kernel: 1}  # every demo aligns through a loop kernel
                 if method == "PlaneICP":  # its normals in set_target, one launch per tier
-                    expected["knn_moments"] = tiers
+                    expected.update(normals_launches(tiers))
                 check_launches(mtag, r["launch_counts"], expected)
             err = float(np.abs(first["T"][:3] - np.array(ref["T"])).max())
             log(f"{mtag}: {first['iterations']} iterations (JAX: {ref['iterations']}), converged "
@@ -4372,7 +4757,7 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
                 "--out", f"{tmp}/normals.png"]
         first, warm = run_demo(demo_estimate_normals_torch.main, argv, ntag)
         for r in (first, warm):
-            check_launches(ntag, r["launch_counts"], {"knn_moments": tiers})
+            check_launches(ntag, r["launch_counts"], normals_launches(tiers))
             if not np.array_equal(r["normals"], normals):
                 raise AssertionError(f"{ntag}: the normals are not phase 6's")
         log(f"{ntag}: {first['n_points']} normals equal to phase 6's bit for bit; warm "
@@ -4495,6 +4880,8 @@ def main() -> None:
     results["rounds"] = run_rounds(map_np, scan_np, dev)
     results["normals"]["max_abs_err"] = max(results["normals"]["max_abs_err"],
                                             results["rounds"]["max_abs_err"])
+    # 6c. The normals chain, step by step, on this map and on a benchmark map
+    results["normals_chain"] = run_normals_chain({"city": map_np, "b01": b01_map()}, dev)
     # 7. Exact 1-NN, on ICP's target at ICP's converged T
     icp = paths["icp"].make(dev)
     icp.set_target(map_t)
@@ -4544,6 +4931,21 @@ def main() -> None:
                  f"{PALLAS}/knn_normals.py:293", results["normals"]))
     rows.append(("exact_nn", en.exact_nn, f"{CSRC}/exact_nn.cu", f"{PALLAS}/exact_nn.py:77",
                  results["exact_nn"]))
+    # the steps of the normals chain (csrc/normals_chain.cu), the port's own
+    # kernels for XLA code of the JAX package: each wrapper's call alone on
+    # phase 6c's benchmark map at k = 5, the profiler's kernels of a call in
+    # "extra"
+    from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
+
+    chain = results["normals_chain"]["b01_k5"]
+    for step, kernel, replaces, names in CHAIN_ROWS:
+        rows.append((kernel, getattr(nc, kernel), f"{CSRC}/normals_chain.cu", replaces, {
+            "launches": 0,  # its launches on its paths: path_launches below
+            "max_abs_err": chain["step_max_abs_err"][step], "kernel_ms": [chain["step_ms"][step]],
+            "plain_ms": [chain["plain_step_ms"][step]], "bound_ms": chain["bound_ms"][step],
+            "bound_by": chain["bound_by"][step], "library_ms": None,
+            "extra": {"kernels_ms": {key: v for key, v in chain["kernel_ms"].items()
+                                     if any(x in key for x in names)}}}))
     # gn_step replaces XLA code, no Pallas kernel: the loop body of the JAX
     # gauss_newton; its numbers at the main path's B = 1, the batch's at B = 8
     from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
@@ -4669,6 +5071,13 @@ def main() -> None:
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
                      "kdtree_k1": results["utilities"]["kdtree"]["exact_nn_launches"]},
+        **{kernel: {"estimate_normals": results["normals"]["chain_launches"][kernel],
+                    f"estimate_normals_k{K_ROUNDS}": results["rounds"]["chain_launches"][kernel],
+                    f"plane_icp_k{K_ROUNDS}":
+                        results["rounds"]["plane_icp_chain_launches"][kernel],
+                    **{f"normals_chain_{case}": row["launch_counts"][kernel]
+                       for case, row in results["normals_chain"].items() if case != "edges"}}
+           for _, kernel, _, _ in CHAIN_ROWS},
         **{GRID_KINDS[kind][0]: {path_name: res["launches"][GRID_KINDS[kind][0]],
                                  f"{path_name}_host_loop": res["host_loop_launches"]}
            for kind, (path_name, res) in grid_paths.items()},

@@ -46,11 +46,18 @@
 //
 //   * The box depends only on the fused block of c - r, so all queries with
 //     that fused block have the same candidates. The wrapper sorts the
-//     queries by box (ops/kernels/knn_normals.py box_groups_cuda: the two
-//     small kernels below around one torch.sort) into work items of one box
-//     and at most 32 queries. One warp takes one item; its lanes
-//     are the item's queries (a short item repeats its last query in the
-//     spare lanes, which then do what a live lane does and write nothing).
+//     queries by box (ops/kernels/knn_normals.py box_groups_cuda: the small
+//     kernels below around one torch.sort) into work items of one box and
+//     at most 32 queries, and leaves their number on the card. The kernel is
+//     launched for as many warps as fit on the card at once; each warp takes
+//     the next item from a counter until none is left, so no host read of
+//     the number of items stands between the grouping and the launch. Its
+//     lanes are the item's queries (a short item repeats its last query in
+//     the spare lanes, which then do what a live lane does and write
+//     nothing). (A warp that instead takes the next 32 sorted positions and
+//     finds the items that start there, with no list of the items, ran the
+//     kernel 1.8x as long: its bisections for the items' starts sit in the
+//     walk's way, and it held more registers.)
 //   * The lanes look the box's blocks up together, one block per lane
 //     (block_row -> row_count, row_over), and list the occupied rows with
 //     their slots in the warp's stage in shared memory, in box order (x
@@ -82,10 +89,15 @@
 // outputs do not depend on the order of the queries.
 //
 // Output: out (10, n) f32, planar, in the caller's query order: rows c00 c11
-// c22 c01 c02 c12 count rk2 unresolved exact.
+// c22 c01 c02 c12 count rk2 unresolved exact. With a list of point indices
+// (ops/normals.py's wide tier: the queries are points[qidx[i]], weight 1) a
+// query that has k candidates writes its rows c00 .. c12 and exact into the
+// column of its point of an out of the whole cloud, and one that has not
+// writes nothing, the index_put of the plain version.
 
 #include <cstdint>
 
+#include "compact.cuh"
 #include "gn_accumulate.cuh"
 
 namespace {
@@ -129,17 +141,39 @@ __device__ __forceinline__ void box_start(const Binning& bn, float qx, float qy,
   gz = floor_div(pcr::clamped_cell(floorf(qz * bn.inv_cell), bn.ofz) - bn.radius, 2);
 }
 
+// The number of box keys (as _box_key_space of ops/kernels/knn_normals.py):
+// a key lies in [0, n_keys), so n_keys itself sorts after every query.
+__host__ __device__ __forceinline__ long long n_box_keys(const Binning& bn) {
+  const long long sx = span_xy(bn.radius), sz = span_z(bn.radius);
+  const long long lx = (bn.nbx + 1) / 2, ly = (bn.nby + 1) / 2, lz = bn.nbz;
+  return (lx + sx + 1) * (ly + sx + 1) * (lz + sz + 1);
+}
+
+// How many of the n query positions hold a query: all n, or the number the
+// card holds at `count` if it is fewer.
+__device__ __forceinline__ int live_queries(const int* count, int n) {
+  return count == nullptr ? n : min(*count, n);
+}
+
 // Grouping, first kernel: the box key of every query, as box_groups of
 // ops/kernels/knn_normals.py defines it: the box start clamped per axis to
 // [-span, fused blocks of the grid] and shifted to start at 0, x fastest.
+// Query i is q[i], or q[qidx[i]] with a list of indices; a position at or
+// beyond the live count gets the key n_keys, which sorts last.
 template <class Key>
 __global__ void __launch_bounds__(256) box_key_kernel(Binning bn,
                                                       const float* __restrict__ q,
-                                                      int n, Key* __restrict__ key) {
+                                                      const long long* __restrict__ qidx,
+                                                      int n, const int* __restrict__ count,
+                                                      Key* __restrict__ key) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
+  if (i >= live_queries(count, n)) {
+    key[i] = static_cast<Key>(n_box_keys(bn));
+    return;
+  }
   int gx, gy, gz;
-  const float* qi = q + 3 * static_cast<size_t>(i);
+  const float* qi = q + 3 * (qidx != nullptr ? qidx[i] : static_cast<long long>(i));
   box_start(bn, qi[0], qi[1], qi[2], gx, gy, gz);
   const int sx = span_xy(bn.radius), sz = span_z(bn.radius);
   const int lx = (bn.nbx + 1) / 2, ly = (bn.nby + 1) / 2, lz = bn.nbz;
@@ -148,26 +182,37 @@ __global__ void __launch_bounds__(256) box_key_kernel(Binning bn,
   key[i] = kx + (lx + sx + 1) * (ky + (ly + sx + 1) * kz);
 }
 
-// Grouping, second kernel: over the sorted keys, flags the positions at which
-// a work item starts: those whose rank inside their run of equal keys is a
-// multiple of `item`. The run's first position is found by bisection.
+// Grouping, second kernel: over the sorted keys of the live queries, flags
+// the positions at which a work item starts: those whose rank inside their
+// run of equal keys is a multiple of `item` (the run's first position by
+// bisection). It marks them for pcr::compact::scatter_kernel, which lists
+// them (the third kernel).
 template <class Key>
-__global__ void __launch_bounds__(256) item_flag_kernel(const Key* __restrict__ skey,
-                                                        int n, int item,
-                                                        unsigned char* __restrict__ flag) {
-  const int p = blockIdx.x * 256 + threadIdx.x;
-  if (p >= n) return;
-  const Key mine = skey[p];
-  int lo = p;  // the first position of the run, in [lo, hi]
-  if (p > 0 && skey[p - 1] == mine) {
-    lo = 0;
-    int hi = p - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (skey[mid] < mine) lo = mid + 1; else hi = mid;
+__global__ void __launch_bounds__(pcr::compact::kThreads) item_mark_kernel(
+    const Key* __restrict__ skey, int n, const int* __restrict__ count, int item,
+    unsigned char* __restrict__ flag, int* __restrict__ tile_counts) {
+  const int live = live_queries(count, n);
+  const long long p0 = static_cast<long long>(blockIdx.x) * pcr::compact::kTile +
+                       threadIdx.x * pcr::compact::kPer;
+  unsigned char f[pcr::compact::kPer];
+#pragma unroll
+  for (int j = 0; j < pcr::compact::kPer; ++j) {
+    const int p = static_cast<int>(p0) + j;
+    f[j] = 0;
+    if (p0 + j >= live) continue;
+    const Key mine = skey[p];
+    int lo = p;  // the first position of the run, in [lo, hi]
+    if (p > 0 && skey[p - 1] == mine) {
+      lo = 0;
+      int hi = p - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (skey[mid] < mine) lo = mid + 1; else hi = mid;
+      }
     }
+    f[j] = (p - lo) % item == 0;
   }
-  flag[p] = (p - lo) % item == 0;
+  pcr::compact::mark_tile(f, p0, n, flag, tile_counts);
 }
 
 struct Grid {
@@ -340,6 +385,17 @@ __device__ __forceinline__ float dist2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// The moments' arithmetic, each step spelt out: a product added to a sum in
+// one fused multiply-add, and a second moment about the mean, s / count -
+// a * b, as the quotient less the product in one fused multiply-add. These
+// are the forms nvcc chose for `acc += a * b` and `s / count - a * b` in the
+// kernel's first builds; left to the compiler, a change elsewhere in the
+// kernel changed its choice, and the covariances moved by a rounding.
+__device__ __forceinline__ float mac(float acc, float a, float b) { return __fmaf_rn(a, b, acc); }
+__device__ __forceinline__ float central(float s, float denom, float a, float b) {
+  return __fmaf_rn(-a, b, __fdiv_rn(s, denom));
+}
+
 // Inserts v into the ascending buffer of kMax, dropping its largest entry.
 template <int kMax>
 __device__ __forceinline__ void insert_sorted(float (&buf)[kMax], float v) {
@@ -354,13 +410,12 @@ __device__ __forceinline__ void insert_sorted(float (&buf)[kMax], float v) {
 template <int kMax, bool kRounds>
 __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
     Grid g, Binning bn, float exact_d2, int k, const float* __restrict__ q,
-    const float* __restrict__ w, int n, const long long* __restrict__ order,
-    const long long* __restrict__ starts, int n_items, int stage_size,
-    float* __restrict__ out) {
+    const long long* __restrict__ qidx, const float* __restrict__ w, int n,
+    const int* __restrict__ count, const long long* __restrict__ order,
+    const long long* __restrict__ starts, int* __restrict__ ctl, int stage_size,
+    float* __restrict__ out, int out_n) {
   extern __shared__ float4 shared[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int item = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (item >= n_items) return;  // the whole warp: warps share no barrier
   const float kInf = __int_as_float(0x7f800000);
 
   Stage st;
@@ -371,151 +426,193 @@ __global__ void __launch_bounds__(32 * kWarps, 4) knn_moments_kernel(
   st.dst = st.cnt + stage_size / 4;
   st.size = stage_size;
 
-  // The item's queries, one per lane; spare lanes repeat the last one.
-  const long long first = starts[item];
-  const int m = static_cast<int>((item + 1 < n_items ? starts[item + 1] : n) - first);
-  const long long i = order[first + min(lane, m - 1)];
-  const float qx = q[3 * i], qy = q[3 * i + 1], qz = q[3 * i + 2];
-
-  // The box of packed blocks: span fused blocks per axis from the box start.
-  // It is the same for every query of the item; lane 0's is taken.
-  int gx, gy, gz;
-  box_start(bn, qx, qy, qz, gx, gy, gz);
-  gx = __shfl_sync(kFull, gx, 0);
-  gy = __shfl_sync(kFull, gy, 0);
-  gz = __shfl_sync(kFull, gz, 0);
-  const Box box{max(2 * gx, 0), min(2 * (gx + span_xy(bn.radius)), bn.nbx),
-                max(2 * gy, 0), min(2 * (gy + span_xy(bn.radius)), bn.nby),
-                max(gz, 0),     min(gz + span_z(bn.radius), bn.nbz)};
-
-  // First walk: the k smallest squared distances, ascending, at the end of
-  // a sorted buffer of kMax whose first kMax - k entries stay -inf. Its last
-  // entry is the k-th smallest so far and the bar for an insertion; it starts
-  // at kFoundMax2, so whatever gets in is a candidate, and it has come below
-  // kFoundMax2 exactly when there were k candidates.
-  float buf[kMax];
-#pragma unroll
-  for (int j = 0; j < kMax; ++j) buf[j] = j < kMax - k ? -kInf : kFoundMax2;
-  int fillings, staged;
-  const bool over = stream_box(
-      g, box, st, lane, 0, fillings, staged, [&](const float* p, int m_staged) {
-        for_each_staged(p, m_staged, [&](float px, float py, float pz) {
-          const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
-          if (d2 < buf[kMax - 1]) insert_sorted<kMax>(buf, d2);
-        });
-      });
-  bool done = buf[kMax - 1] < kFoundMax2;
-  float rk = done ? buf[kMax - 1] : kMissD2;
-  if constexpr (kRounds) {
-    // k > kMax: the buffer holds the kMax smallest; select in rounds. `lo` is
-    // the largest distance of the last round's buffer, `need` the rank of the
-    // k-th smallest among the candidates above it. The walks take the whole
-    // warp, so a lane that has its rk walks on with the others.
-    int need = k;
-    float lo = -kInf;
-    bool open = true;
-    for (;;) {
-      if (open) {
-        if (need <= kMax) {
-          float v = buf[0];
-#pragma unroll
-          for (int j = 1; j < kMax; ++j) v = j == need - 1 ? buf[j] : v;
-          done = v < kFoundMax2;
-          rk = done ? v : kMissD2;
-          open = false;
-        } else if (!(buf[kMax - 1] < kFoundMax2)) {
-          // fewer than k candidates; the first walk's done and rk, which
-          // count only kMax of them, do not stand
-          done = false;
-          rk = kMissD2;
-          open = false;
-        } else {
-          lo = buf[kMax - 1];
+  // ctl: the number of work items, the counter that hands them out and the
+  // count of warps that found none left; the last such warp sets both
+  // counters back to 0, so the next launch on the same grouping starts anew
+  const int n_items = ctl[0], live = live_queries(count, n);
+  for (;;) {
+    int item = 0;
+    if (lane == 0) item = atomicAdd(ctl + 1, 1);
+    item = __shfl_sync(kFull, item, 0);
+    if (item >= n_items) {
+      if (lane == 0) {
+        __threadfence();
+        if (atomicAdd(ctl + 2, 1) == static_cast<int>(gridDim.x * (blockDim.x >> 5)) - 1) {
+          ctl[1] = 0;
+          ctl[2] = 0;
         }
       }
-      if (!__any_sync(kFull, open)) break;
+      return;  // the whole warp: warps share no barrier
+    }
+    {
+      // The item's queries, one per lane; spare lanes repeat the last one.
+      const long long first = starts[item];
+      const int m = static_cast<int>((item + 1 < n_items ? starts[item + 1] : live) - first);
+      const long long i = order[first + min(lane, m - 1)];
+      const long long pi = qidx != nullptr ? qidx[i] : i;  // the query's point
+      const float qx = q[3 * pi], qy = q[3 * pi + 1], qz = q[3 * pi + 2];
+
+      // The box of packed blocks: span fused blocks per axis from the box start.
+      // It is the same for every query of the item; lane 0's is taken.
+      int gx, gy, gz;
+      box_start(bn, qx, qy, qz, gx, gy, gz);
+      gx = __shfl_sync(kFull, gx, 0);
+      gy = __shfl_sync(kFull, gy, 0);
+      gz = __shfl_sync(kFull, gz, 0);
+      const Box box{max(2 * gx, 0), min(2 * (gx + span_xy(bn.radius)), bn.nbx),
+                    max(2 * gy, 0), min(2 * (gy + span_xy(bn.radius)), bn.nby),
+                    max(gz, 0),     min(gz + span_z(bn.radius), bn.nbz)};
+
+      // First walk: the k smallest squared distances, ascending, at the end of
+      // a sorted buffer of kMax whose first kMax - k entries stay -inf. Its last
+      // entry is the k-th smallest so far and the bar for an insertion; it starts
+      // at kFoundMax2, so whatever gets in is a candidate, and it has come below
+      // kFoundMax2 exactly when there were k candidates.
+      float buf[kMax];
 #pragma unroll
-      for (int j = 0; j < kMax; ++j) buf[j] = kFoundMax2;
-      int at_or_below = 0;
-      int f2, s2;
-      stream_box(g, box, st, lane, fillings == 1 ? staged : 0, f2, s2,
-                 [&](const float* p, int m_staged) {
-                   for_each_staged(p, m_staged, [&](float px, float py, float pz) {
-                     const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
-                     if (d2 <= lo) {
-                       ++at_or_below;
-                     } else if (d2 < buf[kMax - 1]) {
-                       insert_sorted<kMax>(buf, d2);
-                     }
+      for (int j = 0; j < kMax; ++j) buf[j] = j < kMax - k ? -kInf : kFoundMax2;
+      int fillings, staged;
+      const bool over = stream_box(
+          g, box, st, lane, 0, fillings, staged, [&](const float* p, int m_staged) {
+            for_each_staged(p, m_staged, [&](float px, float py, float pz) {
+              const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
+              if (d2 < buf[kMax - 1]) insert_sorted<kMax>(buf, d2);
+            });
+          });
+      bool done = buf[kMax - 1] < kFoundMax2;
+      float rk = done ? buf[kMax - 1] : kMissD2;
+      if constexpr (kRounds) {
+        // k > kMax: the buffer holds the kMax smallest; select in rounds. `lo` is
+        // the largest distance of the last round's buffer, `need` the rank of the
+        // k-th smallest among the candidates above it. The walks take the whole
+        // warp, so a lane that has its rk walks on with the others.
+        int need = k;
+        float lo = -kInf;
+        bool open = true;
+        for (;;) {
+          if (open) {
+            if (need <= kMax) {
+              float v = buf[0];
+#pragma unroll
+              for (int j = 1; j < kMax; ++j) v = j == need - 1 ? buf[j] : v;
+              done = v < kFoundMax2;
+              rk = done ? v : kMissD2;
+              open = false;
+            } else if (!(buf[kMax - 1] < kFoundMax2)) {
+              // fewer than k candidates; the first walk's done and rk, which
+              // count only kMax of them, do not stand
+              done = false;
+              rk = kMissD2;
+              open = false;
+            } else {
+              lo = buf[kMax - 1];
+            }
+          }
+          if (!__any_sync(kFull, open)) break;
+#pragma unroll
+          for (int j = 0; j < kMax; ++j) buf[j] = kFoundMax2;
+          int at_or_below = 0;
+          int f2, s2;
+          stream_box(g, box, st, lane, fillings == 1 ? staged : 0, f2, s2,
+                     [&](const float* p, int m_staged) {
+                       for_each_staged(p, m_staged, [&](float px, float py, float pz) {
+                         const float d2 = dist2_rn(qx - px, qy - py, qz - pz);
+                         if (d2 <= lo) {
+                           ++at_or_below;
+                         } else if (d2 < buf[kMax - 1]) {
+                           insert_sorted<kMax>(buf, d2);
+                         }
+                       });
+                     });
+          if (open) {
+            need = k - at_or_below;
+            if (need <= 0) {  // ties at lo reach the k-th
+              done = true;
+              rk = lo;
+              open = false;
+            }
+          }
+        }
+      }
+      // selected: d2 <= take; without k candidates, all of them: d2 < kFoundMax2
+      const float take = done ? rk : __int_as_float(__float_as_int(kFoundMax2) - 1);
+
+      // Last walk: moments over the selected candidates, from the stage where
+      // it still holds the whole box.
+      float cnt = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+      float c00 = 0.f, c11 = 0.f, c22 = 0.f, c01 = 0.f, c02 = 0.f, c12 = 0.f;
+      if (fillings > 0) {
+        int f2, s2;
+        stream_box(g, box, st, lane, fillings == 1 ? staged : 0, f2, s2,
+                   [&](const float* p, int m_staged) {
+                     for_each_staged(p, m_staged, [&](float px, float py, float pz) {
+                       const float dx = qx - px, dy = qy - py, dz = qz - pz;
+                       const float d2 = dist2_rn(dx, dy, dz);
+                       if (!(d2 <= take)) return;
+                       cnt += 1.f;
+                       sx += dx;
+                       sy += dy;
+                       sz += dz;
+                       c00 = mac(c00, dx, dx);
+                       c11 = mac(c11, dy, dy);
+                       c22 = mac(c22, dz, dz);
+                       c01 = mac(c01, dx, dy);
+                       c02 = mac(c02, dx, dz);
+                       c12 = mac(c12, dy, dz);
+                     });
                    });
-                 });
-      if (open) {
-        need = k - at_or_below;
-        if (need <= 0) {  // ties at lo reach the k-th
-          done = true;
-          rk = lo;
-          open = false;
+      }
+      if (lane < m) {
+        const float denom = fmaxf(cnt, 1.f);
+        sx = __fdiv_rn(sx, denom);
+        sy = __fdiv_rn(sy, denom);
+        sz = __fdiv_rn(sz, denom);
+        const float wi = w != nullptr ? w[i] : 1.f;
+        const float vals[kOut] = {
+            central(c00, denom, sx, sx), central(c11, denom, sy, sy), central(c22, denom, sz, sz),
+            central(c01, denom, sx, sy), central(c02, denom, sx, sz), central(c12, denom, sy, sz),
+            cnt,                   rk,
+            (!done && wi > 0.f) ? 1.f : 0.f,
+            (done && rk < exact_d2 && !over) ? 1.f : 0.f};
+        if (qidx == nullptr) {
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) out[static_cast<size_t>(j) * out_n + i] = vals[j];
+        } else if (done) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) out[static_cast<size_t>(j) * out_n + pi] = vals[j];
+          out[static_cast<size_t>(9) * out_n + pi] = vals[9];
         }
       }
     }
   }
-  // selected: d2 <= take; without k candidates, all of them: d2 < kFoundMax2
-  const float take = done ? rk : __int_as_float(__float_as_int(kFoundMax2) - 1);
-
-  // Last walk: moments over the selected candidates, from the stage where
-  // it still holds the whole box.
-  float cnt = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-  float c00 = 0.f, c11 = 0.f, c22 = 0.f, c01 = 0.f, c02 = 0.f, c12 = 0.f;
-  if (fillings > 0) {
-    int f2, s2;
-    stream_box(g, box, st, lane, fillings == 1 ? staged : 0, f2, s2,
-               [&](const float* p, int m_staged) {
-                 for_each_staged(p, m_staged, [&](float px, float py, float pz) {
-                   const float dx = qx - px, dy = qy - py, dz = qz - pz;
-                   const float d2 = dist2_rn(dx, dy, dz);
-                   if (!(d2 <= take)) return;
-                   cnt += 1.f;
-                   sx += dx;
-                   sy += dy;
-                   sz += dz;
-                   c00 += dx * dx;
-                   c11 += dy * dy;
-                   c22 += dz * dz;
-                   c01 += dx * dy;
-                   c02 += dx * dz;
-                   c12 += dy * dz;
-                 });
-               });
-  }
-  if (lane >= m) return;
-  const float denom = fmaxf(cnt, 1.f);
-  sx /= denom;
-  sy /= denom;
-  sz /= denom;
-  const float vals[kOut] = {
-      c00 / denom - sx * sx, c11 / denom - sy * sy, c22 / denom - sz * sz,
-      c01 / denom - sx * sy, c02 / denom - sx * sz, c12 / denom - sy * sz,
-      cnt,                   rk,
-      (!done && w[i] > 0.f) ? 1.f : 0.f,
-      (done && rk < exact_d2 && !over) ? 1.f : 0.f};
-#pragma unroll
-  for (int j = 0; j < kOut; ++j) out[static_cast<size_t>(j) * n + i] = vals[j];
 }
 
 // The dynamic shared memory limit is a property of the kernel on the current
-// device, so it is set on every launch and not remembered.
+// device, so it is set on every launch and not remembered. The grid holds
+// as many blocks as fit on the card at once, and no more than the items of
+// n queries could fill.
 template <int kMax, bool kRounds>
 int launch(const Grid& g, const Binning& bn, float exact_d2, int k, const float* q,
-           const float* w, int n, const long long* order, const long long* starts,
-           int n_items, int stage_size, int warps, float* out, cudaStream_t st) {
+           const long long* qidx, const float* w, int n, const int* count,
+           const long long* order, const long long* starts, int* ctl, int stage_size,
+           int warps, float* out, int out_n, cudaStream_t st) {
   const int bytes = warps * stage_bytes(stage_size);
-  const cudaError_t err = cudaFuncSetAttribute(
-      knn_moments_kernel<kMax, kRounds>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  auto kernel = knn_moments_kernel<kMax, kRounds>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_items + warps - 1) / warps;
-  knn_moments_kernel<kMax, kRounds><<<blocks, 32 * warps, bytes, st>>>(
-      g, bn, exact_d2, k, q, w, n, order, starts, n_items, stage_size, out);
+  int per_sm = 0, device = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long fill = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const long long need = (static_cast<long long>(n) + warps - 1) / warps;
+  const int blocks = static_cast<int>(need < fill ? need : fill);
+  kernel<<<blocks, 32 * warps, bytes, st>>>(g, bn, exact_d2, k, q, qidx, w, n, count, order,
+                                            starts, ctl, stage_size, out, out_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -530,24 +627,29 @@ int pcr_knn_round_k() { return 32; }
 int pcr_knn_item_size() { return kItem; }
 
 // pts (R+1, cap * width) f32, row_count (R+1,) i32, block_row (NB,) i32,
-// row_over (R+1,) u8; q (n, 3), w (n,) f32 -> out (10, n) f32. The queries are
-// grouped into n_items work items of one candidate box each: item j holds the
-// queries order[starts[j] .. starts[j + 1]), the last item up to n (order (n,)
-// i64, starts (n_items,) i64), at most pcr_knn_item_size() of them. Any
-// k >= 1; above pcr_knn_round_k() the selection takes rounds. A warp's
-// stage holds kStagePoints points, or one row where the cap is larger
-// (rounded up to a multiple of 16); kWarps work items share a block, fewer
-// where their stages would not fit its shared memory. Launches the kernel on
-// `stream` and returns cudaGetLastError(), or -1 for a k below 1, -3 when a
-// stage of one row of this cap does not fit a block's shared memory (a cap
-// above about 15,000).
+// row_over (R+1,) u8. Queries: n positions, query i at q[i] (q (n, 3)) or,
+// with qidx (n,) i64, at q[qidx[i]]; only the first min(*count, n) live when
+// `count` (i32 on the card) is given. w (n,) f32, or null for weights of 1.
+// The queries are grouped into work items of one candidate box each (the
+// three grouping entries below): item j holds the queries order[starts[j] ..
+// starts[j + 1]), the last item up to the live count (order, starts (n,)
+// i64), at most pcr_knn_item_size() of them; ctl (3,) i32 holds the number
+// of items and two counters at 0. Output: out (10, out_n) f32, column i
+// (without qidx: out_n = n) or, with qidx, the rows c00 .. c12 and exact of
+// column qidx[i] where the query has k candidates. Any k >= 1; above
+// pcr_knn_round_k() the selection takes rounds. A warp's stage holds
+// kStagePoints points, or one row where the cap is larger (rounded up to a
+// multiple of 16); kWarps warps share a block, fewer where their stages would
+// not fit its shared memory. Launches the kernel on `stream` and returns
+// cudaGetLastError(), or -1 for a k below 1, -3 when a stage of one row of
+// this cap does not fit a block's shared memory (a cap above about 15,000).
 int pcr_knn_moments(const float* pts, const int* row_count, const int* block_row,
                     const unsigned char* row_over, int cap, int width, int nbx,
                     int nby, int nbz, int ofx, int ofy, int ofz, float inv_cell,
                     float exact_d2, int radius, int k, const float* q,
-                    const float* w, int n, const long long* order,
-                    const long long* starts, int n_items, float* out,
-                    void* stream) {
+                    const long long* qidx, const float* w, int n, const int* count,
+                    const long long* order, const long long* starts, int* ctl,
+                    float* out, int out_n, void* stream) {
   if (k < 1) return -1;
   const long long want = kStagePoints > cap ? kStagePoints : cap;
   const long long stage = (want + kMinStage - 1) / kMinStage * kMinStage;
@@ -559,48 +661,70 @@ int pcr_knn_moments(const float* pts, const int* row_count, const int* block_row
   const Grid g{pts, row_count, block_row, row_over, cap, width, nbx, nby, aligned};
   const Binning bn{ofx, ofy, ofz, inv_cell, radius, nbx, nby, nbz};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_items == 0) return 0;
+  if (n == 0) return 0;
   if (k <= 16)
-    return launch<16, false>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
-                             static_cast<int>(stage), warps, out, st);
+    return launch<16, false>(g, bn, exact_d2, k, q, qidx, w, n, count, order, starts, ctl,
+                             static_cast<int>(stage), warps, out, out_n, st);
   if (k <= 32)
-    return launch<32, false>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
-                             static_cast<int>(stage), warps, out, st);
-  return launch<32, true>(g, bn, exact_d2, k, q, w, n, order, starts, n_items,
-                          static_cast<int>(stage), warps, out, st);
+    return launch<32, false>(g, bn, exact_d2, k, q, qidx, w, n, count, order, starts, ctl,
+                             static_cast<int>(stage), warps, out, out_n, st);
+  return launch<32, true>(g, bn, exact_d2, k, q, qidx, w, n, count, order, starts, ctl,
+                          static_cast<int>(stage), warps, out, out_n, st);
 }
 
-// Grouping, first step: q (n, 3) f32 -> key (n,), int64 if `wide` else int32:
-// the box key of each query (see box_key_kernel). Returns cudaGetLastError().
-int pcr_knn_box_keys(const float* q, int n, int nbx, int nby, int nbz, int ofx,
-                     int ofy, int ofz, float inv_cell, int radius, int wide,
-                     void* key, void* stream) {
+// Grouping, first step: the queries (q, qidx, n, count as for
+// pcr_knn_moments) -> key (n,), int64 if `wide` else int32: the box key of
+// each live query, the number of keys at the other positions (see
+// box_key_kernel). Returns cudaGetLastError().
+int pcr_knn_box_keys(const float* q, const long long* qidx, int n, const int* count, int nbx,
+                     int nby, int nbz, int ofx, int ofy, int ofz, float inv_cell, int radius,
+                     int wide, void* key, void* stream) {
   if (n == 0) return 0;
   const Binning bn{ofx, ofy, ofz, inv_cell, radius, nbx, nby, nbz};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = (n + 255) / 256;
   if (wide)
-    box_key_kernel<<<blocks, 256, 0, st>>>(bn, q, n, static_cast<long long*>(key));
+    box_key_kernel<<<blocks, 256, 0, st>>>(bn, q, qidx, n, count, static_cast<long long*>(key));
   else
-    box_key_kernel<<<blocks, 256, 0, st>>>(bn, q, n, static_cast<int*>(key));
+    box_key_kernel<<<blocks, 256, 0, st>>>(bn, q, qidx, n, count, static_cast<int*>(key));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Grouping, second step: the sorted keys skey (n,), int64 if `wide` else
-// int32 -> flag (n,) u8, 1 where a work item of at most `item` queries starts
-// (see item_flag_kernel). Returns cudaGetLastError().
-int pcr_knn_item_flags(const void* skey, int wide, int n, int item,
-                       unsigned char* flag, void* stream) {
+// int32, of which the first min(*count, n) are live (all n without `count`)
+// -> flag (n,) u8, 1 where a work item of at most `item` queries starts (see
+// item_mark_kernel), and tile_counts (2 * ceil(n / pcr_knn_tile_size()),)
+// i32. Returns cudaGetLastError().
+int pcr_knn_item_flags(const void* skey, int wide, int n, const int* count, int item,
+                       unsigned char* flag, int* tile_counts, void* stream) {
   if (n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + 255) / 256;
+  const int blocks = pcr::compact::tiles(n);
   if (wide)
-    item_flag_kernel<<<blocks, 256, 0, st>>>(static_cast<const long long*>(skey), n,
-                                             item, flag);
+    item_mark_kernel<<<blocks, pcr::compact::kThreads, 0, st>>>(
+        static_cast<const long long*>(skey), n, count, item, flag, tile_counts);
   else
-    item_flag_kernel<<<blocks, 256, 0, st>>>(static_cast<const int*>(skey), n, item,
-                                             flag);
+    item_mark_kernel<<<blocks, pcr::compact::kThreads, 0, st>>>(
+        static_cast<const int*>(skey), n, count, item, flag, tile_counts);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Grouping, third step: the flags and tile counts of pcr_knn_item_flags ->
+// starts (n,) i64, the positions at which the items start in increasing
+// order (the rest of the array is not written), and ctl (3,) i32: the number
+// of items and two counters at 0, as pcr_knn_moments reads them. Returns
+// cudaGetLastError().
+int pcr_knn_item_starts(const unsigned char* flag, int n, const int* tile_counts,
+                        long long* starts, int* ctl, void* stream) {
+  if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  pcr::compact::scatter_kernel<<<pcr::compact::tiles(n), pcr::compact::kThreads, 0, st>>>(
+      flag, n, tile_counts, starts, n, nullptr, 0, ctl, nullptr, ctl + 1, 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Positions a compaction tile holds: the tile counts of n positions take
+// 2 * ceil(n / pcr_knn_tile_size()) ints.
+int pcr_knn_tile_size() { return pcr::compact::kTile; }
 
 }  // extern "C"

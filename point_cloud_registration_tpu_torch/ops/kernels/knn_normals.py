@@ -28,10 +28,17 @@ The box depends only on the fused block in which it starts, so queries that
 share that block share their candidates. Before the launch the wrapper
 groups the queries by box into work items of one box and at most
 :data:`ITEM` queries (:func:`box_groups_cuda`: one stable sort of integer
-keys between two small kernels of the same source; :func:`box_groups` is
-its plain version); the kernel gives each item one warp, which stages the
-box's points in shared memory once for all of its queries. Outputs come
-back in the caller's order.
+keys between small kernels of the same source; :func:`box_groups` is its
+plain version); a warp of the kernel takes one item at a time and stages
+the box's points in shared memory once for all of its queries. The number
+of items stays on the card, so the launch waits for no host read. Outputs
+come back in the caller's order.
+
+:func:`knn_moments_out` is the same launch with the outputs left planar
+(10, N), as ``ops/normals.py`` keeps them, and :func:`knn_moments_into` the
+wide tier of ``estimate_normals``: queries listed by point index, with their count
+on the card, whose resolved rows go straight into the planar outputs of
+the whole cloud.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from point_cloud_registration_tpu_torch.ops.pointgrid import PackedPointGrid, _b
 ROUND_K = 32  # the most neighbours one walk of the kernel selects; a larger k takes rounds
 MISS_D2 = np.float32(1e30)  # rk2 of a query with fewer than k candidates
 ITEM = 32  # queries of one work item at most: the lanes of a warp
+TILE = 2048  # positions of one tile of the grouping's compaction (csrc/compact.cuh)
 _FUSED = (4, 4, 2)  # fine cells per fused block
 _GROUP = (2, 2, 1)  # packed blocks per fused block
 _INT32_MAX = np.iinfo(np.int32).max
@@ -139,35 +147,52 @@ def box_groups(pg: PackedPointGrid, q: torch.Tensor, radius: int, item: int = IT
     return order, torch.nonzero(rank % item == 0)[:, 0]
 
 
-def box_groups_cuda(pg: PackedPointGrid, q: torch.Tensor, radius: int):
-    """:func:`box_groups` with :data:`ITEM` for CUDA tensors: the keys and the
-    item starts come from two small kernels of ``csrc/knn_normals.cu``, the
-    sort between them from ``torch.sort``. One host sync (the number of
-    items). The same ``(order, starts)``, element for element; int64 keys
-    only where int32 cannot hold them, as there."""
+def box_groups_cuda(pg: PackedPointGrid, q: torch.Tensor, radius: int,
+                    qidx: torch.Tensor | None = None, count: torch.Tensor | None = None):
+    """:func:`box_groups` with :data:`ITEM` for CUDA tensors, with no host
+    read: ``(order, starts, ctl)``. The keys, the item flags and the item
+    starts come from three small kernels of ``csrc/knn_normals.cu``, the sort
+    between them from ``torch.sort``. ``starts`` has room for one item per
+    query; its first ``ctl[0]`` entries are the items' starts, element for
+    element those of :func:`box_groups` (``ctl`` (3,) int32 on the card: the
+    number of items and the kernel's two counters at 0). int64 keys only
+    where int32 cannot hold them, as there.
+
+    With ``qidx`` (M,) int64 the queries are ``q[qidx]``, and with ``count``
+    (1,) int32 on the card only the first ``min(count, M)`` of them: the
+    others sort last and start no item."""
     require_cuda(q)
     if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous float32 (N, 3) tensor, got {q.dtype} "
                          f"{tuple(q.shape)}")
     lib = _library()
-    n = q.shape[0]
+    n = q.shape[0] if qidx is None else qidx.shape[0]
     wide = _box_key_space(pg, radius)[2] > _INT32_MAX
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    key = torch.empty(n, dtype=torch.int64 if wide else torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = torch.empty(n, dtype=torch.int64 if wide else torch.int32, device=dev)
+    count_ptr = None if count is None else count.data_ptr()
+    with torch.cuda.device(dev):
         rc = lib.pcr_knn_box_keys(
-            q.data_ptr(), n, *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
+            q.data_ptr(), None if qidx is None else qidx.data_ptr(), n, count_ptr,
+            *(int(d) for d in pg.nb_dims), *(int(o) for o in pg.origin_fine),
             float(inv_cell_f32(pg.cell_fine)), int(radius), int(wide), key.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"knn_moments box-key kernel launch failed: CUDA error {rc}")
     skey, order = torch.sort(key, stable=True)
-    flag = torch.empty(n, dtype=torch.bool, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.pcr_knn_item_flags(skey.data_ptr(), int(wide), n, ITEM, flag.data_ptr(),
-                                    stream)
+    flag = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_counts = torch.empty(2 * -(-n // TILE), dtype=torch.int32, device=dev)
+    starts = torch.empty(n, dtype=torch.int64, device=dev)
+    ctl = torch.empty(3, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.pcr_knn_item_flags(skey.data_ptr(), int(wide), n, count_ptr, ITEM,
+                                    flag.data_ptr(), tile_counts.data_ptr(), stream)
+        if rc == 0:
+            rc = lib.pcr_knn_item_starts(flag.data_ptr(), n, tile_counts.data_ptr(),
+                                         starts.data_ptr(), ctl.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"knn_moments item-flag kernel launch failed: CUDA error {rc}")
-    return order, torch.nonzero(flag)[:, 0]
+        raise RuntimeError(f"knn_moments item kernels launch failed: CUDA error {rc}")
+    return order, starts, ctl
 
 
 def knn_moments_reference(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor, k: int,
@@ -215,25 +240,29 @@ def knn_moments_reference(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor,
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument types of the three entry points of a build of
+    """Set the argument types of the entry points of a build of
     ``csrc/knn_normals.cu``."""
     c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.pcr_knn_moments.argtypes = (
         [c_ptr] * 4 + [c_int] * 8 + [c_float, c_float]  # packed grid, inv_cell, exact_d2
         + [c_int, c_int]  # radius, k
-        + [c_ptr, c_ptr, c_int]  # q, w, n
-        + [c_ptr, c_ptr, c_int]  # order, starts, items
-        + [c_ptr, c_ptr]  # out, stream
+        + [c_ptr, c_ptr, c_ptr, c_int, c_ptr]  # q, qidx, w, n, count
+        + [c_ptr, c_ptr, c_ptr]  # order, starts, ctl
+        + [c_ptr, c_int, c_ptr]  # out, out_n, stream
     )
     lib.pcr_knn_box_keys.argtypes = (
-        [c_ptr, c_int] + [c_int] * 6 + [c_float, c_int, c_int]  # q, n, grid, inv_cell, radius, wide
+        [c_ptr, c_ptr, c_int, c_ptr]  # q, qidx, n, count
+        + [c_int] * 6 + [c_float, c_int, c_int]  # grid, inv_cell, radius, wide
         + [c_ptr, c_ptr]  # key, stream
     )
-    lib.pcr_knn_item_flags.argtypes = [c_ptr, c_int, c_int, c_int, c_ptr, c_ptr]
-    for fn in (lib.pcr_knn_moments, lib.pcr_knn_box_keys, lib.pcr_knn_item_flags):
+    lib.pcr_knn_item_flags.argtypes = [c_ptr, c_int, c_int, c_ptr, c_int, c_ptr, c_ptr, c_ptr]
+    lib.pcr_knn_item_starts.argtypes = [c_ptr, c_int, c_ptr, c_ptr, c_ptr, c_ptr]
+    for fn in (lib.pcr_knn_moments, lib.pcr_knn_box_keys, lib.pcr_knn_item_flags,
+               lib.pcr_knn_item_starts):
         fn.restype = c_int
-    if lib.pcr_knn_item_size() != ITEM or lib.pcr_knn_round_k() != ROUND_K:
-        raise RuntimeError("csrc/knn_normals.cu was built for another item size or round")
+    if (lib.pcr_knn_item_size() != ITEM or lib.pcr_knn_round_k() != ROUND_K
+            or lib.pcr_knn_tile_size() != TILE):
+        raise RuntimeError("csrc/knn_normals.cu was built for another item size, round or tile")
     return lib
 
 
@@ -267,27 +296,110 @@ def _check_grid(pg: PackedPointGrid, q: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch_moments(pg: PackedPointGrid, q, w, k: int, radius: int, order, starts, out) -> None:
+def launch_moments(pg: PackedPointGrid, q, w, k: int, radius: int, groups, out,
+                   qidx=None, count=None) -> None:
     """Launch the kernel on checked operands: the queries grouped as
-    ``(order, starts)`` by :func:`box_groups_cuda`, ``out`` (10, N) float32.
-    Apart from :func:`knn_moments`, the measurement scripts call it to time
-    the kernel without its grouping. It runs with the card of ``q`` current
-    (the kernel's shared-memory limit is set there)."""
+    ``groups = (order, starts, ctl)`` by :func:`box_groups_cuda` (with the
+    same ``qidx`` and ``count``), ``w`` (N,) float32 or None for weights of
+    1, ``out`` (10, M) float32: (10, N) without ``qidx``, else the planar
+    outputs of the cloud that ``qidx`` indexes. Apart from the wrappers,
+    the measurement scripts call it to time the kernel without its grouping;
+    a grouping serves any number of launches. It runs with the card of ``q``
+    current (the kernel's shared-memory limit is set there)."""
     lib = _library()
+    order, starts, ctl = groups
+    n = q.shape[0] if qidx is None else qidx.shape[0]
     with torch.cuda.device(q.device):
         rc = lib.pcr_knn_moments(
             pg.pts_packed.data_ptr(), pg.row_count.data_ptr(), pg.block_row.data_ptr(),
             pg.row_over.data_ptr(), pg.cap, pg.width, *(int(d) for d in pg.nb_dims),
             *(int(o) for o in pg.origin_fine), float(inv_cell_f32(pg.cell_fine)),
             float(exact_d2_f32(radius, pg.cell_fine)), int(radius), int(k),
-            q.data_ptr(), w.data_ptr(), q.shape[0],
-            order.data_ptr(), starts.data_ptr(), starts.shape[0],
-            out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), None if qidx is None else qidx.data_ptr(),
+            None if w is None else w.data_ptr(), n,
+            None if count is None else count.data_ptr(),
+            order.data_ptr(), starts.data_ptr(), ctl.data_ptr(),
+            out.data_ptr(), out.shape[1], torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc < 0:
         raise ValueError(f"knn_moments: {_REFUSED.get(rc, rc)}")
     if rc != 0:
         raise RuntimeError(f"knn_moments kernel launch failed: CUDA error {rc}")
+
+
+def _check_call(pg: PackedPointGrid, q: torch.Tensor, k: int, radius: int) -> bool:
+    """The wrappers' argument checks; True for CUDA tensors (the kernel),
+    False for CPU tensors (the plain version)."""
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    if radius < 1:
+        raise ValueError(f"radius must be at least 1, got {radius}")
+    if q.device.type == "cpu":
+        return False
+    require_cuda(q)
+    _check_grid(pg, q)
+    return True
+
+
+def _check_queries(q: torch.Tensor, w: torch.Tensor | None) -> None:
+    """:func:`check_operands` of ``q`` and ``w``; ``w`` None checks ``q`` alone."""
+    if w is not None:
+        check_operands(q, w)
+    elif q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3 or not q.is_contiguous():
+        raise ValueError(f"q must be a contiguous float32 (N, 3) tensor, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+
+
+def _planar(moments) -> torch.Tensor:
+    """``(cov6, count, rk2, unresolved, exact)`` as the kernel's (10, N)."""
+    cov6, cnt, rk2, unres, exact = moments
+    return torch.cat([cov6.T, torch.stack([cnt, rk2, unres.float(), exact.float()])])
+
+
+def knn_moments_out(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor | None, k: int,
+                    radius: int) -> torch.Tensor:
+    """:func:`knn_moments` with its outputs planar: (10, N) float32, rows
+    c00 c11 c22 c01 c02 c12 count rk2 unresolved exact (the flags as 0 / 1).
+    ``w`` None stands for weights of 1. CUDA tensors launch the kernel (one
+    more in ``knn_moments.launches``) with no host read."""
+    if not _check_call(pg, q, k, radius):
+        ones = torch.ones(q.shape[0], dtype=torch.float32) if w is None else w
+        return _planar(knn_moments_reference(pg, q, ones, k, radius))
+    _check_queries(q, w)
+    n = q.shape[0]
+    out = torch.empty((10, n), dtype=torch.float32, device=q.device)
+    if n:
+        launch_moments(pg, q, w, k, radius, box_groups_cuda(pg, q, radius), out)
+        knn_moments.launches += 1
+    return out
+
+
+def knn_moments_into(pg: PackedPointGrid, points: torch.Tensor, qidx: torch.Tensor,
+                     count: torch.Tensor, k: int, radius: int, out: torch.Tensor) -> None:
+    """The wide tier of ``ops/normals.py``: the queries ``points[qidx[:c]]``
+    with ``c = min(count, len(qidx))`` (``count`` (1,) int32 on the device
+    of ``points``), weights 1; each query that has ``k`` candidates writes
+    its rows c00 .. c12 and exact into column ``qidx[i]`` of ``out`` (10, N),
+    the planar outputs of ``points`` (N, 3); the others write nothing. CUDA
+    tensors launch the kernel over ``len(qidx)`` positions (one more in
+    ``knn_moments.launches``) with no host read; CPU tensors take the plain
+    version."""
+    if not _check_call(pg, points, k, radius):
+        live = qidx[:int(count[0])]
+        q = points[live]
+        cov6, _, _, unres, exact = knn_moments_reference(
+            pg, q, torch.ones(q.shape[0], dtype=torch.float32), k, radius)
+        upd = live[~unres]
+        out[0:6, upd] = cov6[~unres].T
+        out[9, upd] = exact[~unres].float()
+        return
+    _check_queries(points, None)
+    if qidx.dtype != torch.int64 or count.dtype != torch.int32 or qidx.device != points.device:
+        raise ValueError("qidx must be int64 and count int32, on the device of points")
+    if qidx.shape[0]:
+        groups = box_groups_cuda(pg, points, radius, qidx, count)
+        launch_moments(pg, points, None, k, radius, groups, out, qidx, count)
+        knn_moments.launches += 1
 
 
 def knn_moments(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor, k: int, radius: int):
@@ -300,21 +412,10 @@ def knn_moments(pg: PackedPointGrid, q: torch.Tensor, w: torch.Tensor, k: int, r
     memory).
     CPU tensors take the plain version; CUDA tensors launch the kernel and
     add one to ``knn_moments.launches``."""
-    if k < 1:
-        raise ValueError(f"k must be at least 1, got {k}")
-    if radius < 1:
-        raise ValueError(f"radius must be at least 1, got {radius}")
-    if q.device.type == "cpu":
+    if not _check_call(pg, q, k, radius):
         return knn_moments_reference(pg, q, w, k, radius)
-    require_cuda(q)
     check_operands(q, w)
-    _check_grid(pg, q)
-    n = q.shape[0]
-    out = torch.empty((10, n), dtype=torch.float32, device=q.device)
-    if n:
-        order, starts = box_groups_cuda(pg, q, radius)
-        launch_moments(pg, q, w, k, radius, order, starts, out)
-        knn_moments.launches += 1
+    out = knn_moments_out(pg, q, w, k, radius)
     return out[0:6].T.contiguous(), out[6], out[7], out[8] > 0, out[9] > 0
 
 

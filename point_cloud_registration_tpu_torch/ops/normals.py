@@ -14,7 +14,10 @@ Backends of :func:`estimate_normals`:
   point and a radius-4 pass over the tail it could not certify, then a plain
   wide search for the few points whose window held fewer than k candidates
   (the JAX package's ``"pallas"`` path). It certifies, per point, that the
-  neighbourhood is the exact k-NN (``return_info``).
+  neighbourhood is the exact k-NN (``return_info``). On the card the steps
+  around the kernel (the radius sampler, the tiers' lists, the eigensolve,
+  the fallback) are the launches of ``ops/kernels/normals_chain.py``, and
+  the host reads nothing after the cell size but the packed grid's geometry.
 * ``"gather"``: ``ops.pointgrid.knn_packed`` followed by
   :func:`normals_from_neighbors` (the JAX package's ``"xla"`` path); it does
   not track exactness.
@@ -27,12 +30,12 @@ import torch
 
 from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.ops.eigh3 import smallest_eigvec_sym3
-from point_cloud_registration_tpu_torch.ops.kernels.knn_normals import knn_moments
-from point_cloud_registration_tpu_torch.ops.pointgrid import (
-    _knn_window_pass,
-    build_packed_grid,
-    knn_packed,
+from point_cloud_registration_tpu_torch.ops.kernels import normals_chain
+from point_cloud_registration_tpu_torch.ops.kernels.knn_normals import (
+    knn_moments_into,
+    knn_moments_out,
 )
+from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid, knn_packed
 
 BACKENDS = ("auto", "gather")
 # Kernel tiers: a radius-2 pass over every point, then a radius-4 pass over
@@ -41,44 +44,37 @@ BASE_RADIUS = 2
 WIDE_RADIUS = 4
 
 
-def _sampled_knn(queries: torch.Tensor, points: torch.Tensor, k: int,
-                 tile: int = 16384) -> torch.Tensor:
-    """Exact k smallest distances of a few queries against a big cloud, one
-    reference tile at a time: (nq, k) ascending."""
-    best_d2 = torch.full((queries.shape[0], k), float("inf"), dtype=torch.float32,
-                         device=queries.device)
-    for s in range(0, points.shape[0], tile):
-        diff = queries[:, None, :] - points[None, s:s + tile, :]
-        d2 = torch.sum(diff * diff, dim=-1)
-        best_d2 = torch.topk(torch.cat([best_d2, d2], dim=1), k, dim=1, largest=False,
-                             sorted=True).values
-    return torch.sqrt(best_d2)
+def sample_draws(n: int, k: int, n_sample: int = 256, seed: int = 0, *,
+                 rng: np.random.RandomState | None = None):
+    """The host's draws of :func:`sample_knn_radius` (normals.py:38-56):
+    ``(sel, ref, k_eff)``, the sampled queries, the reference subsample
+    (None: all points) and the neighbour rank taken in it."""
+    if rng is None:
+        rng = np.random.RandomState(seed)
+    m_sub = 1 << 17
+    if n > 2 * m_sub:
+        sel = rng.randint(0, n, size=min(n_sample, n))
+        return sel, rng.randint(0, n, size=m_sub), max(2, int(np.ceil(k * m_sub / n)))
+    return rng.choice(n, size=min(n_sample, n), replace=False), None, k
 
 
 def sample_knn_radius(points: torch.Tensor, k: int, n_sample: int = 256, seed: int = 0, *,
                       rng: np.random.RandomState | None = None) -> float:
     """Median k-th-NN distance of a random sample (host float); it sizes the
     k-NN grid's cells. ``rng`` (default ``np.random.RandomState(seed)``)
-    makes the draws of normals.py:38-56, so both packages pick the same sample:
-    ``n_sample`` queries and, above 2**18 points, a reference subsample of
-    2**17 points with k scaled down in proportion. The median of an even
-    count is the mean of the two middle values."""
-    if rng is None:
-        rng = np.random.RandomState(seed)
-    n = points.shape[0]
-    m_sub = 1 << 17
-    big = n > 2 * m_sub
-    if big:
-        sel = rng.randint(0, n, size=min(n_sample, n))
-        refs = points[torch.as_tensor(rng.randint(0, n, size=m_sub), device=points.device)]
-        k_eff = max(2, int(np.ceil(k * m_sub / n)))
-    else:
-        sel = rng.choice(n, size=min(n_sample, n), replace=False)
-        refs, k_eff = points, k
-    queries = points[torch.as_tensor(sel, device=points.device)]
-    kth = torch.sort(_sampled_knn(queries, refs, k_eff)[:, -1]).values
-    m = kth.shape[0]
-    return float((kth[(m - 1) // 2] + kth[m // 2]) * 0.5)
+    makes the draws of normals.py:38-56 (:func:`sample_draws`), so both
+    packages pick the same sample: ``n_sample`` queries and, above 2**18
+    points, a reference subsample of 2**17 points with k scaled down in
+    proportion. The median of an even count is the mean of the two middle
+    values. The draws go to the device in one copy;
+    ``ops/kernels/normals_chain.sampled_median`` does the rest (on the card
+    one launch, and the result is the one value read back)."""
+    sel, ref, k_eff = sample_draws(points.shape[0], k, n_sample, seed, rng=rng)
+    draws = torch.as_tensor(sel if ref is None else np.concatenate([sel, ref]),
+                            device=points.device)
+    m = len(sel)
+    return normals_chain.sampled_median(points, draws[:m], None if ref is None else draws[m:],
+                                        k_eff)
 
 
 def normals_from_neighbors(points: torch.Tensor, neighbor_idx: torch.Tensor,
@@ -101,45 +97,36 @@ def normals_from_neighbors(points: torch.Tensor, neighbor_idx: torch.Tensor,
 
 
 def _fused_normals(points: torch.Tensor, k: int, cell_size: float, cell_cap: int | None,
-                   exact_tail: bool):
+                   exact_tail: bool, return_info: bool):
     """The two kernel tiers and the fallback (normals.py:179-344):
     ``(normals, info)``. The capacities of the wide tier and of the fallback
-    are the JAX package's: they decide which points are certified."""
+    are the JAX package's: they decide which points are certified.
+
+    On the card the steps after the packed grid's build are launches that
+    leave their sizes on the card: the base tier, the lists of the wide
+    tier's queries and of the fallback's points (at most ``cap_t`` and
+    ``cap_q``), the wide tier over its list, the eigensolve and the
+    fallback. The host reads the lists' counts only for ``return_info``
+    (``info["n_wide"]``, ``info["n_unresolved"]``)."""
     n = points.shape[0]
-    dev = points.device
     pg = build_packed_grid(points, cell_size, cap=cell_cap or 32, auto_cap=cell_cap is None)
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
-    cov6, _, rk2, unres, exact = knn_moments(pg, points, ones, k, BASE_RADIUS)
-    info = {"cell_size": pg.cell_fine, "cap": pg.cap, "n_base": n, "n_wide": 0}
-
+    out = knn_moments_out(pg, points, None, k, BASE_RADIUS)  # (10, n)
+    # The wide tier certifies only below 4 * cell; a base k-th distance
+    # beyond 6 * cell cannot plausibly come back under it.
+    cert = float(np.float32((6.0 * pg.cell_fine) ** 2)) if exact_tail else None
+    cap_t = max(min(n // 4, 1 << 18), min(n, 256))
+    cap_q = max(min(n // 16, 8192), min(n, 64))
+    tail, un, totals = normals_chain.tail_lists(out, cert, cap_t, cap_q)
     if exact_tail:
-        # The wide tier certifies only below 4 * cell; a base k-th distance
-        # beyond 6 * cell cannot plausibly come back under it.
-        certifiable = rk2 < float(np.float32((6.0 * pg.cell_fine) ** 2))
-        cap_t = max(min(n // 4, 1 << 18), min(n, 256))
-        tail = torch.nonzero(~exact & ~unres & certifiable)[:, 0][:cap_t]
-        info["n_wide"] = int(tail.numel())
-        if info["n_wide"]:
-            q_w = points[tail]
-            cov_w, _, _, unres_w, exact_w = knn_moments(pg, q_w, ones[:q_w.shape[0]], k,
-                                                        WIDE_RADIUS)
-            upd = tail[~unres_w]
-            cov6[upd] = cov_w[~unres_w]
-            exact[upd] = exact_w[~unres_w]
-
-    normals = smallest_eigvec_sym3(cov6)
-
+        knn_moments_into(pg, points, tail, totals[0:1], k, WIDE_RADIUS, out)
+    normals = normals_chain.eig_normals(out)
     # Points whose window held fewer than k candidates: a plain search at
     # twice the base radius.
-    cap_q = max(min(n // 16, 8192), min(n, 64))
-    un = torch.nonzero(unres)[:, 0]
-    info["n_unresolved"] = int(un.numel())
-    un = un[:cap_q]
-    if un.numel():
-        _, wi = _knn_window_pass(pg, points[un], k, radius=2 * BASE_RADIUS,
-                                 chunk=min(cap_q, 2048))
-        normals[un] = normals_from_neighbors(points, wi, points[un])
-    info["exact"] = exact
+    normals_chain.fallback_normals(pg, points, un, totals[1:2], k, 2 * BASE_RADIUS, normals)
+    info = {"cell_size": pg.cell_fine, "cap": pg.cap, "n_base": n}
+    if return_info:
+        n_tail, n_un = totals.tolist()
+        info.update(n_wide=min(n_tail, cap_t), n_unresolved=n_un, exact=out[9] > 0)
     return normals, info
 
 
@@ -179,7 +166,7 @@ def estimate_normals(
         _, idx = knn_packed(pg, points, k)
         normals, info = normals_from_neighbors(points, idx, points), {"exact": None}
     else:
-        normals, info = _fused_normals(points, k, cell_size, cell_cap, exact_tail)
+        normals, info = _fused_normals(points, k, cell_size, cell_cap, exact_tail, return_info)
     return (normals, info) if return_info else normals
 
 

@@ -111,14 +111,14 @@ def main() -> None:
     q_w = map_t[tail].contiguous()
     print(f"cell {cell:.6f}, cap {pg.cap}, tail {q_w.shape[0]} queries", flush=True)
     for label, q, radius in (("base tier", map_t, nm.BASE_RADIUS), ("wide tier", q_w, nm.WIDE_RADIUS)):
-        order, starts = kn.box_groups_cuda(pg, q, radius)
+        groups = kn.box_groups_cuda(pg, q, radius)
         out = torch.empty((10, q.shape[0]), device="cuda")
 
         def run(lib=shipped_lib):
             kn._library = lambda: lib  # the build that launch_moments calls
-            kn.launch_moments(pg, q, ones, K, radius, order, starts, out)
+            kn.launch_moments(pg, q, ones[:q.shape[0]], K, radius, groups, out)
 
-        print(f"== {label}, r = {radius}: {q.shape[0]} queries, {starts.shape[0]} work items; "
+        print(f"== {label}, r = {radius}: {q.shape[0]} queries, {int(groups[2][0])} work items; "
               f"kernel alone, ms")
         shipped = cuda_ms(run)
         again = {name: cuda_ms(lambda: run(lib)) for name, lib in libs.items()}

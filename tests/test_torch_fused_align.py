@@ -224,5 +224,5 @@ def test_library_path_is_keyed_by_sources():
     assert path.name == "libfused_align.so"
     assert [p.name for p in _build._sources()] == ["exact_nn.cu", "fused_align.cu", "gn_loop.cu",
                                                   "gn_step.cu", "grid_align.cu", "grid_loop.cu",
-                                                  "knn_normals.cu", "point_align.cu",
-                                                  "point_loop.cu"]
+                                                  "knn_normals.cu", "normals_chain.cu",
+                                                  "point_align.cu", "point_loop.cu"]

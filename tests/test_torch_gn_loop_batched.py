@@ -59,6 +59,7 @@ from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
 from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 from oracles import make_scan, make_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -344,6 +345,10 @@ CONSTANTS = {"pcr_fused_block_size": 256, "pcr_point_block_size": 128,
              "pcr_grid_queries_per_block": 64, "pcr_gn_loop_block_size": 256,
              "pcr_point_loop_block_size": 128, "pcr_grid_loop_queries_per_block": 64,
              "pcr_knn_item_size": kn.ITEM, "pcr_knn_round_k": kn.ROUND_K,
+             "pcr_knn_tile_size": kn.TILE, "pcr_normals_sample_tile": nc.SAMPLE_TILE,
+             "pcr_normals_sample_max_k": nc.SAMPLE_MAX_K,
+             "pcr_normals_sample_part_max": nc.SAMPLE_PART_MAX, "pcr_normals_tile_size": nc.TILE,
+             "pcr_normals_fallback_blocks": nc.FALLBACK_BLOCKS,
              "pcr_exact_nn_segment_length": 64}
 
 
@@ -374,7 +379,8 @@ class FakeLibrary:
 
 _CACHED = [fa._kernel_fn, pa._kernel_fn, ga._kernel_fn, gs._kernel_fn, gl._kernel_fn,
            gl._point_kernel_fn, gl._grid_kernel_fn, gl._batched_kernel_fn,
-           gl._point_batched_kernel_fn, gl._multiprocessors, en._kernel_fn, ga._window_on]
+           gl._point_batched_kernel_fn, gl._multiprocessors, en._kernel_fn, ga._window_on,
+           kn._library, nc._library]
 
 
 @pytest.fixture
@@ -382,7 +388,7 @@ def fake_card(monkeypatch):
     """The log of library calls, with the card faked as above; the bindings
     cached meanwhile are dropped before and after."""
     log = []
-    for module in (fa, pa, ga, gs, gl, kn, en):
+    for module in (fa, pa, ga, gs, gl, kn, nc, en):
         monkeypatch.setattr(module, "load_library", lambda name: FakeLibrary(log))
     monkeypatch.setattr(torch.cuda, "device", Recorder)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -407,6 +413,8 @@ def test_every_launcher_binds_and_launches_on_its_tensors_card(scene, targets, f
     R, t = torch.eye(3), torch.zeros(3)
     cells, pg, proxy = _to_card((vm.cells, tg.packed, tg.proxy))
     radius = proxy_radius(pcfg.corr, pcfg.max_dist)
+    idx = _to_card(torch.arange(8, dtype=torch.int64))
+    count = _to_card(torch.tensor([8], dtype=torch.int32))
     small = build_icp_target(scene, ICPConfig(), device="cpu")  # the grid method
     grid, table, offsets = _to_card(_point_fused.grid_operands(small, ICPConfig()))
     head = (vm.origin_cell, vm.dims, vm.cell_size)
@@ -434,6 +442,13 @@ def test_every_launcher_binds_and_launches_on_its_tensors_card(scene, targets, f
                                                             gn.new_state(T0, 4, CARD),
                                                             proxy_radius=radius, **settings),
         "knn_moments": lambda: kn.knn_moments(pg, src[0], w[0], 5, 1),
+        "knn_moments_into": lambda: kn.knn_moments_into(
+            pg, src[0], idx, count, 5, 1, torch.zeros((10, N), device=CARD)),
+        "sampled_median": lambda: nc.sampled_median(src[0], idx, idx, 5),
+        "tail_lists": lambda: nc.tail_lists(torch.zeros((10, N), device=CARD), 1.0, 8, 8),
+        "eig_normals": lambda: nc.eig_normals(torch.zeros((10, N), device=CARD)),
+        "fallback_normals": lambda: nc.fallback_normals(
+            pg, src[0], idx, count, 5, 4, torch.zeros((N, 3), device=CARD)),
         "exact_nn": lambda: en.exact_nn(src[0], src[1]),
     }
     expected = {
@@ -450,7 +465,15 @@ def test_every_launcher_binds_and_launches_on_its_tensors_card(scene, targets, f
                                "pcr_gn_loop_batched_plane"],
         "point loop batched": ["pcr_point_loop_batched_blocks_per_sm",
                                "pcr_point_loop_batched_point"],
-        "knn_moments": ["pcr_knn_box_keys", "pcr_knn_item_flags", "pcr_knn_moments"],
+        # the grouping's three kernels, then the launch
+        "knn_moments": ["pcr_knn_box_keys", "pcr_knn_item_flags", "pcr_knn_item_starts",
+                        "pcr_knn_moments"],
+        "knn_moments_into": ["pcr_knn_box_keys", "pcr_knn_item_flags", "pcr_knn_item_starts",
+                             "pcr_knn_moments"],
+        "sampled_median": ["pcr_normals_sample"],
+        "tail_lists": ["pcr_normals_tails"],
+        "eig_normals": ["pcr_normals_eig"],
+        "fallback_normals": ["pcr_normals_fallback"],
         # the shape query that sizes the launch, then the launch
         "exact_nn": ["pcr_exact_nn_segments", "pcr_exact_nn"],
     }

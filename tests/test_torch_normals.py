@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import chip_smoke
 import point_cloud_registration_tpu as jax_pkg
 import point_cloud_registration_tpu_torch as port
 from point_cloud_registration_tpu.ops import normals as jax_normals
@@ -36,6 +37,7 @@ from point_cloud_registration_tpu.ops.pointgrid import knn_packed as jax_knn_pac
 from point_cloud_registration_tpu_torch.ops import normals as port_normals
 from point_cloud_registration_tpu_torch.ops.eigh3 import eigh_sym3
 from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
+from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
 from point_cloud_registration_tpu_torch.ops.knn import FOUND_MAX, brute_force_knn
 from point_cloud_registration_tpu_torch.ops.pointgrid import build_packed_grid, knn_packed
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -319,10 +321,12 @@ def test_knn_moments_takes_a_cap_that_is_no_multiple_of_four(cap):
     assert (np.abs(got[0] - ref[0]) <= REL * scale + 1e-12)[untruncated].all()
 
 
-@pytest.mark.parametrize("n,k", [(3000, 15), (300_000, 15), (200, 5)])
+@pytest.mark.parametrize("n,k", [(3000, 15), (300_000, 15), (200, 5), (5000, 40)])
 def test_sample_knn_radius_matches_jax(n, k):
     """The same draws, the same k-th distances, the same median: the cell
-    size decides every window, so it is held equal, not close."""
+    size decides every window, so it is held equal, not close. At k = 40
+    below 2**18 points the sampler's kernel takes its select, not its
+    tiles."""
     rng = np.random.RandomState(n)
     pts = (rng.rand(n, 3) * np.float32([30, 30, 3])).astype(np.float32)
     want = jax_normals.sample_knn_radius(pts, k)
@@ -565,3 +569,78 @@ def test_estimate_norm_with_tree_honours_the_index(scene):
     want = jax_pkg.estimate_norm_with_tree(pts, Tree(), k=12)
     dots = np.abs((got * want).sum(1))
     assert np.median(dots) > 1 - 1e-6 and (dots > 1 - 1e-3).mean() > 0.99
+
+
+# The chain of estimate_normals (ops/kernels/normals_chain.py): its plain
+# versions, which the CPU takes, against estimate_normals as it ran before
+# (chip_smoke.parent_normals, which holds the kernels to it on the card).
+
+
+@pytest.mark.parametrize("m,n_ref,k,plan", [
+    (256, 1 << 17, 2, "tiles"), (256, 1 << 18, 32, "tiles"), (256, 1 << 18, 33, "select"),
+    (8192, 1 << 17, 32, "tiles"), (8193, 1 << 17, 32, "select"), (1, 1, 1, "tiles"),
+    (65535 * 256, 1, 1, "tiles"), (65535 * 256 + 1, 1, 1, "select")])
+def test_sample_plan_takes_the_tiles_while_they_fit(m, n_ref, k, plan):
+    """The sampler's way to the k-th distances: the tiles while k fits the
+    registers, their lists the scratch and the queries the grid; the select
+    for every other shape."""
+    assert nc.sample_plan(m, n_ref, k) == plan
+
+
+@pytest.mark.parametrize("caps,exact_tail", [((4096, 512), True), ((5, 3), True),
+                                             ((4096, 512), False), ((1, 1), True),
+                                             ((100_000, 100_000), True)])
+def test_tail_lists_plain_version_equals_nonzero(caps, exact_tail):
+    """The wide tier's queries and the fallback's points from the base tier's
+    planar outputs: the first ``cap_t`` and ``cap_q`` of ``torch.nonzero``
+    and the whole counts, with lists longer than their caps, caps above the
+    counts, and an empty tail without ``exact_tail``."""
+    pts = _isolated_scene()
+    t = torch.from_numpy(pts)
+    pg = build_packed_grid(t, 0.15, 32)
+    out = kn.knn_moments_out(pg, t, None, K, port_normals.BASE_RADIUS)
+    cert = float(np.float32((6.0 * pg.cell_fine) ** 2))
+    tail, un, totals = nc.tail_lists(out, cert if exact_tail else None, *caps)
+    unres, exact = out[8] > 0, out[9] > 0
+    want_t = torch.nonzero(~exact & ~unres & (out[7] < cert))[:, 0] if exact_tail else \
+        torch.zeros(0, dtype=torch.int64)
+    want_u = torch.nonzero(unres)[:, 0]
+    if caps == (5, 3):
+        assert want_t.numel() > caps[0] and want_u.numel() > caps[1]
+    assert totals.dtype == torch.int32
+    assert totals.tolist() == [want_t.numel(), want_u.numel()]
+    for got, want, cap in ((tail, want_t, caps[0]), (un, want_u, caps[1])):
+        assert got.dtype == torch.int64 and torch.equal(got, want[:cap])
+    assert nc.tail_lists.launches == 0
+
+
+def _isolated_scene():
+    """A dense sheet and lone points whose boxes hold fewer than k
+    candidates (as test_isolated_points_are_unresolved_and_fall_back)."""
+    rng = np.random.RandomState(2)
+    dense = rng.rand(3000, 3).astype(np.float32) * np.float32([5, 5, 0.02])
+    lone = rng.rand(20, 3).astype(np.float32) * 3 + np.float32([40, 40, 0])
+    return np.vstack([dense, lone]).astype(np.float32)
+
+
+@pytest.mark.parametrize("scene_name,k,exact_tail", [
+    ("sheets", K, True), ("sheets", K, False), ("sheets", 5, True), ("isolated", K, True),
+    ("isolated", 5, True), ("isolated", 40, True), ("isolated", 70, True)])
+def test_return_info_counts_and_normals_equal_the_parents(scene_name, k, exact_tail):
+    """``estimate_normals`` through the chain's plain versions: integer
+    ``n_wide`` and ``n_unresolved``, the certificate and the normals of the
+    code before the chain, bit for bit, also at a k of the k-NN kernel's
+    rounds and of the fallback's sums in its own order on the card."""
+    pts = _scene(8000) if scene_name == "sheets" else _isolated_scene()
+    t = torch.from_numpy(pts)
+    nrm, info = port_normals.estimate_normals(t, k=k, exact_tail=exact_tail, return_info=True)
+    pg = build_packed_grid(t, info["cell_size"], cap=32, auto_cap=True)
+    want, _, exact, n_wide, n_unresolved = chip_smoke.parent_normals(pg, t, k, exact_tail)
+    assert type(info["n_wide"]) is int and type(info["n_unresolved"]) is int
+    assert (info["n_wide"], info["n_unresolved"]) == (n_wide, n_unresolved)
+    if scene_name == "sheets":
+        assert (n_wide > 0) == exact_tail
+    else:
+        assert n_unresolved > 0
+    assert torch.equal(info["exact"], exact)
+    assert torch.equal(nrm, want)
