@@ -25,6 +25,7 @@ from point_cloud_registration_tpu_torch.ops.voxelize import (
     build_voxel_map,
     update_voxel_map,
 )
+from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 __all__ = ["NDT", "build_ndt_target", "ndt_align", "ndt_solver_stats"]
 
@@ -74,7 +75,11 @@ class NDT(Registration):
         )
 
     def set_target(self, target) -> None:
-        self._target = build_ndt_target(target, self.cfg, device=self.device)
+        """Under a profiler the span ``pcr.set_target``, the whole build
+        (the host box, the copy, the voxel statistics, the sqrt-icov table)
+        ``pcr.build.index``."""
+        with span("pcr.set_target"), span("pcr.build.index"):
+            self._target = build_ndt_target(target, self.cfg, device=self.device)
 
     def update_target(self, target) -> None:
         """Merge ``target``'s points into the map (the reference's declared

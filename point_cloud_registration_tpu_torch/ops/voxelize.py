@@ -15,7 +15,11 @@ The reference ``VoxelGrid.set_points`` pipeline (voxel.py:104-169) becomes:
 * normals from the closed-form symmetric 3x3 eigensolver (``ops.eigh3``),
   zero on invalid cells;
 * for NDT, the inverse covariances (``invert_cov_packed``) and their upper
-  Cholesky factors (``sqrt_icov_u6``);
+  Cholesky factors (``sqrt_icov_u6``). A build with icovs takes its moments'
+  products and the statistics in float64 (``_local_sums(exact=True)``) and
+  inverts in float64 before the one rounding to float32: a thin cell's icov
+  (eigenvalues up to 1 / sigma**2, 1e3-1e4 on 2-3 cm surfaces) would carry
+  the float32 cancellation of ``E[ll^T] - mu mu^T`` a thousandfold;
 * for a dense map, the query layout the align kernel reads
   (``ops.knn.cell_index``: an occupancy bitmap with ranks and the valid
   cells' rows, with normals for VPlaneICP, ``U`` for NDT). A hashed map has
@@ -236,20 +240,26 @@ def _dense_keys(points, origin_cell, cell_size, dims):
     return torch.where(in_range, key, torch.full_like(key, nx * ny * nz)), coords, in_range
 
 
-def _local_sums(points, coords, cell_size, key, n_slots, with_covs=True) -> torch.Tensor:
+def _local_sums(points, coords, cell_size, key, n_slots, with_covs=True,
+                exact=False) -> torch.Tensor:
     """Exact per-slot sums (float32 of the exact sums) of the one-pass
     moments ``[1, l, l (x) l]`` (with_covs) or ``[1, l]`` of the cell-local
     coordinates ``l = p - corner``, ``corner`` the point's own cell corner:
     every term is O(cell_size), so the E[ll^T] - mu mu^T cancellation stays
-    benign. Columns ``[n, lx, ly, lz, xx, xy, xz, yy, yz, zz]``."""
-    local = points - coords.to(torch.float32) * np.float32(cell_size)
+    benign. Columns ``[n, lx, ly, lz, xx, xy, xz, yy, yz, zz]``. With
+    ``exact`` ``l`` and its products are taken in float64, where both are
+    exact (``p - corner`` of float32 values is not below a negative corner),
+    and the sums come back in float64."""
+    corner = coords.to(torch.float32) * np.float32(cell_size)
+    local = points.to(torch.float64) - corner.to(torch.float64) if exact else points - corner
     lx, ly, lz = local.unbind(-1)
     parts = [torch.ones_like(lx), lx, ly, lz]
     if with_covs:
         parts += [lx * lx, lx * ly, lx * lz, ly * ly, ly * lz, lz * lz]
     # |local| <= cell_size (twice that, for float32 rounding at the borders)
     bound = 2.0 * max(1.0, cell_size) ** 2
-    return _segment_sum_fixed(key, torch.stack(parts, dim=-1), n_slots, bound).to(torch.float32)
+    sums = _segment_sum_fixed(key, torch.stack(parts, dim=-1), n_slots, bound)
+    return sums if exact else sums.to(torch.float32)
 
 
 def _outer6(v: torch.Tensor) -> torch.Tensor:
@@ -287,11 +297,15 @@ def _key_corners(keys: torch.Tensor, origin_cell, dims, cell_size) -> torch.Tens
 
 
 def _finish(means, covs, counts_f, min_points, with_icov):
+    """``(means, covs, counts, valid, normals, icovs)`` in float32 from the
+    statistics in float32, or in float64 (an icov build's exact moments):
+    the icovs are inverted in the statistics' precision, then rounded."""
+    icovs = invert_cov_packed(covs).to(torch.float32) if with_icov else None
+    means, covs = means.to(torch.float32), covs.to(torch.float32)
     counts = counts_f.to(torch.int32)
     valid = counts >= min_points
     normals = torch.where(valid[:, None], smallest_eigvec_sym3(covs), torch.zeros_like(means))
-    icovs = invert_cov_packed(covs) if with_icov else None
-    return counts, valid, normals, icovs
+    return means, covs, counts, valid, normals, icovs
 
 
 def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
@@ -300,10 +314,12 @@ def _build_voxel_map_dense(points, origin_cell, cell_size, dims, *,
     (``_build_voxel_map_dense`` of the JAX package, voxelize.py:437-570)."""
     d_total = int(np.prod(dims))
     key, coords, _ = _dense_keys(points, origin_cell, cell_size, dims)
-    counts_f, mean_local, covs = _stats(_local_sums(points, coords, cell_size, key, d_total))
+    counts_f, mean_local, covs = _stats(_local_sums(points, coords, cell_size, key, d_total,
+                                                    exact=with_icov))
     slot = torch.arange(d_total, dtype=torch.int64, device=points.device)
     means = mean_local + _key_corners(slot, origin_cell, dims, cell_size)
-    counts, valid, normals, icovs = _finish(means, covs, counts_f, min_points, with_icov)
+    means, covs, counts, valid, normals, icovs = _finish(means, covs, counts_f, min_points,
+                                                         with_icov)
     if not with_normals:  # the centroid-only map: no second moments
         covs, normals = torch.zeros_like(covs), torch.zeros_like(normals)
     feats = sqrt_icov_u6(icovs) if rich == "sqrt_icov" else normals
@@ -328,10 +344,12 @@ def _finish_voxel_map(points, grid: Grid, inverse, *, min_points, with_icov) -> 
     capacity = grid.keys.shape[0]
     coords = cell_coords(points, grid.cell_size)
     counts_f, mean_local, covs = _stats(
-        _local_sums(points, coords, grid.cell_size, inverse.to(torch.int64), capacity))
+        _local_sums(points, coords, grid.cell_size, inverse.to(torch.int64), capacity,
+                    exact=with_icov))
     means = mean_local + _key_corners(grid.keys.to(torch.int64), grid.origin_cell, grid.dims,
                                       grid.cell_size)
-    counts, valid, normals, icovs = _finish(means, covs, counts_f, min_points, with_icov)
+    means, covs, counts, valid, normals, icovs = _finish(means, covs, counts_f, min_points,
+                                                         with_icov)
     return VoxelMap(
         origin_cell=grid.origin_cell,
         dims=grid.dims,
@@ -413,7 +431,8 @@ def update_voxel_map(vm: VoxelMap, new_points, min_points: int = 10,
     covs = torch.where(((n > 0) | (m > 0))[:, None], covs, torch.zeros_like(covs))
     mean_local = torch.where((tot > 0)[:, None], mean_local, torch.zeros_like(mean_local))
     means = mean_local + slot_corner
-    counts, valid, normals, icovs = _finish(means, covs, tot, min_points, vm.icovs is not None)
+    means, covs, counts, valid, normals, icovs = _finish(means, covs, tot, min_points,
+                                                         vm.icovs is not None)
     # the cell index keeps its kind of features: normals, or NDT's U
     feats = sqrt_icov_u6(icovs) if vm.cells.feats.shape[1] == FEAT_WIDTHS[6] else normals
     out = vm._replace(means=means, covs=covs, normals=normals, counts=counts, valid=valid,

@@ -3,9 +3,9 @@ benchmark's reduction of them (``perfbench/program_trace.py``).
 
 On the CPU: with no profiler a span is one shared no-op; under
 ``torch.profiler`` an align records ``pcr.align`` with ``pcr.align.upload``,
-``pcr.gn.setup`` and ``pcr.gn.read`` inside it, in that order, and a
+``pcr.gn.setup`` and ``pcr.gn.read`` inside it, in that order, a
 PlaneICP ``set_target`` records ``pcr.set_target`` with the build's three
-phases; ``profiler_trace``'s file holds them. The readers run on a trace
+phases, and an NDT ``set_target`` ``pcr.set_target`` with ``pcr.build.index``; ``profiler_trace``'s file holds them. The readers run on a trace
 made by hand (times in ms): each value worked out by hand, the same
 attribution with the device's clock shifted by 0.5 ms, an operation with no
 launching call placed by its start and counted, the benchmark's ten readers
@@ -25,13 +25,14 @@ from oracles import make_scan, make_scene
 from perfbench import harness
 from perfbench import program_trace as pt
 from perfbench import trace as tr
-from point_cloud_registration_tpu_torch import PlaneICP, VPlaneICP
+from point_cloud_registration_tpu_torch import NDT, PlaneICP, VPlaneICP
 from point_cloud_registration_tpu_torch.utils import profiler_trace
 from point_cloud_registration_tpu_torch.utils.diagnostics import span
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SOLVERS = {"PlaneICP": lambda: PlaneICP(max_iter=5, k=5, device="cpu"),
-           "VPlaneICP": lambda: VPlaneICP(voxel_size=1.0, max_iter=5, device="cpu")}
+           "VPlaneICP": lambda: VPlaneICP(voxel_size=1.0, max_iter=5, device="cpu"),
+           "NDT": lambda: NDT(voxel_size=1.0, max_iter=5, device="cpu")}
 ALIGN_SPANS = ["pcr.align", "pcr.align.upload", "pcr.gn.setup", "pcr.gn.read"]
 BUILD_SPANS = ["pcr.set_target", "pcr.build.upload", "pcr.build.normals", "pcr.build.index"]
 
@@ -87,6 +88,26 @@ def test_plane_icp_set_target_records_the_build(scene):
     assert [e[0] for e in spans] == BUILD_SPANS
     assert all(inside(child, spans[0]) for child in spans[1:])
     assert all(a[2] <= b[1] for a, b in zip(spans[1:], spans[2:]))
+
+
+def test_ndt_set_target_records_the_build(scene, monkeypatch):
+    cloud, _ = scene
+    s = SOLVERS["NDT"]()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.set_target(cloud)
+    spans = sorted(program_spans(prof), key=lambda e: e[1])
+    assert [e[0] for e in spans] == ["pcr.set_target", "pcr.build.index"]
+    assert inside(spans[1], spans[0])
+    assert not any(e[3] for e in spans)
+    # without a profiler each span is the shared no-op, and the map the same
+    from point_cloud_registration_tpu_torch.models import ndt as ndt_module
+
+    made = []
+    monkeypatch.setattr(ndt_module, "span", lambda name: made.append(span(name)) or made[-1])
+    again = SOLVERS["NDT"]()
+    again.set_target(cloud)
+    assert len(made) == 2 and all(m is span("other") for m in made)
+    assert torch.equal(again.voxels.cells.feats, s.voxels.cells.feats)
 
 
 def test_profiler_trace_file_holds_the_spans(scene, tmp_path):

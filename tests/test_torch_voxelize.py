@@ -7,7 +7,11 @@ Tolerances (float32 both sides, sums taken in another order):
 * means: 1e-5 absolute (cell-local float32 means of O(1 m) cells);
 * covs: 1e-5 * max|cov|;
 * normals: |dot| > 1 - 1e-4 on cells whose two smallest eigenvalues are
-  well separated (the sign is arbitrary in both packages).
+  well separated (the sign is arbitrary in both packages);
+* icovs: the analytic inverse within 1e-5 of JAX's on the same float32
+  covariances; a map's icovs (the port inverts its exact float64
+  statistics) within 1e-5 of the float64 inverse of each valid cell's
+  covariance.
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ import point_cloud_registration_tpu.ops.voxelize as jvox
 import point_cloud_registration_tpu_torch.ops.eigh3 as teig
 import point_cloud_registration_tpu_torch.ops.hashgrid as tgrid
 import point_cloud_registration_tpu_torch.ops.voxelize as tvox
-from oracles import make_scene
+from oracles import make_scene, voxel_stats_np
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
@@ -44,40 +48,58 @@ def built(request):
     pts = make()
     jm = jvox.build_voxel_map(pts, voxel, min_points=min_points, with_icov=True)
     tm = tvox.build_voxel_map(pts, voxel, min_points=min_points, with_icov=True, device="cpu")
-    return jm, tm
+    return jm, tm, pts
+
+
+def exact_icovs(pts, tm) -> np.ndarray:
+    """Packed float64 inverses of the valid cells' covariances (two-pass,
+    ``oracles.voxel_stats_np``), in the map's slot order."""
+    nx, ny, _ = tm.dims
+    ox, oy, oz = tm.origin_cell
+    covs = np.zeros((int(np.prod(tm.dims)), 3, 3))
+    for (cx, cy, cz), (n, _, cov) in voxel_stats_np(pts, tm.cell_size).items():
+        slot = (cx - ox) + nx * ((cy - oy) + ny * (cz - oz))
+        assert n == int(tm.counts[slot])
+        covs[slot] = cov
+    inv = np.linalg.inv(covs[tm.valid.numpy()])
+    return np.stack([inv[:, 0, 0], inv[:, 1, 1], inv[:, 2, 2], inv[:, 0, 1], inv[:, 0, 2],
+                     inv[:, 1, 2]], axis=-1)
 
 
 def test_build_geometry_matches_jax(built):
-    jm, tm = built
+    jm, tm, _ = built
     assert tm.dims == tuple(int(x) for x in np.asarray(jm.grid.dims))
     assert tm.origin_cell == tuple(int(x) for x in np.asarray(jm.grid.origin_cell))
     assert tm.cell_size == float(jm.grid.cell_size)
 
 
 def test_build_counts_valid_equal(built):
-    jm, tm = built
+    jm, tm, _ = built
     np.testing.assert_array_equal(tm.counts.numpy(), np.asarray(jm.counts))
     np.testing.assert_array_equal(tm.valid.numpy(), np.asarray(jm.valid))
     assert tm.num_voxels == int(jm.num_voxels) > 0
 
 
 def test_build_means_covs_match_jax(built):
-    jm, tm = built
+    jm, tm, pts = built
     occ = np.asarray(jm.counts) > 0
     np.testing.assert_allclose(tm.means.numpy()[occ], np.asarray(jm.means)[occ],
                                rtol=0, atol=1e-5)
     jc = np.asarray(jm.covs)
     np.testing.assert_allclose(tm.covs.numpy(), jc, rtol=0, atol=1e-5 * np.abs(jc).max())
     # icovs of near-flat cells amplify the covariance rounding, so the
-    # inverse is held to JAX's inverse of the same covariances
+    # analytic inverse is held to JAX's inverse of the same covariances ...
     np.testing.assert_allclose(
-        tm.icovs.numpy(), np.asarray(jvox.invert_cov_packed(jnp.asarray(tm.covs.numpy()))),
-        rtol=1e-5, atol=0,
+        tvox.invert_cov_packed(tm.covs).numpy(),
+        np.asarray(jvox.invert_cov_packed(jnp.asarray(tm.covs.numpy()))), rtol=1e-5, atol=0,
     )
+    # ... and the map's, from exact statistics, to the float64 inverse
+    np.testing.assert_allclose(tm.icovs.numpy()[tm.valid.numpy()], exact_icovs(pts, tm),
+                               rtol=1e-5, atol=0)
 
 
 def test_build_normals_match_jax(built):
-    jm, tm = built
+    jm, tm, _ = built
     valid = np.asarray(jm.valid)
     lam = np.linalg.eigvalsh(np.asarray(jeig.unpack_sym3(jm.covs), np.float64))
     separated = valid & (lam[:, 1] - lam[:, 0] > 1e-2 * np.maximum(lam[:, 2], 1e-12))
