@@ -366,6 +366,133 @@ def read_state(state: GNState) -> GNState:
     return _fields(state.words.to("cpu"), B, M)
 
 
+# A pose row [R row-major | t] as indices into a flat (16,) transform.
+_POSE_AT = np.array([0, 1, 2, 4, 5, 6, 8, 9, 10, 3, 7, 11])
+_EYE16 = np.eye(4, dtype=np.float32).reshape(16)
+
+
+class PreparedLoop:
+    """One problem's whole-loop align made once and refilled by every align
+    after it: the state's words on the device with their views, a pinned
+    init buffer (zero but the pose rows), a pinned read buffer and its NumPy
+    views, and the loop's launch with every argument bound but the scan's
+    (``prepare(state, src, w)``: a looper of ``ops/kernels/gn_loop``, whose
+    ``run(src, w)`` launches the loop on another scan of the same length).
+
+    An align (:meth:`start`, :meth:`finish`, :meth:`result`) writes the pose
+    into the init buffer, copies it to the words in one copy that does not
+    wait (zero counters, flags and histories, as :func:`new_state` makes
+    them), launches the loop, and copies the words back to the read buffer
+    in one copy that waits for the card; ``T`` and the diagnostics are
+    copies of the read buffer. The plan serves ``max_iter >= 1`` on the CPU
+    (its plain loop, the copies plain) or a card, on the stream current when
+    it is made. ``PreparedLoop.builds`` and ``PreparedLoop.reuses`` count
+    the plans made and the aligns that found one."""
+
+    builds = 0
+    reuses = 0
+
+    def __init__(self, key: tuple, targets: tuple, max_iter: int, device: torch.device,
+                 prepare: Callable, src: torch.Tensor, w: torch.Tensor):
+        self.key, self.targets = key, targets
+        M = int(max_iter)
+        card = device.type == "cuda"
+        words = dict(size=(17 + 3 * M,), dtype=torch.int32)
+        self.init = torch.zeros(**words, pin_memory=card)
+        self.pose = _fields(self.init, 1, M).poses.numpy()
+        self.words = torch.zeros(**words, device=device)
+        self.read = torch.zeros(**words, pin_memory=card)
+        self.host = GNState(*(x.numpy() for x in _fields(self.read, 1, M)))
+        self.stream = torch.cuda.current_stream(device) if card else None
+        # recorded after each copy from ``init``: an align that raised may leave one in flight
+        self.sent = torch.cuda.Event() if card else None
+        self.in_flight = False
+        self.launch = prepare(_fields(self.words, 1, M), src, w)
+
+    def matches(self, key: tuple, targets: tuple) -> bool:
+        return self.key == key and len(targets) == len(self.targets) and all(
+            a is b for a, b in zip(targets, self.targets))
+
+    def start(self, init_T, src: torch.Tensor, w: torch.Tensor) -> None:
+        """The state at ``init_T`` on the device and the loop launched on ``src``."""
+        if self.in_flight:
+            self.sent.synchronize()
+        T = torch.as_tensor(init_T).detach().to("cpu", torch.float32)
+        self.pose[0] = T.numpy().reshape(16)[_POSE_AT]
+        self.words.copy_(self.init, non_blocking=True)
+        if self.sent is not None:
+            self.sent.record(self.stream)
+            self.in_flight = True
+        self.launch.run(src, w)
+
+    def finish(self) -> None:
+        """The state in the read buffer: one copy, which waits for the card."""
+        self.read.copy_(self.words)
+        self.in_flight = False
+
+    def result(self) -> tuple[torch.Tensor, GNDiagnostics]:
+        """``(T (4, 4) float32, diagnostics)`` of the read buffer, copied."""
+        h = self.host
+        T = _EYE16.copy()
+        T[_POSE_AT] = h.poses[0]
+        return torch.from_numpy(T.reshape(4, 4)), GNDiagnostics(
+            iterations=int(h.it[0]),
+            converged=bool(h.converged[0]),
+            solver_failed=bool(h.failed[0]),
+            e2_history=torch.from_numpy(h.e2[0].copy()),
+            dx_norm_history=torch.from_numpy(h.dx_norm[0].copy()),
+            inlier_history=torch.from_numpy(h.inliers[0].copy()),
+            final_e2=float(h.final_e2[0]),
+        )
+
+
+class LoopSlot:
+    """Where a solver keeps its :class:`PreparedLoop` (``plan``, None until
+    an align makes one): one at a time, dropped with the target."""
+
+    def __init__(self):
+        self.plan: PreparedLoop | None = None
+
+    def align(self, req: "LoopRequest", init_T, max_iter: int, device: torch.device,
+              ) -> tuple[torch.Tensor, GNDiagnostics]:
+        """:func:`gauss_newton_device`'s result for ``req`` from ``init_T``,
+        through the slot's plan, made first when none fits. Under a profiler
+        the making is the span ``pcr.gn.plan``, inside ``pcr.gn.setup``."""
+        with span("pcr.gn.setup"):
+            stream = (torch.cuda.current_stream(device).cuda_stream if device.type == "cuda"
+                      else None)
+            key = (req.key, req.src.shape[0], int(max_iter), device, stream)
+            plan = self.plan
+            if plan is not None and plan.matches(key, req.targets):
+                PreparedLoop.reuses += 1
+            else:
+                self.plan = None
+                with span("pcr.gn.plan"):
+                    plan = PreparedLoop(key, req.targets, max_iter, device, req.prepare,
+                                        req.src, req.w)
+                self.plan = plan
+                PreparedLoop.builds += 1
+            plan.start(init_T, req.src, req.w)
+        with span("pcr.gn.read"):
+            plan.finish()
+        return plan.result()
+
+
+class LoopRequest(NamedTuple):
+    """An align of ``src`` through ``slot``'s plan, as :func:`gauss_newton_device`
+    takes it for ``loop``: the plan is made anew (``prepare``) unless it was
+    made for the same ``targets`` (each the same object), an equal ``key``
+    (the solver's kind and settings), the scan's length, ``max_iter``, the
+    device and its current stream."""
+
+    slot: LoopSlot
+    key: tuple
+    targets: tuple
+    src: torch.Tensor
+    w: torch.Tensor
+    prepare: Callable
+
+
 # A resident stats function: called once per align with the state's pose rows
 # (B, 12) [R row-major | t] and done flags (B,) int32 (or None), both on the
 # data's device, it returns ``launch() -> (B, 29)`` packed stats there (a
@@ -433,8 +560,13 @@ def gauss_newton_device(stats_fn: ResidentStats, init_T, max_iter: int, tol: flo
 
     ``loop``, when given, runs every iteration of the same stats in one call
     on the state (``ops/kernels/gn_loop.fused_loop``: one launch), which is
-    then read once; ``stats_fn`` is not called. :func:`gauss_newton_host`
-    takes the same arguments and runs ``stats_fn``."""
+    then read once; ``stats_fn`` is not called. A :class:`LoopRequest` for
+    ``loop`` runs the same loop through its slot's :class:`PreparedLoop`
+    (made there when it has none that fits), with the same result.
+    :func:`gauss_newton_host` takes the same arguments and runs
+    ``stats_fn``."""
+    if isinstance(loop, LoopRequest) and max_iter > 0:
+        return loop.slot.align(loop, init_T, max_iter, torch.device(device))
     s = _run_resident(stats_fn, torch.as_tensor(init_T).reshape(1, 4, 4), max_iter, tol,
                       device, loop)
     diag = GNDiagnostics(

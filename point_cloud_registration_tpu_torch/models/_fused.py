@@ -132,22 +132,29 @@ def fused_voxel_stats_resident(vm: VoxelMap, source: torch.Tensor, src_weight: t
 
 
 def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-                      init_T, cfg: VPlaneICPConfig | NDTConfig,
-                      kind: str = "plane") -> tuple[torch.Tensor, GNDiagnostics]:
+                      init_T, cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane",
+                      slot: gn.LoopSlot | None = None) -> tuple[torch.Tensor, GNDiagnostics]:
     """``align`` over :func:`fused_voxel_stats_resident` on the scan's
     device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
     one launch of a loop kernel (its plain version on the CPU) and one read
     of the state: ``gn_loop.fused_loop`` on a dense map, ``gn_loop.grid_loop``
-    on a hashed one."""
+    on a hashed one. With a solver's ``slot`` the loop is its prepared loop
+    (``core.gn.PreparedLoop``), made for ``vm`` once and kept while the map
+    and the scan's length stay: the same launch and the same result."""
     settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                     max_iter=cfg.max_iter)
-    if vm.hashed:
-        grid, table, offsets = hashed_operands(vm, cfg, kind)
-        loop = functools.partial(gn_loop.grid_loop, kind, grid, table, source, src_weight,
-                                 offsets, **settings)
+
+    def looper(state, src, w):
+        if vm.hashed:
+            grid, table, offsets = hashed_operands(vm, cfg, kind)
+            return gn_loop.grid_looper(kind, grid, table, src, w, offsets, state, **settings)
+        return gn_loop.fused_looper(kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src,
+                                    w, state, **settings)
+
+    if slot is not None:
+        loop = gn.LoopRequest(slot, (kind, cfg), (vm,), source, src_weight, looper)
     else:
-        loop = functools.partial(gn_loop.fused_loop, kind, vm.cells, vm.origin_cell, vm.dims,
-                                 vm.cell_size, source, src_weight, **settings)
+        loop = lambda state: looper(state, source, src_weight)()  # noqa: E731
     return gn.gauss_newton_device(fused_voxel_stats_resident(vm, source, src_weight, cfg, kind),
                                   init_T, cfg.max_iter, cfg.tol, source.device, loop=loop)
 

@@ -151,22 +151,32 @@ def fused_point_stats_resident(target: PointCorrTarget, source: torch.Tensor,
 def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, init_T, cfg: ICPConfig | PlaneICPConfig,
                       kind: str = "point", normals: torch.Tensor | None = None,
-                      ) -> tuple[torch.Tensor, GNDiagnostics]:
+                      slot: gn.LoopSlot | None = None) -> tuple[torch.Tensor, GNDiagnostics]:
     """``align`` over :func:`fused_point_stats_resident` on the scan's
     device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
     one launch of a loop kernel (its plain version on the CPU) and one read
     of the state: ``gn_loop.point_loop`` on a packed target,
-    ``gn_loop.grid_loop`` on a grid target."""
+    ``gn_loop.grid_loop`` on a grid target. With a solver's ``slot`` the
+    loop is its prepared loop (``core.gn.PreparedLoop``), made for ``target``
+    and ``normals`` once and kept while they and the scan's length stay: the
+    same launch and the same result."""
     settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                     max_iter=cfg.max_iter)
-    if target.packed is None:
-        grid, table, offsets = grid_operands(target, cfg, normals if kind == "plane_pt" else None)
-        loop = functools.partial(gn_loop.grid_loop, kind, grid, table, source, src_weight,
-                                 offsets, **settings)
+    grid_normals = normals if kind == "plane_pt" else None
+
+    def looper(state, src, w):
+        if target.packed is None:
+            grid, table, offsets = grid_operands(target, cfg, grid_normals)
+            return gn_loop.grid_looper(kind, grid, table, src, w, offsets, state, **settings)
+        return gn_loop.point_looper(kind, target.packed, target.proxy, src, w, state,
+                                    proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
+                                    **settings)
+
+    if slot is not None:
+        loop = gn.LoopRequest(slot, (kind, cfg), (target, grid_normals), source,
+                              src_weight, looper)
     else:
-        loop = functools.partial(gn_loop.point_loop, kind, target.packed, target.proxy, source,
-                                 src_weight, proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
-                                 **settings)
+        loop = lambda state: looper(state, source, src_weight)()  # noqa: E731
     stats_fn = fused_point_stats_resident(target, source, src_weight, cfg, kind, normals)
     return gn.gauss_newton_device(stats_fn, init_T, cfg.max_iter, cfg.tol, source.device,
                                   loop=loop)

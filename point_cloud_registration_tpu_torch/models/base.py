@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from point_cloud_registration_tpu_torch.core.device import default_device, resolve_device
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, LoopSlot
 from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 
@@ -50,15 +50,27 @@ class Registration:
 
     Subclasses set ``self._target`` in ``set_target`` and implement
     ``_align_fn(target, source, src_weight, init_T) -> AlignResult`` plus
-    ``_stats_fn(target, source, src_weight, T) -> GNStats``.
+    ``_stats_fn(target, source, src_weight, T) -> GNStats``. ``_loop`` keeps
+    the loop that the aligns prepare for the target (``core.gn.LoopSlot``);
+    setting ``_target`` drops it.
     """
 
     def __init__(self, max_iter: int = 30, tol: float = 1e-3, *, device=None):
         self.max_iter = max_iter
         self.tol = tol
         self.device = resolve_device(None, device)
-        self._target: Any = None
+        self._loop = LoopSlot()
+        self._target = None
         self.last_diagnostics: GNDiagnostics | None = None
+
+    @property
+    def _target(self) -> Any:
+        return self._target_now
+
+    @_target.setter
+    def _target(self, target) -> None:
+        self._target_now = target
+        self._loop.plan = None
 
     def is_target_set(self) -> bool:
         return self._target is not None

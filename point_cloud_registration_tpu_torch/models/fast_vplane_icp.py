@@ -131,7 +131,7 @@ class FastVPlaneICP(Registration):
         self._target = build_vplane_target(target, self.cfg, device=self.device)
 
     def _phase1(self, src, w_src, T0, cfg1) -> tuple[torch.Tensor, GNDiagnostics]:
-        return fused_voxel_align(self._target, src, w_src, T0, cfg1)
+        return fused_voxel_align(self._target, src, w_src, T0, cfg1, slot=self._loop)
 
     def align(self, source, init_T=None, verbose: bool = False) -> np.ndarray:
         if not self.is_target_set():

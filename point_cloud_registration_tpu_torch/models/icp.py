@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import ICPConfig
+from point_cloud_registration_tpu_torch.core.gn import LoopSlot
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
     build_point_corr,
@@ -42,8 +43,10 @@ def icp_stats(target: ICPTarget, source: torch.Tensor, src_weight: torch.Tensor,
 
 
 def icp_align(target: ICPTarget, source: torch.Tensor, src_weight: torch.Tensor,
-              init_T, cfg: ICPConfig) -> AlignResult:
-    T, diag = fused_point_align(target, source, src_weight, init_T, cfg)
+              init_T, cfg: ICPConfig, *, slot: LoopSlot | None = None) -> AlignResult:
+    """``models._point_fused.fused_point_align`` of kind ``"point"``;
+    ``slot`` keeps the solver's prepared loop."""
+    T, diag = fused_point_align(target, source, src_weight, init_T, cfg, slot=slot)
     return AlignResult(T=T, diagnostics=diag)
 
 
@@ -67,7 +70,7 @@ class ICP(Registration):
         self._target = build_icp_target(target, self.cfg, device=self.device)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        return icp_align(target, source, src_weight, init_T, self.cfg)
+        return icp_align(target, source, src_weight, init_T, self.cfg, slot=self._loop)
 
     def _stats_fn(self, target, source, src_weight, T):
         return icp_stats(target, source, src_weight, T, self.cfg)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import NDTConfig
+from point_cloud_registration_tpu_torch.core.gn import LoopSlot
 from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_align,
     fused_voxel_stats,
@@ -45,8 +46,10 @@ def ndt_solver_stats(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Te
 
 
 def ndt_align(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-              init_T, cfg: NDTConfig) -> AlignResult:
-    T, diag = fused_voxel_align(vmap_, source, src_weight, init_T, cfg, kind="ndt")
+              init_T, cfg: NDTConfig, *, slot: LoopSlot | None = None) -> AlignResult:
+    """``models._fused.fused_voxel_align`` of kind ``"ndt"``; ``slot`` keeps
+    the solver's prepared loop."""
+    T, diag = fused_voxel_align(vmap_, source, src_weight, init_T, cfg, kind="ndt", slot=slot)
     return AlignResult(T=T, diagnostics=diag)
 
 
@@ -100,7 +103,7 @@ class NDT(Registration):
         return self._target
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        return ndt_align(target, source, src_weight, init_T, self.cfg)
+        return ndt_align(target, source, src_weight, init_T, self.cfg, slot=self._loop)
 
     def _stats_fn(self, target, source, src_weight, T):
         return ndt_solver_stats(target, source, src_weight, T, self.cfg)

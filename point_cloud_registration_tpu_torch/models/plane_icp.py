@@ -23,6 +23,7 @@ import torch
 
 from point_cloud_registration_tpu_torch.core.config import PlaneICPConfig
 from point_cloud_registration_tpu_torch.core.device import resolve_device
+from point_cloud_registration_tpu_torch.core.gn import LoopSlot
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
     build_point_corr,
@@ -75,9 +76,11 @@ def plane_icp_stats(target: PlaneICPTarget, source: torch.Tensor, src_weight: to
 
 
 def plane_icp_align(target: PlaneICPTarget, source: torch.Tensor, src_weight: torch.Tensor,
-                    init_T, cfg: PlaneICPConfig) -> AlignResult:
+                    init_T, cfg: PlaneICPConfig, *, slot: LoopSlot | None = None) -> AlignResult:
+    """``models._point_fused.fused_point_align`` of kind ``"plane_pt"``;
+    ``slot`` keeps the solver's prepared loop."""
     T, diag = fused_point_align(target.corr, source, src_weight, init_T, cfg, "plane_pt",
-                                target.normals)
+                                target.normals, slot=slot)
     return AlignResult(T=T, diagnostics=diag)
 
 
@@ -109,7 +112,7 @@ class PlaneICP(Registration):
         self.normal = self._target.normals  # attribute parity (plane_icp.py:23)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        return plane_icp_align(target, source, src_weight, init_T, self.cfg)
+        return plane_icp_align(target, source, src_weight, init_T, self.cfg, slot=self._loop)
 
     def _stats_fn(self, target, source, src_weight, T):
         return plane_icp_stats(target, source, src_weight, T, self.cfg)

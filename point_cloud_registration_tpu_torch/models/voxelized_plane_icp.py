@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import VPlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import GNStats
+from point_cloud_registration_tpu_torch.core.gn import GNStats, LoopSlot
 from point_cloud_registration_tpu_torch.models._fused import (
     fused_voxel_align,
     fused_voxel_stats,
@@ -45,8 +45,10 @@ def vplane_stats(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor
 
 
 def vplane_align(vmap_: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-                 init_T, cfg: VPlaneICPConfig) -> AlignResult:
-    T, diag = fused_voxel_align(vmap_, source, src_weight, init_T, cfg)
+                 init_T, cfg: VPlaneICPConfig, *, slot: LoopSlot | None = None) -> AlignResult:
+    """``models._fused.fused_voxel_align`` of kind ``"plane"``; ``slot``
+    keeps the solver's prepared loop."""
+    T, diag = fused_voxel_align(vmap_, source, src_weight, init_T, cfg, slot=slot)
     return AlignResult(T=T, diagnostics=diag)
 
 
@@ -99,7 +101,7 @@ class VPlaneICP(Registration):
         return self._target
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
-        return vplane_align(target, source, src_weight, init_T, self.cfg)
+        return vplane_align(target, source, src_weight, init_T, self.cfg, slot=self._loop)
 
     def _stats_fn(self, target, source, src_weight, T):
         return vplane_stats(target, source, src_weight, T, self.cfg)

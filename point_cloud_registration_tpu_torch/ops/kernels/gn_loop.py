@@ -379,6 +379,11 @@ def _huber_args(max_dist: float, huber_delta: float | None) -> tuple:
             float(huber_delta) if huber_delta is not None else 0.0)
 
 
+# The scan's pointer among a fused entry's arguments: after occ, centers,
+# feats, the six geometry ints, the inverse cell and the window radius.
+_FUSED_SCAN_AT = 11
+
+
 def _fused_args(cells, origin_cell, dims, cell_size, src, w, batch: tuple, n_blocks: int,
                 max_dist, huber_delta, state, partials, rows, max_iter, tol, grid) -> tuple:
     """The C arguments of a fused loop entry (``bind``'s argument types):
@@ -395,25 +400,66 @@ def _fused_args(cells, origin_cell, dims, cell_size, src, w, batch: tuple, n_blo
     )
 
 
-def _launcher(what: str, counter, bound, args: tuple, grid: int, n_blocks: int,
-              operands: tuple, device: torch.device):
+class _Launch:
     """``launch()``: one cooperative launch of ``bound``'s function with
     ``args`` with the card ``device`` current, adding one to
     ``counter.launches``; a refused launch raises ``RuntimeError`` with the
-    CUDA error."""
-    fn, _, _, error_string = bound
+    CUDA error. ``operands`` keeps the tensors whose pointers ``args``
+    carries; ``grid`` is ``(CTAs, virtual blocks)``.
 
-    def launch() -> None:
-        with torch.cuda.device(device):
-            rc = fn(*args)
+    A single loop's launch also takes another scan of the bound one's
+    length (:meth:`run`): ``args[scan_at:scan_at + 3]`` are the scan's and
+    the weights' pointers and ``n``."""
+
+    def __init__(self, what: str, counter, bound, args: tuple, grid: int, n_blocks: int,
+                 operands: tuple, device: torch.device, scan_at: int | None = None):
+        self.what, self.counter, self.device, self.scan_at = what, counter, device, scan_at
+        self.fn, self.error_string = bound[0], bound[3]
+        self.args = list(args)
+        self.operands = operands
+        self.grid = (grid, n_blocks)
+
+    def __call__(self) -> None:
+        with torch.cuda.device(self.device):
+            rc = self.fn(*self.args)
+        self._count(rc)
+
+    def run(self, src: torch.Tensor, w: torch.Tensor) -> None:
+        """The launch on the scan ``src`` (n, 3) and its weights ``w`` (n,),
+        of the bound scan's ``n`` on its card: their pointers patched in,
+        the rest as bound; the card is entered only when it is not current."""
+        fa.check_operands(src, w)
+        n = self.args[self.scan_at + 2]
+        if src.device != self.device or src.shape[0] != n:
+            raise ValueError(f"the loop is bound to {n} points on {self.device}, "
+                             f"got {src.shape[0]} on {src.device}")
+        self.args[self.scan_at:self.scan_at + 2] = src.data_ptr(), w.data_ptr()
+        if torch.cuda.current_device() == self.device.index:
+            rc = self.fn(*self.args)
+        else:
+            with torch.cuda.device(self.device):
+                rc = self.fn(*self.args)
+        self._count(rc)
+
+    def _count(self, rc: int) -> None:
         if rc != 0:
-            raise RuntimeError(f"{what} cooperative launch of {grid} CTAs failed: "
-                               f"CUDA error {rc} ({error_string(rc)})")
-        counter.launches += 1
+            raise RuntimeError(f"{self.what} cooperative launch of {self.grid[0]} CTAs failed: "
+                               f"CUDA error {rc} ({self.error_string(rc)})")
+        self.counter.launches += 1
 
-    launch.operands = operands
-    launch.grid = (grid, n_blocks)
-    return launch
+
+class _Plain:
+    """A CPU looper's ``launch()``: its plain loop ``loop(src, w)`` on the
+    bound scan, or on another (:meth:`run`), as a launch takes one."""
+
+    def __init__(self, loop: Callable[[torch.Tensor, torch.Tensor], None], src, w):
+        self.loop, self.scan = loop, (src, w)
+
+    def __call__(self) -> None:
+        self.loop(*self.scan)
+
+    def run(self, src: torch.Tensor, w: torch.Tensor) -> None:
+        self.loop(src, w)
 
 
 def fused_looper(kind: str, cells: CellIndex, origin_cell, dims, cell_size: float,
@@ -432,8 +478,9 @@ def fused_looper(kind: str, cells: CellIndex, origin_cell, dims, cell_size: floa
     if kind not in _FUSED_KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     if src.device.type == "cpu":
-        return lambda: fused_loop_reference(kind, cells, origin_cell, dims, cell_size, src, w,
-                                            state, max_dist, huber_delta, tol, max_iter)
+        return _Plain(lambda s, ws: fused_loop_reference(kind, cells, origin_cell, dims,
+                                                         cell_size, s, ws, state, max_dist,
+                                                         huber_delta, tol, max_iter), src, w)
     fa.require_cuda(src)
     fa.check_launch(kind, cells, dims, src, w)
     bound = bound or _kernel_fn(kind)
@@ -441,8 +488,8 @@ def fused_looper(kind: str, cells: CellIndex, origin_cell, dims, cell_size: floa
                                          fa.MAX_BLOCKS)
     args = _fused_args(cells, origin_cell, dims, cell_size, src, w, (), n_blocks, max_dist,
                        huber_delta, state, partials, rows, max_iter, tol, grid)
-    return _launcher(f"gn_loop {kind}", fused_loop, bound, args, grid, n_blocks,
-                     (cells, src, w, state, partials, rows), src.device)
+    return _Launch(f"gn_loop {kind}", fused_loop, bound, args, grid, n_blocks,
+                   (cells, src, w, state, partials, rows), src.device, _FUSED_SCAN_AT)
 
 
 def fused_loop(kind: str, cells: CellIndex, origin_cell, dims, cell_size: float,
@@ -478,19 +525,21 @@ def point_looper(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: torch.Ten
     if kind not in _POINT_KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     if src.device.type == "cpu":
-        return lambda: point_loop_reference(kind, pg, proxy, src, w, state, max_dist,
-                                            proxy_radius, huber_delta, tol, max_iter)
+        return _Plain(lambda s, ws: point_loop_reference(kind, pg, proxy, s, ws, state, max_dist,
+                                                         proxy_radius, huber_delta, tol,
+                                                         max_iter), src, w)
     fa.require_cuda(src)
     fa.check_operands(src, w)
     pa.check_tables(kind, pg, proxy, src)
     bound = bound or _point_kernel_fn(kind)
     grid, n_blocks, partials = _geometry(bound, src, state, max_iter, rows,
                                          fa.MAX_BLOCKS)
-    args = (*pa.table_args(pg, proxy, proxy_radius), src.data_ptr(), w.data_ptr(),
-            src.shape[0], *_huber_args(max_dist, huber_delta),
+    table = pa.table_args(pg, proxy, proxy_radius)
+    args = (*table, src.data_ptr(), w.data_ptr(), src.shape[0],
+            *_huber_args(max_dist, huber_delta),
             *_state_args(state, partials, rows, n_blocks, max_iter, tol, grid))
-    return _launcher(f"point_loop {kind}", point_loop, bound, args, grid, n_blocks,
-                     (pg, proxy, src, w, state, partials, rows), src.device)
+    return _Launch(f"point_loop {kind}", point_loop, bound, args, grid, n_blocks,
+                   (pg, proxy, src, w, state, partials, rows), src.device, len(table))
 
 
 def point_loop(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
@@ -518,19 +567,22 @@ def grid_looper(kind: str, grid: Grid, table: ga.GridTable, src: torch.Tensor, w
     if kind not in _GRID_KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     if src.device.type == "cpu":
-        return lambda: grid_loop_reference(kind, grid, table, src, w, offsets, state, max_dist,
-                                           huber_delta, tol, max_iter)
+        return _Plain(lambda s, ws: grid_loop_reference(kind, grid, table, s, ws, offsets, state,
+                                                        max_dist, huber_delta, tol, max_iter),
+                      src, w)
     fa.require_cuda(src)
     fa.check_operands(src, w)
     ga.check_table(kind, grid, table, src.device)
     offsets, window = ga.bind_window(grid, offsets, src.device)
     bound = bound or _grid_kernel_fn(kind)
     grid_ctas, n_blocks, partials = _geometry(bound, src, state, max_iter, rows, ga.MAX_BLOCKS)
-    args = (*ga.table_args(grid, table, offsets, window), src.data_ptr(), w.data_ptr(),
-            src.shape[0], *_huber_args(max_dist, huber_delta),
+    head = ga.table_args(grid, table, offsets, window)
+    args = (*head, src.data_ptr(), w.data_ptr(), src.shape[0],
+            *_huber_args(max_dist, huber_delta),
             *_state_args(state, partials, rows, n_blocks, max_iter, tol, grid_ctas))
-    return _launcher(f"grid_loop {kind}", grid_loop, bound, args, grid_ctas, n_blocks,
-                     (grid, table, src, w, offsets, window, state, partials, rows), src.device)
+    return _Launch(f"grid_loop {kind}", grid_loop, bound, args, grid_ctas, n_blocks,
+                   (grid, table, src, w, offsets, window, state, partials, rows), src.device,
+                   len(head))
 
 
 def grid_loop(kind: str, grid: Grid, table: ga.GridTable, src: torch.Tensor, w: torch.Tensor,
@@ -583,8 +635,8 @@ def fused_looper_batched(kind: str, cells: CellIndex, origin_cell, dims, cell_si
     grid, n_blocks, partials = _geometry(bound, src, state, max_iter, rows, fa.MAX_BLOCKS, B)
     args = _fused_args(cells, origin_cell, dims, cell_size, src, w, (B,), n_blocks, max_dist,
                        huber_delta, state, partials, rows, max_iter, tol, grid)
-    return _launcher(f"gn_loop batched {kind}", fused_loop_batched, bound, args, grid, n_blocks,
-                     (cells, src, w, state, partials, rows), src.device)
+    return _Launch(f"gn_loop batched {kind}", fused_loop_batched, bound, args, grid, n_blocks,
+                   (cells, src, w, state, partials, rows), src.device)
 
 
 def fused_loop_batched(kind: str, cells: CellIndex, origin_cell, dims, cell_size: float,
@@ -633,8 +685,8 @@ def point_looper_batched(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: t
     args = (*pa.table_args(pg, proxy, proxy_radius), src.data_ptr(), w.data_ptr(),
             src.shape[1], B, *_huber_args(max_dist, huber_delta),
             *_state_args(state, partials, rows, n_blocks, max_iter, tol, grid))
-    return _launcher(f"point_loop batched {kind}", point_loop_batched, bound, args, grid,
-                     n_blocks, (pg, proxy, src, w, state, partials, rows), src.device)
+    return _Launch(f"point_loop batched {kind}", point_loop_batched, bound, args, grid,
+                   n_blocks, (pg, proxy, src, w, state, partials, rows), src.device)
 
 
 def point_loop_batched(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,

@@ -3,7 +3,8 @@ benchmark's reduction of them (``perfbench/program_trace.py``).
 
 On the CPU: with no profiler a span is one shared no-op; under
 ``torch.profiler`` an align records ``pcr.align`` with ``pcr.align.upload``,
-``pcr.gn.setup`` and ``pcr.gn.read`` inside it, in that order, a
+``pcr.gn.setup`` and ``pcr.gn.read`` inside it, in that order (the first
+align after ``set_target`` also ``pcr.gn.plan`` inside ``pcr.gn.setup``), a
 PlaneICP ``set_target`` records ``pcr.set_target`` with the build's three
 phases, and an NDT ``set_target`` ``pcr.set_target`` with ``pcr.build.index``; ``profiler_trace``'s file holds them. The readers run on a trace
 made by hand (times in ms): each value worked out by hand, the same
@@ -71,6 +72,13 @@ def test_align_records_its_phases_in_order(scene, solver):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         T = s.align(scan)
     assert np.all(np.isfinite(T))
+    # the first align after set_target makes its prepared loop inside the setup
+    first = sorted(program_spans(prof), key=lambda e: e[1])
+    names = [e[0] for e in first]
+    assert names == ALIGN_SPANS[:3] + ["pcr.gn.plan"] + ALIGN_SPANS[3:]
+    assert inside(first[3], first[2]) and not any(e[3] for e in first)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.align(scan)
     spans = sorted(program_spans(prof), key=lambda e: e[1])
     assert [e[0] for e in spans] == ALIGN_SPANS
     assert all(inside(child, spans[0]) for child in spans[1:])
