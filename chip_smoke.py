@@ -11,32 +11,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    with nvcc (sm_90a), one nvcc per source, all started together, into
    ``point_cloud_registration_tpu_torch/_build/``; prints the build seconds
    and ptxas' register report.
-2b. gn_step: the Gauss-Newton update kernel (``csrc/gn_step.cu``) against
-   ``gn_step_reference`` on the same seeded stats, poses and state at B = 1
-   and B = 8 (SPD systems over three decades, a near-singular one, a
-   singular one that fails, a step below tol that converges without moving
-   T), three steps each: the step and its norm bit for bit, T within
-   ``TOL_HOST``, counters, flags and histories equal; its time per launch
-   (events and the profiler) beside the plain version's, beside
-   ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` of the same systems,
-   and its bound.
 2c. gn_loop: the loop kernel (``csrc/gn_loop.cu``, kinds plane and ndt),
    VPlaneICP's and NDT's whole Gauss-Newton loop in one cooperative launch,
    on the city map and the 100k scan below, from T = I and from a perturbed
-   start, against the two-launch resident loop on the same tensors: the
-   first iteration's block rows bit-equal to the stats kernel's, equal
-   iterations and flags, T within ``TOL_LOOP``, the e2 and |dx| histories
-   within a relative ``TOL_LOOP``, the inliers equal, three more aligns
-   bit-identical; its plain
-   version's T within ``TOL_LOOP``. Its time per align (events and alone),
-   the plain version's, the aligns of both loops in turns (walls, device
-   time, busy share, syncs), each kind's ptxas report and its bound.
+   start, against the host loop (``core.gn.gauss_newton`` over the stats
+   kernel, :func:`host_align`) on the same tensors: the first iteration's
+   block rows bit-equal to the stats kernel's, equal iterations and flags,
+   T within ``TOL_LOOP``, the e2 and |dx| histories within a relative
+   ``TOL_LOOP``, the inliers equal, three more aligns bit-identical; its
+   plain version's T within ``TOL_LOOP``. Its time per align (events and
+   alone), the plain version's, the aligns of both loops in turns (walls,
+   device time, busy share, syncs), each kind's ptxas report and its bound.
 2d. The point and grid loops (``csrc/point_loop.cu``: ICP and PlaneICP on
    the packed grid of the city map, the 100k scan; ``csrc/grid_loop.cu``:
    ICP and PlaneICP on phase 9's small target, VPlaneICP and NDT on phase
    10's hashed map), the same loop kernel (``csrc/gn_loop.cuh``) over the
    packed-grid and grid stats bodies, each case from T = I and from the
-   perturbed start against the two-launch resident loop on the same
+   perturbed start against the host loop over the stats kernel on the same
    tensors: the first iteration's block rows, T, the iterations, the flags
    and the e2, |dx| and inlier histories bit-equal, three more aligns
    bit-identical; its plain version's T within ``TOL_T``, equal iterations
@@ -47,25 +38,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    report and its bound.
 
 Every align below runs a loop kernel: one launch and one read of the
-state an align, no launch of the stats kernel or of ``gn_step``
-(VPlaneICP and NDT on a dense map ``gn_loop.fused_loop``, ICP and PlaneICP
-on a packed target ``point_loop``, the grid and hashed aligns
-``grid_loop``, the batched streams of phases 13-14 ``fused_loop_batched``
-and ``point_loop_batched``, FastVPlaneICP's phase 2 ``fused_loop``). The
-two-launch resident Gauss-Newton loop (``core/gn.py``: the stats kernel
-and ``gn_step`` once per iteration, enqueued in chunks of ``GN_CHUNK``,
-the state read once per chunk) runs only as the reference the loop
-kernels are held to; where the script checks its launches, the stats
-kernel and ``gn_step`` must each have launched once per enqueued
-iteration (``core.gn.enqueued_iterations``), and it prints the stats
-launches that did work (the iterations) beside them. Each
-path is also run again under the host loop (``core.gn.gauss_newton_host``,
-the plain reference, which launches the stats kernel once per iteration):
-T within ``TOL_HOST``, equal iterations, ``converged`` and
-``solver_failed``; it prints the syncs of one align of each loop
+state an align, no launch of the stats kernel (VPlaneICP and NDT on a
+dense map ``gn_loop.fused_loop``, ICP and PlaneICP on a packed target
+``point_loop``, the grid and hashed aligns ``grid_loop``, the batched
+streams of phases 13-14 ``fused_loop_batched`` and ``point_loop_batched``,
+FastVPlaneICP's phase 2 ``fused_loop``). Each path is also run again under
+the host loop (:func:`host_loop`: ``core.gn.gauss_newton`` /
+``batched_gauss_newton`` over the path's stats kernel, one launch of it an
+iteration, the loop of the multi-device paths and the plain reference of
+the loop kernels): T within ``TOL_HOST``, equal iterations, ``converged``
+and ``solver_failed``; it prints the syncs of one align of each loop
 (``torch.cuda.set_sync_debug_mode("warn")``, with the lines that caused
-them): one on the loop kernels' paths, at most one per chunk on the other
-kernel paths.
+them): one on the loop kernels' paths.
 
 Then, for each solver path (VPlaneICP, NDT, ICP and, after the normals
 phase, PlaneICP) on bench.py's seed-42 city map (1.2M points) and 100k-point
@@ -80,10 +64,10 @@ scan, with the bench parameters:
    launch count set to 0 just before and read just after; it must converge
    near the scan's known offset, to the JAX package's result on the same
    data with the same iteration count, through its loop kernel (one launch
-   of it, none of the stats kernel or of ``gn_step``). Then three warm runs, bit-identical to
+   of it, none of the stats kernel). Then three warm runs, bit-identical to
    the first, and the per-iteration time of the align's bound launch
-   beside the plain version's (and the wrapper's, which copies its pose). Then the resident loop against the host loop: the align walls
-   in turns (host, resident, resident, host), each loop's device time and
+   beside the plain version's (and the wrapper's, which copies its pose). Then the loop kernel against the host loop: the align walls
+   in turns (host, loop, loop, host), each loop's device time and
    busy share by the profiler and its host milliseconds per iteration.
 5. The path with the plain stats: the GN loop over the plain version must
    reach the kernel's T with the same iteration count; for ICP and PlaneICP
@@ -159,7 +143,7 @@ package's result on the same seeded data (``T_REF_*`` and the
    "point" and "plane_pt"), no packed-grid kernel launch; PlaneICP's normals
    through the k-NN kernel. One launch of the grid loop kernel
    (``csrc/grid_loop.cu``, the grid stats body inside), no launch of the grid
-   stats kernel or of ``gn_step``, one sync; the host loop's aligns launch the
+   stats kernel, one sync; the host loop's aligns launch the
    grid stats kernel once per iteration (the path its kernels-line row
    names). The host loop over the
    kernel's plain version reaches the align's T within ``TOL_GRID_PLAIN``
@@ -200,14 +184,18 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
    (``make_scan(RandomState(100 + b), map, 16384)``) against VPlaneICP's
    and NDT's targets from T = I through
    ``models._fused.fused_voxel_align_batched``: one launch of the batched
-   loop kernel (``gn_loop.fused_loop_batched``), no stats or ``gn_step``
-   launch, one sync; each problem's T, iterations, flags and histories
+   loop kernel (``gn_loop.fused_loop_batched``), no stats launch, one sync; each problem's T, iterations, flags and histories
    bit-equal to its single ``align``, T within 1e-3 of the JAX package's
    with equal iterations. The batched loop from T = I and from 8 perturbed
    starts (``hold_batched_loop``): its first iteration's block rows
    bit-equal to the batched stats kernel's, the state's words bit-equal to
-   the two-launch batched loop's and each problem's to its single-problem
-   loop kernel's, T within 1e-4 of its plain version with equal iterations
+   the two-launch batched loop's (:func:`two_launch`: the batched stats
+   kernel, then the update kernel of ``csrc/gn_step.cu``, each iteration;
+   the card reference, since the host's solve can differ from the card's
+   in a step's last bit: one |dx| of the ICP stream) and each problem's to
+   its single-problem
+   loop kernel's, against the batched host loop equal iterations and flags
+   and T within ``TOL_LOOP``, T within 1e-4 of its plain version with equal iterations
    and flags; a launch of more CTAs than fit refused with ``RuntimeError``;
    its time by events and alone, the plain version's, both loops' aligns
    in turns (walls, device time, syncs, launches), ptxas and its bound.
@@ -225,9 +213,10 @@ JAX package's per-scan results (``BATCHED_REF``, ``FAST_REF_*``, from
    4's VPlaneICP bit for bit (T, iterations, one loop launch); ``"always"``
    with the switch ``FAST_SWITCH``: phase 1 in one launch of the loop
    kernel, its iterations equal to JAX's, phase 2 in one more launch of it
-   on the ``N_target`` coreset rows (no stats or ``gn_step`` launch), its T,
-   iterations, flags and histories bit-equal to the two-launch loop's
-   phase 2 on the same coreset, T within 6e-2 of JAX's and of
+   on the ``N_target`` coreset rows (no stats launch), its T, iterations,
+   flags and histories bit-equal to the host loop's phase 2 on the same
+   coreset (or to the two-launch loop's, the host loop's iterations and
+   flags equal and T within ``TOL_LOOP``), T within 6e-2 of JAX's and of
    VPlaneICP's; the live points, the host
    lift's seconds and microseconds a live point beside one full-cloud
    iteration's wall and nanoseconds a point, and their ratio: the card's
@@ -317,7 +306,7 @@ plain time, the time of B single launches and bound at phase 13's and 14's
 shapes. The grid stats kernels of phases 9 and 10 (``grid_point_stats``,
 ``grid_plane_point_stats``, ``hashed_plane_stats``, ``hashed_ndt_stats``)
 stand for XLA code of the JAX package (``replaces`` names the query,
-``ops/knn.py``), as ``gn_step`` does; each has ``alone_ms``, its time by the
+``ops/knn.py``); each has ``alone_ms``, its time by the
 profiler. ``fused_loop``, ``point_loop`` and ``grid_loop`` (the loop
 kernels) replace the JAX while_loop around the fused, the packed-grid and
 the grid stats: their numbers are phase 2c's and 2d's, VPlaneICP's, ICP's
@@ -326,15 +315,16 @@ and ICP grid's at the top and each kind's in ``kinds``;
 JAX ``batched_gauss_newton``: their numbers are phases 13's and 14's at B =
 8 x 16,384, VPlaneICP's and ICP's at the top, each kind's in ``kinds``.
 ``launches_path`` names the path that ``launches`` counts: the kernel's
-main path or, where that no longer launches it (the stats kernels and
-``gn_step`` on every align), the first of its paths that does (the host
-loop's aligns of phases 9, 10 and 16, the two-launch reference aligns of
-phases 13-15, ``*_two_launch``). The last line is ``{"ok": true, "device": {...}}``.
+main path or, where that no longer launches it (the stats kernels on every
+align), the first of its paths that does (the host loop's aligns of phases
+9, 10, 13-14 and 16, ``*_host_loop``). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import inspect
 import json
@@ -364,7 +354,7 @@ TOL_E2 = 1e-4  # |de2| / e2
 TOL_N = 2  # |dn_inliers|
 TOL_T = 1e-4  # max |dT| between the kernel's and the plain version's GN runs
 TOL_REF = 1e-3  # max |T - T_jax|, the port's parity budget
-TOL_HOST = 1e-6  # max |T - T_host|: the resident loop against the host loop on the same stats
+TOL_HOST = 1e-6  # max |T - T_host|: the loop kernel against the host loop on the same stats
 TOL_OFFSET = 0.1  # |t - (-offset)| of the recovered transform
 PERTURBATION = [0.05, -0.04, -0.25, 0.01, -0.008, 0.012]
 # The JAX package's results on the same seeded map and scan (JAX 0.9.0 on
@@ -866,13 +856,11 @@ def all_kernels() -> list:
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
 
     from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
-    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 
     return [fa.fused_plane_stats, fa.fused_ndt_stats, pa.point_stats, pa.plane_point_stats,
             kn.knn_moments, en.exact_nn, fa.fused_plane_stats_batched, fa.fused_ndt_stats_batched,
-            pa.point_stats_batched, pa.plane_point_stats_batched, gs.gn_step,
-            ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
+            pa.point_stats_batched, pa.plane_point_stats_batched, ga.grid_point_stats, ga.grid_plane_point_stats, ga.hashed_plane_stats,
             ga.hashed_ndt_stats, gl.fused_loop, gl.point_loop, gl.grid_loop,
             gl.fused_loop_batched, gl.point_loop_batched, nc.sampled_median, nc.tail_lists,
             nc.eig_normals, nc.fallback_normals]
@@ -887,65 +875,202 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in all_kernels()}
 
 
-def enqueued(iterations, max_iter: int = PARAMS["max_iter"]) -> int:
-    """The iterations a resident align enqueues when its last problem stops
-    after ``iterations`` (``core.gn.enqueued_iterations``): the launches of
-    its stats kernel and of ``gn_step``."""
-    from point_cloud_registration_tpu_torch.core import gn
-
-    return gn.enqueued_iterations(int(np.asarray(iterations).max()), max_iter)
-
-
-def check_resident(tag: str, counts: dict, kernel: str | None, iterations,
-                   max_iter: int = PARAMS["max_iter"]) -> dict:
-    """The launches of one resident align: ``kernel`` (None for the plain
-    stats paths) and ``gn_step`` each once per enqueued iteration; the
-    stats launches that did work are the iterations run (the largest of a
-    batch's). Returns the three counts."""
-    worked = int(np.asarray(iterations).max())
-    want = enqueued(iterations, max_iter)
-    out = {"worked": worked, "enqueued": counts[kernel] if kernel else 0,
-           "gn_step": counts["gn_step"]}
-    log(f"{tag} resident loop: stats launches that did work {worked}, enqueued "
-        f"{out['enqueued'] if kernel else 'none (plain stats)'}, gn_step launches "
-        f"{out['gn_step']} (expected {want} each)")
-    if counts["gn_step"] != want or (kernel is not None and counts[kernel] != want):
-        raise AssertionError(f"{tag} launches {counts} for {worked} iterations: expected {want} "
-                             f"of {kernel} and of gn_step")
-    return out
-
-
 def check_loop(tag: str, counts: dict, iterations, loop: str = "fused_loop",
                stats: tuple = ("fused_plane_stats", "fused_ndt_stats")) -> dict:
     """The launches of one align through the loop kernel ``loop`` (VPlaneICP
     and NDT on a dense map: ``fused_loop``; ICP and PlaneICP on a packed
     target: ``point_loop``; the grid and hashed aligns: ``grid_loop``): one
-    launch of it, none of its ``stats`` kernels, of ``gn_step`` or of any
-    other kernel of the two-launch loop. Returns the counts."""
+    launch of it, none of its ``stats`` kernels. Returns the counts."""
     out = {"worked": int(np.asarray(iterations).max()), "loop": counts[loop],
-           "enqueued": sum(counts[k] for k in stats), "gn_step": counts["gn_step"]}
+           "enqueued": sum(counts[k] for k in stats)}
     log(f"{tag} loop kernel {loop}: {out['loop']} launch for {out['worked']} iterations; stats "
-        f"launches {out['enqueued']}, gn_step launches {out['gn_step']} (expected 1, 0, 0)")
-    if (out["loop"], out["enqueued"], out["gn_step"]) != (1, 0, 0):
+        f"launches {out['enqueued']} (expected 1, 0)")
+    if (out["loop"], out["enqueued"]) != (1, 0):
         raise AssertionError(f"{tag} launches {counts}: expected one of {loop} and none of "
-                             "the two-launch loop's kernels")
+                             "its stats kernels")
     return out
+
+
+def host_align(s, src, w, T0):
+    """``(T, diagnostics)`` of solver ``s``'s align of the padded scan
+    ``src``, ``w`` from ``T0`` through the host loop (``core.gn.gauss_newton``
+    over the solver's stats, ``_stats_fn``: one launch of the stats kernel
+    an iteration, the solve and the update on the host)."""
+    from point_cloud_registration_tpu_torch.core.gn import gauss_newton
+
+    return gauss_newton(lambda T: s._stats_fn(s._target, src, w, T), T0, s.cfg.max_iter,
+                        s.cfg.tol)
+
+
+def host_batched(stats_all, init_Ts, cfg, device):
+    """``(Ts, diagnostics)`` of the batched host loop
+    (``core.gn.batched_gauss_newton``) over ``stats_all`` (the batched stats
+    kernel at pose rows on ``device``, ``fused_*_stats_packed_batched``): one
+    launch of it an iteration."""
+    from point_cloud_registration_tpu_torch.core.gn import (
+        batched_gauss_newton,
+        pose_rows_of,
+        stats_from_packed,
+    )
+
+    return batched_gauss_newton(
+        lambda Ts: stats_from_packed(stats_all(pose_rows_of(Ts).to(device))().cpu()), init_Ts,
+        cfg.max_iter, cfg.tol)
+
+
+def host_voxel_align(vm, source, src_weight, init_T, cfg, kind: str = "plane", slot=None):
+    """``models._fused.fused_voxel_align`` through the host loop over
+    ``fused_voxel_stats``."""
+    from point_cloud_registration_tpu_torch.core.gn import gauss_newton
+    from point_cloud_registration_tpu_torch.models._fused import fused_voxel_stats
+
+    return gauss_newton(lambda T: fused_voxel_stats(vm, source, src_weight, T, cfg, kind),
+                        init_T, cfg.max_iter, cfg.tol)
+
+
+def host_point_align(target, source, src_weight, init_T, cfg, kind: str = "point",
+                     normals=None, slot=None):
+    """``models._point_fused.fused_point_align`` through the host loop over
+    ``fused_point_stats``."""
+    from point_cloud_registration_tpu_torch.core.gn import gauss_newton
+    from point_cloud_registration_tpu_torch.models._point_fused import fused_point_stats
+
+    return gauss_newton(
+        lambda T: fused_point_stats(target, source, src_weight, T, cfg, kind, normals), init_T,
+        cfg.max_iter, cfg.tol)
+
+
+def host_voxel_align_batched(vm, sources, src_weights, init_Ts, cfg, kind: str = "plane"):
+    """``models._fused.fused_voxel_align_batched`` through the batched host
+    loop over the batched fused stats kernel."""
+    from point_cloud_registration_tpu_torch.models._fused import fused_voxel_stats_packed_batched
+
+    return host_batched(fused_voxel_stats_packed_batched(vm, sources, src_weights, cfg, kind),
+                        init_Ts, cfg, vm.cells.centers.device)
+
+
+def host_point_align_batched(target, normals, sources, src_weights, init_Ts, cfg,
+                             kind: str = "point"):
+    """``models._point_fused.fused_point_align_batched`` through the batched
+    host loop over the batched point stats kernel."""
+    from point_cloud_registration_tpu_torch.models._point_fused import (
+        fused_point_stats_packed_batched,
+    )
+
+    return host_batched(
+        fused_point_stats_packed_batched(target, sources, src_weights, cfg, kind), init_Ts, cfg,
+        target.packed.pts_packed.device)
+
+
+# The aligns that host_loop() swaps: (module, name, its host-loop twin)
+HOST_ALIGNS = (("models.voxelized_plane_icp", "fused_voxel_align", host_voxel_align),
+               ("models.ndt", "fused_voxel_align", host_voxel_align),
+               ("models.fast_vplane_icp", "fused_voxel_align", host_voxel_align),
+               ("models.icp", "fused_point_align", host_point_align),
+               ("models.plane_icp", "fused_point_align", host_point_align),
+               ("models._fused", "fused_voxel_align_batched", host_voxel_align_batched),
+               ("models._point_fused", "fused_point_align_batched", host_point_align_batched))
 
 
 @contextlib.contextmanager
 def host_loop():
-    """Every align inside runs the host loop (``core.gn.gauss_newton_host`` /
-    ``batched_gauss_newton_host``, the resident loop's plain reference) on
-    the same stats."""
-    from point_cloud_registration_tpu_torch.core import gn
+    """Every solver's align and every batched align inside runs the host
+    loop (``core.gn.gauss_newton`` / ``batched_gauss_newton``, the loop of
+    the multi-device paths and the plain reference of the loop kernels) over
+    the same stats kernel: the functions the solvers call are swapped for
+    their host-loop twins (``HOST_ALIGNS``)."""
+    import importlib
 
-    saved = gn.gauss_newton_device, gn.batched_gauss_newton_device
-    gn.gauss_newton_device = gn.gauss_newton_host
-    gn.batched_gauss_newton_device = gn.batched_gauss_newton_host
+    swaps = [(importlib.import_module(f"point_cloud_registration_tpu_torch.{module}"), name, fn)
+             for module, name, fn in HOST_ALIGNS]
+    saved = [getattr(module, name) for module, name, _ in swaps]
+    for module, name, fn in swaps:
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        gn.gauss_newton_device, gn.batched_gauss_newton_device = saved
+        for (module, name, _), fn in zip(swaps, saved):
+            setattr(module, name, fn)
+
+
+def gn_stepper(state, tol: float):
+    """``step(stats)``: one launch of the Gauss-Newton update kernel
+    (``csrc/gn_step.cu``: the loop kernels' update, ``csrc/gn_step.cuh``,
+    alone) on the card state ``state``, with ``tol`` and the state's
+    pointers bound once. The two-launch reference of phases 13-15
+    (:func:`two_launch`) steps with it: the update the loop kernels run on
+    the card, whose solve can differ from the host loop's in a step's last
+    bit (phase 14's ICP stream: one |dx| entry, T equal)."""
+    import ctypes
+
+    import torch
+
+    from point_cloud_registration_tpu_torch.ops.kernels._build import load_library
+
+    fn = load_library("gn_step").pcr_gn_step
+    c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [c_ptr] * 11 + [c_int, c_int, ctypes.c_float, c_ptr]
+    fn.restype = c_int
+    dev = state.words.device
+    B, M = state.e2.shape
+    bound = [x.data_ptr() for x in state[1:]]
+    tail = (B, M, float(tol), torch.cuda.current_stream(dev).cuda_stream)
+
+    def step(stats) -> None:
+        stats = stats.reshape(B, 29)
+        if not stats.is_contiguous() or stats.device != dev:
+            raise ValueError(f"stats must be a contiguous ({B}, 29) tensor on {dev}")
+        with torch.cuda.device(dev):
+            rc = fn(stats.data_ptr(), *bound, None, *tail)
+        if rc != 0:
+            raise RuntimeError(f"gn_step kernel launch failed: CUDA error {rc}")
+
+    return step
+
+
+def two_launch(stats, init_Ts, max_iter: int, tol: float, dev):
+    """The two-launch loop of B problems on the card -> its final state on
+    the host: the state made on the card, ``stats(poses, done)`` bound once
+    to its pose rows and done flags (``resident_stats``: a stats kernel that
+    skips a done problem), then ``max_iter`` iterations of the stats launch
+    and :func:`gn_stepper`'s update, which leaves a done problem as it is;
+    one read. The card reference of phases 13-15."""
+    from point_cloud_registration_tpu_torch.core import gn
+
+    state = gn.new_state(init_Ts, max_iter, dev)
+    launch, step = stats(state.poses, state.done), gn_stepper(state, tol)
+    for _ in range(max_iter):
+        step(launch())
+    return gn.read_state(state)
+
+
+def hold_to_loops(tag: str, k, Ts_h, d_h, two) -> dict:
+    """The loop kernel's final state ``k`` (B problems, on the host) against
+    the host loop's result ``(Ts_h, d_h)`` (batched form) and the two-launch
+    reference's state ``two`` (:func:`two_launch`) of the same stats kernel
+    from the same start: ``k``'s words bit-equal to ``two``'s; against the
+    host loop equal iterations and flags, T within ``TOL_LOOP``, and
+    whether T, the histories and final e2 are bit-equal. Raises unless both
+    hold. Returns the two-launch and host results."""
+    import torch
+
+    from point_cloud_registration_tpu_torch.core import gn
+
+    two_equal = torch.equal(k.words, two.words)
+    flags = all(torch.equal(a, b) for a, b in (
+        (k.it, d_h.iterations), (k.converged.bool(), d_h.converged),
+        (k.failed.bool(), d_h.solver_failed)))
+    T_k = gn.transforms_of(k.poses)
+    dT = float((T_k - Ts_h).abs().max())
+    host_bits = flags and all(torch.equal(float_bits(a), float_bits(b)) for a, b in (
+        (T_k, Ts_h), (k.final_e2, d_h.final_e2), (k.e2, d_h.e2_history),
+        (k.dx_norm, d_h.dx_norm_history), (k.inliers, d_h.inlier_history)))
+    log(f"{tag} state words bit-equal to the two-launch loop's {two_equal}; against the host "
+        f"loop: iterations and flags equal {flags}, max |dT| {dT:.3e}, T, e2, |dx| and inlier "
+        f"histories bit-equal {host_bits}")
+    if not (two_equal and flags and dT <= TOL_LOOP):
+        raise AssertionError(f"{tag} the loop kernel is off the two-launch loop or the host loop")
+    return {"two_launch_equal": two_equal, "dT_host": dT, "host_bit_equal": host_bits}
 
 
 def count_syncs(fn, sites: dict | None = None):
@@ -980,20 +1105,12 @@ def count_syncs(fn, sites: dict | None = None):
     return out, len(syncs)
 
 
-def chunks(iterations, max_iter: int = PARAMS["max_iter"]) -> int:
-    """The chunks, and so the reads of the state, of a resident align whose
-    last problem stops after ``iterations``."""
-    from point_cloud_registration_tpu_torch.core import gn
-
-    return -(-enqueued(iterations, max_iter) // gn.GN_CHUNK)
-
-
 def hold_to_host(tag: str, align, T, d, max_syncs: int | None = None) -> dict:
     """Run ``align() -> (T, diagnostics)`` again under :func:`host_loop` and
-    hold the resident loop's ``T`` and ``d`` to it: T within TOL_HOST, equal
+    hold the loop kernel's ``T`` and ``d`` to it: T within TOL_HOST, equal
     iterations, ``converged`` and ``solver_failed`` (per problem for a
-    batch); with ``max_syncs``, at most that many syncs in the resident
-    align. Returns the difference, both loops' syncs and the host loop's T."""
+    batch); with ``max_syncs``, at most that many syncs in the loop
+    kernel's align. Returns the difference, both loops' syncs and the host loop's T."""
     sites = {}
     (T_d, _), syncs_d = count_syncs(align, sites)
     with host_loop():
@@ -1001,13 +1118,13 @@ def hold_to_host(tag: str, align, T, d, max_syncs: int | None = None) -> dict:
     dT = float(np.abs(np.asarray(T_h, np.float64) - np.asarray(T, np.float64)).max())
     same = all(np.array_equal(np.asarray(getattr(d, f)), np.asarray(getattr(d_h, f)))
                for f in ("iterations", "converged", "solver_failed"))
-    log(f"{tag} resident vs host loop: max |dT| {dT:.3e}, iterations, converged and "
+    log(f"{tag} loop kernel vs host loop: max |dT| {dT:.3e}, iterations, converged and "
         f"solver_failed equal: {same}; syncs per align {syncs_d} at {sites} (host loop "
         f"{syncs_h})")
     if not (dT <= TOL_HOST and same and np.array_equal(np.asarray(T_d), np.asarray(T))):
-        raise AssertionError(f"{tag} the resident loop is off the host loop: dT {dT}, {d} vs {d_h}")
+        raise AssertionError(f"{tag} the loop kernel is off the host loop: dT {dT}, {d} vs {d_h}")
     if max_syncs is not None and syncs_d > max_syncs:
-        raise AssertionError(f"{tag} {syncs_d} syncs in a resident align, more than {max_syncs}")
+        raise AssertionError(f"{tag} {syncs_d} syncs in an align, more than {max_syncs}")
     if syncs_h < int(np.asarray(d.iterations).max()):
         raise AssertionError(f"{tag} the sync count does not work: {syncs_h} syncs in the host "
                              f"loop of {int(np.asarray(d.iterations).max())} iterations")
@@ -1019,21 +1136,21 @@ def host_loop_launches(tag: str, kernel: str, hold) -> dict:
     """``hold()`` (:func:`hold_to_host`) with the launch counts set to 0
     just before: its result with ``host_loop_launches``, the launches of the
     stats kernel ``kernel`` in the aligns it ran. The align through the loop
-    kernel launches none; the host loop (``core.gn.gauss_newton_host``, the
-    loop of the multi-device paths) launches it once per iteration: the path
-    whose launches its kernels-line row names."""
+    kernel launches none; the host loop (:func:`host_loop`, the loop of the
+    multi-device paths) launches it once per iteration: the path whose
+    launches its kernels-line row names."""
     reset_launches()
     out = hold()
     out["host_loop_launches"] = launch_counts()[kernel]
-    log(f"{tag} {kernel} launches in the aligns of the resident and the host loop: "
+    log(f"{tag} {kernel} launches in the aligns of the loop kernel and the host loop: "
         f"{out['host_loop_launches']}")
     return out
 
 
 def resident_launcher(path: SolverPath, s, src, w, T):
-    """``launch() -> (1, 29)``: the stats launch of ``path``'s align as the
-    resident loop binds it (``resident_stats``), at the pose row of ``T``
-    on the card; its launches count as the wrapper's."""
+    """``launch() -> (1, 29)``: the stats launch of ``path`` bound once
+    (``resident_stats``) at the pose row of ``T`` on the card, as the loop
+    kernel's stats body reads it; its launches count as the wrapper's."""
     from point_cloud_registration_tpu_torch.core.gn import pose_rows_of
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
     from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
@@ -1367,7 +1484,7 @@ def run_path(path: SolverPath, map_np, scan_np, dev) -> dict:
         "plain_ms": [plain_ms, plain_ms_2], "offset_err": off_err, "dT_jax": ref_err,
         "dT_plain": dT, "launches": launches, "max_abs_err": max_abs_err,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "T": T_k,
-        "resident": resident, "gn_step_launches": counts["gn_step"],
+        "resident": resident,
         "loop_launches": counts[path.loop], **loops,
         "extra": {"wrapper_ms": wrapper_ms},
         **({"proxy_share": proxy_share} if packed_grid else {}),
@@ -1414,141 +1531,20 @@ def compare_loops(tag: str, align, T, d, max_syncs: int | None = None,
     return out
 
 
-# gn_step, per problem: the 29 stats read, the pose read and written, the
-# four counters and flags read and written, final_e2 and three history
-# entries written (260 bytes); the solve (scaling 30, Hs 42, factor 91,
-# substitutions 72, rescale 6), the norm (12) and the update (exp 90, pose
-# 60): about 410 operations.
+# The update (csrc/gn_step.cuh) of one problem and iteration: the 29 stats
+# read, the pose read and written, the four counters and flags read and
+# written, final_e2 and three history entries written (260 bytes); the solve
+# (scaling 30, Hs 42, factor 91, substitutions 72, rescale 6), the norm (12)
+# and the update (exp 90, pose 60): about 410 operations.
 GN_STEP_BYTES = 116 + 2 * 48 + 2 * 16 + 4 + 12
 GN_STEP_FLOPS = 410
-GN_BATCHES = (1, 8)
-GN_TOL = 1e-4
-
-
-def gn_systems(B: int, seed: int):
-    """``(packed (B, 29) stats, Ts (B, 4, 4))`` of B seeded problems: SPD H
-    over three decades of scale, g of a problem near its solution; at B = 8
-    also a near-singular H (one
-    direction 1e-4 of the others), a singular one (H = 0: a failure) and a
-    step below ``GN_TOL`` (converged at once, T kept)."""
-    import torch
-
-    import point_cloud_registration_tpu_torch as pt
-    from point_cloud_registration_tpu_torch.core.gn import GNStats, packed_from_stats
-
-    rng = np.random.RandomState(seed)
-    A = rng.randn(B, 12, 6) * 10.0 ** rng.randint(-1, 2, (B, 1, 6))
-    H = np.einsum("bki,bkj->bij", A, A)
-    g = rng.randn(B, 6) * 1e-3  # steps of centimetres to decimetres, as near a solution
-    if B >= 8:
-        U, _, _ = np.linalg.svd(rng.randn(6, 6))
-        H[5] = U @ np.diag([1.0, 1.0, 1.0, 1.0, 1.0, 1e-4]) @ U.T
-        g[5] *= 1e-2
-        H[6] = 0.0
-        H[7], g[7] = np.eye(6), np.full(6, 1e-6)
-    e2, n = rng.rand(B) * 10, rng.randint(1000, 100000, B)
-    packed = torch.stack([packed_from_stats(GNStats(
-        torch.tensor(H[b], dtype=torch.float32), torch.tensor(g[b], dtype=torch.float32),
-        torch.tensor(e2[b], dtype=torch.float32), torch.tensor(float(n[b]))))
-        for b in range(B)])
-    Ts = torch.stack([pt.plus(torch.eye(4), torch.tensor(rng.randn(6) * 0.3, dtype=torch.float32))
-                      for _ in range(B)])
-    return packed, Ts
-
-
-def same_bits(a, b) -> bool:
-    """Equal bit for bit, NaN to NaN whatever its payload (the card's 0 / 0
-    and the CPU's differ in the sign bit)."""
-    a, b = np.asarray(a.cpu()), np.asarray(b.cpu())
-    if a.dtype.kind != "f":
-        return np.array_equal(a, b)
-    nan = np.isnan(a)
-    return bool(np.array_equal(nan, np.isnan(b))
-                and np.array_equal(a[~nan].view(np.uint32), b[~nan].view(np.uint32)))
-
-
-def run_gn_step(dev) -> dict:
-    """Phase 2b: the gn_step kernel against gn_step_reference on the same
-    seeded stats, poses and state at B = 1 and B = 8, three steps each (the
-    step and the norm bit for bit, T within TOL_HOST, the counters, flags and
-    histories equal); then its time per launch beside the plain version's and
-    ``torch.linalg.cholesky_ex`` + ``cholesky_solve`` of the same systems."""
-    import torch
-
-    from point_cloud_registration_tpu_torch.core.gn import (
-        new_state,
-        read_state,
-        stats_from_packed,
-        transforms_of,
-    )
-    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
-
-    tag = "[gn_step]"
-    out = {"launches_check": 0, "max_abs_err": 0.0, "ms": {}, "alone_ms": {}, "plain_ms": {},
-           "library_ms": {}, "bound_ms": {}}
-    for B in GN_BATCHES:
-        packed, Ts = gn_systems(B, 11 + B)
-        st_d, st_h = new_state(Ts, 4, dev), new_state(Ts, 4, "cpu")
-        dx_d, dx_h = torch.zeros((B, 6), device=dev), torch.zeros((B, 6))
-        before = gs.gn_step.launches
-        for _ in range(3):
-            gs.gn_step(packed.to(dev), st_d, GN_TOL, dx_d)
-            gs.gn_step_reference(packed, st_h, GN_TOL, dx_h)
-            if not same_bits(dx_d, dx_h):
-                raise AssertionError(f"{tag} B = {B}: the step differs from the plain version's: "
-                                     f"{dx_d.cpu()} vs {dx_h}")
-        out["launches_check"] += gs.gn_step.launches - before
-        got = read_state(st_d)
-        dT = float((transforms_of(got.poses) - transforms_of(st_h.poses)).abs().max())
-        exact = {f: same_bits(getattr(got, f), getattr(st_h, f))
-                 for f in ("it", "done", "failed", "converged", "final_e2", "e2", "dx_norm",
-                           "inliers")}
-        log(f"{tag} B = {B}, three steps: step and |dx| bit-equal to gn_step_reference; max |dT| "
-            f"{dT:.3e}; counters, flags and histories bit-equal {exact}; iterations "
-            f"{got.it.tolist()}, failed {got.failed.tolist()}, converged {got.converged.tolist()}")
-        if not (dT <= TOL_HOST and all(exact.values())):
-            raise AssertionError(f"{tag} B = {B}: the kernel disagrees with its plain version")
-        if B >= 8 and not (got.failed[6] and got.converged[7] and int(got.it[7]) == 1
-                           and torch.equal(transforms_of(got.poses)[7], Ts[7])):
-            raise AssertionError(f"{tag} the failing or the converged problem went wrong")
-        out["max_abs_err"] = max(out["max_abs_err"], dT)
-        # time per launch on a state that never converges (tol 0)
-        reps = 200
-        st = new_state(Ts, 2 * reps + 8, dev)
-        stats_d = packed.to(dev)
-        ms = cuda_ms(lambda: gs.gn_step(stats_d, st, 0.0), reps)
-        alone = device_busy(lambda: [gs.gn_step(stats_d, st, 0.0) for _ in range(reps // 4)],
-                            1.0)[0] / (reps // 4)
-        st_h = new_state(Ts, 2 * reps + 8, "cpu")
-        t0 = time.perf_counter()
-        for _ in range(20):
-            gs.gn_step_reference(packed, st_h, 0.0)
-        plain = (time.perf_counter() - t0) * 1e3 / 20
-        sp = stats_from_packed(stats_d)
-        neg_g = (-sp.g)[..., None].contiguous()
-
-        def library():
-            L, _ = torch.linalg.cholesky_ex(sp.H)
-            return torch.cholesky_solve(neg_g, L)
-
-        lib = cuda_ms(library, reps)
-        b_ms, b_by = bound_ms(GN_STEP_BYTES * B, GN_STEP_FLOPS * B)
-        log(f"{tag} B = {B}: per launch (events, back to back) {ms:.4f} ms, the kernel alone "
-            f"(profiler) {alone:.5f} ms; gn_step_reference (host) {plain:.3f} ms; "
-            f"cholesky_ex + cholesky_solve {lib:.4f} ms; bound {b_ms:.7f} ms by {b_by}: "
-            f"the launch costs {alone / b_ms:.0f}x the work")
-        for k, v in (("ms", ms), ("alone_ms", alone), ("plain_ms", plain), ("library_ms", lib),
-                     ("bound_ms", b_ms)):
-            out[k][B] = v
-        out["bound_by"] = b_by
-    return out
 
 
 # Phase 2c: the loop kernel (csrc/gn_loop.cu), VPlaneICP's and NDT's whole
 # Gauss-Newton loop in one launch
 LOOP_KINDS = {"vplane_icp": ("plane", "VPlaneICP", FLOPS_PLANE_ROW),
               "ndt": ("ndt", "NDT", FLOPS_M3_POINT)}
-TOL_LOOP = 1e-5  # max |dT| and the e2 / |dx| histories' relative gap to the two-launch loop
+TOL_LOOP = 1e-5  # max |dT| and the e2 / |dx| histories' relative gap to the host loop
 LOOP_SOURCE = f"{CSRC}/gn_loop.cu"
 LOOP_REPLACES = "point_cloud_registration_tpu/core/gn.py:182"  # the while_loop of gauss_newton
 LOOP_LABELS = {"ILi0E": "plane", "ILi1E": "ndt"}
@@ -1564,8 +1560,8 @@ def rel_gap(a, b, n: int) -> float:
 def run_gn_loop(map_np, scan_np, dev) -> dict:
     """Phase 2c: the loop kernel at the main path's shapes (the city map, the
     100k scan, VPlaneICP's and NDT's targets and settings), from T = I and
-    from a perturbed start, against the two-launch resident loop
-    (``core.gn.gauss_newton_device`` over ``resident_stats``) on the same
+    from a perturbed start, against the host loop (:func:`host_align`: the
+    stats kernel, the solve and the update on the host) on the same
     tensors: the first iteration's block rows bit-equal to the stats kernel's
     (the loop kernel's ``rows`` output), equal iterations and flags, T within
     TOL_LOOP, the e2 and |dx| histories within a relative TOL_LOOP, the
@@ -1579,7 +1575,6 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
     import point_cloud_registration_tpu_torch as pt
     from point_cloud_registration_tpu_torch.core import gn
     from point_cloud_registration_tpu_torch.models import pad_points
-    from point_cloud_registration_tpu_torch.models._fused import fused_voxel_stats_resident
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
     from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 
@@ -1599,11 +1594,10 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
         operands = (kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src, w)
         settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                         max_iter=cfg.max_iter)
-        stats_fn = fused_voxel_stats_resident(vm, src, w, cfg, kind)
-        r = {"dT_two_launch": 0.0, "dT_plain": 0.0, "e2_rel": 0.0, "dx_rel": 0.0}
+        r = {"dT_host": 0.0, "dT_plain": 0.0, "e2_rel": 0.0, "dx_rel": 0.0}
         before = gl.fused_loop.launches
         for label, T0 in (("T=I", eye), ("T=perturbed", T_pert)):
-            # the two-launch loop's first stats launch at T0, and its block rows
+            # the stats kernel's launch at T0, the host loop's first, and its block rows
             fn, args, partials = fa.launch_args(
                 fa._kernel_fn(kind), vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src[None],
                 w[None], gn.pose_rows_of(T0[None]).to(dev), None, cfg.max_dist, cfg.huber_delta)
@@ -1615,17 +1609,17 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
             launch()
             k = gn.read_state(state)
             rows_equal = torch.equal(rows, partials[0])
-            T_two, d_two = gn.gauss_newton_device(stats_fn, T0, cfg.max_iter, cfg.tol, dev)
+            T_host, d_host = host_align(solver, src, w, T0)
             plain = gn.new_state(T0[None], cfg.max_iter, "cpu")
             gl.fused_loop_reference(*operands, plain, **settings)
             its = int(k.it[0])
             T_k = gn.transforms_of(k.poses)[0]
-            dT_two = float((T_k - T_two).abs().max())
+            dT_h = float((T_k - T_host).abs().max())
             dT_plain = float((T_k - gn.transforms_of(plain.poses)[0]).abs().max())
             flags = (its, bool(k.converged[0]), bool(k.failed[0]))
-            e2_rel = rel_gap(k.e2[0], d_two.e2_history, its)
-            dx_rel = rel_gap(k.dx_norm[0], d_two.dx_norm_history, its)
-            inliers_equal = torch.equal(k.inliers[0], d_two.inlier_history)
+            e2_rel = rel_gap(k.e2[0], d_host.e2_history, its)
+            dx_rel = rel_gap(k.dx_norm[0], d_host.dx_norm_history, its)
+            inliers_equal = torch.equal(k.inliers[0], d_host.inlier_history)
             warm_equal = []
             for _ in range(3):
                 state = gn.new_state(T0[None], cfg.max_iter, dev)
@@ -1634,20 +1628,20 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
             log(f"{tag} {label} on {src.shape[0]} points, grid {launch.grid[0]} CTAs for "
                 f"{launch.grid[1]} block ids: first iteration's block rows bit-equal to the stats "
                 f"kernel's {rows_equal}; {its} iterations "
-                f"(two-launch {d_two.iterations}, plain {int(plain.it[0])}), converged "
-                f"{flags[1]} / {d_two.converged}, failed {flags[2]} / {d_two.solver_failed}; "
-                f"max |T - T_two_launch| {dT_two:.3e}, |T - T_plain| {dT_plain:.3e}; relative "
+                f"(host loop {d_host.iterations}, plain {int(plain.it[0])}), converged "
+                f"{flags[1]} / {d_host.converged}, failed {flags[2]} / {d_host.solver_failed}; "
+                f"max |T - T_host| {dT_h:.3e}, |T - T_plain| {dT_plain:.3e}; relative "
                 f"e2 gap {e2_rel:.3e}, |dx| gap {dx_rel:.3e}; inliers equal {inliers_equal}; "
                 f"three more aligns bit-identical {warm_equal}")
-            if not (rows_equal and flags == (d_two.iterations, d_two.converged,
-                                                   d_two.solver_failed)
+            if not (rows_equal and flags == (d_host.iterations, d_host.converged,
+                                                   d_host.solver_failed)
                     and flags == (int(plain.it[0]), bool(plain.converged[0]),
                                   bool(plain.failed[0]))
-                    and dT_two <= TOL_LOOP and dT_plain <= TOL_LOOP and e2_rel <= TOL_LOOP
+                    and dT_h <= TOL_LOOP and dT_plain <= TOL_LOOP and e2_rel <= TOL_LOOP
                     and dx_rel <= TOL_LOOP and inliers_equal and all(warm_equal)):
-                raise AssertionError(f"{tag} {label}: the loop kernel is off the two-launch loop "
-                                     "or its plain version")
-            for key, v in (("dT_two_launch", dT_two), ("dT_plain", dT_plain), ("e2_rel", e2_rel),
+                raise AssertionError(f"{tag} {label}: the loop kernel is off the host loop or its "
+                                     "plain version")
+            for key, v in (("dT_host", dT_h), ("dT_plain", dT_plain), ("e2_rel", e2_rel),
                            ("dx_rel", dx_rel)):
                 r[key] = max(r[key], v)
             if label == "T=I":
@@ -1668,14 +1662,12 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
         r["alone_ms"] = kernel_alone_ms(once, 20, "gn_loop_kernel")
         r["plain_ms"] = cuda_ms(lambda: gl.fused_loop_reference(
             *operands, gn.new_state(eye[None], cfg.max_iter, "cpu"), **settings), 2)
-        # both loops' aligns in turns (two-launch, loop, loop, two-launch)
-        loop = functools.partial(gl.fused_loop, *operands, **settings)
-        aligns = {"two_launch": lambda: gn.gauss_newton_device(stats_fn, eye, cfg.max_iter,
-                                                               cfg.tol, dev),
-                  "loop": lambda: gn.gauss_newton_device(stats_fn, eye, cfg.max_iter, cfg.tol,
-                                                         dev, loop=loop)}
+        # both loops' aligns in turns (host, loop, loop, host): the loop kernel's
+        # through the solver's prepared loop
+        aligns = {"host": lambda: host_align(solver, src, w, eye),
+                  "loop": lambda: solver._align_fn(vm, src, w, eye)}
         walls = {m: [] for m in aligns}
-        for mode in ("two_launch", "loop", "loop", "two_launch"):
+        for mode in ("host", "loop", "loop", "host"):
             for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1705,7 +1697,7 @@ def run_gn_loop(map_np, scan_np, dev) -> dict:
             f"the launch), alone {r['alone_ms']:.4f} ms (profiler); the plain version "
             f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} (the stats' "
             f"bytes read every iteration: {r['bound_reread_ms']:.5f} ms)")
-        log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+        log(f"{tag} aligns in turns (host, loop, loop, host): " + "; ".join(line))
         out[kind] = r
     out["max_abs_err"] = max(out[k]["dT_plain"] for k in ("plane", "ndt"))
     return out
@@ -1764,14 +1756,14 @@ def new_loop_cases(map_np, scan_np, dev) -> dict:
 def loop_case(case: str, s, target_np, scan, dev) -> dict:
     """Solver ``s`` with its target set to ``target_np``, its align's scan
     tensors on the card, ``looper(state, rows=None)`` (the loop kernel's
-    bound launch), the plain loop ``plain(state)``, the two-launch loop's
-    stats ``stats_fn``, ``first(T0) -> (fn, args, partials)`` (the stats
-    launch that the two-launch loop makes first) and ``work(T, n_inliers)
-    -> (bytes, flops)`` of one iteration's stats."""
+    bound launch), the plain loop ``plain(state)``, ``first(T0) -> (fn,
+    args, partials)`` (the stats kernel's launch at ``T0``, the host loop's
+    first) and ``work(T, n_inliers) -> (bytes, flops)`` of one iteration's
+    stats."""
     import torch
 
     from point_cloud_registration_tpu_torch.core import gn
-    from point_cloud_registration_tpu_torch.models import _fused, _point_fused, pad_points
+    from point_cloud_registration_tpu_torch.models import pad_points
     from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
     from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
@@ -1793,7 +1785,6 @@ def loop_case(case: str, s, target_np, scan, dev) -> dict:
         looper = functools.partial(gl.point_looper, *operands, proxy_radius=radius, **settings)
         plain = functools.partial(gl.point_loop_reference, *operands, proxy_radius=radius,
                                   **settings)
-        stats_fn = _point_fused.fused_point_stats_resident(tg, src, w, cfg, kind)
         first = lambda T0: pa.partials_args(  # noqa: E731
             pa._kernel_fn(kind), tg.packed, tg.proxy, src[None], w[None], pose(T0), None,
             cfg.max_dist, radius, cfg.huber_delta)
@@ -1809,10 +1800,6 @@ def loop_case(case: str, s, target_np, scan, dev) -> dict:
         operands = (kind, grid, table, src, w, offsets)
         looper = functools.partial(gl.grid_looper, *operands, **settings)
         plain = functools.partial(gl.grid_loop_reference, *operands, **settings)
-        stats_fn = (_fused.fused_voxel_stats_resident(s._target, src, w, cfg, kind) if hashed
-                    else _point_fused.fused_point_stats_resident(
-                        getattr(s._target, "corr", s._target), src, w, cfg, kind,
-                        s._target.normals if kind == "plane_pt" else None))
         off_d, window = ga.bind_window(grid, offsets, dev)
         first = lambda T0: ga._launch_args(  # noqa: E731
             ga._kernel_fn(kind), grid, table, src, w, off_d, window, pose(T0), None,
@@ -1825,7 +1812,7 @@ def loop_case(case: str, s, target_np, scan, dev) -> dict:
                               cfg.huber_delta, matches=(idx, d2))
             return grid_work(kind, grid, table, src, w, T, offsets, cfg.max_dist, idx, d2)[:2]
     return {"solver": s, "src": src, "w": w, "cfg": cfg, "looper": looper, "plain": plain,
-            "stats_fn": stats_fn, "first": first, "work": work}
+            "first": first, "work": work}
 
 
 def run_new_loops(map_np, scan_np, dev) -> dict:
@@ -1833,8 +1820,8 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
     map and the 100k scan for ICP and PlaneICP on the packed grid and for
     VPlaneICP and NDT on phase 10's two-tile hashed map; phase 9's 40k LiDAR
     target and 10k scan for ICP and PlaneICP on a grid target), from T = I
-    and from a perturbed start, against the two-launch resident loop
-    (``core.gn.gauss_newton_device`` over ``resident_stats``) on the same
+    and from a perturbed start, against the host loop (:func:`host_align`:
+    the stats kernel, the solve and the update on the host) on the same
     tensors: the first iteration's block rows, T, the iterations, the flags
     and the e2, |dx| and inlier histories bit-equal; three more aligns
     bit-identical; against its plain version (``point_loop_reference`` /
@@ -1847,7 +1834,7 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
     and alone (the profiler), the plain version's, both loops' aligns in
     turns with their device time, busy share and syncs (one through the loop
     kernel), its bound (the stats' work at the converged pose times the
-    iterations, each input read once, with ``gn_step``'s) and each kind's
+    iterations, each input read once, with the update's) and each kind's
     ptxas report."""
     import torch
 
@@ -1881,18 +1868,18 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
             launch()
             k = gn.read_state(state)
             rows_equal = torch.equal(rows, partials[0])
-            T_two, d_two = gn.gauss_newton_device(c["stats_fn"], T0, cfg.max_iter, cfg.tol, dev)
+            T_host, d_host = host_align(c["solver"], src, c["w"], T0)
             plain = gn.new_state(T0[None], cfg.max_iter, "cpu")
             c["plain"](plain)
             its = int(k.it[0])
             T_k = gn.transforms_of(k.poses)[0]
-            same = (torch.equal(float_bits(T_k), float_bits(T_two))
+            same = (torch.equal(float_bits(T_k), float_bits(T_host))
                     and (its, bool(k.converged[0]), bool(k.failed[0])) == (
-                        d_two.iterations, d_two.converged, d_two.solver_failed)
+                        d_host.iterations, d_host.converged, d_host.solver_failed)
                     and all(torch.equal(float_bits(a), float_bits(b)) for a, b in (
-                        (k.e2[0], d_two.e2_history), (k.dx_norm[0], d_two.dx_norm_history),
-                        (k.inliers[0], d_two.inlier_history),
-                        (k.final_e2[0], torch.tensor(d_two.final_e2)))))
+                        (k.e2[0], d_host.e2_history), (k.dx_norm[0], d_host.dx_norm_history),
+                        (k.inliers[0], d_host.inlier_history),
+                        (k.final_e2[0], torch.tensor(d_host.final_e2)))))
             dT_plain = float((T_k - gn.transforms_of(plain.poses)[0]).abs().max())
             e2_rel = rel_gap(k.e2[0], plain.e2[0], its)
             plain_same = (its, bool(k.converged[0]), bool(k.failed[0])) == (
@@ -1904,16 +1891,16 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
                 warm_equal.append(torch.equal(gn.read_state(state).words, k.words))
             log(f"{tag} {label} on {src.shape[0]} points, grid {launch.grid[0]} CTAs for "
                 f"{launch.grid[1]} block ids: first iteration's block rows bit-equal to the stats "
-                f"kernel's {rows_equal}; {its} iterations (two-launch {d_two.iterations}, plain "
+                f"kernel's {rows_equal}; {its} iterations (host loop {d_host.iterations}, plain "
                 f"{int(plain.it[0])}), converged {bool(k.converged[0])}, failed "
-                f"{bool(k.failed[0])}; T, flags and histories bit-equal to the two-launch loop's "
+                f"{bool(k.failed[0])}; T, flags and histories bit-equal to the host loop's "
                 f"{same}; plain version: max |dT| {dT_plain:.3e}, relative e2 gap {e2_rel:.3e}, "
                 f"iterations and flags equal {plain_same}; three more aligns bit-identical "
                 f"{warm_equal}")
             if not (rows_equal and same and plain_same and dT_plain < TOL_T and all(warm_equal)
                     and bool(k.converged[0])):
-                raise AssertionError(f"{tag} {label}: the loop kernel is off the two-launch loop "
-                                     "or its plain version")
+                raise AssertionError(f"{tag} {label}: the loop kernel is off the host loop or its "
+                                     "plain version")
             r["dT_plain"] = max(r["dT_plain"], dT_plain)
             r["e2_rel_plain"] = max(r["e2_rel_plain"], e2_rel)
             if label == "T=I":
@@ -1949,14 +1936,13 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
         r["alone_ms"] = kernel_alone_ms(once, 20, "gn_loop_kernel")
         r["plain_ms"] = cuda_ms(lambda: c["plain"](gn.new_state(eye[None], cfg.max_iter, "cpu")),
                                 2)
-        # both loops' aligns in turns (two-launch, loop, loop, two-launch)
-        loop_call = lambda state: c["looper"](state)()  # noqa: E731
-        aligns = {"two_launch": lambda: gn.gauss_newton_device(c["stats_fn"], eye, cfg.max_iter,
-                                                               cfg.tol, dev),
-                  "loop": lambda: gn.gauss_newton_device(c["stats_fn"], eye, cfg.max_iter,
-                                                         cfg.tol, dev, loop=loop_call)}
+        # both loops' aligns in turns (host, loop, loop, host): the loop kernel's
+        # through the solver's prepared loop
+        s = c["solver"]
+        aligns = {"host": lambda: host_align(s, src, c["w"], eye),
+                  "loop": lambda: s._align_fn(s._target, src, c["w"], eye)}
         walls = {m: [] for m in aligns}
-        for mode in ("two_launch", "loop", "loop", "two_launch"):
+        for mode in ("host", "loop", "loop", "host"):
             for _ in range(3):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1986,7 +1972,7 @@ def run_new_loops(map_np, scan_np, dev) -> dict:
             f"the launch), alone {r['alone_ms']:.4f} ms (profiler); the plain version "
             f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} (the stats' "
             f"bytes read every iteration: {r['bound_reread_ms']:.5f} ms)")
-        log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+        log(f"{tag} aligns in turns (host, loop, loop, host): " + "; ".join(line))
         out[case] = r
     for loop in LOOP_SOURCES:
         out[f"{loop}_max_abs_err"] = max(out[case]["dT_plain"] for case, (l, _, _) in
@@ -2348,8 +2334,7 @@ def run_rounds(map_np, scan_np, dev) -> dict:
     if not (d.converged and np.isfinite(T).all() and off_err < TOL_OFFSET
             and counts["knn_moments"] == tiers
             and all(counts[key] == 1 for key in CHAIN_STEPS)
-            and (counts["point_loop"], counts["plane_point_stats"], counts["gn_step"])
-            == (1, 0, 0)):
+            and (counts["point_loop"], counts["plane_point_stats"]) == (1, 0)):
         raise AssertionError(f"{tag} PlaneICP(k={K_ROUNDS}) off its path or its offset")
     return {"first_call_s": first_s, "estimate_normals_ms": warm_s, "max_abs_err": err,
             "iterations": d.iterations, "offset_err": off_err, "chain_launches": chain_launches,
@@ -3087,7 +3072,7 @@ def hold_grid_kernel(tag: str, kind: str, s, src, w, T_k, d) -> dict:
     align's T within ``TOL_GRID_PLAIN`` with equal iterations and flags; at
     the initial, a middle and the converged pose of that loop the kernel
     holds to its plain version (:func:`check_grid_launch`) and the launch
-    the align binds (``resident_stats`` at a pose row on the card) is the
+    bound once (``resident_launch`` at a pose row on the card) is the
     wrapper's, bit for bit. Then the bound launch's time by events and alone
     (profiler), the plain version's, and the bound at the converged pose."""
     import torch
@@ -3121,19 +3106,20 @@ def hold_grid_kernel(tag: str, kind: str, s, src, w, T_k, d) -> dict:
         worst = max(worst, check_grid_launch(f"{tag} kernel vs plain at the {name} pose", kind,
                                              grid, table, src, w, T, offsets, cfg.max_dist,
                                              cfg.huber_delta, GRID_KINDS[kind][1]))
-        bound = ga.resident_stats(kind, grid, table, src, w, offsets, cfg.max_dist,
-                                  cfg.huber_delta, pose_rows_of(T[None]).to(dev), None)()
+        bound = ga.resident_launch(kind, grid, table, src, w, offsets,
+                                   pose_rows_of(T[None]).to(dev), None, cfg.max_dist,
+                                   cfg.huber_delta)()
         bound = bound.reshape(-1)  # (1, 29) from the card's launch
         if not torch.equal(bound, wrapper(grid, table, src, w, T[:3, :3], T[:3, 3], offsets,
                                           cfg.max_dist, cfg.huber_delta)):
-            raise AssertionError(f"{tag} the align's bound launch differs from the wrapper's")
+            raise AssertionError(f"{tag} the bound launch differs from the wrapper's")
     Tc = poses["converged"]
     n = src.shape[0]
     idx, d2 = torch.empty(n, dtype=torch.int32, device=dev), torch.empty(n, device=dev)
     wrapper(grid, table, src, w, Tc[:3, :3], Tc[:3, 3], offsets, cfg.max_dist, cfg.huber_delta,
             matches=(idx, d2))
-    launch = ga.resident_stats(kind, grid, table, src, w, offsets, cfg.max_dist, cfg.huber_delta,
-                               pose_rows_of(Tc[None]).to(dev), None)
+    launch = ga.resident_launch(kind, grid, table, src, w, offsets, pose_rows_of(Tc[None]).to(dev),
+                                None, cfg.max_dist, cfg.huber_delta)
     plain_call = lambda: plain(grid, table, src, w, Tc[:3, :3], Tc[:3, 3], offsets,  # noqa: E731
                                cfg.max_dist, cfg.huber_delta)
     kernel_ms = [cuda_ms(launch, 20), None]
@@ -3727,10 +3713,10 @@ def batched_loop_operands(path: SolverPath, s, src, w):
     stats_rows)`` of the batched loop kernel of ``path``'s kind on solver
     ``s``'s target and the scans ``src`` (B, n, 3), ``w`` (B, n): its
     leading arguments and keyword settings, its wrappers, the single-problem
-    loop of one scan (``single_loop(src_b, w_b, state)``), the two-launch
+    loop of one scan (``single_loop(src_b, w_b, state)``), the batched host
     loop's stats (``fused_*_stats_packed_batched``) and ``stats_rows(poses)``,
     the batched stats kernel's (B, n_blocks, 29) block rows at pose rows
-    ``poses`` (one launch of the two-launch loop's stats)."""
+    ``poses`` (one launch of the host loop's stats)."""
     from point_cloud_registration_tpu_torch.models import _fused, _point_fused
     from point_cloud_registration_tpu_torch.models._point_corr import proxy_radius
     from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
@@ -3773,19 +3759,23 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
     """Phases 13-14: the batched loop kernel of ``path``'s kind at the main
     path's shapes, from T = I and from B distinct perturbed starts: the
     first iteration's block rows (its ``rows`` output) bit-equal to the
-    batched stats kernel's (``batched``) at the starts; every problem's
-    state words (pose, counters, flags, final e2, histories) bit-equal to
-    the two-launch batched loop's (``core.gn.batched_gauss_newton_device``
-    without ``loop``: the batched stats launch, the double sum of its rows
-    and ``gn_step`` an iteration) and to the single-problem loop kernel's
-    align of that scan; T within TOL_T of the plain version
-    (``*_loop_batched_reference``) with equal iterations and flags. Then its
+    batched stats kernel's (``batched``) at the starts; the state's words
+    (pose, counters, flags, final e2, histories) bit-equal to the two-launch
+    batched loop's (:func:`two_launch` over the batched stats kernel, the
+    card reference: the host's solve can differ from the card's in a step's
+    last bit, one |dx| entry of the batched ICP stream) and every problem's
+    to the single-problem loop kernel's align of that scan; against the
+    batched host loop (:func:`host_batched`) equal iterations and flags and
+    T within TOL_LOOP, its bit-equality printed, and each problem's T
+    against its single host loop (:func:`host_align`) printed; T within
+    TOL_T of the plain version (``*_loop_batched_reference``) with equal
+    iterations and flags. Then its
     time per align by events (a copy of the initial state and the launch)
     and alone (the profiler), the plain version's, both loops' aligns in
     turns with their device time, busy share, syncs and launches, the
     ptxas report and the bound: the stats' work at each problem's converged
     pose for each iteration it ran (the map's bytes once for all problems)
-    and ``gn_step``'s per problem and iteration."""
+    and the update's per problem and iteration."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -3799,7 +3789,8 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
     cfg, B, dev = s.cfg, src.shape[0], src.device
     T_pert = torch.stack([pt.plus(torch.eye(4), torch.tensor(PERTURBATION) * (b - 3.5) / 4)
                           for b in range(B)])
-    r = {"dT_plain": 0.0, "rows_equal": True, "two_launch_equal": True, "single_equal": True}
+    r = {"dT_plain": 0.0, "dT_host": 0.0, "rows_equal": True, "host_bit_equal": [],
+         "single_equal": True}
     for label, T0 in (("T=I", eye), ("T=perturbed", T_pert)):
         fn, args, partials = stats_rows(gn.pose_rows_of(T0).to(dev).contiguous())
         if fn(*args) != 0:
@@ -3810,8 +3801,14 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
         launch()
         k = gn.read_state(state)
         rows_equal = torch.equal(rows, partials)
-        two = gn._run_resident(stats_all, T0, cfg.max_iter, cfg.tol, dev)
-        two_equal = torch.equal(k.words, two.words)
+        held = hold_to_loops(f"{tag} batched loop {label}:", k,
+                             *host_batched(stats_all, T0, cfg, dev),
+                             two_launch(stats_all, T0, cfg.max_iter, cfg.tol, dev))
+        r["dT_host"] = max(r["dT_host"], held["dT_host"])
+        r["host_bit_equal"].append(held["host_bit_equal"])
+        T_k = gn.transforms_of(k.poses)
+        single_host = [torch.equal(float_bits(T_k[b]), float_bits(
+            host_align(s, src[b], w[b], T0[b])[0])) for b in range(B)]
         single_equal = []
         for b in range(B):
             one = gn.new_state(T0[b:b + 1], cfg.max_iter, dev)
@@ -3824,14 +3821,14 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
                           for f in ("it", "failed", "converged"))
         log(f"{tag} batched loop {label}: grid {launch.grid[0]} CTAs for {B} x {launch.grid[1]} "
             f"block ids; first iteration's block rows bit-equal to the batched stats kernel's "
-            f"{rows_equal}; iterations {k.it.tolist()}; state words bit-equal to the two-launch "
-            f"batched loop's {two_equal}, each problem's to its single-problem loop's "
-            f"{single_equal}; max |T - T_plain| {dT_plain:.3e}, iterations and flags equal to "
+            f"{rows_equal}; iterations {k.it.tolist()}; each problem's words bit-equal to its "
+            f"single-problem loop's {single_equal}, its T to its single host loop's "
+            f"{single_host}; max |T - T_plain| {dT_plain:.3e}, iterations and flags equal to "
             f"the plain version's {flags_plain}")
-        if not (rows_equal and two_equal and all(single_equal) and dT_plain <= TOL_T
-                and flags_plain and bool(k.done.all())):
-            raise AssertionError(f"{tag} {label}: the batched loop kernel is off the two-launch "
-                                 "batched loop, the single aligns or its plain version")
+        if not (rows_equal and all(single_equal) and dT_plain <= TOL_T and flags_plain
+                and bool(k.done.all())):
+            raise AssertionError(f"{tag} {label}: the batched loop kernel is off the single "
+                                 "aligns or its plain version")
         r["dT_plain"] = max(r["dT_plain"], dT_plain)
         if label == "T=I":
             r["iterations"], k_eye = k.it.tolist(), k
@@ -3866,15 +3863,13 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
         raise AssertionError(f"{tag} the refused batched launch counted or ran")
     r["plain_ms"] = cuda_ms(lambda: plain_loop(*operands, gn.new_state(eye, cfg.max_iter, "cpu"),
                                                **settings), 1)
-    # both loops' aligns in turns (two-launch, loop, loop, two-launch), each
-    # with its launches counted
+    # both loops' aligns in turns (host, loop, loop, host), each with its
+    # launches counted
     loop = functools.partial(loop_fn, *operands, **settings)
-    aligns = {"two_launch": lambda: gn.batched_gauss_newton_device(
-                  stats_all, eye, cfg.max_iter, cfg.tol, dev),
-              "loop": lambda: gn.batched_gauss_newton_device(
-                  stats_all, eye, cfg.max_iter, cfg.tol, dev, loop=loop)}
+    aligns = {"host": lambda: host_batched(stats_all, eye, cfg, dev),
+              "loop": lambda: gn.batched_gauss_newton_device(loop, eye, cfg.max_iter, dev)}
     walls = {m: [] for m in aligns}
-    for mode in ("two_launch", "loop", "loop", "two_launch"):
+    for mode in ("host", "loop", "loop", "host"):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3883,7 +3878,7 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
     line = []
     for mode, align in aligns.items():
         device_ms, n_kernels, busy = device_busy(
-            align, min(walls[mode]), "gn_loop_batched_kernel" if mode == "loop" else "gn_step")
+            align, min(walls[mode]), "gn_loop_batched_kernel" if mode == "loop" else None)
         reset_launches()
         _, syncs = count_syncs(align)
         counts = launch_counts()
@@ -3893,18 +3888,19 @@ def hold_batched_loop(tag: str, path: SolverPath, batched, s, src, w, eye) -> di
         line.append(f"{mode}: align ms {', '.join(f'{1e3 * x:.3f}' for x in walls[mode])}; "
                     f"device {device_ms:.3f} ms in {n_kernels} kernels, busy "
                     f"{100 * busy:.1f} %, {syncs} syncs, launches {r[mode]['launches']}")
-        if mode == "two_launch":  # a stats launch and gn_step each enqueued iteration
-            r["two_launch_resident"] = check_resident(f"{tag} two-launch", counts,
-                                                      batched.__name__, r["iterations"])
-    log(f"{tag} aligns in turns (two-launch, loop, loop, two-launch): " + "; ".join(line))
+    log(f"{tag} aligns in turns (host, loop, loop, host): " + "; ".join(line))
     its = r["iterations"]
+    # the host loop: one launch of the batched stats kernel an iteration of the batch
+    if r["host"]["launches"] != {batched.__name__: max(its)}:
+        raise AssertionError(f"{tag} the batched host loop launched {r['host']['launches']}: "
+                             f"expected {max(its)} of {batched.__name__}")
     if not (r["loop"]["syncs"] == 1 and r["loop"]["launches"] == {name: 1}):
         raise AssertionError(f"{tag} the align through the batched loop kernel made "
                              f"{r['loop']['syncs']} syncs and launched {r['loop']['launches']}: "
                              f"expected 1 sync and one launch of {name}")
     # bound: the stats' work at each problem's converged pose for each
     # iteration it ran; the map's bytes once for all problems, each scan
-    # once, gn_step's state bytes per problem
+    # once, the update's state bytes per problem
     T_conv = gn.transforms_of(k_eye.poses)
     R, t = T_conv[:, :3, :3].to(dev), T_conv[:, :3, 3].to(dev)
     q_all = (torch.einsum("bij,bnj->bni", R, src) + t[:, None, :]).reshape(-1, 3).contiguous()
@@ -3927,7 +3923,7 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
     """Phases 13 and 14 for one kind: B = 8 scans of 16,384 points against
     ``path``'s target; the align through the batched loop kernel, held to
     its batched stats kernel ``batched`` (and its plain version ``plain``),
-    to the two-launch batched loop and to each scan's single align."""
+    to the batched host loop and to each scan's single align."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
@@ -3979,8 +3975,7 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
             raise AssertionError(f"{tag} n = {n_t}: the batched kernel's rows are off")
 
     # 13/14. Main path: the batched align with the counts reset just before:
-    # one launch of the batched loop kernel, none of the stats kernels or
-    # gn_step
+    # one launch of the batched loop kernel, none of the stats kernels
     loop_name = BATCHED_LOOPS[BATCHED_KINDS[path.name]]
     reset_launches()
     t0 = time.perf_counter()
@@ -4018,7 +4013,7 @@ def run_batched(path: SolverPath, batched, plain, map_np, dev) -> dict:
         f"max |T - T_jax| {dT_jax:.3e}, iterations equal to both")
     if not (bit_equal and dT_single < TOL_BATCHED and dT_jax < TOL_REF):
         raise AssertionError(f"{tag} a problem's T is off its single align or the JAX package's")
-    # The batched loop kernel against the two-launch batched loop, the single
+    # The batched loop kernel against the batched host loop, the single
     # aligns and its plain version; its times and bound
     loop = hold_batched_loop(tag, path, batched, s, src, w, eye)
     # A mixed batch: problem 1 moved 100 m up (all outliers), problem 2 with
@@ -4078,13 +4073,12 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     VPlaneICP bit for bit (``vplane``: phase 4's results), one launch of the
     loop kernel; ``"always"`` runs phase 1 in one launch of the loop kernel,
     engages the coreset and runs phase 2 on its rows in one more launch of
-    the loop kernel, held bit for bit to the two-launch loop's phase 2 on the
-    same coreset."""
+    the loop kernel, held bit for bit to the host loop's phase 2 on the same
+    coreset."""
     import torch
 
     import point_cloud_registration_tpu_torch as pt
     from point_cloud_registration_tpu_torch.core import gn
-    from point_cloud_registration_tpu_torch.models import _fused
     from point_cloud_registration_tpu_torch.models import fast_vplane_icp as fvp
     from point_cloud_registration_tpu_torch.models.coreset import create_gn_set, fast_caratheodory
     from point_cloud_registration_tpu_torch.models.fast_vplane_icp import vplane_linearize
@@ -4107,7 +4101,7 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         f"{auto_counts['fused_loop'] == vplane['loop_launches']}")
     if not (np.array_equal(T_auto, vplane["T"]) and d.iterations == vplane["iterations"]
             and auto_counts["fused_loop"] == vplane["loop_launches"] == 1
-            and auto_launches == 0 and auto_counts["gn_step"] == 0):
+            and auto_launches == 0):
         raise AssertionError(f"{tag} \"auto\" is not VPlaneICP bit for bit")
     scan_t = torch.from_numpy(scan_np).to(dev)
     auto = hold_to_host(f"{tag} auto", lambda: (fast.align(scan_t), fast.last_diagnostics),
@@ -4150,19 +4144,35 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
     launches = fa.fused_plane_stats.launches
     loop_1, fused_1 = phase1["loop_launches"], phase1["launches"]  # the later aligns move them
     it2 = d.iterations - d1.iterations
-    # phase 2 through the two-launch loop on the same coreset and start: the
-    # same state bit for bit
+    # phase 2 through the host loop on the same coreset and start: the same
+    # T, iterations, flags and histories bit for bit; or, where the host's
+    # solve differs in a step's last bit (as in phase 14), bit for bit the
+    # two-launch loop's (the card's update) with the host loop's iterations
+    # and flags and T within TOL_LOOP
     vm, src_sub, w_sub, T1, left, cfg = phase2["args"]
     reset_launches()
-    T_two, d_two = gn.gauss_newton_device(_fused.fused_voxel_stats_resident(
-        vm, src_sub, w_sub, cfg, "plane"), T1, left, cfg.tol, dev)
-    two_launch = {k: v for k, v in launch_counts().items() if v}
+    T_host, d_host = host_voxel_align(vm, src_sub, w_sub, T1,
+                                    dataclasses.replace(cfg, max_iter=left), "plane")
+    host_launches = {k: v for k, v in launch_counts().items() if v}
     d2 = phase2["diag"]
-    phase2_equal = torch.equal(phase2["T"], T_two) and d2.iterations == d_two.iterations and (
-        d2.converged, d2.solver_failed, d2.final_e2) == (
-        d_two.converged, d_two.solver_failed, d_two.final_e2) and all(
-        torch.equal(float_bits(getattr(d2, f)), float_bits(getattr(d_two, f)))
+    flags_host = (d2.iterations, d2.converged, d2.solver_failed) == (
+        d_host.iterations, d_host.converged, d_host.solver_failed)
+    phase2_equal = flags_host and torch.equal(phase2["T"], T_host) and (
+        d2.final_e2 == d_host.final_e2) and all(
+        torch.equal(float_bits(getattr(d2, f)), float_bits(getattr(d_host, f)))
         for f in ("e2_history", "dx_norm_history", "inlier_history"))
+    dT_host = float((phase2["T"] - T_host).abs().max())
+    two = two_launch(lambda poses, done: fa.resident_stats(
+        "plane", vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src_sub, w_sub, cfg.max_dist,
+        cfg.huber_delta, poses, done), T1[None], left, cfg.tol, dev)
+    T_two = gn.transforms_of(two.poses)[0]
+    two_equal = torch.equal(float_bits(phase2["T"]), float_bits(T_two)) and (
+        d2.iterations, d2.converged, d2.solver_failed) == (
+        int(two.it[0]), bool(two.converged[0]), bool(two.failed[0])) and all(
+        torch.equal(float_bits(a), float_bits(b)) for a, b in (
+            (d2.e2_history, two.e2[0]), (d2.dx_norm_history, two.dx_norm[0]),
+            (d2.inlier_history, two.inliers[0]),
+            (torch.tensor(d2.final_e2, dtype=torch.float32), two.final_e2[0])))
     dT_jax = float(np.abs(T[:3].reshape(-1) - FAST_REF_T).max())
     dT_plain = float(np.abs(T - vplane["T"]).max())
     log(f"{tag} always, switch {FAST_SWITCH}: first call {first_s:.3f} s; phase 1 {d1.iterations} "
@@ -4170,15 +4180,17 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         f"{FAST_REF_ITERATIONS}), converged {d.converged}; phase 1 in "
         f"{loop_1} loop launch ({fused_1} fused launches); phase 2 on {src_sub.shape[0]} rows "
         f"with launches {phase2['launches']}; the align's launches "
-        f"{ {k: v for k, v in counts.items() if v} }; the two-launch loop's phase 2 on the same "
-        f"coreset: launches {two_launch}, T, iterations, flags and histories bit-equal "
-        f"{phase2_equal}; max |T - T_jax| {dT_jax:.3e}, max |T - T_vplane| {dT_plain:.3e}")
+        f"{ {k: v for k, v in counts.items() if v} }; the host loop's phase 2 on the same "
+        f"coreset: launches {host_launches}, T, iterations, flags and histories bit-equal "
+        f"{phase2_equal} (max |dT| {dT_host:.3e}); the two-launch loop's bit-equal "
+        f"{two_equal}; max |T - T_jax| {dT_jax:.3e}, max |T - T_vplane| {dT_plain:.3e}")
     log(f"{tag} T =\n{np.array2string(T, precision=7)}")
     if not (d1.iterations == FAST_REF_PHASE1 and it2 >= 1 and not d.solver_failed
             and loop_1 == 1 and fused_1 == 0 and phase2["launches"] == {"fused_loop": 1}
-            and counts["fused_loop"] == 2 and launches == 0 and counts["gn_step"] == 0
+            and counts["fused_loop"] == 2 and launches == 0
             and src_sub.shape[0] == fast.N_target and left == PARAMS["max_iter"] - d1.iterations
-            and phase2_equal and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
+            and (phase2_equal or (two_equal and flags_host and dT_host <= TOL_LOOP))
+            and dT_jax < TOL_FAST and dT_plain < TOL_FAST):
         raise AssertionError(f"{tag} \"always\" is off: {d}")
 
     # The lift against one full-cloud iteration, both on the live points
@@ -4207,13 +4219,13 @@ def run_fast(map_np, scan_np, dev, vplane: dict) -> dict:
         + ", ".join(f"{x:.3f}" for x in walls))
     return {"auto_launches": auto_launches, "always_launches": launches,
             "loop_auto": auto_counts["fused_loop"], "loop_always": counts["fused_loop"],
-            "loop_phase2": phase2["launches"]["fused_loop"], "phase2_two_launch": two_launch,
+            "loop_phase2": phase2["launches"]["fused_loop"], "phase2_host_loop": host_launches,
+            "phase2_host_bit_equal": phase2_equal, "phase2_two_launch_equal": two_equal,
             "phase1_iterations": d1.iterations, "phase2_iterations": it2, "dT_jax": dT_jax,
             "dT_plain": dT_plain, "live": int(len(live)), "lift_s": lift_s,
             "lift_us_per_point": 1e6 * lift_s / len(live), "iteration_s": iter_s,
             "iteration_ns_per_point": 1e9 * iter_s / len(live), "breakeven": lift_s / iter_s,
-            "always_align_s": min(walls), "auto_loops": auto, "always_loops": always,
-            "gn_step_auto": auto_counts["gn_step"], "gn_step_always": counts["gn_step"]}
+            "always_align_s": min(walls), "auto_loops": auto, "always_loops": always}
 
 
 def run_explicit_device(icp_path: SolverPath, map_np, scan_np, T_vplane, Ts_icp) -> dict:
@@ -4410,8 +4422,7 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
     within ``tol``): ``align_batched_sharded`` with one batched launch per
     batched iteration of rank 0's problems (the first B / ranks of the
     batch, on the (batch, data) mesh ``batch_mesh``), the fused paths with
-    one launch of the batched loop kernel on rank 0 and no stats or
-    ``gn_step`` launch."""
+    one launch of the batched loop kernel on rank 0 and no stats launch."""
     nb, nd = batch_mesh
     for name in SHARDED_KINDS:
         # align_sharded runs the host loop: held to phase 4's host loop
@@ -4432,7 +4443,7 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
                   for b in fused_batches]
         for key, b, tol_b, mine in cases:
             r, ref = out[key], batched[name]
-            # the fused paths run the resident loop, align_batched_sharded the host loop
+            # the fused paths run the batched loop kernel, align_batched_sharded the host loop
             fused = key.startswith("batched_fused")
             dT = float(np.abs(r["T"] - (ref["Ts"] if fused else np.array(ref["T_host"]))[:b]).max())
             its = r["iterations"].tolist()
@@ -4440,9 +4451,8 @@ def check_sharded(tag: str, out: dict, results: dict, batched: dict, tol: float,
             dT_jax = max(float(np.abs(T[:3].reshape(-1) - rows_jax).max())
                          for T, (_, rows_jax) in zip(r["T"], jax_ref))
             single = r["launch_counts"][KERNELS_OF[name][0]]
-            # a fused path's stats and gn_step launches: none, its loop's once
-            stray = (r["launch_counts"][KERNELS_OF[name][1]] + r["launch_counts"]["gn_step"]
-                     if fused else 0)
+            # a fused path's stats launches: none, its loop's once
+            stray = r["launch_counts"][KERNELS_OF[name][1]] if fused else 0
             want = 1 if fused else max(its[:mine])
             log(f"{tag} {key}: iterations {its}, {r['launches']} "
                 f"{'batched loop' if fused else 'batched'} launches on rank 0 ({mine} problems), "
@@ -4743,7 +4753,7 @@ def run_demos(map_np, normals, n_wide: int, smi: str) -> dict:
             if not (dT_host <= TOL_HOST and host["iterations"] == first["iterations"]
                     and host["converged"] == first["converged"]
                     and host["solver_failed"] == first["solver_failed"]):
-                raise AssertionError(f"{mtag}: the resident loop is off the host loop")
+                raise AssertionError(f"{mtag}: the loop kernel is off the host loop")
             out[method] = {"iterations": first["iterations"], "max_err_jax": err,
                            "dT_host": dT_host, "host_align_ms": 1e3 * host["align_s"],
                            "set_target_ms": 1e3 * warm["set_target_s"],
@@ -4852,16 +4862,15 @@ def main() -> None:
     smi = nvidia_smi_line()
     log(smi)
 
-    # 2. Build, 2b. the gn_step kernel against its plain version
+    # 2. Build
     build_s = build_kernels()
     log(f"build: {build_s:.2f} s")
-    gn_step = run_gn_step(dev)
 
     rng = np.random.RandomState(SEED)
     map_np = make_city_map(rng, N_MAP)
     scan_np = make_scan(rng, map_np, N_SCAN)
     log(f"map {map_np.shape}, scan {scan_np.shape}")
-    # 2c. The loop kernel against the two-launch loop and its plain version; 2d.
+    # 2c. The loop kernel against the host loop and its plain version; 2d.
     # the point and grid loops
     gn_loop = run_gn_loop(map_np, scan_np, dev)
     new_loops = run_new_loops(map_np, scan_np, dev)
@@ -4946,19 +4955,6 @@ def main() -> None:
             "bound_by": chain["bound_by"][step], "library_ms": None,
             "extra": {"kernels_ms": {key: v for key, v in chain["kernel_ms"].items()
                                      if any(x in key for x in names)}}}))
-    # gn_step replaces XLA code, no Pallas kernel: the loop body of the JAX
-    # gauss_newton; its numbers at the main path's B = 1, the batch's at B = 8
-    from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
-
-    rows.append(("gn_step", gs.gn_step, f"{CSRC}/gn_step.cu",
-                 "point_cloud_registration_tpu/core/gn.py:78", {
-                     "launches": 0,  # its launches on its paths: path_launches below
-                     "max_abs_err": gn_step["max_abs_err"], "kernel_ms": [gn_step["ms"][1]],
-                     "plain_ms": [gn_step["plain_ms"][1]], "bound_ms": gn_step["bound_ms"][1],
-                     "bound_by": gn_step["bound_by"], "library_ms": gn_step["library_ms"][1],
-                     "extra": {"alone_ms": gn_step["alone_ms"][1], "batched": {
-                         "B": 8, **{k: gn_step[k][8] for k in (
-                             "ms", "alone_ms", "plain_ms", "library_ms", "bound_ms")}}}}))
     # the loop kernel: the while_loop of the JAX gauss_newton around the fused
     # stats; its numbers at the main path's shapes, VPlaneICP's at the top, each
     # kind's in "kinds"
@@ -4973,9 +4969,9 @@ def main() -> None:
                   "ptxas": gn_loop["ptxas"], "kinds": {kind: {
                       k: gn_loop[kind][k] for k in (
                           "iterations", "ms", "alone_ms", "plain_ms", "bound_ms", "bound_by",
-                          "bound_reread_ms", "dT_two_launch", "dT_plain", "e2_rel", "dx_rel")}
+                          "bound_reread_ms", "dT_host", "dT_plain", "e2_rel", "dx_rel")}
                       | {f"{m}_device_ms": gn_loop[kind][m]["device_ms"]
-                         for m in ("loop", "two_launch")}
+                         for m in ("loop", "host")}
                       for kind in ("plane", "ndt")}}}))
     # the point and grid loops: the same while_loop around the packed-grid
     # stats and the grid stats; their numbers on phase 2d's paths, ICP's at the
@@ -4993,7 +4989,7 @@ def main() -> None:
                           k: new_loops[case][k] for k in (
                               "iterations", "ms", "alone_ms", "plain_ms", "bound_ms", "bound_by",
                               "bound_reread_ms", "dT_plain", "e2_rel_plain")}
-                          | {f"{m}_{q}": new_loops[case][m][q] for m in ("loop", "two_launch")
+                          | {f"{m}_{q}": new_loops[case][m][q] for m in ("loop", "host")
                              for q in ("device_ms", "syncs")}
                           for case in cases}}}))
     # the batched loops: the while_loop of the JAX batched_gauss_newton around
@@ -5016,7 +5012,7 @@ def main() -> None:
                                            "iterations", "ms", "alone_ms", "plain_ms",
                                            "bound_ms", "bound_by", "dT_plain", "ptxas")}
                                        | {f"{m}_{q}": batched[n]["loop"][m][q]
-                                          for m in ("loop", "two_launch")
+                                          for m in ("loop", "host")
                                           for q in ("device_ms", "syncs")}
                                        for n in names}}}))
     # the grid stats kernels (csrc/grid_align.cu), the port's own kernels for
@@ -5041,9 +5037,9 @@ def main() -> None:
                                    **({"design_searches": held["design"]}
                                       if held["design"] else {})}}))
     # launches on each path that runs the kernel, the main path's first; the
-    # two-launch reference aligns of phases 13-15 (``_two_launch``) last
-    two_launch = {name: batched[name]["loop"]["two_launch_resident"] for name in batched}
-    fast_two_launch = results["fast"]["phase2_two_launch"]
+    # host loop's aligns of phases 13-15 (``_host_loop``) last
+    host_batched_launches = {name: batched[name]["loop"]["host"]["launches"] for name in batched}
+    fast_host = results["fast"]["phase2_host_loop"]
     path_launches = {
         "fused_plane_stats": {"vplane_icp": results["vplane_icp"]["launches"],
                               "fast_vplane_icp_always": results["fast"]["always_launches"],
@@ -5051,22 +5047,25 @@ def main() -> None:
                               "hashed_map": 0,
                               "batched_vplane_icp": batched["vplane_icp"]["launches"],
                               "fast_vplane_icp_auto": results["fast"]["auto_launches"],
-                              "batched_vplane_icp_two_launch": two_launch["vplane_icp"]["enqueued"],
-                              "fast_vplane_icp_always_phase2_two_launch":
-                                  fast_two_launch.get("fused_plane_stats", 0)},
+                              "batched_vplane_icp_host_loop":
+                                  host_batched_launches["vplane_icp"]["fused_plane_stats_batched"],
+                              "fast_vplane_icp_always_phase2_host_loop":
+                                  fast_host.get("fused_plane_stats", 0)},
         "fused_ndt_stats": {"ndt": results["ndt"]["launches"],
                             "update_target": results["update"]["ndt"]["launches"],
                             "hashed_map": 0, "batched_ndt": batched["ndt"]["launches"],
-                            "batched_ndt_two_launch": two_launch["ndt"]["enqueued"]},
+                            "batched_ndt_host_loop":
+                                host_batched_launches["ndt"]["fused_ndt_stats_batched"]},
         "point_stats": {"icp": results["icp"]["launches"],
                         "icp_grid": grid["icp"]["launches"]["point_stats"],
                         "batched_icp": batched["icp"]["launches"],
-                        "batched_icp_two_launch": two_launch["icp"]["enqueued"]},
+                        "batched_icp_host_loop":
+                            host_batched_launches["icp"]["point_stats_batched"]},
         "plane_point_stats": {"plane_icp": results["plane_icp"]["launches"],
                               "plane_icp_grid": grid["plane_icp"]["launches"]["plane_point_stats"],
                               "batched_plane_icp": batched["plane_icp"]["launches"],
-                              "batched_plane_icp_two_launch":
-                                  two_launch["plane_icp"]["enqueued"]},
+                              "batched_plane_icp_host_loop":
+                                  host_batched_launches["plane_icp"]["plane_point_stats_batched"]},
         "knn_moments": {"estimate_normals": results["normals"]["launches"],
                         "plane_icp_grid": grid["plane_icp"]["launches"]["knn_moments"]},
         "exact_nn": {"oracle": results["exact_nn"]["launches"],
@@ -5106,19 +5105,6 @@ def main() -> None:
     path_launches["grid_loop"] = {
         **{path_name: res["resident"]["loop"] for path_name, res in grid_paths.values()},
     }
-    path_launches["gn_step"] = {
-        **{name: results[name]["gn_step_launches"] for name in paths},
-        **{f"{name}_grid": grid[name]["launches"]["gn_step"] for name in ("icp", "plane_icp")},
-        **{f"hashed_{name}": results["hashed"][name]["resident"]["gn_step"]
-           for name in ("vplane_icp", "ndt")},
-        **{f"update_target_{name}": results["update"][name]["resident"]["gn_step"]
-           for name in ("vplane_icp", "ndt")},
-        **{f"batched_{name}": batched[name]["resident"]["gn_step"] for name in batched},
-        "fast_vplane_icp_auto": results["fast"]["gn_step_auto"],
-        "fast_vplane_icp_always": results["fast"]["gn_step_always"],
-        **{f"batched_{name}_two_launch": two_launch[name]["gn_step"] for name in batched},
-        "fast_vplane_icp_always_phase2_two_launch": fast_two_launch.get("gn_step", 0),
-    }
     # launches of the kernels on phase 16's paths: the single entry's on
     # align_sharded, the batched entry's on the batched paths, none on map-sharded
     modes = {"nccl1": (results["nccl1"], (N_BATCHES,)),
@@ -5139,8 +5125,8 @@ def main() -> None:
     for name, row in path_launches.items():
         row.update({path: counts[name] for path, counts in results["demos"]["paths"].items()})
     # each kernel's launches on its main path, the first of its paths; one whose
-    # main path's align now runs in the loop kernel (the fused stats on
-    # VPlaneICP and NDT, gn_step) reports them on the first path that launches it
+    # main path's align now runs in the loop kernel (the stats kernels)
+    # reports them on the first path that launches it
     launches_on = {}
     for name, kernel, source, replaces, r in rows:
         paths_of = path_launches[kernel.__name__]

@@ -6,12 +6,12 @@ kernel, kinds "plane" and "ndt"; the hashed build for boxes over the dense
 budget, with the hashed stats kernel; ``update_target``), ICP and PlaneICP
 (the packed point grid with its proxy voxel map and the point stats kernel,
 kinds "point" and "plane_pt", from 50k target points; the CSR grid with the
-grid stats kernel below that), each with the Gauss-Newton loop on the card (the stats
-kernel and the ``gn_step`` kernel per iteration, ``core.gn``), k-NN PCA normals
+grid stats kernel below that), each align's whole Gauss-Newton loop in one loop
+kernel launch on the card (``core.gn``, ``ops.kernels.gn_loop``), k-NN PCA normals
 (the k-NN moments kernel) and the exact 1-NN kernel (the exact escapes of
 ``KDTree``); FastVPlaneICP (the fused plane kernel, the float64 coreset
 lift, the coreset phase); the batched multi-scan aligns of all four kinds
-against one map, one batched kernel launch per Gauss-Newton iteration
+against one map, one batched loop kernel launch per batched align
 (``models._fused.fused_voxel_align_batched``,
 ``models._point_fused.fused_point_align_batched``); the reference's
 utilities ``KDTree`` / ``VoxelGrid``, ``voxel_filter``, ``color_by_voxel``,

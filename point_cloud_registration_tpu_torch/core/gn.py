@@ -2,25 +2,27 @@
 ``point_cloud_registration_tpu/core/gn.py``).
 
 The JAX package compiles the loop into one ``lax.while_loop`` on the device.
-Here :func:`gauss_newton_device` and :func:`batched_gauss_newton_device`
-keep it on the data's device: each problem's pose, counters, flags and
-histories stay in a ``GNState`` there from the first launch to the last;
-every iteration is the solver's stats launch, which reads the pose and the
-done flag from the state, then one ``gn_step`` launch (solve, test, update,
-histories). Iterations are enqueued in chunks of ``GN_CHUNK``; the host reads
-the state once per chunk, one copy, and stops when every problem is done.
-On CPU tensors the same loop runs the plain ``gn_step_reference``. Every
-align of the four solvers, single or batched, has a kernel that runs its
-whole loop (``ops/kernels/gn_loop``), which :func:`gauss_newton_device` and
-:func:`batched_gauss_newton_device` take as ``loop``: one launch and one
-read an align, as the JAX package compiles each loop into one dispatch. The
-two-launch loop stays as the plain two-launch reference that the loop
-kernels are held to.
+Here each kind of caller has one way to run it:
 
-:func:`gauss_newton` and :func:`batched_gauss_newton` are the host loops
-(one copy of the stats to the host per iteration, the solve and the update
-on the host): the plain reference of the resident loop, and the loop of the
-multi-device paths, whose all-reduce runs on the host.
+* a single align (the four solvers' ``align``, FastVPlaneICP's two phases):
+  :func:`gauss_newton_device` with a :class:`LoopRequest`, through the
+  :class:`PreparedLoop` kept in a :class:`LoopSlot` (a solver's, or a fresh
+  one for an align with no solver): one launch of a loop kernel
+  (``ops/kernels/gn_loop``: the stats, the solve, the update and the
+  histories of every iteration, on the card) and one read of the state;
+* a batch (``models._fused.fused_voxel_align_batched``,
+  ``models._point_fused.fused_point_align_batched``):
+  :func:`batched_gauss_newton_device`, one launch of a batched loop kernel
+  and one read;
+* the multi-device paths (``parallel/``), whose all-reduce runs on the
+  host: the host loops :func:`gauss_newton` and
+  :func:`batched_gauss_newton` (one copy of the stats to the host per
+  iteration, the solve and the update on the host). They are also the plain
+  reference that the loop kernels are held to.
+
+The state of the device loops is a :class:`GNState`: each problem's pose,
+counters, flags and histories in one buffer on the data's device. On CPU
+tensors the loop kernels run their plain versions.
 
 Iteration semantics match the reference exactly (registration.py:89-111):
 
@@ -43,12 +45,6 @@ import torch
 
 from point_cloud_registration_tpu_torch.core.se3 import plus
 from point_cloud_registration_tpu_torch.utils.diagnostics import span
-
-# Iterations enqueued between two reads of the resident state. Measured on
-# an H100 (PERF.md, scripts/align_walls.py --chunks): a larger chunk saves reads
-# and enqueues more launches past convergence, which do nothing.
-GN_CHUNK = 4
-
 
 class GNStats(NamedTuple):
     """One linearization: normal equations + bookkeeping.
@@ -102,8 +98,9 @@ def stats_from_packed(packed: torch.Tensor) -> GNStats:
 def step_norm(dx: torch.Tensor) -> torch.Tensor:
     """``||dx||`` over the last axis, (..., 6) -> (...): the sum of squares
     in order, then the square root, each operation rounded once in the
-    input's dtype. The ``gn_step`` kernel forms the same number bit for
-    bit; the gate ``||dx|| < tol`` decides the iteration count."""
+    input's dtype. The loop kernels' update (``csrc/gn_step.cuh``) forms
+    the same number bit for bit; the gate ``||dx|| < tol`` decides the
+    iteration count."""
     acc = dx[..., 0] * dx[..., 0]
     for k in range(1, dx.shape[-1]):
         acc = acc + dx[..., k] * dx[..., k]
@@ -493,107 +490,40 @@ class LoopRequest(NamedTuple):
     prepare: Callable
 
 
-# A resident stats function: called once per align with the state's pose rows
-# (B, 12) [R row-major | t] and done flags (B,) int32 (or None), both on the
-# data's device, it returns ``launch() -> (B, 29)`` packed stats there (a
-# single problem's may be (29,)), which the loop calls once per iteration:
-# each call reads the poses and the flags as they are then, where they lie;
-# a kernel skips a problem whose flag is set.
-ResidentStats = Callable[[torch.Tensor, "torch.Tensor | None"], Callable[[], torch.Tensor]]
-
-
-def enqueued_iterations(iterations: int, max_iter: int) -> int:
-    """Iterations a resident loop enqueues for an align whose last problem
-    stops after ``iterations``: whole chunks, at most ``max_iter``. Each one
-    launches the stats kernel and ``gn_step`` once; those past the last
-    problem's stop do nothing."""
-    if max_iter <= 0:
-        return 0
-    return min(max_iter, -(-max(int(iterations), 1) // GN_CHUNK) * GN_CHUNK)
-
-
-def _run_resident(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float, device,
-                  loop: Callable[[GNState], None] | None = None):
-    """The resident loop of B problems -> their final state, on the host;
-    with ``loop``, that one call runs the whole loop, then one read. Under a
-    profiler the state's making, the loop's bind and its launch (or a
-    chunk's enqueue) are the span ``pcr.gn.setup``, each read with its wait
-    for the card ``pcr.gn.read``."""
-    # The step's wrapper stands on this module (the state, the solve), so it
-    # is imported when a loop runs.
-    from point_cloud_registration_tpu_torch.ops.kernels.gn_step import gn_stepper
-
-    if max_iter <= 0:
-        return new_state(init_Ts, max_iter, "cpu")
-    with span("pcr.gn.setup"):
-        state = new_state(init_Ts, max_iter, device)
-        if loop is not None:
-            loop(state)
-        else:
-            stats, step = stats_fn(state.poses, state.done), gn_stepper(state, tol)
-    if loop is not None:
-        with span("pcr.gn.read"):
-            return read_state(state)
-    enqueued = 0
-    while True:
-        n = min(GN_CHUNK, max_iter - enqueued)
-        with span("pcr.gn.setup"):
-            for _ in range(n):
-                step(stats())
-        enqueued += n
-        with span("pcr.gn.read"):
-            host = read_state(state)  # the one read of the chunk
-        if enqueued >= max_iter or bool(host.done.all()):
-            return host
-
-
-def gauss_newton_device(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
-                        device, loop: Callable[[GNState], None] | None = None,
+def gauss_newton_device(loop: LoopRequest, init_T, max_iter: int, device,
                         ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """The resident loop of one problem on ``device``: the semantics of
-    :func:`gauss_newton`, whose result it returns in the same form, with
-    ``stats_fn(poses (1, 12), done (1,))`` in place of ``stats_fn(T)``.
-    ``stats_fn`` and ``gn_step`` are bound once; the host reads the state
-    once per chunk of ``GN_CHUNK`` iterations and copies nothing else (the
-    two-launch loop: the stats, then ``gn_step``, each iteration); ``T``
-    and the diagnostics come from the last read.
-
-    ``loop``, when given, runs every iteration of the same stats in one call
-    on the state (``ops/kernels/gn_loop.fused_loop``: one launch), which is
-    then read once; ``stats_fn`` is not called. A :class:`LoopRequest` for
-    ``loop`` runs the same loop through its slot's :class:`PreparedLoop`
-    (made there when it has none that fits), with the same result.
-    :func:`gauss_newton_host` takes the same arguments and runs
-    ``stats_fn``."""
-    if isinstance(loop, LoopRequest) and max_iter > 0:
-        return loop.slot.align(loop, init_T, max_iter, torch.device(device))
-    s = _run_resident(stats_fn, torch.as_tensor(init_T).reshape(1, 4, 4), max_iter, tol,
-                      device, loop)
-    diag = GNDiagnostics(
-        iterations=int(s.it[0]),
-        converged=bool(s.converged[0]),
-        solver_failed=bool(s.failed[0]),
-        e2_history=s.e2[0].clone(),
-        dx_norm_history=s.dx_norm[0].clone(),
-        inlier_history=s.inliers[0].clone(),
-        final_e2=float(s.final_e2[0]),
-    )
-    return transforms_of(s.poses)[0], diag
+    """One problem's loop on ``device``: the semantics of :func:`gauss_newton`,
+    whose result it returns in the same form, for the align ``loop``
+    describes. The whole loop runs in one call on the state
+    (``ops/kernels/gn_loop``: one launch of a loop kernel, its plain version
+    on the CPU) through the slot's :class:`PreparedLoop` (made there when it
+    has none that fits), which is then read once. ``max_iter <= 0`` returns
+    the initial state and makes no plan."""
+    if max_iter <= 0:
+        s = new_state(torch.as_tensor(init_T).reshape(1, 4, 4), max_iter, "cpu")
+        return transforms_of(s.poses)[0], GNDiagnostics(
+            iterations=0, converged=False, solver_failed=False, e2_history=s.e2[0],
+            dx_norm_history=s.dx_norm[0], inlier_history=s.inliers[0], final_e2=0.0)
+    return loop.slot.align(loop, init_T, max_iter, torch.device(device))
 
 
-def batched_gauss_newton_device(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
-                                device, loop: Callable[[GNState], None] | None = None,
-                                ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """The resident loop of B problems on ``device``: the semantics and the
-    result of :func:`batched_gauss_newton`, with ``stats_fn(poses (B, 12),
-    done (B,))`` in place of ``stats_all(Ts)``; a problem that is done is
-    skipped by the stats kernels and by ``gn_step``.
-
-    ``loop``, when given, runs every iteration of all B problems in one call
-    on the state (``ops/kernels/gn_loop.fused_loop_batched``,
-    ``point_loop_batched``: one launch), which is then read once;
-    ``stats_fn`` is not called."""
-    s = _run_resident(stats_fn, init_Ts, max_iter, tol, device, loop)
+def batched_gauss_newton_device(loop: Callable[[GNState], None], init_Ts, max_iter: int,
+                                device) -> tuple[torch.Tensor, GNDiagnostics]:
+    """The loop of B problems on ``device``: the semantics and the result of
+    :func:`batched_gauss_newton`. ``loop`` runs every iteration of all B
+    problems in one call on the state (``ops/kernels/gn_loop.fused_loop_batched``,
+    ``point_loop_batched``: one launch), a problem that is done left as it
+    is; the state is then read once. Under a profiler the state's making and
+    the launch are the span ``pcr.gn.setup``, the read with its wait for the
+    card ``pcr.gn.read``."""
+    if max_iter <= 0:
+        s = new_state(init_Ts, max_iter, "cpu")
+    else:
+        with span("pcr.gn.setup"):
+            state = new_state(init_Ts, max_iter, device)
+            loop(state)
+        with span("pcr.gn.read"):
+            s = read_state(state)
     diag = GNDiagnostics(
         iterations=s.it.clone(),
         converged=s.converged.to(torch.bool),
@@ -604,30 +534,3 @@ def batched_gauss_newton_device(stats_fn: ResidentStats, init_Ts, max_iter: int,
         final_e2=s.final_e2.clone(),
     )
     return transforms_of(s.poses), diag
-
-
-def gauss_newton_host(stats_fn: ResidentStats, init_T, max_iter: int, tol: float,
-                      device, loop: Callable[[GNState], None] | None = None,
-                      ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """:func:`gauss_newton` over a resident stats function: each iteration
-    copies the pose to ``device`` and the stats back. The plain reference of
-    :func:`gauss_newton_device` on the same path, whose whole-loop ``loop``
-    it leaves aside."""
-    def stats(T):
-        packed = stats_fn(pose_rows_of(T[None]).to(device), None)()
-        return stats_from_packed(packed.reshape(-1).cpu())
-
-    return gauss_newton(stats, init_T, max_iter, tol)
-
-
-def batched_gauss_newton_host(stats_fn: ResidentStats, init_Ts, max_iter: int, tol: float,
-                              device, loop: Callable[[GNState], None] | None = None,
-                              ) -> tuple[torch.Tensor, GNDiagnostics]:
-    """:func:`batched_gauss_newton` over a resident stats function: the
-    plain reference of :func:`batched_gauss_newton_device`, whose
-    whole-loop ``loop`` it leaves aside."""
-    def stats(Ts):
-        packed = stats_fn(pose_rows_of(Ts).to(device), None)()
-        return stats_from_packed(packed.reshape(Ts.shape[0], -1).cpu())
-
-    return batched_gauss_newton(stats, init_Ts, max_iter, tol)

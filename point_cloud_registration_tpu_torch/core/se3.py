@@ -136,8 +136,8 @@ def plus(T: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     (math_tools.py:101-108), batched over leading axes.
 
     Written as elementwise operations in a fixed order, with ``sin`` and
-    ``cos`` taken in float64 and rounded once, so that the ``gn_step``
-    kernel (``csrc/gn_step.cu``) forms the same bits on the card: the
+    ``cos`` taken in float64 and rounded once, so that the loop kernels'
+    update (``csrc/gn_step.cuh``) forms the same bits on the card: the
     Rodrigues matrix of :func:`expSO3` (its ``theta**2 <= 1e-5`` branch
     too) with ``W @ W`` and ``T @ M`` summed over k = 0, 1, 2(, 3) in turn.
     """

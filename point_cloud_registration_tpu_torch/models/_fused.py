@@ -20,31 +20,29 @@ Either way the whole Gauss-Newton loop of an align is one launch of a loop
 kernel (``ops/kernels/gn_loop.fused_loop`` on a dense map, ``grid_loop`` on
 a hashed one: the stats, the row sum and the update of every iteration, on
 the card), and the host reads the state once, as the JAX package compiles
-the loop into one dispatch. The two-launch resident loop
-(``core.gn.gauss_newton_device`` over :func:`fused_voxel_stats_resident`: a
-stats launch that reads the pose and the done flag from the loop's state on
-the card, then ``gn_step``) computes the same state and is the plain
-two-launch reference the loop kernels are held to.
+the loop into one dispatch. :func:`fused_voxel_stats` is one iteration's
+stats on the host, the stats of ``calc_H_g_e2`` and of the host loop
+(``core.gn.gauss_newton``) that the loop kernels are held to.
 
 :func:`fused_voxel_align_batched` aligns B scans against one dense map in
 one launch of the batched loop kernel (``gn_loop.fused_loop_batched``: every
 iteration of all B problems, a done problem left as it is), the
 counterpart of the JAX ``batched_gauss_newton`` around the batched fused
-stats; its two-launch reference is the resident loop of all B problems
-(``core.gn.batched_gauss_newton_device`` over
-:func:`fused_voxel_stats_packed_batched`: one launch of the batched stats
-kernel, then ``gn_step``, an iteration).
+stats. :func:`fused_voxel_stats_packed_batched` is the batched fused stats
+kernel of B poses, one launch a call (the stats of the multi-device paths'
+host loop).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import torch
 
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import NDTConfig, VPlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats
 from point_cloud_registration_tpu_torch.core.se3 import makeRt
 from point_cloud_registration_tpu_torch.ops.hashgrid import search_offsets
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop, grid_align
@@ -110,37 +108,16 @@ def fused_voxel_stats(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tens
     return stats_from_packed(fused_voxel_stats_packed(vm, source, src_weight, T, cfg, kind).cpu())
 
 
-def fused_voxel_stats_resident(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
-                               cfg: VPlaneICPConfig | NDTConfig,
-                               kind: str = "plane") -> ResidentStats:
-    """The stats of one scan as a resident loop binds them (``core.gn.
-    ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
-    data's device, a launch per iteration of a kernel that reads the pose
-    and the flag on the card: the fused kernel (``fused_align``) on a dense
-    map, the hashed stats kernel (``grid_align``) on a hashed one (its
-    operands made when the stats are bound: an align through the loop
-    kernel binds none)."""
-    if vm.hashed:
-        def bind(poses, done):
-            grid, table, offsets = hashed_operands(vm, cfg, kind)
-            return grid_align.resident_stats(kind, grid, table, source, src_weight, offsets,
-                                             cfg.max_dist, cfg.huber_delta, poses, done)
-        return bind
-    return lambda poses, done: resident_stats(kind, vm.cells, vm.origin_cell, vm.dims,
-                                              vm.cell_size, source, src_weight, cfg.max_dist,
-                                              cfg.huber_delta, poses, done)
-
-
 def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tensor,
                       init_T, cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane",
                       slot: gn.LoopSlot | None = None) -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` over :func:`fused_voxel_stats_resident` on the scan's
-    device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
-    one launch of a loop kernel (its plain version on the CPU) and one read
-    of the state: ``gn_loop.fused_loop`` on a dense map, ``gn_loop.grid_loop``
-    on a hashed one. With a solver's ``slot`` the loop is its prepared loop
-    (``core.gn.PreparedLoop``), made for ``vm`` once and kept while the map
-    and the scan's length stay: the same launch and the same result."""
+    """``align`` of ``kind`` on the scan's device: returns ``(T,
+    GNDiagnostics)`` on the host. The whole loop is one launch of a loop
+    kernel (its plain version on the CPU) and one read of the state:
+    ``gn_loop.fused_loop`` on a dense map, ``gn_loop.grid_loop`` on a hashed
+    one, through the prepared loop (``core.gn.PreparedLoop``) of ``slot``:
+    a solver's, made for ``vm`` once and kept while the map and the scan's
+    length stay, or without one a plan made for this align."""
     settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                     max_iter=cfg.max_iter)
 
@@ -151,12 +128,9 @@ def fused_voxel_align(vm: VoxelMap, source: torch.Tensor, src_weight: torch.Tens
         return gn_loop.fused_looper(kind, vm.cells, vm.origin_cell, vm.dims, vm.cell_size, src,
                                     w, state, **settings)
 
-    if slot is not None:
-        loop = gn.LoopRequest(slot, (kind, cfg), (vm,), source, src_weight, looper)
-    else:
-        loop = lambda state: looper(state, source, src_weight)()  # noqa: E731
-    return gn.gauss_newton_device(fused_voxel_stats_resident(vm, source, src_weight, cfg, kind),
-                                  init_T, cfg.max_iter, cfg.tol, source.device, loop=loop)
+    loop = gn.LoopRequest(gn.LoopSlot() if slot is None else slot, (kind, cfg), (vm,), source,
+                          src_weight, looper)
+    return gn.gauss_newton_device(loop, init_T, cfg.max_iter, source.device)
 
 
 def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,
@@ -176,32 +150,37 @@ def fused_voxel_align_batched(vm: VoxelMap, sources, src_weights, init_Ts,
     (see the module's docstring). A hashed map raises ``ValueError``: it has
     no cell index for the kernel, as the JAX function needs a fused spec.
     """
-    stats_all = fused_voxel_stats_packed_batched(vm, sources, src_weights, cfg, kind)
+    _dense_only(vm)
     src, w = batch_on(vm.cells.centers.device, sources, src_weights)
     loop = functools.partial(gn_loop.fused_loop_batched, kind, vm.cells, vm.origin_cell, vm.dims,
                              vm.cell_size, src, w, max_dist=cfg.max_dist,
                              huber_delta=cfg.huber_delta, tol=cfg.tol, max_iter=cfg.max_iter)
-    return gn.batched_gauss_newton_device(stats_all, init_Ts, cfg.max_iter, cfg.tol,
-                                          vm.cells.centers.device, loop=loop)
+    return gn.batched_gauss_newton_device(loop, init_Ts, cfg.max_iter, vm.cells.centers.device)
 
 
 def fused_voxel_stats_packed_batched(vm: VoxelMap, sources, src_weights,
                                      cfg: VPlaneICPConfig | NDTConfig, kind: str = "plane",
-                                     ) -> ResidentStats:
-    """The stats of B scans against one dense map as a resident loop binds
-    them (``core.gn.ResidentStats``): at ``(poses (B, 12), done (B,) or
-    None)`` on the map's device, ``launch() -> (B, 29)`` there, one launch
-    of the batched fused kernel per call (``core.gn.pose_rows_of``
-    makes pose rows of transforms). ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to the
-    map's device once. A hashed map raises ``ValueError``: it has no cell
-    index for the kernel, as the JAX function needs a fused spec."""
-    if vm.hashed:
-        raise ValueError("a hashed voxel map has no cell index for the batched fused kernel; "
-                         "align its scans one by one")
+                                     ) -> Callable:
+    """The stats of B scans against one dense map at pose rows: ``(poses (B,
+    12), done (B,) or None)`` on the map's device -> ``launch() -> (B, 29)``
+    there, one launch of the batched fused kernel per call
+    (``fused_align.resident_stats``; ``core.gn.pose_rows_of`` makes pose rows
+    of transforms). ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to
+    the map's device once. A hashed map raises ``ValueError``
+    (:func:`_dense_only`)."""
+    _dense_only(vm)
     src, w = batch_on(vm.cells.centers.device, sources, src_weights)
     return lambda poses, done=None: resident_stats(kind, vm.cells, vm.origin_cell, vm.dims,
                                                    vm.cell_size, src, w, cfg.max_dist,
                                                    cfg.huber_delta, poses, done)
+
+
+def _dense_only(vm: VoxelMap) -> None:
+    """Raise ``ValueError`` for a hashed map: it has no cell index for the
+    batched kernels, as the JAX function needs a fused spec."""
+    if vm.hashed:
+        raise ValueError("a hashed voxel map has no cell index for the batched fused kernel; "
+                         "align its scans one by one")
 
 
 def batch_on(device, sources, src_weights) -> tuple:

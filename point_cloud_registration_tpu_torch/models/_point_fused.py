@@ -22,29 +22,28 @@ Either way the whole Gauss-Newton loop of an align is one launch of a loop
 kernel (``ops/kernels/gn_loop.point_loop`` on a packed target, ``grid_loop``
 on a grid target: the stats, the row sum and the update of every iteration,
 on the card), and the host reads the state once, as the JAX package
-compiles the loop into one dispatch. The two-launch resident loop
-(``core.gn.gauss_newton_device`` over :func:`fused_point_stats_resident`:
-a stats launch that reads the pose and the done flag from the loop's state
-on the card, then ``gn_step``) computes the same state and is the plain
-two-launch reference the loop kernels are held to.
+compiles the loop into one dispatch. :func:`fused_point_stats` is one
+iteration's stats on the host, the stats of ``calc_H_g_e2`` and of the host
+loop (``core.gn.gauss_newton``) that the loop kernels are held to.
 
 :func:`fused_point_align_batched` aligns B scans against one packed target
 in one launch of the batched loop kernel (``gn_loop.point_loop_batched``),
 the counterpart of the JAX ``batched_gauss_newton`` around the batched
-packed-point stats; its two-launch reference is the resident loop of all B
-problems (``core.gn.batched_gauss_newton_device`` over
-:func:`fused_point_stats_packed_batched`).
+packed-point stats. :func:`fused_point_stats_packed_batched` is the batched
+point kernel of B poses, one launch a call (the stats of the multi-device
+paths' host loop).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Callable
 
 import torch
 
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, PlaneICPConfig
-from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats, ResidentStats
+from point_cloud_registration_tpu_torch.core.gn import GNDiagnostics, GNStats
 from point_cloud_registration_tpu_torch.core.se3 import makeRt
 from point_cloud_registration_tpu_torch.models._fused import batch_on
 from point_cloud_registration_tpu_torch.models._point_corr import (
@@ -124,42 +123,18 @@ def fused_point_stats(target: PointCorrTarget, source: torch.Tensor,
         fused_point_stats_packed(target, source, src_weight, T, cfg, kind, normals).cpu())
 
 
-def fused_point_stats_resident(target: PointCorrTarget, source: torch.Tensor,
-                               src_weight: torch.Tensor, cfg: ICPConfig | PlaneICPConfig,
-                               kind: str = "point",
-                               normals: torch.Tensor | None = None) -> ResidentStats:
-    """The stats of one scan as a resident loop binds them (``core.gn.
-    ResidentStats``): at the state's ``(poses (1, 12), done (1,))`` on the
-    data's device, a launch per iteration of the kernel of ``kind``, which
-    reads the pose and the flag on the card: the packed-grid kernel
-    (``point_align``) on a packed target, the grid stats kernel
-    (``grid_align``) on a grid target (its operands made when the stats are
-    bound: an align through the loop kernel binds none)."""
-    if target.packed is None:
-        def bind(poses, done):
-            grid, table, offsets = grid_operands(target, cfg,
-                                                 normals if kind == "plane_pt" else None)
-            return grid_align.resident_stats(kind, grid, table, source, src_weight, offsets,
-                                             cfg.max_dist, cfg.huber_delta, poses, done)
-        return bind
-    radius = proxy_radius(cfg.corr, cfg.max_dist)
-    return lambda poses, done: resident_stats(kind, target.packed, target.proxy, source,
-                                              src_weight, cfg.max_dist, radius,
-                                              cfg.huber_delta, poses, done)
-
-
 def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                       src_weight: torch.Tensor, init_T, cfg: ICPConfig | PlaneICPConfig,
                       kind: str = "point", normals: torch.Tensor | None = None,
                       slot: gn.LoopSlot | None = None) -> tuple[torch.Tensor, GNDiagnostics]:
-    """``align`` over :func:`fused_point_stats_resident` on the scan's
-    device: returns ``(T, GNDiagnostics)`` on the host. The whole loop is
-    one launch of a loop kernel (its plain version on the CPU) and one read
-    of the state: ``gn_loop.point_loop`` on a packed target,
-    ``gn_loop.grid_loop`` on a grid target. With a solver's ``slot`` the
-    loop is its prepared loop (``core.gn.PreparedLoop``), made for ``target``
-    and ``normals`` once and kept while they and the scan's length stay: the
-    same launch and the same result."""
+    """``align`` of ``kind`` on the scan's device: returns ``(T,
+    GNDiagnostics)`` on the host. The whole loop is one launch of a loop
+    kernel (its plain version on the CPU) and one read of the state:
+    ``gn_loop.point_loop`` on a packed target, ``gn_loop.grid_loop`` on a
+    grid target, through the prepared loop (``core.gn.PreparedLoop``) of
+    ``slot``: a solver's, made for ``target`` and ``normals`` once and kept
+    while they and the scan's length stay, or without one a plan made for
+    this align."""
     settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                     max_iter=cfg.max_iter)
     grid_normals = normals if kind == "plane_pt" else None
@@ -172,14 +147,9 @@ def fused_point_align(target: PointCorrTarget, source: torch.Tensor,
                                     proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
                                     **settings)
 
-    if slot is not None:
-        loop = gn.LoopRequest(slot, (kind, cfg), (target, grid_normals), source,
-                              src_weight, looper)
-    else:
-        loop = lambda state: looper(state, source, src_weight)()  # noqa: E731
-    stats_fn = fused_point_stats_resident(target, source, src_weight, cfg, kind, normals)
-    return gn.gauss_newton_device(stats_fn, init_T, cfg.max_iter, cfg.tol, source.device,
-                                  loop=loop)
+    loop = gn.LoopRequest(gn.LoopSlot() if slot is None else slot, (kind, cfg),
+                          (target, grid_normals), source, src_weight, looper)
+    return gn.gauss_newton_device(loop, init_T, cfg.max_iter, source.device)
 
 
 def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | None, sources,
@@ -200,31 +170,36 @@ def fused_point_align_batched(target: PointCorrTarget, normals: torch.Tensor | N
     A grid target (no packed grid) raises ``ValueError``, as the JAX
     function needs a packed spec.
     """
-    stats_all = fused_point_stats_packed_batched(target, sources, src_weights, cfg, kind)
+    _packed_only(target)
     src, w = batch_on(target.packed.pts_packed.device, sources, src_weights)
     loop = functools.partial(gn_loop.point_loop_batched, kind, target.packed, target.proxy, src,
                              w, max_dist=cfg.max_dist,
                              proxy_radius=proxy_radius(cfg.corr, cfg.max_dist),
                              huber_delta=cfg.huber_delta, tol=cfg.tol, max_iter=cfg.max_iter)
-    return gn.batched_gauss_newton_device(stats_all, init_Ts, cfg.max_iter, cfg.tol,
-                                          target.packed.pts_packed.device, loop=loop)
+    return gn.batched_gauss_newton_device(loop, init_Ts, cfg.max_iter,
+                                          target.packed.pts_packed.device)
 
 
 def fused_point_stats_packed_batched(target: PointCorrTarget, sources, src_weights,
                                      cfg: ICPConfig | PlaneICPConfig, kind: str = "point",
-                                     ) -> ResidentStats:
-    """The stats of B scans against one packed target as a resident loop
-    binds them (``core.gn.ResidentStats``): at ``(poses (B, 12), done (B,)
-    or None)`` on the target's device, ``launch() -> (B, 29)`` there, one
-    launch of the batched point kernel per call.
-    ``sources`` (B, n, 3) and ``src_weights`` (B, n) go to the target's
-    device once. A grid target (no packed grid) raises ``ValueError``, as
-    the JAX function needs a packed spec."""
-    if target.packed is None:
-        raise ValueError("a grid target has no packed grid for the batched point kernel; "
-                         "align its scans one by one")
+                                     ) -> Callable:
+    """The stats of B scans against one packed target at pose rows:
+    ``(poses (B, 12), done (B,) or None)`` on the target's device ->
+    ``launch() -> (B, 29)`` there, one launch of the batched point kernel
+    per call (``point_align.resident_stats``). ``sources`` (B, n, 3) and
+    ``src_weights`` (B, n) go to the target's device once. A grid target
+    raises ``ValueError`` (:func:`_packed_only`)."""
+    _packed_only(target)
     src, w = batch_on(target.packed.pts_packed.device, sources, src_weights)
     radius = proxy_radius(cfg.corr, cfg.max_dist)
     return lambda poses, done=None: resident_stats(kind, target.packed, target.proxy, src, w,
                                                    cfg.max_dist, radius, cfg.huber_delta,
                                                    poses, done)
+
+
+def _packed_only(target: PointCorrTarget) -> None:
+    """Raise ``ValueError`` for a grid target (no packed grid): the batched
+    kernels need one, as the JAX function needs a packed spec."""
+    if target.packed is None:
+        raise ValueError("a grid target has no packed grid for the batched point kernel; "
+                         "align its scans one by one")

@@ -9,7 +9,7 @@ H, g and e^2 exactly at the switch transform), and the remaining iterations
 on the coreset.
 
 * Phase 1 is the plain solver's align (``models/_fused.fused_voxel_align``:
-  the fused plane kernel on a dense map, in the resident Gauss-Newton loop)
+  one launch of the loop kernel over the fused plane stats on a dense map)
   with the switch threshold as its tolerance; the switch reads its step-norm
   history from the state the loop returns.
 * The lift runs on the host in float64 (exactness needs it,

@@ -423,9 +423,9 @@ def _stats(kind, counter, reference, batched, cells, origin_cell, dims, cell_siz
 def resident_stats(kind: str, cells: CellIndex, origin_cell, dims, cell_size: float,
                    src: torch.Tensor, w: torch.Tensor, max_dist: float,
                    huber_delta: float | None, poses: torch.Tensor, done: torch.Tensor | None):
-    """The stats of a resident Gauss-Newton loop, bound once per align:
+    """The stats kernel bound once to pose rows that stay on the device:
     ``launch() -> (B, 29)`` (or (29,) for one problem on the CPU) at the
-    current pose rows ``poses`` (B, 12) of the loop's state.
+    pose rows ``poses`` (B, 12) as they are when it is called.
 
     ``src`` (n, 3) is one problem (its launches count as the single
     wrapper's), (B, n, 3) a batch (its launches count as the batched
@@ -470,8 +470,8 @@ def fused_plane_stats(
     ``cells`` is the cell index (4-wide features) of a map with ``dims`` cells
     from ``origin_cell``; ``src`` (N, 3) and ``w`` (N,) are the untransformed
     scan and its weights; ``R`` (3, 3) and ``t`` (3,) the pose, copied to the
-    card as one pose row (a resident Gauss-Newton loop binds the same launch
-    to its state's pose rows instead: :func:`resident_stats`). CPU tensors
+    card as one pose row (:func:`resident_stats` binds the same launch to
+    pose rows on the card). CPU tensors
     take the plain version; CUDA tensors launch the kernel at B = 1 and add
     one to ``fused_plane_stats.launches``.
     """

@@ -5,10 +5,12 @@ stats, ``point_cloud_registration_tpu/core/gn.py:124-192``).
 Each loop runs every iteration of one problem's loop on the device of its
 :class:`~point_cloud_registration_tpu_torch.core.gn.GNState`: a solver's
 stats at the state's pose, the solve, the step test, the update and the
-histories (``ops/kernels/gn_step``), until the state is done. It leaves the
-state as the two-launch resident loop (``core.gn.gauss_newton_device`` over
-the same stats' ``resident_stats``) leaves it, up to the order in which the
-block rows are summed (both sum them in double precision).
+histories (``csrc/gn_step.cuh``, whose plain version is
+``ops/kernels/gn_step.gn_step_reference``), until the state is done. Its
+plain version leaves the state as the host loop (``core.gn.gauss_newton``)
+over the same plain stats leaves it, bit for bit; on the card the kernels
+are held to the host loop over the same stats kernel and the batched ones
+to the two-launch loop of ``csrc/gn_step.cu`` (``chip_smoke.py``).
 
 * :func:`fused_loop`: VPlaneICP ("plane") and NDT ("ndt") on a dense voxel
   map, over the fused stats of ``ops/kernels/fused_align``
@@ -117,8 +119,8 @@ def loop_reference(stats: Callable[[], torch.Tensor], state: GNState, tol: float
     ``state`` (a single problem of ``max_iter`` iterations, on the CPU) is
     not done, ``stats()`` (the (29,) packed stats at the state's pose as it
     is then, on any device), then ``gn_step_reference``. Updates ``state``
-    in place, as the two-launch loop over the same stats does, bit for
-    bit."""
+    in place, as the host loop (``core.gn.gauss_newton``) over the same
+    stats ends, bit for bit."""
     _check_state(state, max_iter, torch.device("cpu"))
     while not bool(state.done[0]):
         gn_step_reference(stats().to("cpu"), state, tol)
@@ -131,8 +133,9 @@ def batched_loop_reference(stats: Callable[[], torch.Tensor], state: GNState, to
     done, ``stats()`` (the (B, 29) packed stats of every problem at the
     state's poses as they are then, on any device), then
     ``gn_step_reference``, which leaves a done problem as it is. Updates
-    ``state`` in place, as the two-launch batched loop over the same stats
-    does, bit for bit."""
+    ``state`` in place, as the batched host loop
+    (``core.gn.batched_gauss_newton``) over the same stats ends, bit for
+    bit."""
     _check_state(state, max_iter, torch.device("cpu"), None)
     while not bool(state.done.all()):
         gn_step_reference(stats().to("cpu"), state, tol)

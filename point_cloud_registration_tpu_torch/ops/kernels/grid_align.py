@@ -31,9 +31,7 @@ CPU tensors take the plain PyTorch versions,
 tests and ``chip_smoke.py`` also call directly. There is no fallback between
 the two. The aligns run the same per-query work inside the loop kernel
 (``ops/kernels/gn_loop.grid_loop``, ``csrc/grid_loop.cu``; the body is
-``csrc/grid_stats.cuh``); a two-launch resident Gauss-Newton loop binds
-:func:`resident_stats` once per align: the pose row and the done flag stay
-on the card, where the kernel reads them.
+``csrc/grid_stats.cuh``).
 
 ``matches``, a pair of (n,) int32 and float32 tensors, receives each query's
 winner (a point index or a slot, -1 for none) and its squared distance
@@ -65,14 +63,13 @@ from point_cloud_registration_tpu_torch.ops.kernels.fused_align import (
     check_poses,
     pose_rows,
     require_cuda,
-    rt_of_poses,
 )
 from point_cloud_registration_tpu_torch.ops.knn import _sq_dist, nearest_point, nearest_voxel
 
 __all__ = [
     "GridTable", "grid_plane_point_stats", "grid_point_stats", "grid_point_stats_reference",
     "hashed_ndt_stats", "hashed_plane_stats", "hashed_voxel_stats_reference", "point_table",
-    "resident_stats", "voxel_table", "window_rows",
+    "voxel_table", "window_rows",
 ]
 
 # Most blocks of one launch (256 threads each); past it the blocks stride over
@@ -423,34 +420,6 @@ def bind_window(grid: Grid, offsets, device) -> tuple:
                       grid.dense is None)
 
 
-def resident_stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor,
-                   w: torch.Tensor, offsets, max_dist: float, huber_delta: float | None,
-                   poses: torch.Tensor, done: torch.Tensor | None):
-    """The stats of a resident Gauss-Newton loop, bound once per align, as
-    ``fused_align.resident_stats``: ``launch() -> (1, 29)`` at the current
-    pose row ``poses`` (1, 12) of the loop's state. CUDA tensors: each call
-    is one launch of the kernel, which reads the pose and ``done`` on the
-    card and writes zeros once ``done`` is set. CPU tensors: the plain
-    version at the pose as it is when called, (29,), or zeros once ``done``
-    is set, so that the iterations a loop enqueues past its stop compute no
-    stats there either."""
-    if src.device.type != "cpu":
-        return resident_launch(kind, grid, table, src, w, offsets, poses, done, max_dist,
-                               huber_delta)
-    check_operands(src, w)
-    check_table(kind, grid, table, src.device)
-    offsets = offsets_on(offsets, src.device)
-    R, t = rt_of_poses(poses, False)  # views: they follow the state
-
-    def launch() -> torch.Tensor:
-        if done is not None and bool(done.all()):
-            return torch.zeros(STATS_WIDTH, dtype=torch.float32)
-        # looked up at each call, as a launch looks up its kernel
-        return _reference(kind)(grid, table, src, w, R, t, offsets, max_dist, huber_delta)
-
-    return launch
-
-
 def _stats(kind: str, grid: Grid, table: GridTable, src: torch.Tensor, w: torch.Tensor, R, t,
            offsets, max_dist: float, huber_delta: float | None, matches) -> torch.Tensor:
     if src.device.type == "cpu":
@@ -479,8 +448,7 @@ def grid_point_stats(grid: Grid, table: GridTable, src: torch.Tensor, w: torch.T
     ``grid`` and ``table`` (:func:`point_table` without normals) are the
     target's; ``src`` (n, 3) and ``w`` (n,) the untransformed scan and its
     weights; ``R`` (3, 3) and ``t`` (3,) the pose, copied to the card as one
-    pose row (a resident loop binds the same launch to its state's pose row
-    instead: :func:`resident_stats`); ``offsets`` (K, 3) the window, in
+    pose row (:func:`resident_launch`); ``offsets`` (K, 3) the window, in
     ``hashgrid.search_offsets``' order. CPU tensors take the plain version;
     CUDA tensors launch the kernel and add one to
     ``grid_point_stats.launches``."""

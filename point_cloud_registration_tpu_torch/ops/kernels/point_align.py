@@ -256,7 +256,7 @@ def _stats(kind, counter, reference, batched, pg, proxy, src, w, R, t, max_dist,
 def resident_stats(kind: str, pg: PackedPointGrid, proxy: ProxyMap, src: torch.Tensor,
                    w: torch.Tensor, max_dist: float, proxy_radius: int,
                    huber_delta: float | None, poses: torch.Tensor, done: torch.Tensor | None):
-    """The stats of a resident Gauss-Newton loop, bound once per align, as
+    """The stats kernel bound once to pose rows that stay on the device, as
     ``fused_align.resident_stats``: ``launch() -> (B, 29)`` (or (29,) for
     one problem on the CPU) at the current pose rows ``poses`` (B, 12);
     ``src`` (n, 3) counts as the single wrapper's launches, (B, n, 3) as the

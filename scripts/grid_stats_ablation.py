@@ -263,8 +263,9 @@ def time_kind(case, kind: str, ordered: bool = False) -> float:
     idx_p, d2_p = ga.plain_matches(grid, table, src, T[:3, :3], T[:3, 3], offsets)
     if not (torch.equal(idx, idx_p) and torch.equal(d2, d2_p)):
         raise AssertionError(f"{kind}: winners differ from the plain query's")
-    launch = ga.resident_stats(kind, grid, table, src, w, offsets, cfg.max_dist,
-                               cfg.huber_delta, pose_rows_of(T[None]).to(dev), None)
+    launch = ga.resident_launch(kind, grid, table, src, w, offsets,
+                                pose_rows_of(T[None]).to(dev), None, cfg.max_dist,
+                                cfg.huber_delta)
     return alone_ms(launch)
 
 

@@ -1,10 +1,12 @@
-"""The resident Gauss-Newton loop of point_cloud_registration_tpu_torch on the
+"""The device Gauss-Newton loops of point_cloud_registration_tpu_torch on the
 CPU: ``ops/kernels/gn_step.gn_step_reference`` (the plain version of the
-``gn_step`` kernel) and the resident loops ``core.gn.gauss_newton_device`` /
-``batched_gauss_newton_device`` that run it, against the JAX package's
+loop kernels' update, ``csrc/gn_step.cuh``), the plain loops over it
+(``gn_loop.loop_reference`` / ``batched_loop_reference``) and the entry
+points that run a loop, ``core.gn.gauss_newton_device`` (through a prepared
+loop) / ``batched_gauss_newton_device``, against the JAX package's
 ``solve_6x6``, ``se3.plus``, ``gauss_newton`` and ``batched_gauss_newton``,
 and against the port's own host loops (``core.gn.gauss_newton`` /
-``batched_gauss_newton``).
+``batched_gauss_newton``; the solvers' through ``tests/host_loop.py``).
 
 Tolerances: a step within 1e-5 of JAX's solve, relative to its largest
 entry, times the condition number of the Jacobi-scaled H over 100 (float32
@@ -14,6 +16,8 @@ iterations and flags; the solvers on the small test scenes within 1e-3 of
 the JAX classes in as many iterations. Against the port's host loops every
 output is equal bit for bit: the reference runs the same operations.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -28,7 +32,10 @@ from point_cloud_registration_tpu.models import _fused as jfused
 import point_cloud_registration_tpu_torch as pt
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.gn import GNStats, packed_from_stats
+from point_cloud_registration_tpu_torch.ops import voxelize
+from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
+import host_loop
 from oracles import make_scan, make_scene
 from test_torch_batched import GN_MAX_ITER, GN_TOL, GN_WEIGHT, _gn_problems, _gn_stats_jax, _gn_stats_np
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -147,34 +154,70 @@ def test_done_problems_are_frozen():
     assert (after.it[:4] == 2).all() and (after.it[4:] == 1).all()
 
 
+class _PlainLaunch:
+    """A prepared loop's launch (``core.gn.PreparedLoop``) that runs the plain
+    loop over ``stats_fn`` on the plan's state."""
+
+    def __init__(self, stats_fn, state, tol, max_iter):
+        self.stats_fn, self.state, self.tol, self.max_iter = stats_fn, state, tol, max_iter
+
+    def run(self, src, w):
+        gl.loop_reference(self.stats_fn(self.state.poses, self.state.done), self.state,
+                          self.tol, self.max_iter)
+
+
+def _single_device(stats_fn, init_T, max_iter, tol):
+    """``core.gn.gauss_newton_device`` of one problem, its loop the plain loop
+    over ``stats_fn``, through a fresh slot's plan."""
+    req = gn.LoopRequest(gn.LoopSlot(), ("synthetic", tol), (), torch.zeros((0, 3)),
+                         torch.zeros(0),
+                         lambda state, src, w: _PlainLaunch(stats_fn, state, tol, max_iter))
+    return gn.gauss_newton_device(req, init_T, max_iter, "cpu")
+
+
+def _batched_device(stats_fn, init_Ts, max_iter, tol):
+    """``core.gn.batched_gauss_newton_device``, its loop the plain batched
+    loop over ``stats_fn``."""
+    return gn.batched_gauss_newton_device(
+        lambda state: gl.batched_loop_reference(stats_fn(state.poses, state.done), state, tol,
+                                                max_iter), init_Ts, max_iter, "cpu")
+
+
+def _host(stats_fn, single=False):
+    """``stats_fn`` as the host loops call their stats: the transforms on the
+    host -> GNStats there."""
+    def stats(T):
+        packed = stats_fn(gn.pose_rows_of(T[None] if single else T), None)()
+        return gn.stats_from_packed(packed.reshape(-1) if single else packed)
+
+    return stats
+
+
 def test_max_iter_reached_and_zero():
     H, g = _systems()
     init = torch.from_numpy(_poses(1))
     stats = _packed(H[:1], g[:1])
-    T, d = gn.gauss_newton_device(lambda poses, done: lambda: stats, init[0], 3, 1e-12, "cpu")
+    T, d = _single_device(lambda poses, done: lambda: stats, init[0], 3, 1e-12)
     assert d.iterations == 3 and not d.converged and not d.solver_failed
     assert d.e2_history.shape == (3,) and (d.inlier_history == 100).all()
-    T0, d0 = gn.gauss_newton_device(lambda poses, done: lambda: stats, init[0], 0, 1e-3, "cpu")
+    T0, d0 = _single_device(lambda poses, done: lambda: stats, init[0], 0, 1e-3)
     assert d0.iterations == 0 and d0.e2_history.shape == (0,) and d0.final_e2 == 0.0
     np.testing.assert_array_equal(T0.numpy(), init[0].numpy())
-    Tb, db = gn.batched_gauss_newton_device(lambda poses, done: lambda: stats, init, 0, 1e-3,
-                                            "cpu")
+    Tb, db = _batched_device(lambda poses, done: lambda: stats, init, 0, 1e-3)
     assert db.iterations.tolist() == [0] and db.e2_history.shape == (1, 0)
 
 
-# --- the resident loops on the synthetic quadratic ----------------------------
+# --- the device loops on the synthetic quadratic ------------------------------
 
 
-def _resident_stats(P, Q, select=None, calls=None):
-    """The synthetic problems' stats as a resident loop binds them: all four,
-    or problem ``select`` alone (its pose given to every problem, its row
-    taken); ``calls`` gets the done flags each launch sees."""
+def _resident_stats(P, Q, select=None):
+    """The synthetic problems' stats at the state's pose rows: all four, or
+    problem ``select`` alone (its pose given to every problem, its row
+    taken)."""
     n_in = np.float32(P.shape[1]) * GN_WEIGHT
 
     def stats_fn(poses, done):
         def launch():
-            if calls is not None:
-                calls.append(done.clone())
             Ts = gn.transforms_of(poses).numpy()
             if select is not None:
                 Ts = np.repeat(Ts, len(P), axis=0)
@@ -196,10 +239,9 @@ def test_batched_resident_loop_matches_jax_and_the_host_loop():
     P, Q = _gn_problems()
     init = np.broadcast_to(np.eye(4, dtype=np.float32), (4, 4, 4)).copy()
     stats_fn = _resident_stats(P, Q)
-    T_d, d_d = gn.batched_gauss_newton_device(stats_fn, torch.from_numpy(init), GN_MAX_ITER,
-                                              GN_TOL, "cpu")
-    T_h, d_h = gn.batched_gauss_newton_host(stats_fn, torch.from_numpy(init), GN_MAX_ITER,
-                                            GN_TOL, "cpu")
+    T_d, d_d = _batched_device(stats_fn, torch.from_numpy(init), GN_MAX_ITER, GN_TOL)
+    T_h, d_h = gn.batched_gauss_newton(_host(stats_fn), torch.from_numpy(init), GN_MAX_ITER,
+                                       GN_TOL)
     _assert_same(T_d, d_d, T_h, d_h)
     n_in = np.float32(P.shape[1]) * GN_WEIGHT
 
@@ -223,8 +265,8 @@ def test_batched_resident_loop_matches_jax_and_the_host_loop():
 def test_single_resident_loop_matches_jax_and_the_host_loop(b):
     P, Q = _gn_problems()
     stats_fn = _resident_stats(P, Q, select=b)
-    T_d, d_d = gn.gauss_newton_device(stats_fn, torch.eye(4), GN_MAX_ITER, GN_TOL, "cpu")
-    T_h, d_h = gn.gauss_newton_host(stats_fn, torch.eye(4), GN_MAX_ITER, GN_TOL, "cpu")
+    T_d, d_d = _single_device(stats_fn, torch.eye(4), GN_MAX_ITER, GN_TOL)
+    T_h, d_h = gn.gauss_newton(_host(stats_fn, single=True), torch.eye(4), GN_MAX_ITER, GN_TOL)
     _assert_same(T_d, d_d, T_h, d_h)
     assert isinstance(d_d.iterations, int) and isinstance(d_d.final_e2, float)
     n_in = np.float32(P.shape[1]) * GN_WEIGHT[b]
@@ -238,30 +280,6 @@ def test_single_resident_loop_matches_jax_and_the_host_loop(b):
     assert d_d.iterations == int(d_j.iterations)
     assert d_d.converged == bool(d_j.converged) and d_d.solver_failed == bool(d_j.solver_failed)
     np.testing.assert_allclose(T_d.numpy(), np.asarray(T_j), rtol=0, atol=TOL_T_GN)
-
-
-@pytest.mark.parametrize("chunk", [1, 3, GN_MAX_ITER])
-def test_chunks_past_convergence_change_nothing(monkeypatch, chunk):
-    """Whatever the chunk, the result is the host loop's; the steps enqueued
-    after a problem stopped see it done and leave it as it was."""
-    P, Q = _gn_problems()
-    init = torch.from_numpy(np.broadcast_to(np.eye(4, dtype=np.float32), (4, 4, 4)).copy())
-    T_h, d_h = gn.batched_gauss_newton_host(_resident_stats(P, Q), init, GN_MAX_ITER, GN_TOL,
-                                            "cpu")
-    monkeypatch.setattr(gn, "GN_CHUNK", chunk)
-    calls = []
-    T_d, d_d = gn.batched_gauss_newton_device(_resident_stats(P, Q, calls=calls), init, GN_MAX_ITER,
-                                              GN_TOL, "cpu")
-    _assert_same(T_d, d_d, T_h, d_h)
-    assert len(calls) == gn.enqueued_iterations(int(d_d.iterations.max()), GN_MAX_ITER)
-    # the stats see each problem's flag as it stood: 0 until the problem stopped
-    for i, done in enumerate(calls):
-        np.testing.assert_array_equal(done.numpy(), (d_h.iterations.numpy() <= i).astype(np.int32))
-
-
-def test_enqueued_iterations():
-    assert gn.enqueued_iterations(3, 30) == min(30, -(-3 // gn.GN_CHUNK) * gn.GN_CHUNK)
-    assert gn.enqueued_iterations(30, 30) == 30 and gn.enqueued_iterations(5, 0) == 0
 
 
 # --- the solvers on the small test scenes ------------------------------------
@@ -299,66 +317,76 @@ def _align(cls, pts, scan, normals, **kw):
 
 
 @pytest.mark.parametrize("name", sorted(SOLVERS))
-def test_solvers_match_jax_and_the_host_loop(monkeypatch, scene, name):
+def test_solvers_match_jax_and_the_host_loop(scene, name):
     pts, scan = scene
     normals = _scene_normals(pts) if name == "PlaneICP" else None
-    T_d, d_d = _align(getattr(pt, name), pts, scan, normals, device="cpu", **SOLVERS[name])
+    s = getattr(pt, name)(device="cpu", **SOLVERS[name])
+    s.set_target(pts) if normals is None else s.set_target(pts, norm=normals)
+    T_d, d_d = s.align(scan), s.last_diagnostics
     T_j, d_j = _align(getattr(jpcr, name), pts, scan, normals, **SOLVERS[name])
     assert d_d.converged and not d_d.solver_failed
     assert d_d.iterations == int(d_j.iterations)
     np.testing.assert_allclose(T_d, T_j, rtol=0, atol=NDT_TOL_JAX if name == "NDT" else TOL_JAX)
-    monkeypatch.setattr(gn, "gauss_newton_device", gn.gauss_newton_host)
-    T_h, d_h = _align(getattr(pt, name), pts, scan, normals, device="cpu", **SOLVERS[name])
-    _assert_same(T_d, d_d, T_h, d_h)
+    T_h, d_h = host_loop.solver_align(s, scan)
+    _assert_same(T_d, d_d, T_h.numpy().astype(np.float64), d_h)
 
 
 @pytest.mark.parametrize("name", ["ICP", "PlaneICP"])
-def test_packed_targets_match_the_host_loop(monkeypatch, scene, name):
+def test_packed_targets_match_the_host_loop(scene, name):
     """The packed-grid stats (the kernels' plain versions here) in the
-    resident loop, against the host loop on the same target."""
-    import dataclasses
-
+    align's loop, against the host loop on the same target."""
     from point_cloud_registration_tpu_torch.core.config import CorrespondenceConfig
 
     pts, scan = scene
     normals = _scene_normals(pts) if name == "PlaneICP" else None
 
-    def run():
-        s = getattr(pt, name)(device="cpu")
-        s.cfg = dataclasses.replace(s.cfg, corr=CorrespondenceConfig(method="packed"))
-        s.set_target(pts) if normals is None else s.set_target(pts, norm=normals)
-        assert getattr(s._target, "corr", s._target).packed is not None
-        return s.align(scan), s.last_diagnostics
-
-    T_d, d_d = run()
+    s = getattr(pt, name)(device="cpu")
+    s.cfg = dataclasses.replace(s.cfg, corr=CorrespondenceConfig(method="packed"))
+    s.set_target(pts) if normals is None else s.set_target(pts, norm=normals)
+    assert getattr(s._target, "corr", s._target).packed is not None
+    T_d, d_d = s.align(scan), s.last_diagnostics
     assert d_d.converged and not d_d.solver_failed
-    monkeypatch.setattr(gn, "gauss_newton_device", gn.gauss_newton_host)
-    T_h, d_h = run()
-    _assert_same(T_d, d_d, T_h, d_h)
+    T_h, d_h = host_loop.solver_align(s, scan)
+    _assert_same(T_d, d_d, T_h.numpy().astype(np.float64), d_h)
 
 
-def test_plain_stats_stop_with_the_problem(monkeypatch, scene):
-    """On a grid target the stats stop with the problem: the align's loop
-    (``gn_loop.grid_loop``, its plain version on the CPU, as the loop kernel
-    on the card) computes them once per iteration, none after the problem
-    stopped. (The two-launch loop's grid launcher, which computes none for
-    the iterations enqueued after the stop, is held in
-    test_torch_grid_align.py.)"""
+# (solver, correspondence method or map layout, the plain stats its loop calls)
+STOPS = {
+    "ICP_grid": ("ICP", "grid", "grid_point_stats_reference"),
+    "PlaneICP_grid": ("PlaneICP", "grid", "grid_point_stats_reference"),
+    "VPlaneICP_hashed": ("VPlaneICP", "hashed", "hashed_voxel_stats_reference"),
+    "NDT_hashed": ("NDT", "hashed", "hashed_voxel_stats_reference"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STOPS))
+def test_plain_stats_stop_with_the_problem(monkeypatch, scene, case):
+    """On a grid target and on a hashed map the stats stop with the problem:
+    the align's loop (``gn_loop.grid_loop``, its plain version on the CPU,
+    as the loop kernel on the card) computes them once per iteration, none
+    after the problem stopped."""
     from point_cloud_registration_tpu_torch.ops.kernels import grid_align
 
+    name, layout, plain = STOPS[case]
     pts, scan = scene
+    s = getattr(pt, name)(device="cpu", **SOLVERS[name])
+    if layout == "grid":
+        s.cfg = dataclasses.replace(s.cfg, corr=pt.CorrespondenceConfig(method="grid"))
+        s.set_target(pts) if name == "ICP" else s.set_target(pts, norm=_scene_normals(pts))
+        assert getattr(s._target, "corr", s._target).packed is None
+    else:
+        with monkeypatch.context() as mp:
+            mp.setattr(voxelize, "DENSE_CELL_BUDGET", 1)  # a hashed map at this size
+            s.set_target(pts)
+        assert s._target.hashed
     calls = []
-    inner = grid_align.grid_point_stats_reference
+    inner = getattr(grid_align, plain)
 
     def counted(*args):
         calls.append(1)
         return inner(*args)
 
-    monkeypatch.setattr(grid_align, "grid_point_stats_reference", counted)
-    monkeypatch.setattr(gn, "GN_CHUNK", 30)
-    s = pt.ICP(device="cpu")
-    s.set_target(pts)
-    assert s._target.packed is None  # the grid method
+    monkeypatch.setattr(grid_align, plain, counted)
     s.align(scan)
     d = s.last_diagnostics
-    assert d.converged and d.iterations < 30 and len(calls) == d.iterations
+    assert d.converged and d.iterations < s.cfg.max_iter and len(calls) == d.iterations

@@ -5,8 +5,8 @@ loop of a VPlaneICP or NDT align on a dense map).
 
 ``fused_loop_reference`` is held to the JAX package's ``fused_voxel_align``
 (the Pallas kernel in interpret mode, as the JAX package's own tests run it
-on the CPU) and to the port's two-launch resident loop over the same plain
-stats; ``loop_grid`` to the stats launch's block ids; a NumPy model of the
+on the CPU) and to the host loop (``core.gn.gauss_newton``) over the same
+plain stats; ``loop_grid`` to the stats launch's block ids; a NumPy model of the
 kernel's fixed-order row sum (in double precision, rounded once) to a
 float64 sum; every single-problem align of the four solvers to one call of
 its loop (the point and grid loops' own checks are in
@@ -16,7 +16,7 @@ kernel's source and its loop's to one shared body.
 Tolerances: T within 1e-3 of JAX's (the bound of test_torch_vplane_icp.py
 and test_torch_ndt.py: the port builds its own map, so the maps agree to
 float32 rounding), with equal iterations, ``converged`` and
-``solver_failed``; against the two-launch loop every field of the state
+``solver_failed``; against the host loop every field of the state
 equal bit for bit (the same operations in the same order); the row-sum
 model equal to the float64 sum of the rows rounded to float32 (its lanes
 and the sum differ by at most n float64 epsilons of the sum of |rows|, far
@@ -45,6 +45,7 @@ from point_cloud_registration_tpu_torch.models import _fused, pad_points
 from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops import voxelize
+import host_loop
 from oracles import make_scan, make_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -127,18 +128,16 @@ def test_reference_matches_jax_fused_align(scene, targets, kind, scan_name):
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
-def test_reference_equals_the_two_launch_loop(scene, targets, kind):
-    """The plain loop against ``gauss_newton_device`` (chunks of GN_CHUNK,
-    the plain stats and ``gn_step_reference``) on the same operands: the
+def test_reference_equals_the_host_loop(scene, targets, kind):
+    """The plain loop against the host loop (``core.gn.gauss_newton`` over
+    ``fused_voxel_stats``, the same plain stats) on the same operands: the
     pose, counters, flags and histories bit for bit."""
     solver = targets[kind]
     scan = _scan(scene, "large_offset")
     state = _reference_state(solver, scan)
-    operands, settings = _operands(solver, scan)
-    stats_fn = _fused.fused_voxel_stats_resident(solver._target, operands[5], operands[6],
-                                                 solver.cfg, kind)
-    T, d = gn.gauss_newton_device(stats_fn, torch.eye(4), settings["max_iter"],
-                                  settings["tol"], "cpu")
+    operands, _ = _operands(solver, scan)
+    T, d = host_loop.voxel_align(solver._target, operands[5], operands[6], torch.eye(4),
+                                 solver.cfg, kind)
     assert int(state.it[0]) == d.iterations >= 2
     assert torch.equal(gn.transforms_of(state.poses)[0], T)
     assert (bool(state.converged[0]), bool(state.failed[0])) == (d.converged, d.solver_failed)
@@ -176,14 +175,13 @@ def test_singular_H_fails_at_once(scene, targets, kind):
 def test_max_iter_zero_and_one(scene, targets, kind, max_iter):
     """``fused_voxel_align`` through the loop: no iteration at max_iter 0
     (the loop is not called), one at max_iter 1 (done by the count, T
-    updated); equal to the two-launch loop's result."""
+    updated); equal to the host loop's result."""
     solver = targets[kind]
     scan = _scan(scene, "large_offset")
     src, w = pad_points(scan, device="cpu")
     cfg = type(solver.cfg)(**{**PARAMS, "max_iter": max_iter})
     T, d = _fused.fused_voxel_align(solver._target, src, w, torch.eye(4), cfg, kind)
-    stats_fn = _fused.fused_voxel_stats_resident(solver._target, src, w, cfg, kind)
-    T2, d2 = gn.gauss_newton_device(stats_fn, torch.eye(4), max_iter, cfg.tol, "cpu")
+    T2, d2 = host_loop.voxel_align(solver._target, src, w, torch.eye(4), cfg, kind)
     assert d.iterations == d2.iterations == max_iter
     assert torch.equal(T, T2) and d.converged == d2.converged is False
     assert torch.equal(d.dx_norm_history, d2.dx_norm_history)
@@ -193,8 +191,7 @@ def test_max_iter_zero_and_one(scene, targets, kind, max_iter):
 def test_dense_aligns_run_one_loop_and_hashed_ones_do_not(monkeypatch, scene):
     """Every single-problem align calls a loop (here its plain version)
     once an align and counts no launch on the CPU: VPlaneICP and NDT the
-    fused loop on a dense map and the grid loop on a hashed one (they no
-    longer keep the two-launch loop there); ICP and PlaneICP the point loop
+    fused loop on a dense map and the grid loop on a hashed one; ICP and PlaneICP the point loop
     on a packed target and the grid loop on a grid target. Two iterations
     of a 300-point scan: the calls, not the result, are held here."""
     calls = []

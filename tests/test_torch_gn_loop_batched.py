@@ -9,10 +9,11 @@ on its tensors' card).
 On the CPU each batched loop runs its plain version
 (``batched_loop_reference``: the batched plain stats, then
 ``gn_step_reference``, until every problem is done). It leaves the state of
-B problems bit-equal to the two-launch batched loop's plain path
-(``core.gn._run_resident`` over the batched stats) and each problem's words
-bit-equal to that scan's single-problem plain loop; the card's kernel is
-held to the same on the card by ``chip_smoke.py`` (phases 13-14). The
+B problems bit-equal to the batched host loop's (``core.gn.batched_gauss_newton``
+over the same batched stats) and each problem's words bit-equal to that
+scan's single-problem plain loop; a problem that is done is left as it was
+while the others iterate. ``chip_smoke.py`` (phases 13-14) holds the card's
+kernel to the host loop over the batched stats kernel on the card. The
 batched aligns against the JAX package's batched functions in interpret
 mode (T within 1e-5, equal iterations) are ``tests/test_torch_batched.py``'s
 interpret tests, and FastVPlaneICP's ``"always"`` against the JAX class
@@ -56,11 +57,11 @@ from point_cloud_registration_tpu_torch.models.voxelized_plane_icp import build_
 from point_cloud_registration_tpu_torch.ops.kernels import exact_nn as en
 from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
-from point_cloud_registration_tpu_torch.ops.kernels import gn_step as gs
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 from point_cloud_registration_tpu_torch.ops.kernels import knn_normals as kn
 from point_cloud_registration_tpu_torch.ops.kernels import normals_chain as nc
 from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+import host_loop
 from oracles import make_scan, make_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -111,8 +112,9 @@ def _batch(scene, B, fail=True):
 
 
 def _loop_of(kind, target, cfg, src, w):
-    """``(batched loop(state), single loop(src_b, w_b, state), two-launch
-    stats)`` of ``kind`` on ``target`` with ``cfg``'s settings."""
+    """``(batched loop(state), single loop(src_b, w_b, state), batched
+    stats at pose rows)`` of ``kind`` on ``target`` with ``cfg``'s
+    settings."""
     settings = dict(max_dist=cfg.max_dist, huber_delta=cfg.huber_delta, tol=cfg.tol,
                     max_iter=cfg.max_iter)
     if kind in ("plane", "ndt"):
@@ -133,6 +135,31 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
+def _host(stats_all, T0, cfg):
+    """``(Ts, diagnostics)`` of the batched host loop
+    (``core.gn.batched_gauss_newton``) over the batched stats ``stats_all``
+    from ``T0``."""
+    return gn.batched_gauss_newton(
+        lambda Ts: gn.stats_from_packed(stats_all(gn.pose_rows_of(Ts))()), T0, cfg.max_iter,
+        cfg.tol)
+
+
+def _same(Ts, d, Ts_want, d_want):
+    """Two batched results bit for bit (NaN payloads too)."""
+    assert torch.equal(_bits(Ts), _bits(Ts_want))
+    for f in d._fields:
+        assert torch.equal(_bits(getattr(d, f)), _bits(getattr(d_want, f))), f
+
+
+def _result(state):
+    """``(Ts, diagnostics)`` of a batched state, as
+    ``core.gn.batched_gauss_newton_device`` returns them."""
+    return gn.transforms_of(state.poses), gn.GNDiagnostics(
+        iterations=state.it, converged=state.converged.to(torch.bool),
+        solver_failed=state.failed.to(torch.bool), e2_history=state.e2,
+        dx_norm_history=state.dx_norm, inlier_history=state.inliers, final_e2=state.final_e2)
+
+
 def _problem_words(state, b):
     """Problem b's words of a batched state, in a single problem's order."""
     f = _bits
@@ -144,14 +171,13 @@ def _problem_words(state, b):
 
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("kind", ["plane", "ndt", "point", "plane_pt"])
-def test_plain_batched_loop_equals_two_launch_and_single_loops(scene, targets, kind, B):
+def test_plain_batched_loop_equals_host_and_single_loops(scene, targets, kind, B):
     target, cfg = targets[kind]
     src, w, T0 = _batch(scene, B)
     loop, single, stats_all = _loop_of(kind, target, cfg, src, w)
     state = gn.new_state(T0, cfg.max_iter, "cpu")
     loop(state)
-    two = gn._run_resident(stats_all, T0, cfg.max_iter, cfg.tol, "cpu")
-    assert torch.equal(state.words, two.words)
+    _same(*_result(state), *_host(stats_all, T0, cfg))
     for b in range(B):
         one = gn.new_state(T0[b:b + 1], cfg.max_iter, "cpu")
         single(src[b], w[b], one)
@@ -168,9 +194,8 @@ def test_plain_batched_loop_equals_two_launch_and_single_loops(scene, targets, k
 @pytest.mark.parametrize("kind", ["plane", "point"])
 def test_batched_aligns_run_the_loop_once(scene, targets, kind, monkeypatch):
     """The batched align of each stream is one call of its batched loop and
-    one read of the state; no stats of the two-launch loop are bound. Its
-    result is the two-launch batched loop's (``loop`` left out), bit for
-    bit."""
+    one read of the state; no stats kernel is bound. Its result is the
+    batched host loop's over the same stats, bit for bit."""
     target, cfg = targets[kind]
     src, w, T0 = _batch(scene, 3)
     if kind == "plane":
@@ -187,20 +212,15 @@ def test_batched_aligns_run_the_loop_once(scene, targets, kind, monkeypatch):
                         lambda *a, **k: calls.append("stats") or bind(*a, **k))
     Ts, d = align()
     assert calls == ["loop"]
-    device = gn.batched_gauss_newton_device
-    monkeypatch.setattr(gn, "batched_gauss_newton_device",
-                        lambda *a, loop=None: device(*a))  # the two-launch loop
-    Ts_two, d_two = align()
-    assert torch.equal(Ts, Ts_two)
-    for f in d._fields:
-        assert torch.equal(_bits(getattr(d, f)), _bits(getattr(d_two, f))), f
+    monkeypatch.undo()
+    _same(Ts, d, *_host(_loop_of(kind, target, cfg, src, w)[2], T0, cfg))
 
 
 @pytest.mark.parametrize("kind", ["ndt", "plane_pt"])
 def test_batched_loop_max_iter_zero_and_one(scene, targets, kind):
     """``max_iter`` 0: the align returns the initial transforms, no
-    iteration; 1: one iteration each, every problem done, the two-launch
-    loop's state."""
+    iteration; 1: one iteration each, every problem done, the host loop's
+    result."""
     target, cfg = targets[kind]
     src, w, T0 = _batch(scene, 3)
     fn = (_fused.fused_voxel_align_batched if kind == "ndt"
@@ -213,7 +233,7 @@ def test_batched_loop_max_iter_zero_and_one(scene, targets, kind):
     state = gn.new_state(T0, 1, "cpu")
     loop(state)
     assert state.it.tolist() == [1, 1, 1] and bool(state.done.all())
-    assert torch.equal(state.words, gn._run_resident(stats_all, T0, 1, cfg1.tol, "cpu").words)
+    _same(*_result(state), *_host(stats_all, T0, cfg1))
 
 
 def test_batched_loopers_refuse_mismatched_operands(targets):
@@ -245,11 +265,44 @@ def test_loop_grid_of_a_batch_covers_every_problem_block_once(n, B):
     assert ids == list(range(B * virtual))
 
 
-def test_fast_always_phase2_is_one_loop_and_the_two_launch_result(scene, monkeypatch):
+@pytest.mark.parametrize("kind", ["plane", "point"])
+def test_a_done_problem_is_left_as_it_was(scene, targets, kind, monkeypatch):
+    """The batched align's plain loop: each stats call sees a problem's done
+    flag set from the iteration after its stop, and a done problem's words
+    stay as they were while the others iterate."""
+    target, cfg = targets[kind]
+    src, w, T0 = _batch(scene, 3)
+    seen, plain_loop = [], gl.batched_loop_reference
+
+    def watched(stats, state, tol, max_iter):
+        def watched_stats():
+            seen.append(state.words.clone())
+            return stats()
+
+        return plain_loop(watched_stats, state, tol, max_iter)
+
+    monkeypatch.setattr(gl, "batched_loop_reference", watched)
+    if kind == "plane":
+        Ts, d = _fused.fused_voxel_align_batched(target, src, w, T0, cfg, kind)
+    else:
+        Ts, d = _point_fused.fused_point_align_batched(target, None, src, w, T0, cfg, kind)
+    its = d.iterations.tolist()
+    assert len(seen) == max(its) and min(its) == 1 < max(its)
+    states = [gn._fields(words, 3, cfg.max_iter) for words in seen]
+    last = states[-1]
+    for i, state in enumerate(states):
+        assert state.done.tolist() == [int(n <= i) for n in its]
+        for b in range(3):
+            if its[b] <= i:  # done: its words are those it ends with
+                assert torch.equal(_problem_words(state, b), _problem_words(last, b)), (i, b)
+                assert torch.equal(gn.transforms_of(state.poses)[b], Ts[b])
+
+
+def test_fast_always_phase2_is_one_loop_and_the_host_loop_result(scene, monkeypatch):
     """FastVPlaneICP ``"always"``: phase 1 and phase 2 each one call of the
-    loop (``fused_loop``), no stats of the two-launch loop bound; T and the
-    merged histories equal to the align whose loops are the two-launch
-    ones (``loop`` left out), bit for bit."""
+    loop (``fused_loop``), no stats kernel bound; each phase's T, iterations,
+    flags and histories equal to the host loop's on the same inputs
+    (``tests/host_loop.py``), bit for bit."""
     scan, _ = make_scan(np.random.RandomState(7), scene,
                         np.array([0.04, -0.02, 0.05, 0.008, 0.0, -0.006]))
     kw = dict(voxel_size=1.0, max_iter=30, max_dist=2.0, tol=1e-3, coreset_switch=2e-2,
@@ -257,26 +310,26 @@ def test_fast_always_phase2_is_one_loop_and_the_two_launch_result(scene, monkeyp
     fast = fvp.FastVPlaneICP(**kw, device="cpu")
     fast.set_target(scene)
     loops, calls, phase2, reference = [], [], fvp._phase2_align, gl.fused_loop_reference
+    aligns, align = [], fvp.fused_voxel_align
     monkeypatch.setattr(gl, "fused_loop_reference",  # its rows and its max_iter
                         lambda *a, **k: loops.append((a[5].shape[0], a[-1])) or reference(*a, **k))
     monkeypatch.setattr(_fused, "resident_stats", lambda *a, **k: calls.append("stats"))
     monkeypatch.setattr(fvp, "_phase2_align", lambda *a: calls.append(a[4]) or phase2(*a))
-    T = fast.align(scan)
+    monkeypatch.setattr(fvp, "fused_voxel_align",
+                        lambda *a, **k: aligns.append((a, align(*a, **k))) or aligns[-1][1])
+    fast.align(scan)
     d = fast.last_diagnostics
     # phase 1 on the padded scan, then phase 2 on the coreset within the budget left
     assert len(loops) == 2 and loops[0][1] == 30 and len(calls) == 1
     assert loops[1] == (256, calls[0]) and 0 < calls[0] < 30 and d.iterations > 30 - calls[0]
-    monkeypatch.undo()
-    device = gn.gauss_newton_device
-    monkeypatch.setattr(gn, "gauss_newton_device", lambda *a, loop=None: device(*a))
-    fast_two = fvp.FastVPlaneICP(**kw, device="cpu")
-    fast_two.set_target(scene)
-    np.testing.assert_array_equal(T, fast_two.align(scan))
-    d_two = fast_two.last_diagnostics
-    assert (d.iterations, d.converged, d.solver_failed, d.final_e2) == (
-        d_two.iterations, d_two.converged, d_two.solver_failed, d_two.final_e2)
-    for f in ("e2_history", "dx_norm_history", "inlier_history"):
-        assert torch.equal(getattr(d, f), getattr(d_two, f)), f
+    assert len(aligns) == 2 and aligns[1][0][1].shape[0] == 256
+    for (vm, src, w, T0, cfg, *kind), (T, di) in aligns:
+        T_h, d_h = host_loop.voxel_align(vm, src, w, T0, cfg, *kind)
+        assert torch.equal(T, T_h)
+        assert (di.iterations, di.converged, di.solver_failed, di.final_e2) == (
+            d_h.iterations, d_h.converged, d_h.solver_failed, d_h.final_e2)
+        for f in ("e2_history", "dx_norm_history", "inlier_history"):
+            assert torch.equal(getattr(di, f), getattr(d_h, f)), f
 
 
 # --- every launcher binds and launches on its tensors' card ------------------
@@ -377,18 +430,30 @@ class FakeLibrary:
         return entry
 
 
-_CACHED = [fa._kernel_fn, pa._kernel_fn, ga._kernel_fn, gs._kernel_fn, gl._kernel_fn,
+_CACHED = [fa._kernel_fn, pa._kernel_fn, ga._kernel_fn, gl._kernel_fn,
            gl._point_kernel_fn, gl._grid_kernel_fn, gl._batched_kernel_fn,
            gl._point_batched_kernel_fn, gl._multiprocessors, en._kernel_fn, ga._window_on,
            kn._library, nc._library]
 
 
+def keep_launch_counts(monkeypatch) -> None:
+    """Every kernel wrapper's ``launches`` put back after the test: a faked
+    launch counts as a real one, and other tests of the same process assert
+    what their own calls count."""
+    for module in (fa, pa, ga, gl, kn, nc, en):
+        for f in vars(module).values():
+            if callable(f) and hasattr(f, "launches"):
+                monkeypatch.setattr(f, "launches", f.launches)
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     """The log of library calls, with the card faked as above; the bindings
-    cached meanwhile are dropped before and after."""
+    cached meanwhile are dropped before and after, the launch counts put
+    back after."""
     log = []
-    for module in (fa, pa, ga, gs, gl, kn, nc, en):
+    keep_launch_counts(monkeypatch)
+    for module in (fa, pa, ga, gl, kn, nc, en):
         monkeypatch.setattr(module, "load_library", lambda name: FakeLibrary(log))
     monkeypatch.setattr(torch.cuda, "device", Recorder)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -426,8 +491,6 @@ def test_every_launcher_binds_and_launches_on_its_tensors_card(scene, targets, f
             2.0),
         "point stats": lambda: pa.point_stats(pg, proxy, src[0], w[0], R, t, 2.0, radius),
         "grid stats": lambda: ga.grid_point_stats(grid, table, src[0], w[0], R, t, offsets, 2.0),
-        "gn_step": lambda: gs.gn_step(torch.zeros((2, 29), device=CARD),
-                                      gn.new_state(T0, 4, CARD), 1e-3),
         "fused loop": lambda: gl.fused_loop("plane", cells, *head, src[0], w[0],
                                             gn.new_state(T0[:1], 4, CARD), **settings),
         "point loop": lambda: gl.point_loop("point", pg, proxy, src[0], w[0],
@@ -456,7 +519,6 @@ def test_every_launcher_binds_and_launches_on_its_tensors_card(scene, targets, f
         "fused stats batched": ["pcr_fused_ndt_stats"],
         "point stats": ["pcr_point_stats"],
         "grid stats": ["pcr_grid_point_stats"],
-        "gn_step": ["pcr_gn_step"],
         # the occupancy query that sizes the grid (the bind), then the launch
         "fused loop": ["pcr_gn_loop_blocks_per_sm", "pcr_gn_loop_plane"],
         "point loop": ["pcr_point_loop_blocks_per_sm", "pcr_point_loop_point"],

@@ -6,8 +6,9 @@ PlaneICP align on a small target's grid and of a VPlaneICP or NDT align on
 a hashed map), by test_torch_gn_loop_point.py's checks: against the JAX
 package's ``icp_align``, ``plane_icp_align``, ``vplane_align`` and
 ``ndt_align`` (XLA code, no Pallas kernel; T within 1e-3, equal
-iterations and flags) and against the port's two-launch resident loop over
-the same plain stats, also at the loop's edges (every field bit for bit).
+iterations and flags) and against the host loop (``core.gn.gauss_newton``)
+over the same plain stats, also at the loop's edges (every field bit for
+bit).
 """
 
 import numpy as np
@@ -23,7 +24,7 @@ from test_torch_gn_loop_point import (
     _port_target,
     check_edge,
     check_matches_jax,
-    check_two_launch,
+    check_host,
 )
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -54,11 +55,11 @@ def test_reference_matches_jax(scene, normals, targets, path):
 
 
 @pytest.mark.parametrize("path", PATHS)
-def test_reference_equals_the_two_launch_loop(scene, targets, path):
-    check_two_launch(scene, targets, path)
+def test_reference_equals_the_host_loop(scene, targets, path):
+    check_host(scene, targets, path)
 
 
 @pytest.mark.parametrize("edge", EDGES)
 @pytest.mark.parametrize("path", PATHS)
-def test_edges_equal_the_two_launch_loop(scene, targets, path, edge):
+def test_edges_equal_the_host_loop(scene, targets, path, edge):
     check_edge(scene, targets, path, edge)

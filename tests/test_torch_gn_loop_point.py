@@ -11,16 +11,16 @@ them on the grid and hashed paths.
 (its Pallas kernel in interpret mode, as the JAX package's own tests run
 it on the CPU); ``grid_loop_reference`` to ``icp_align``,
 ``plane_icp_align``, ``vplane_align`` and ``ndt_align`` (XLA code, no
-Pallas kernel); both to the port's two-launch resident loop over the same
-plain stats, also at the loop's edges (a break on the first step, a
+Pallas kernel); both to the host loop (``core.gn.gauss_newton``) over the
+same plain stats, also at the loop's edges (a break on the first step, a
 singular H, ``max_iter`` 0 and 1, an empty scan); ``loop_grid`` to the
 stats launches' block ids at the point and grid kernels' geometries.
 
 Tolerances: T within 1e-3 of JAX's (the bound of test_torch_icp.py,
 test_torch_icp_grid.py and test_torch_voxel_sparse.py: each package builds
 its own target, equal to float32 rounding), with equal iterations,
-``converged`` and ``solver_failed``; against the two-launch loop every
-field of the state equal bit for bit (the same operations in the same
+``converged`` and ``solver_failed``; against the host loop every field of
+the state equal bit for bit (the same operations in the same
 order).
 """
 
@@ -66,6 +66,7 @@ from point_cloud_registration_tpu_torch.ops import voxelize
 from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
+import host_loop
 from oracles import make_scan, make_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -97,8 +98,9 @@ def normals(scene):
 
 
 def _port_target(path, pts, normals):
-    """``(kind, target, cfg, align(src, w, T0, cfg) -> (T, diag), stats(src,
-    w, cfg) -> ResidentStats)`` of a path on the port's CPU target."""
+    """``(kind, target, cfg, align(src, w, T0, cfg) -> (T, diag), host(src,
+    w, T0, cfg) -> (T, diag))`` of a path on the port's CPU target: its
+    align and the same align through the host loop (``tests/host_loop.py``)."""
     where, kind = path.split("_", 1)
     if where == "hashed":
         cls = VPlaneICPConfig if kind == "plane" else NDTConfig
@@ -110,7 +112,7 @@ def _port_target(path, pts, normals):
         assert vm.hashed
         return (kind, vm, cfg,
                 lambda src, w, T0, c: _fused.fused_voxel_align(vm, src, w, T0, c, kind),
-                lambda src, w, c: _fused.fused_voxel_stats_resident(vm, src, w, c, kind))
+                lambda src, w, T0, c: host_loop.voxel_align(vm, src, w, T0, c, kind))
     corr = CorrespondenceConfig(method=where)
     if kind == "point":
         cfg = ICPConfig(corr=corr, **PARAMS)
@@ -123,8 +125,7 @@ def _port_target(path, pts, normals):
     return (kind, target, cfg,
             lambda src, w, T0, c: _point_fused.fused_point_align(target, src, w, T0, c, kind,
                                                                  tnormals),
-            lambda src, w, c: _point_fused.fused_point_stats_resident(target, src, w, c, kind,
-                                                                      tnormals))
+            lambda src, w, T0, c: host_loop.point_align(target, src, w, T0, c, kind, tnormals))
 
 
 @pytest.fixture(scope="module")
@@ -212,13 +213,13 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _both_loops(targets, path, src, w, T0, **changes):
-    """The align through its loop (the plain version here) and the
-    two-launch resident loop over the same stats: every field equal bit for
-    bit (NaN payloads too); returns the first."""
-    _, _, cfg, align, stats = targets[path]
+    """The align through its loop (the plain version here) and the host
+    loop over the same stats: every field equal bit for bit (NaN payloads
+    too); returns the first."""
+    _, _, cfg, align, host = targets[path]
     cfg = dataclasses.replace(cfg, **changes)
     T, d = align(src, w, T0, cfg)
-    T2, d2 = gn.gauss_newton_device(stats(src, w, cfg), T0, cfg.max_iter, cfg.tol, "cpu")
+    T2, d2 = host(src, w, T0, cfg)
     assert torch.equal(_bits(T), _bits(T2))
     assert (d.iterations, d.converged, d.solver_failed) == (d2.iterations, d2.converged,
                                                             d2.solver_failed)
@@ -229,10 +230,10 @@ def _both_loops(targets, path, src, w, T0, **changes):
     return T, d
 
 
-def check_two_launch(scene, targets, path):
+def check_host(scene, targets, path):
     """A whole align from T = I (``chip_smoke.py`` phase 2d adds a
     perturbed start on the card): the pose, counters, flags and histories
-    of the plain loop bit for bit the two-launch loop's."""
+    of the plain loop bit for bit the host loop's."""
     src, w = pad_points(scene[1], device="cpu")
     T, d = _both_loops(targets, path, src, w, torch.eye(4))
     assert d.converged and d.iterations >= 2
@@ -243,7 +244,7 @@ def check_edge(scene, targets, path, edge):
     kept); a scan 100 m away (no correspondence: H = 0, failed after one
     iteration, T kept); ``max_iter`` 0 (the loop is not called) and 1
     (done by the count, T updated); an empty scan (zero stats: failed at
-    once): each as the two-launch loop leaves it."""
+    once): each as the host loop ends."""
     scan = scene[1] + (np.float32([0.0, 0.0, 100.0]) if edge == "singular_H" else 0)
     src, w = pad_points(scan[:0] if edge == "empty_scan" else scan, device="cpu")
     changes = {"break_first_step": dict(tol=10.0), "max_iter_0": dict(max_iter=0),
@@ -262,13 +263,13 @@ def test_reference_matches_jax(scene, normals, targets, path):
 
 
 @pytest.mark.parametrize("path", PATHS)
-def test_reference_equals_the_two_launch_loop(scene, targets, path):
-    check_two_launch(scene, targets, path)
+def test_reference_equals_the_host_loop(scene, targets, path):
+    check_host(scene, targets, path)
 
 
 @pytest.mark.parametrize("edge", EDGES)
 @pytest.mark.parametrize("path", PATHS)
-def test_edges_equal_the_two_launch_loop(scene, targets, path, edge):
+def test_edges_equal_the_host_loop(scene, targets, path, edge):
     check_edge(scene, targets, path, edge)
 
 

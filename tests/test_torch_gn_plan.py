@@ -4,9 +4,9 @@ init and read buffers and the loop's bound launch, made on the first align
 after ``set_target`` and refilled by the aligns after it.
 
 On the CPU the plan runs each kind's plain loop (``gn_loop.*_loop_reference``)
-on its own state, so its result is held bit for bit to the two-launch
-resident loop (``core.gn.gauss_newton_device`` without ``loop``) for the
-eight single-align paths: VPlaneICP and NDT on a dense and on a hashed map,
+on its own state, so its result is held bit for bit to the host loop
+(``core.gn.gauss_newton`` over the solver's stats, ``tests/host_loop.py``)
+and to a fresh slot's align for the eight single-align paths: VPlaneICP and NDT on a dense and on a hashed map,
 ICP and PlaneICP on a packed and on a grid target. When a plan is made and
 when it is kept is held on the CPU too: once a target and scan bucket, again
 after ``set_target``, ``update_target`` or a scan of another padded length.
@@ -16,7 +16,8 @@ The launch path runs on the CPU with tensors that report ``cuda:1``
 ``FakeLibrary``): one C launch an align, carrying that align's scan and
 weights; a new plan on another stream; a launch that raised makes the next
 align wait for the copy it left in flight. The prepared align on the card
-against the unprepared one is ``test_torch_gn_plan_card.py``.
+against a fresh slot's align and the host loop is
+``test_torch_gn_plan_card.py``.
 """
 
 import dataclasses
@@ -34,8 +35,17 @@ from point_cloud_registration_tpu_torch.ops.kernels import fused_align as fa
 from point_cloud_registration_tpu_torch.ops.kernels import gn_loop as gl
 from point_cloud_registration_tpu_torch.ops.kernels import grid_align as ga
 from point_cloud_registration_tpu_torch.ops.kernels import point_align as pa
+import host_loop
 from oracles import make_scan, make_scene
-from test_torch_gn_loop_batched import CARD, FakeCard, FakeLibrary, Recorder, _CACHED, _to_card
+from test_torch_gn_loop_batched import (
+    CARD,
+    FakeCard,
+    FakeLibrary,
+    Recorder,
+    _CACHED,
+    _to_card,
+    keep_launch_counts,
+)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 MAX_ITER = 12
@@ -112,14 +122,14 @@ def _align(solver, scan):
     return torch.as_tensor(solver.align(scan), dtype=torch.float32), solver.last_diagnostics
 
 
-def _two_launch(solver, scan, monkeypatch):
-    """The same align through the two-launch resident loop (``loop`` left
-    out) and no plan."""
-    device = gn.gauss_newton_device
-    with monkeypatch.context() as mp:
-        mp.setattr(gn, "gauss_newton_device", lambda *a, loop=None: device(*a))
-        T = solver.align(scan)
-    return torch.as_tensor(T, dtype=torch.float32), solver.last_diagnostics
+def _fresh(solver, scan):
+    """The same align through a fresh slot: a plan made for it alone; the
+    solver's own slot is left as it was."""
+    kept, solver._loop = solver._loop, gn.LoopSlot()
+    try:
+        return _align(solver, scan)
+    finally:
+        solver._loop = kept
 
 
 def _counts():
@@ -127,9 +137,10 @@ def _counts():
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_prepared_align_equals_the_two_launch_loop(solvers, scans, case, monkeypatch):
-    """Two scans through one plan, each bit for bit the two-launch loop's
-    align: T, the iterations, the flags, ``final_e2`` and the histories."""
+def test_prepared_align_equals_the_host_loop(solvers, scans, case):
+    """Two scans through one plan, each bit for bit the host loop's align
+    and a fresh slot's: T, the iterations, the flags, ``final_e2`` and the
+    histories."""
     solver = solvers[case]
     solver._loop.plan = None
     builds, reuses = _counts()
@@ -137,10 +148,10 @@ def test_prepared_align_equals_the_two_launch_loop(solvers, scans, case, monkeyp
     assert _counts() == (builds + 1, reuses + 1)
     plan = solver._loop.plan
     for name, scan in sorted(scans.items()):
-        want = _two_launch(solver, scan, monkeypatch)
-        _same(got[name], want)
+        _same(got[name], host_loop.solver_align(solver, scan))
+        _same(got[name], _fresh(solver, scan))
         assert 2 <= got[name][1].iterations <= MAX_ITER and not got[name][1].solver_failed
-    assert solver._loop.plan is plan  # the two-launch aligns neither use nor drop it
+    assert solver._loop.plan is plan  # the other aligns neither use nor drop it
 
 
 def test_plan_is_made_once_a_target_and_scan_bucket(scene, scans):
@@ -175,17 +186,18 @@ def test_plan_is_made_once_a_target_and_scan_bucket(scene, scans):
 def test_a_slot_given_another_target_makes_another_plan(solvers, scene, scans):
     """The functional align with one slot and two maps in turn, equal in
     every setting: a plan for each map as it comes (the target is compared
-    by identity), each align the unprepared one's, bit for bit."""
+    by identity), each align a fresh slot's, bit for bit."""
     other = pt.VPlaneICP(max_iter=MAX_ITER, device="cpu")
     other.set_target(scene + np.float32([0.2, -0.1, 0.0]))
     maps = [solvers["plane"]._target, other._target]
     cfg, slot = solvers["plane"].cfg, gn.LoopSlot()
     src, w = pad_points(scans["a"], device="cpu")
+    fresh = [_fused.fused_voxel_align(vm, src, w, torch.eye(4), cfg) for vm in maps]
     builds, reuses = _counts()
-    for vm in maps + maps[:1] + maps[:1]:
-        got = _fused.fused_voxel_align(vm, src, w, torch.eye(4), cfg, slot=slot)
-        assert slot.plan.targets[0] is vm
-        _same(got, _fused.fused_voxel_align(vm, src, w, torch.eye(4), cfg))
+    for i in [0, 1, 0, 0]:
+        got = _fused.fused_voxel_align(maps[i], src, w, torch.eye(4), cfg, slot=slot)
+        assert slot.plan.targets[0] is maps[i]
+        _same(got, fresh[i])
     assert _counts() == (builds + 3, reuses + 1)
 
 
@@ -315,6 +327,7 @@ def card(monkeypatch):
             setattr(self, name, recorded)
             return recorded
 
+    keep_launch_counts(monkeypatch)
     for module in (fa, pa, ga, gl):
         monkeypatch.setattr(module, "load_library", lambda name: ArgsLibrary(log))
     monkeypatch.setattr(torch.cuda, "device", Recorder)

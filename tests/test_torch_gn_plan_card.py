@@ -1,11 +1,14 @@
 """On the card (marker ``card``; skipped without one): the prepared align
-(``core.gn.PreparedLoop``, through the solver's slot) against the unprepared
-one (``models._fused.fused_voxel_align`` / ``models._point_fused.fused_point_align``
-without a slot: ``core.gn.new_state``, the looper's bind and launch,
-``core.gn.read_state``) on the same inputs: the state's words bit for bit,
-and so T and the diagnostics, for VPlaneICP, NDT, PlaneICP and ICP on their
-dense or packed targets, both voxel kinds on a hashed map and both point
-kinds on a grid target. Two scans go through one plan, then the first again.
+(``core.gn.PreparedLoop``, through the solver's slot) against a fresh
+slot's align (``models._fused.fused_voxel_align`` /
+``models._point_fused.fused_point_align`` with a new ``core.gn.LoopSlot``:
+a plan made for that align alone) on the same inputs, the state's words bit
+for bit, and so T and the diagnostics; and against the host loop
+(``core.gn.gauss_newton`` over the same stats kernel, ``tests/host_loop.py``):
+equal iterations and flags, T within ``TOL_HOST``. For VPlaneICP, NDT,
+PlaneICP and ICP on their dense or packed targets, both voxel kinds on a
+hashed map and both point kinds on a grid target. Two scans go through one
+plan, then the first again.
 
 This file imports no JAX, so it runs where the JAX package is not installed::
 
@@ -22,6 +25,7 @@ import point_cloud_registration_tpu_torch as pt
 from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.models import _fused, _point_fused, pad_points
 from point_cloud_registration_tpu_torch.ops import voxelize
+import host_loop
 from oracles import make_scan, make_scene
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -37,6 +41,10 @@ CASES = {
     "plane_icp_grid": (pt.PlaneICP, "grid"),
 }
 OFFSETS = [[0.1, -0.08, 0.2, 0.02, -0.02, 0.03], [-0.05, 0.06, -0.1, -0.01, 0.015, -0.02]]
+# the loop kernel against the host loop over the same stats kernel: both sum
+# the block rows in double, the host's update rounds as the kernel's (T
+# within chip_smoke.py's TOL_LOOP)
+TOL_HOST = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -72,27 +80,18 @@ def _solver(case, points, device):
 
 
 def _unprepared(s, src, w):
-    """``(words, T, diagnostics)`` of the align without a slot."""
-    read, words = gn.read_state, []
-
-    def kept(state):
-        host = read(state)
-        words.append(host.words.clone())
-        return host
-
-    target, T0 = s._target, torch.eye(4)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(gn, "read_state", kept)
-        if isinstance(s, (pt.VPlaneICP, pt.NDT)):
-            kind = "plane" if isinstance(s, pt.VPlaneICP) else "ndt"
-            T, d = _fused.fused_voxel_align(target, src, w, T0, s.cfg, kind)
-        elif isinstance(s, pt.PlaneICP):
-            T, d = _point_fused.fused_point_align(target.corr, src, w, T0, s.cfg, "plane_pt",
-                                                  target.normals)
-        else:
-            T, d = _point_fused.fused_point_align(target, src, w, T0, s.cfg, "point")
-    (got,) = words
-    return got, T, d
+    """``(words, T, diagnostics)`` of the align through a fresh slot: a plan
+    made for it alone."""
+    target, T0, slot = s._target, torch.eye(4), gn.LoopSlot()
+    if isinstance(s, (pt.VPlaneICP, pt.NDT)):
+        kind = "plane" if isinstance(s, pt.VPlaneICP) else "ndt"
+        T, d = _fused.fused_voxel_align(target, src, w, T0, s.cfg, kind, slot=slot)
+    elif isinstance(s, pt.PlaneICP):
+        T, d = _point_fused.fused_point_align(target.corr, src, w, T0, s.cfg, "plane_pt",
+                                              target.normals, slot=slot)
+    else:
+        T, d = _point_fused.fused_point_align(target, src, w, T0, s.cfg, "point", slot=slot)
+    return slot.plan.read.clone(), T, d
 
 
 def _bits(x):
@@ -117,6 +116,13 @@ def test_prepared_align_is_the_unprepared_one_bit_for_bit(device, scene, case):
         for f in d._fields:
             x, y = getattr(d, f), getattr(d_want, f)
             assert torch.equal(_bits(x), _bits(y)) if isinstance(x, torch.Tensor) else x == y, f
-        print(case, src.shape[0], "points:", d.iterations, "iterations, converged", d.converged)
+        T_host, d_host = host_loop.solver_align(s, scan)
+        dT = float((T - T_host).abs().max())
+        print(case, src.shape[0], "points:", d.iterations, "iterations, converged", d.converged,
+              "; host loop: max |dT|", dT)
+        assert (d.iterations, d.converged, d.solver_failed) == (
+            d_host.iterations, d_host.converged, d_host.solver_failed)
+        assert dT <= TOL_HOST
         assert 1 <= d.iterations and not d.solver_failed
-    assert (gn.PreparedLoop.builds, gn.PreparedLoop.reuses) == (builds + 1, reuses + 2)
+    # the solver's plan made once and kept; a fresh slot's made each align
+    assert (gn.PreparedLoop.builds, gn.PreparedLoop.reuses) == (builds + 1 + 3, reuses + 2)

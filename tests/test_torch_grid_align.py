@@ -31,7 +31,7 @@ against the JAX package on seeded NumPy inputs.
   hashed ``ndt_solver_stats`` in float32, with and without Huber.
 * The wrappers on CPU tensors are the plain path the solvers ran before the
   kernels, bit for bit, count no launch, and raise on operands the kernel
-  cannot read. The resident launcher returns zeros once the loop is done.
+  cannot read.
 """
 
 import re
@@ -55,7 +55,6 @@ from point_cloud_registration_tpu.models.voxelized_plane_icp import vplane_stats
 from point_cloud_registration_tpu.ops import hashgrid as jgrid
 from point_cloud_registration_tpu.ops import knn as jknn
 from point_cloud_registration_tpu.ops import voxelize as jvox
-from point_cloud_registration_tpu_torch.core import gn
 from point_cloud_registration_tpu_torch.core.config import ICPConfig, NDTConfig, VPlaneICPConfig
 from point_cloud_registration_tpu_torch.core.gn import packed_from_stats
 from point_cloud_registration_tpu_torch.core.se3 import makeRt, transform_points
@@ -926,21 +925,3 @@ def test_wrappers_raise_on_operands_the_kernel_cannot_read(scene):
         ga.hashed_plane_stats(grid, ga.point_table(pts, buckets, CAP, normals, rows=rows), src,
                               w, eye, zero, offsets, MAX_DIST)
 
-
-def test_resident_launcher_stops_with_the_loop(scene):
-    """The CPU launcher: the plain version at the state's pose as it is when
-    called, zeros once the done flag is set."""
-    pts, _, src = scene
-    grid, _, buckets = tgrid.build_grid(pts, CELL, with_buckets=True, device="cpu")
-    table = ga.point_table(pts, buckets, CAP, rows=tgrid.bucket_rows(pts, buckets))
-    offsets = tgrid.search_offsets(MAX_DIST, CELL)
-    w = torch.ones(len(src))
-    state = gn.new_state(torch.eye(4)[None], 30, "cpu")
-    launch = ga.resident_stats("point", grid, table, src, w, offsets, MAX_DIST, None,
-                               state.poses, state.done)
-    T = torch.from_numpy(POSE)
-    state.poses.copy_(gn.pose_rows_of(T[None]))
-    want = ga.grid_point_stats(grid, table, src, w, T[:3, :3], T[:3, 3], offsets, MAX_DIST)
-    assert torch.equal(launch(), want)
-    state.done.fill_(1)
-    assert torch.equal(launch(), torch.zeros(29))
