@@ -283,16 +283,20 @@ def test_max_iter_zero_makes_no_plan(solvers, scans):
 # --- the launch path, with tensors that report a card ------------------------
 
 class Event:
-    """``torch.cuda.Event`` that counts its records and waits."""
+    """``torch.cuda.Event`` that counts its records and waits; ``query()``
+    answers ``ran`` (set it False for a copy still in flight)."""
 
     made: list = []
 
     def __init__(self, *args, **kwargs):
-        self.records, self.waits = [], 0
+        self.records, self.waits, self.ran = [], 0, True
         Event.made.append(self)
 
     def record(self, stream=None):
         self.records.append(stream)
+
+    def query(self):
+        return self.ran
 
     def synchronize(self):
         self.waits += 1
