@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from point_cloud_registration_tpu_torch.core.config import ICPConfig
+from point_cloud_registration_tpu_torch.core.device import resolve_device
 from point_cloud_registration_tpu_torch.core.gn import LoopSlot
 from point_cloud_registration_tpu_torch.models._point_corr import (
     PointCorrTarget,
@@ -23,6 +24,7 @@ from point_cloud_registration_tpu_torch.models._point_fused import (
     fused_point_stats,
 )
 from point_cloud_registration_tpu_torch.models.base import AlignResult, Registration
+from point_cloud_registration_tpu_torch.utils.diagnostics import span
 
 __all__ = ["ICP", "ICPTarget", "build_icp_target", "icp_align", "icp_stats"]
 
@@ -31,8 +33,14 @@ ICPTarget = PointCorrTarget
 
 
 def build_icp_target(points, cfg: ICPConfig, *, device=None) -> ICPTarget:
-    """Index the target cloud (``ICP.set_target``, icp.py:17-22)."""
-    return build_point_corr(points, cfg.corr, cfg.max_dist, device=device)
+    """Index the target cloud (``ICP.set_target``, icp.py:17-22). Under a
+    profiler the map's copy and the index are the spans
+    ``pcr.build.upload`` and ``pcr.build.index``."""
+    device = resolve_device(points, device)
+    with span("pcr.build.upload"):
+        points = torch.as_tensor(points).to(device=device, dtype=torch.float32)
+    with span("pcr.build.index"):
+        return build_point_corr(points, cfg.corr, cfg.max_dist)
 
 
 def icp_stats(target: ICPTarget, source: torch.Tensor, src_weight: torch.Tensor,
@@ -67,7 +75,10 @@ class ICP(Registration):
         )
 
     def set_target(self, target) -> None:
-        self._target = build_icp_target(target, self.cfg, device=self.device)
+        """Under a profiler the span ``pcr.set_target`` holds the build's
+        two phases (:func:`build_icp_target`)."""
+        with span("pcr.set_target"):
+            self._target = build_icp_target(target, self.cfg, device=self.device)
 
     def _align_fn(self, target, source, src_weight, init_T) -> AlignResult:
         return icp_align(target, source, src_weight, init_T, self.cfg, slot=self._loop)

@@ -10,8 +10,9 @@ PlaneICP and ICP on their dense or packed targets, both voxel kinds on a
 hashed map and both point kinds on a grid target. Two scans go through one
 plan, then the first again.
 
-The scan slot (``models.base.ScanSlot``, the solver's ``_scan``) on the three
-solvers of the benchmark's ``track`` cells (VPlaneICP, NDT, PlaneICP packed):
+The scan slot (``models.base.ScanSlot``, the solver's ``_scan``) on the four
+solvers of the benchmark's ``track`` cells (VPlaneICP, NDT, PlaneICP packed,
+ICP packed):
 scans of two lengths in one bucket, as float32 and float64 NumPy and as card
 tensors, back to back through one slot and one plan, each align's state words
 bit for bit the align on ``pad_points``'s tensors; an align that raised after
@@ -135,7 +136,7 @@ def test_prepared_align_is_the_unprepared_one_bit_for_bit(device, scene, case):
     assert (gn.PreparedLoop.builds, gn.PreparedLoop.reuses) == (builds + 1 + 3, reuses + 2)
 
 
-TRACK = ["vplane", "ndt", "plane_icp"]  # the solvers of the benchmark's track cells
+TRACK = ["vplane", "ndt", "plane_icp", "icp"]  # the solvers of the benchmark's track cells
 
 
 def _scan_inputs(scans, device):

@@ -6,7 +6,9 @@ On the CPU: with no profiler a span is one shared no-op; under
 ``pcr.gn.setup`` and ``pcr.gn.read`` inside it, in that order (the first
 align after ``set_target`` also ``pcr.gn.plan`` inside ``pcr.gn.setup``), a
 PlaneICP ``set_target`` records ``pcr.set_target`` with the build's three
-phases, and an NDT ``set_target`` ``pcr.set_target`` with ``pcr.build.index``; ``profiler_trace``'s file holds them. The readers run on a trace
+phases, an ICP ``set_target`` ``pcr.set_target`` with ``pcr.build.upload``
+and ``pcr.build.index``, and an NDT ``set_target`` ``pcr.set_target`` with
+``pcr.build.index``; ``profiler_trace``'s file holds them. The readers run on a trace
 made by hand (times in ms): each value worked out by hand, the same
 attribution with the device's clock shifted by 0.5 ms, an operation with no
 launching call placed by its start and counted, the benchmark's ten readers
@@ -26,14 +28,15 @@ from oracles import make_scan, make_scene
 from perfbench import harness
 from perfbench import program_trace as pt
 from perfbench import trace as tr
-from point_cloud_registration_tpu_torch import NDT, PlaneICP, VPlaneICP
+from point_cloud_registration_tpu_torch import ICP, NDT, PlaneICP, VPlaneICP
 from point_cloud_registration_tpu_torch.utils import profiler_trace
 from point_cloud_registration_tpu_torch.utils.diagnostics import span
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SOLVERS = {"PlaneICP": lambda: PlaneICP(max_iter=5, k=5, device="cpu"),
            "VPlaneICP": lambda: VPlaneICP(voxel_size=1.0, max_iter=5, device="cpu"),
-           "NDT": lambda: NDT(voxel_size=1.0, max_iter=5, device="cpu")}
+           "NDT": lambda: NDT(voxel_size=1.0, max_iter=5, device="cpu"),
+           "ICP": lambda: ICP(max_iter=5, device="cpu")}
 ALIGN_SPANS = ["pcr.align", "pcr.align.upload", "pcr.gn.setup", "pcr.gn.read"]
 BUILD_SPANS = ["pcr.set_target", "pcr.build.upload", "pcr.build.normals", "pcr.build.index"]
 
@@ -96,6 +99,28 @@ def test_plane_icp_set_target_records_the_build(scene):
     assert [e[0] for e in spans] == BUILD_SPANS
     assert all(inside(child, spans[0]) for child in spans[1:])
     assert all(a[2] <= b[1] for a, b in zip(spans[1:], spans[2:]))
+
+
+def test_icp_set_target_records_the_build(scene, monkeypatch):
+    cloud, _ = scene
+    s = SOLVERS["ICP"]()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s.set_target(cloud)
+    spans = sorted(program_spans(prof), key=lambda e: e[1])
+    assert [e[0] for e in spans] == ["pcr.set_target", "pcr.build.upload", "pcr.build.index"]
+    assert all(inside(child, spans[0]) for child in spans[1:])
+    assert spans[1][2] <= spans[2][1]  # in turn, not nested
+    assert not any(e[3] for e in spans)
+    # without a profiler each span is the shared no-op, and the target the same
+    from point_cloud_registration_tpu_torch.models import icp as icp_module
+
+    made = []
+    monkeypatch.setattr(icp_module, "span", lambda name: made.append(span(name)) or made[-1])
+    again = SOLVERS["ICP"]()
+    again.set_target(cloud)
+    assert len(made) == 3 and all(m is span("other") for m in made)
+    assert torch.equal(again._target.points, s._target.points)
+    assert torch.equal(again._target.rows, s._target.rows)
 
 
 def test_ndt_set_target_records_the_build(scene, monkeypatch):
